@@ -3,7 +3,9 @@
 The port's parameters carry the reference torch ``state_dict`` names that
 ``curvecloudnet_tpu/checkpoint.py`` ``load_torch_checkpoint`` reads, so
 :func:`from_jax_variables` is that function's inverse, and a released
-reference ``.pth`` loads into the port as it is:
+reference ``.pth`` loads into the port as it is.  Every map below is
+linear, so ``from_jax_variables(grads, {}, spec)`` also carries a flax
+gradient tree (the params' structure) to the port's parameter names:
 
   step_{i}_{name}/nn, attend_nn   -> steps.{i}.conv.local_nn / conv.attend_nn
                                      (sa, sa-geo)

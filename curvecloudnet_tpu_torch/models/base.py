@@ -11,6 +11,7 @@ head MLP.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..ops.neighbors import TABLE_K, TABLE_MAX_N, TableCache
@@ -56,20 +57,39 @@ def row_radius_bounds(spec: ModelSpec):
     return [bounds.get(r) for r in step_row]
 
 
-def kernel_launches(spec: ModelSpec, n_points: int):
-    """Kernel launches of one forward (any batch size), derived from the
-    spec: K1 once per conv step, K2 once per grouping step, K6 once per FPS
-    step, K3 once per shared row table and per fp sweep (plus once per
-    search on a row too large for a table)."""
-    counts = {"conv1d_chain": 0, "group_reduce": 0, "knn": 0, "fps": 0}
+def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
+    """Kernel launches of one eval forward, or with ``train`` of one train
+    step (forward + backward), any batch size, derived from the spec.
+
+    Eval: K1 once per conv step, K2 once per grouping step.  Train: per
+    grouping step with L kernel-side denses, the K7 forward runs L stats
+    passes, one more for the attention BN, and the output pass; its
+    backward runs B_att (attend), B_msg and L-1 B_mid passes.  Both: K4
+    once per sgcnn step (its self-row gather; K4b once in the backward),
+    K6 once per FPS step, K3 once per shared row table and per fp sweep
+    (plus once per search on a row too large for a table)."""
+    counts = ({"group_train_fwd": 0, "group_train_bwd": 0, "gather": 0,
+               "scatter": 0, "knn": 0, "fps": 0} if train else
+              {"conv1d_chain": 0, "group_reduce": 0, "gather": 0, "knn": 0,
+               "fps": 0})
     bounds = row_radius_bounds(spec)
     sizes, row, down_stack, tables = [n_points], 0, [], set()
     for i, step in enumerate(spec.steps):
         n = sizes[row]
-        if step.name == "conv1d-fast-v2":
+        if step.name == "conv1d-fast-v2" and not train:
             counts["conv1d_chain"] += 1
         if step.name in ("sa", "sa-geo", "sgcnn"):
-            counts["group_reduce"] += 1
+            if train:
+                n_loc = len(spec.input_dim(i)) - 2
+                attend = int(step.aggr_type == "attend")
+                counts["group_train_fwd"] += n_loc + attend + 1
+                counts["group_train_bwd"] += attend + n_loc
+            else:
+                counts["group_reduce"] += 1
+        if step.name == "sgcnn":
+            counts["gather"] += 1
+            if train:
+                counts["scatter"] += 1
         if step.name == "sa" and step.downsample_type == "fps":
             counts["fps"] += 1
         if step.name in ("sa", "sgcnn"):
@@ -145,30 +165,55 @@ class CurveCloudNet(nn.Module):
         self.mlp = None
         if not spec.identity_head:
             self.mlp = MLP((w,) + spec.out_mlp_dims + (spec.n_out,),
-                           use_bias=spec.use_bias)
+                           use_bias=spec.use_bias,
+                           dropout=spec.out_mlp_dropout)
 
-    def forward(self, cloud: Cloud):
-        """Returns (logits (B, N, n_out), valid (B, N))."""
+    @staticmethod
+    def _draws(step, cloud: Cloud, generator):
+        """A sampling step's uniform draws from ``generator`` (None: the
+        deterministic operating point): sa-geo one phase scalar, voxel sa
+        one jitter per point, FPS sa one start per sample."""
+        if generator is None or step.name not in ("sa", "sa-geo"):
+            return None
+        b, n = cloud.valid.shape
+        shape = (() if step.name == "sa-geo" else
+                 (b, n) if step.downsample_type == "voxel" else (b,))
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(cloud.pos.device)
+
+    def forward(self, cloud: Cloud, train: bool = False, bn_momentum=0.1,
+                generator: torch.Generator | None = None):
+        """Returns (logits (B, N, n_out), valid (B, N)).  ``train`` runs
+        BatchNorm on masked batch statistics and updates the running ones
+        with ``bn_momentum``; the sampling steps draw from ``generator``
+        in step order."""
         tables = TableCache()
+        kw = dict(train=train, bn_momentum=bn_momentum)
         input_clouds, down_skips, prop_skips = [], [], []
         for i, (step, mod) in enumerate(zip(self.spec.steps, self.steps)):
             input_clouds.append(cloud)
             name = step.name
-            if name in ("sa", "sgcnn"):
-                cloud = mod(cloud, tables)
+            draws = self._draws(step, cloud, generator)
+            if name == "sa":
+                cloud = mod(cloud, tables, draws=draws, **kw)
+            elif name == "sa-geo":
+                cloud = mod(cloud, draws=draws, **kw)
+            elif name == "sgcnn":
+                cloud = mod(cloud, tables, **kw)
             elif name in ("fp", "fp-geo"):
-                cloud = mod(cloud, input_clouds[down_skips.pop()])
+                cloud = mod(cloud, input_clouds[down_skips.pop()], **kw)
             elif name == "skip-connect":
                 k = step.num_skips or 1
                 take, prop_skips = prop_skips[-k:], prop_skips[:-k]
                 cloud = mod(cloud, [
                     input_clouds[j].x if input_clouds[j].x is not None
-                    else input_clouds[j].pos for j in take])
+                    else input_clouds[j].pos for j in take], **kw)
             else:
-                cloud = mod(cloud)
+                cloud = mod(cloud, **kw)
             if name in ("sa", "sa-geo"):
                 down_skips.append(i)
             if name in self.spec.skip_connect_state_store:
                 prop_skips.append(i)
-        x = cloud.x if self.mlp is None else self.mlp(cloud.x)
+        x = cloud.x if self.mlp is None else self.mlp(
+            cloud.x, mask=cloud.valid, **kw)
         return x, cloud.valid

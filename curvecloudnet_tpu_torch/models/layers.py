@@ -1,5 +1,5 @@
-"""Eval-mode layers: BatchNorm on running statistics and the PyG-style MLP
-(counterpart of ``curvecloudnet_tpu/models/layers.py``).
+"""Validity-masked BatchNorm and the PyG-style MLP (counterpart of
+``curvecloudnet_tpu/models/layers.py``), in eval and train mode.
 
 Parameter names follow torch_geometric's MLP (``lins.N``, ``norms.N``) so
 the reference's released ``state_dict`` loads as it is.
@@ -26,9 +26,11 @@ ACTIVATIONS = {
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval BatchNorm: ``(x - running_mean) / sqrt(running_var + eps) *
-    weight + bias`` over the last axis.  (The JAX module's batch-statistics
-    branch is a train-mode path, not part of this port.)"""
+    """BatchNorm over the last axis with a validity mask over the leading
+    axes.  Eval normalizes with the running statistics; train with the
+    masked batch statistics (count clipped to at least 1, biased variance)
+    and updates the running ones torch-style with the unbiased variance:
+    new = (1 - momentum) * old + momentum * batch."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -43,9 +45,42 @@ class MaskedBatchNorm(nn.Module):
         s = self.weight * torch.rsqrt(self.running_var + self.eps)
         return s, self.bias - self.running_mean * s
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
+    def batch_stats(self, x: torch.Tensor, mask=None):
+        """(mean, biased var, count) over the masked rows of x (..., C)."""
+        c = x.shape[-1]
+        xf = x.reshape(-1, c).float()
+        if mask is None:
+            cnt = torch.tensor(float(xf.shape[0]), device=x.device)
+            mean = xf.mean(dim=0)
+            return mean, ((xf - mean) ** 2).mean(dim=0), cnt
+        mf = mask.reshape(-1, 1).float()
+        cnt = torch.clamp(mf.sum(), min=1.0)
+        mean = (xf * mf).sum(dim=0) / cnt
+        return mean, ((xf - mean) ** 2 * mf).sum(dim=0) / cnt, cnt
+
+    @torch.no_grad()
+    def update_running(self, mean, var, cnt, momentum) -> None:
+        unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+        self.running_mean.copy_((1 - momentum) * self.running_mean
+                                + momentum * mean)
+        self.running_var.copy_((1 - momentum) * self.running_var
+                               + momentum * unbiased)
+
+    def forward(self, x: torch.Tensor, mask=None, train: bool = False,
+                momentum=0.1, stats_override=None,
+                update_running: bool = True) -> torch.Tensor:
+        """``stats_override=(mean, var, count)`` supplies batch statistics
+        computed elsewhere (kernel K7); they stay differentiable.
+        ``update_running=False`` skips the running-stat write."""
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var, cnt = (stats_override if stats_override is not None
+                              else self.batch_stats(x, mask))
+            if update_running:
+                self.update_running(mean.detach(), var.detach(),
+                                    cnt.detach(), momentum)
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -55,9 +90,11 @@ class MLP(nn.Module):
     input width."""
 
     def __init__(self, dims: Sequence[int], act: str = "relu",
-                 use_bias: bool = False, plain_last: bool = True):
+                 use_bias: bool = False, plain_last: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.dims = tuple(dims)
+        self.dropout = dropout
         self.act = act
         n = len(dims) - 1
         self.n_norms = n - 1 if plain_last else n
@@ -66,15 +103,23 @@ class MLP(nn.Module):
         self.norms = nn.ModuleList(
             MaskedBatchNorm(dims[i + 1]) for i in range(self.n_norms))
 
-    def forward(self, x: torch.Tensor, upto: int | None = None,
-                first: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None, train: bool = False,
+                bn_momentum=0.1, bn_stats=None, upto: int | None = None,
+                first: torch.Tensor | None = None,
+                update_running: bool = True) -> torch.Tensor:
         """``upto=i`` returns layer i's pre-norm output; ``first`` replaces
-        layer 0's ``lin_0(x)`` (the edge conv's matmul-before-gather)."""
+        layer 0's ``lin_0(x)`` (the edge conv's matmul-before-gather);
+        ``bn_stats[i]`` overrides layer i's batch statistics in train."""
+        if train and self.dropout > 0:
+            raise NotImplementedError("train-mode MLP dropout is not ported")
         act = ACTIVATIONS[self.act]
         for i, lin in enumerate(self.lins):
             x = first if (i == 0 and first is not None) else lin(x)
             if upto is not None and i == upto:
                 return x
             if i < self.n_norms:
-                x = act(self.norms[i](x))
+                x = act(self.norms[i](
+                    x, mask=mask, train=train, momentum=bn_momentum,
+                    stats_override=None if bn_stats is None else bn_stats[i],
+                    update_running=update_running))
         return x

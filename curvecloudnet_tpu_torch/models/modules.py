@@ -1,11 +1,13 @@
-"""Step modules of the eval forward (counterpart of
-``curvecloudnet_tpu/models/modules.py``).
+"""Step modules (counterpart of ``curvecloudnet_tpu/models/modules.py``),
+eval and train.
 
 Each module maps a batch-padded :class:`Cloud` to a new Cloud.  Every
 grouping family (sa-geo curve windows, sa neighborhoods, sgcnn edges)
 builds its layer-0 messages with one plain matmul, k-major ``(B, K, M, C1)``,
 and hands the rest of its MLP and the masked aggregation to kernel K2
-(``ops/group_reduce.py``).  Module and parameter names follow the
+(``ops/group_reduce.py``) in eval, kernel K7 (``ops/group_train.py``) in
+train.  In train every BatchNorm normalizes with masked batch statistics
+and updates its running statistics.  Module and parameter names follow the
 reference's torch ``state_dict`` (``checkpoint.py``).
 
 Constructors take the actual incoming feature width ``c_in`` (None when
@@ -20,10 +22,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import (conv1d_chain, curve1d, group_reduce, interpolate,
-                   neighbors, sampling)
+from ..ops import (conv1d_chain, curve1d, group_reduce, group_train,
+                   interpolate, neighbors, sampling)
 from .cloud import Cloud
-from .layers import MLP, MaskedBatchNorm
+from .layers import MLP, MaskedBatchNorm, leaky_relu
 from .spec import ModelSpec, StepSpec
 
 
@@ -47,9 +49,23 @@ def _check_aggr(step: StepSpec):
             f"{step.name}: aggr_type {step.aggr_type!r} is not ported")
 
 
-def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str):
+def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str,
+             train: bool = False, bn_momentum=0.1):
     """Layer-0 messages (B, K, M, C1) -> the MLP's remaining layers and the
-    masked aggregation over K, through kernel K2 -> (B, M, C_out)."""
+    masked aggregation over K -> (B, M, C_out): kernel K2 in eval, kernel
+    K7 in train.  In train the running statistics are written from K7's
+    batch statistics, through each BN with ``stats_override``."""
+    if train:
+        out, loc, att = group_train.group_train_reduce(
+            h1, mask, local_nn, attend_nn, aggr=aggr, act=local_nn.act)
+        pairs = list(zip(local_nn.norms, loc))
+        if attend_nn is not None:
+            pairs += list(zip(attend_nn.norms, att))
+        with torch.no_grad():
+            for norm, st in pairs:
+                norm(st[0][None], train=True, momentum=bn_momentum,
+                     stats_override=st, update_running=True)
+        return out
     aff, local = group_reduce.fold_mlp_eval(local_nn)
     att = (group_reduce.fold_full_mlp_eval(attend_nn)
            if attend_nn is not None else None)
@@ -104,7 +120,8 @@ class SymmetricCurveConvStep(nn.Module):
         self.norm_modules = nn.ModuleList(
             MaskedBatchNorm(w) for w in widths[1:])
 
-    def forward(self, cloud: Cloud) -> Cloud:
+    def forward(self, cloud: Cloud, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
         step = self.step
         cid, valid = cloud.curve_id, cloud.valid
         x = cloud.xyz_concat(step.with_xyz)
@@ -115,10 +132,28 @@ class SymmetricCurveConvStep(nn.Module):
         exp_idx, n_exp, used = curve1d.gap_expand_indices(
             cid, valid, pad, self.spec.curve_budget)
         xe = curve1d.gap_scatter(x, exp_idx, n_exp)
+        if train:
+            return cloud.with_features(curve1d.gap_gather(
+                self._train_chain(xe, used, bn_momentum), exp_idx, valid))
         weights = conv1d_chain.fold_conv_bn_eval(self.conv_modules,
                                                  self.norm_modules)
         out = conv1d_chain.conv1d_chain_eval(xe, weights, used, self.half_k)
         return cloud.with_features(curve1d.gap_gather(out, exp_idx, valid))
+
+    def _train_chain(self, xe, used, bn_momentum):
+        """The plain expanded chain (K8 is off by default in the JAX
+        package): BN statistics over every live slot of the gap layout,
+        gap slots included (the JAX package's ``mask_exp``)."""
+        live = (torch.arange(xe.shape[1], device=xe.device)[None, :]
+                < used[:, None].long())
+        for conv, norm in zip(self.conv_modules, self.norm_modules):
+            o, i, taps = conv.weight.shape
+            w = conv.weight.permute(2, 1, 0).reshape(taps * i, o)
+            xe = curve1d.window_concat_nomask(xe, self.half_k) @ w + conv.bias
+            xe = leaky_relu(norm(xe, mask=live, train=True,
+                                 momentum=bn_momentum))
+            xe = xe * live[..., None].to(xe.dtype)
+        return xe
 
 
 class _Taps(nn.Module):
@@ -144,12 +179,13 @@ class CurveSAStep(nn.Module):
         self.conv = _point_conv(spec, step, (msg_w,) + tuple(dims[1:]),
                                 act="leaky_relu")
 
-    def forward(self, cloud: Cloud) -> Cloud:
+    def forward(self, cloud: Cloud, train: bool = False, bn_momentum=0.1,
+                draws=None) -> Cloud:
         step, w = self.step, self.step.curve_window
         cloud = cloud.with_features(cloud.xyz_concat(step.with_xyz))
         idx, idx_valid = sampling.curve_fps(cloud.pos, cloud.curve_id,
                                             cloud.valid, step.curve_fps_arclen,
-                                            self.budget)
+                                            self.budget, u=draws)
         down = cloud.gather(idx, idx_valid)
         _, nbr_mask = curve1d.radius_1d_group_subset(
             cloud.pos, idx, down.valid, cloud.curve_id, cloud.valid,
@@ -162,7 +198,8 @@ class CurveSAStep(nn.Module):
         h1 = _flat_layer0(self.conv.local_nn, msg)
         mask = curve1d.ascending_from_interleaved(nbr_mask, w)
         return down.with_features(_grouped(
-            h1, mask, self.conv.local_nn, self.conv.attend_nn, step.aggr_type))
+            h1, mask, self.conv.local_nn, self.conv.attend_nn, step.aggr_type,
+            train, bn_momentum))
 
 
 class SAStep(nn.Module):
@@ -181,14 +218,15 @@ class SAStep(nn.Module):
         self.conv = _point_conv(spec, step, (msg_w,) + tuple(dims[1:]),
                                 act="relu")
 
-    def forward(self, cloud: Cloud, tables) -> Cloud:
+    def forward(self, cloud: Cloud, tables, train: bool = False,
+                bn_momentum=0.1, draws=None) -> Cloud:
         step = self.step
         if step.downsample_type == "voxel":
             idx, idx_valid = sampling.voxel_downsample(
-                cloud.pos, cloud.valid, step.voxel_size, self.budget)
+                cloud.pos, cloud.valid, step.voxel_size, self.budget, u=draws)
         else:
             idx, idx_valid = sampling.fps(cloud.pos, cloud.valid, step.ratio,
-                                          self.budget)
+                                          self.budget, u=draws)
         down = cloud.gather(idx, idx_valid)
         radius = None
         if step.use_fast_knn:
@@ -197,17 +235,17 @@ class SAStep(nn.Module):
             cloud.pos, cloud.valid, idx, down.valid, step.knn, radius=radius,
             table_bound=self.table_bound, tables=tables)
         idx_km = nbr_idx.transpose(1, 2)                         # (B, K, M)
-        rel = (neighbors.gather_neighbors(cloud.pos, idx_km, fill=False)
+        rel = (neighbors.gather_neighbors(cloud.pos, idx_km, fill=train)
                - down.pos[:, None])
         if step.normalize_radius and step.radius:
             rel = rel / step.radius
         msg = rel if cloud.x is None else torch.cat(
-            [neighbors.gather_neighbors(cloud.x, idx_km, fill=False), rel],
+            [neighbors.gather_neighbors(cloud.x, idx_km, fill=train), rel],
             dim=-1)
         h1 = _flat_layer0(self.conv.local_nn, msg)
         return down.with_features(_grouped(
             h1, (nbr_idx >= 0).contiguous(), self.conv.local_nn,
-            self.conv.attend_nn, step.aggr_type))
+            self.conv.attend_nn, step.aggr_type, train, bn_momentum))
 
 
 class EdgeConvStep(nn.Module):
@@ -227,7 +265,8 @@ class EdgeConvStep(nn.Module):
         cx = xyz_width(c_in, step.with_xyz)
         self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
 
-    def forward(self, cloud: Cloud, tables) -> Cloud:
+    def forward(self, cloud: Cloud, tables, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
         step = self.step
         x = cloud.xyz_concat(step.with_xyz)
         r = step.radius if step.radius is not None else 1.0
@@ -242,10 +281,12 @@ class EdgeConvStep(nn.Module):
         v = x @ w_bot.t()
         if lin0.bias is not None:
             v = v + lin0.bias
-        first = (neighbors.gather_neighbors(u, nbr_idx.transpose(1, 2),
-                                            fill=False) + v[:, None])
+        # the k-major self-row gather: kernels K4 / K4b
+        first = (neighbors.gather_neighbors(
+            u, nbr_idx.transpose(1, 2).contiguous(), fill=train, layout="kq")
+            + v[:, None])
         out = _grouped(first.contiguous(), (nbr_idx >= 0).contiguous(),
-                       self.nn, None, "max")
+                       self.nn, None, "max", train, bn_momentum)
         return cloud.with_features(out * cloud.valid[..., None].to(out.dtype))
 
 
@@ -259,8 +300,11 @@ class SharedMLPStep(nn.Module):
         self.mlp = MLP((cx,) + tuple(dims[1:]), act=step.act or "leaky_relu",
                        use_bias=spec.use_bias, plain_last=step.plain_last)
 
-    def forward(self, cloud: Cloud) -> Cloud:
-        return cloud.with_features(self.mlp(cloud.xyz_concat(self.step.with_xyz)))
+    def forward(self, cloud: Cloud, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
+        return cloud.with_features(self.mlp(
+            cloud.xyz_concat(self.step.with_xyz), mask=cloud.valid,
+            train=train, bn_momentum=bn_momentum))
 
 
 class SkipConnectStep(nn.Module):
@@ -271,8 +315,11 @@ class SkipConnectStep(nn.Module):
         self.nn = MLP((c_in + sum(skip_widths),) + tuple(dims[1:]),
                       act="leaky_relu", use_bias=spec.use_bias)
 
-    def forward(self, cloud: Cloud, skips) -> Cloud:
-        return cloud.with_features(self.nn(torch.cat([cloud.x] + list(skips), -1)))
+    def forward(self, cloud: Cloud, skips, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
+        return cloud.with_features(self.nn(
+            torch.cat([cloud.x] + list(skips), -1), mask=cloud.valid,
+            train=train, bn_momentum=bn_momentum))
 
 
 class FPStep(nn.Module):
@@ -292,12 +339,15 @@ class FPStep(nn.Module):
             cloud.x, cloud.parent_idx, cloud.valid, skip.pos, skip.valid, k=k,
             cand_pos=cloud.pos)
 
-    def forward(self, cloud: Cloud, skip: Cloud) -> Cloud:
+    def forward(self, cloud: Cloud, skip: Cloud, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
         x = self._upsample(cloud, skip, self.step.knn or 3)
         parts = [x, skip.x if skip.x is not None else skip.pos]
         if self.step.with_xyz:
             parts.append(skip.pos)
-        return skip.with_features(self.nn(torch.cat(parts, dim=-1)))
+        return skip.with_features(self.nn(
+            torch.cat(parts, dim=-1), mask=skip.valid, train=train,
+            bn_momentum=bn_momentum))
 
 
 class CurveFPStep(FPStep):

@@ -78,6 +78,7 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (every function returns its cudaError_t as int)
     "ccn_conv1d_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -85,6 +86,10 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P, _P, _P],
     "ccn_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "ccn_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ccn_gather_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
+    "ccn_scatter_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
+    "ccn_group_train": [_I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                        _I, _P, _P],
 }
 
 

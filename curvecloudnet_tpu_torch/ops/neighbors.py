@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import knn as _k3
+from .gather import gather_rows_km
 from .knn import INF
 from .segments import take_rows
 
@@ -96,9 +97,16 @@ def add_self_loops(idx, q_valid):
     return torch.cat([self_idx[..., None], idx], dim=-1)
 
 
-def gather_neighbors(x, idx, fill: bool = True):
+def gather_neighbors(x, idx, fill: bool = True, layout=None):
     """Rows of x (B, N, C) at idx (B, ...) with -1 fill -> (B, ..., C); -1
-    slots read zeros (``fill``) or row 0 (every consumer masks them)."""
+    slots read zeros (``fill``) or row 0 (every consumer masks them).
+
+    ``layout="kq"``: idx is (B, K, Q) k-major; a self-row gather (Q == N,
+    the edge convs) goes through kernels K4/K4b (``ops/gather.py``) in eval
+    and train alike.  Subset gathers stay plain indexing, as in the JAX
+    package."""
+    if layout == "kq" and idx.dim() == 3 and idx.shape[2] == x.shape[1]:
+        return gather_rows_km(x, idx, fill)
     b, c = x.shape[0], x.shape[-1]
     out = take_rows(x, torch.clamp(idx, min=0).reshape(b, -1))
     out = out.reshape(idx.shape + (c,))

@@ -1,6 +1,11 @@
 """Downsampling with static output budgets (counterpart of
-``curvecloudnet_tpu/ops/sampling.py`` at ``key=None``: FPS starts at index
-0, curve sampling has phase 0, voxel sampling has no jitter).
+``curvecloudnet_tpu/ops/sampling.py``).
+
+Each sampler takes its uniform draws as an explicit tensor ``u``; ``None``
+is the JAX package's deterministic ``key=None`` point (FPS starts at index
+0, curve sampling has phase 0, voxel sampling has no jitter).  Fed the
+draws ``jax.random.uniform(key, ...)`` makes, a sampler picks what the JAX
+sampler picks with that key.
 
 Every sampler returns ``(idx, idx_valid)``: ``idx`` (B, M) int64 ascending
 row indices, ``idx_valid`` (B, M) bool marking the filled budget slots.
@@ -34,16 +39,23 @@ def mask_to_indices(mask: torch.Tensor, budget: int):
     return out[:, :budget], idx_valid
 
 
-def fps(pos, valid, ratio: float, budget: int):
+def fps(pos, valid, ratio: float, budget: int, u=None):
     """Farthest point sampling, ceil(n_valid * ratio) picks per sample,
-    started at index 0 and returned in ascending index order.  The serial
-    pick loop is kernel K6 (ops/fps.py)."""
+    returned in ascending index order.  Starts at index 0, or at
+    ``u * n_valid`` (clipped) for draws ``u`` (B,).  The serial pick loop
+    is kernel K6 (ops/fps.py)."""
     b, n, _ = pos.shape
     budget = min(budget, n)
-    lengths = segments.lengths_from_valid(valid).float()
+    counts = segments.lengths_from_valid(valid)
+    lengths = counts.float()
     k_per = torch.clamp(torch.ceil(lengths * torch.full_like(lengths, ratio)),
                         max=budget).long()
-    start = torch.zeros((b,), dtype=torch.int32, device=pos.device)
+    if u is None:
+        start = torch.zeros((b,), dtype=torch.int32, device=pos.device)
+    else:
+        start = (u.float() * torch.clamp(counts, min=1).float()).to(torch.int32)
+        start = torch.minimum(start, torch.clamp(counts - 1, min=0).to(
+            torch.int32))
     sel = _k6.fps_picks(pos, valid, start, budget).long()
     slot_valid = torch.arange(budget, device=pos.device)[None, :] < k_per[:, None]
     sort_key = torch.where(slot_valid, sel, torch.full_like(sel, n + 1))
@@ -53,8 +65,9 @@ def fps(pos, valid, ratio: float, budget: int):
     return torch.where(slot_valid, sel, torch.zeros_like(sel)), slot_valid
 
 
-def voxel_downsample(pos, valid, voxel_size: float, budget: int):
-    """Keep, per occupied voxel, the point nearest the voxel corner.
+def voxel_downsample(pos, valid, voxel_size: float, budget: int, u=None):
+    """Keep, per occupied voxel, the point nearest the voxel corner, its
+    distance jittered by ``u * voxel_size / 4`` for draws ``u`` (B, N).
 
     The JAX package sorts rows by the uint32 keys (key_a, key_b, dist) with
     the row index as a stable tie-break; here three stable sorts run from
@@ -68,6 +81,8 @@ def voxel_downsample(pos, valid, voxel_size: float, budget: int):
     key_a = (vu[..., 0] << 16) | vu[..., 1]
     key_b = ((vox[..., 2] & 0xFFFFFFFF) << 1) & 0xFFFFFFFF
     dist = norm3(vox.to(torch.float32) - scaled)
+    if u is not None:
+        dist = dist + u * torch.full_like(u, voxel_size / 4)
     sentinel = torch.full_like(key_a, 0xFFFFFFFF)
     key_a = torch.where(valid, key_a, sentinel)
     key_b = torch.where(valid, key_b, sentinel)
@@ -86,10 +101,17 @@ def voxel_downsample(pos, valid, voxel_size: float, budget: int):
     return mask_to_indices(mask, budget)
 
 
-def curve_fps(pos, curve_id, valid, arclen_spacing: float, budget: int):
+def curve_fps(pos, curve_id, valid, arclen_spacing: float, budget: int,
+              u=None):
     """Arclength-uniform sampling along each curve: every curve start is
-    kept, then one point per ``arclen_spacing`` of geodesic length."""
+    kept, then one point per ``arclen_spacing`` of geodesic length, each
+    curve's bins shifted by the phase ``(start * 117 * u) mod spacing`` for
+    a scalar draw ``u``."""
     g = segments.geodesic_arclength(pos, curve_id, valid)
+    if u is not None:
+        start = segments.curve_start_index(curve_id, valid).float()
+        spacing = torch.full_like(start, arclen_spacing)
+        g = g + torch.fmod(start * 117.0 * u, spacing)
     bins = torch.round(g / torch.full_like(g, arclen_spacing))
     new_bin = bins != torch.roll(bins, 1, dims=-1)
     new_bin[:, 0] = True

@@ -1,0 +1,83 @@
+"""Segmentation losses (counterpart of ``curvecloudnet_tpu/run/losses.py``).
+
+Lovász-Softmax sorts every class's errors in one sort over the point axis;
+invalid (padded or ignored) rows get the error -1 and sort last, and the
+Jaccard gradient is data (no gradient through the sort), as in the JAX
+package and the reference's autograd.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def nll_loss(log_probs, labels, valid, ignore_index: Optional[int] = None,
+             class_weights=None, mean_over_all: bool = False):
+    """Masked NLL.  ``mean_over_all=False``: torch ``nll_loss`` 'mean' with
+    ``ignore_index`` (sum of weighted losses / sum of weights);
+    ``mean_over_all=True``: the KITTI variant, averaged over every valid
+    point."""
+    labels = labels.long()
+    counted = valid
+    if ignore_index is not None:
+        counted = counted & (labels != ignore_index)
+    safe = torch.clamp(labels, 0, log_probs.shape[-1] - 1)
+    picked = torch.gather(log_probs, -1, safe[..., None])[..., 0]
+    w = (class_weights[safe] if class_weights is not None
+         else torch.ones_like(picked))
+    w = torch.where(counted, w, torch.zeros_like(w))
+    num = -torch.where(counted, picked * w, torch.zeros_like(picked)).sum()
+    if mean_over_all:
+        den = torch.clamp(valid.sum(), min=1).to(num.dtype)
+    else:
+        den = torch.clamp(w.sum(), min=1e-12)
+    return num / den
+
+
+def lovasz_softmax(probs, labels, valid):
+    """Multi-class Lovász-Softmax over the present classes.  probs (N, C),
+    labels (N,), valid (N,) with ignored rows already masked out."""
+    n, c = probs.shape
+    fg = (labels.long()[:, None] == torch.arange(c, device=probs.device)) \
+        & valid[:, None]
+    fgf = fg.to(probs.dtype)
+    errors = torch.abs(fgf - probs)
+    errors = torch.where(valid[:, None], errors, torch.full_like(errors, -1.0))
+    err_sorted, perm = torch.sort(errors.detach(), dim=0, descending=True,
+                                  stable=True)
+    fg_sorted = torch.gather(fgf, 0, perm)
+    valid_sorted = (err_sorted >= 0).to(probs.dtype)
+    gts = fgf.sum(dim=0)
+    intersection = gts - torch.cumsum(fg_sorted, dim=0)
+    union = gts + torch.cumsum((1.0 - fg_sorted) * valid_sorted, dim=0)
+    jaccard = 1.0 - intersection / torch.clamp(union, min=1e-12)
+    grad = torch.cat([jaccard[:1], jaccard[1:] - jaccard[:-1]], dim=0)
+    grad = grad * valid_sorted
+    grad_unsorted = torch.zeros_like(grad).scatter_(0, perm, grad)
+    losses = (errors * grad_unsorted).sum(dim=0)
+    present = gts > 0
+    return (torch.where(present, losses, torch.zeros_like(losses)).sum()
+            / torch.clamp(present.sum(), min=1))
+
+
+def seg_loss(logits, labels, valid, ignore_index: Optional[int] = 0,
+             use_lovasz: bool = False, lovasz_weight: float = 1.0,
+             class_weights=None, mean_over_all: bool = False):
+    """NLL (+ weighted Lovász) over the flattened batch: the reference's
+    ``seg_loss`` (nuScenes, lovasz_weight 1) and ``seg_loss_kitti``."""
+    c = logits.shape[-1]
+    flat_logits = logits.reshape(-1, c)
+    flat_labels = labels.reshape(-1)
+    flat_valid = valid.reshape(-1)
+    logp = torch.log_softmax(flat_logits, dim=-1)
+    loss = nll_loss(logp, flat_labels, flat_valid, ignore_index,
+                    class_weights, mean_over_all)
+    if use_lovasz:
+        lov_valid = flat_valid
+        if ignore_index is not None:
+            lov_valid = lov_valid & (flat_labels != ignore_index)
+        loss = loss + lovasz_weight * lovasz_softmax(
+            torch.softmax(flat_logits, dim=-1), flat_labels, lov_valid)
+    return loss

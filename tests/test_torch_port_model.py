@@ -33,7 +33,8 @@ from curvecloudnet_tpu_torch.models import CurveCloudNet as TNet
 from curvecloudnet_tpu_torch.models import cloud_from_arrays as tcloud
 from curvecloudnet_tpu_torch.models import kernel_launches
 from curvecloudnet_tpu_torch.models import parse_model_config as tparse
-from curvecloudnet_tpu_torch.ops import conv1d_chain, fps, group_reduce, knn
+from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
+                                         group_reduce, knn)
 from torch_port_utils import jax_init, lidar, load_step, to_torch
 
 torch.set_num_threads(1)
@@ -230,7 +231,8 @@ def test_launch_counts_follow_spec(slice_models, narrow, monkeypatch):
     seen = {}
     for mod, name, key in [(conv1d_chain, "conv1d_chain_eval", "conv1d_chain"),
                            (group_reduce, "group_reduce", "group_reduce"),
-                           (knn, "knn_search", "knn"), (fps, "fps_picks", "fps")]:
+                           (knn, "knn_search", "knn"), (fps, "fps_picks", "fps"),
+                           (gather, "gather_km", "gather")]:
         orig = getattr(mod, name)
 
         def counted(*a, _orig=orig, _key=key, **kw):
@@ -241,7 +243,8 @@ def test_launch_counts_follow_spec(slice_models, narrow, monkeypatch):
         tm(tc)
     assert seen == kernel_launches(narrow[1], N_SLICE)
     assert kernel_launches(narrow[1], 36864) == {
-        "conv1d_chain": 2, "group_reduce": 15, "knn": 9, "fps": 2}
+        "conv1d_chain": 2, "group_reduce": 15, "gather": 10, "knn": 9,
+        "fps": 2}
 
 
 def test_port_imports_no_jax():
