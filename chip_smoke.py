@@ -35,7 +35,26 @@ Phases (any failure raises and exits non-zero before the result line):
      model's own conditioning cannot hold to that, within 3x the plain
      path's change under a 1e-5 relative weight perturbation plus 2e-3
      (plus 1e-5 of the largest gradient, for gradients that are zero in
-     exact arithmetic; each parameter's verdict is printed).
+     exact arithmetic; each parameter's verdict is printed);
+  9. one capture eval forward of the KITTI model (configs/kitti.yaml) at
+     n_pad 131072, B=1, on a 64-beam synthetic sweep (seed 0), recording
+     every K1, K2, K3, K4, K5 and K6 call and every grid search; each call
+     compared with its plain version and timed (K5: indices and distances
+     equal); K10 held against its plain version (equal) on each K5 call's
+     candidate planes, and against K5's answer, timed beside torch.topk;
+ 10. launch counters set to 0, three KITTI scans (seeds 0, 1, 2) through
+     ``predict``: logits finite of shape (1, 131072, 20), launches equal to
+     the spec-derived counts (two K5 launches a scan), latency and peak
+     memory printed;
+ 11. recall of each grid table of scan 0 against the exact K3 table of the
+     same row, radius and k: mean exact-set recall >= 0.95 on the
+     curve-sampled row; on the voxel row, whose cap its voxel spacing
+     proves, every missing neighbor a tie at the k-th distance; each
+     table's drop count printed;
+ 12. scan 0 through the plain versions of every kernel on the card
+     (logits within 2e-3 of the kernel path), then through the grid's
+     ``planes`` tail (K10; launch counters set to 0 before it): neighbor
+     tables and logits identical to the ``records`` tail's.
 
 Prints per-phase lines, then a JSON line of the kernels, the card's name
 and power limit, and as the last line
@@ -44,6 +63,7 @@ and power limit, and as the last line
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -55,6 +75,9 @@ CONFIG = os.path.join(REPO, "configs", "nuscenes.yaml")
 N_PAD = 36864
 SCANS = 3
 TRAIN_STEPS = 5
+KITTI_CONFIG = os.path.join(REPO, "configs", "kitti.yaml")
+KITTI_N_PAD = 131072
+RECALL_FLOOR = 0.95  # tests/test_grid_recall.py's floor on curve-sampled rows
 LR = 5e-4
 LOGIT_TOL = 2e-3  # the full-model bar of the JAX package's parity tests
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -81,6 +104,15 @@ EVAL_KERNELS = [
      "curvecloudnet_tpu_torch/csrc/gather.cu",
      "curvecloudnet_tpu/ops/pallas_gather.py:213", 0.0),
 ]
+# the KITTI path adds K5; K10 serves the grid's planes tail
+KITTI_KERNELS = EVAL_KERNELS + [
+    ("grid_topk", "grid_topk", "grid_topk_records", "grid_topk_records_ref",
+     "curvecloudnet_tpu_torch/csrc/grid_topk.cu",
+     "curvecloudnet_tpu/ops/pallas_topk.py:254", 0.0)]
+TOPK_KERNELS = [
+    ("topk_smallest", "grid_topk", "topk_smallest", "topk_smallest_ref",
+     "curvecloudnet_tpu_torch/csrc/grid_topk.cu",
+     "curvecloudnet_tpu/ops/pallas_topk.py:300", 0.0)]
 # K7's tolerances: forward 1e-4 (max abs); backward, in relative L2 norm
 # per output, 1e-3 plus 3x the plain version's own change when h1 is
 # perturbed by 1e-5 relative (an accumulated rounding of a 1024-long dot
@@ -158,8 +190,10 @@ def _err(name, out, ref, tol, rows=None):
 
 def compare(name, out, ref, tol):
     """Max abs error of kernel vs plain, raising past the tolerance.
-    knn: indices equal except between slots of equal distance; fps, gather:
-    equal."""
+    knn: indices equal except between slots of equal distance; fps, gather,
+    grid_topk, topk_smallest: equal."""
+    import torch
+
     if name == "knn":
         (i_k, d_k), (i_r, d_r) = out, ref
         err = float((d_k - d_r).abs().max())
@@ -168,6 +202,12 @@ def compare(name, out, ref, tol):
             raise AssertionError(f"knn: dist err {err}, "
                                  f"{int(swap.sum())} index mismatches")
         return err
+    if name in ("grid_topk", "topk_smallest"):
+        (d_k, i_k), (d_r, i_r) = out, ref
+        if not (torch.equal(d_k, d_r) and torch.equal(i_k, i_r)):
+            raise AssertionError(f"{name}: differs from its plain version "
+                                 f"({int((i_k != i_r).sum())} indices)")
+        return 0.0
     if name == "fps":
         err = float((out.long() - ref.long()).abs().max())
         if err > tol:
@@ -269,6 +309,19 @@ def work(name, args, out):
         return nbytes(pos, valid, start, out), 9 * budget * int(valid.sum())
     if name in ("gather", "scatter"):
         return nbytes(*args[:2], out), 0
+    if name == "grid_topk":
+        # the table's live records only (each row's prefix of ``counts``
+        # 16-byte records; the padding past it is never read); 8 FP32
+        # operations (3 sub, 3 mul, 2 add) per live candidate of a valid
+        # query
+        table, counts, nbr, query, q_valid = args[:5]
+        records = int(counts.sum()) * table.shape[2] * table.element_size()
+        live = int(counts[nbr.long()].sum(1)[q_valid].sum())
+        return (records + nbytes(counts, nbr, query, q_valid, out),
+                8 * live)
+    if name == "topk_smallest":
+        d, idx = args[:2]
+        return nbytes(d, idx, out), d.numel()    # one compare per value
     cfg = args[2]
     rows = int(args[1].sum())
     macs = sum(a * b for a, b in zip(cfg.dims[:-1], cfg.dims[1:]))
@@ -283,9 +336,14 @@ def work(name, args, out):
 def library_call(name, args):
     """One PyTorch call computing the same function, where one exists:
     K4 ``index_select`` of the clamped rows, K4b ``index_add_`` (both the
-    fill=False function: a filled gather needs a second call)."""
+    fill=False function: a filled gather needs a second call), K10
+    ``torch.topk`` (its values and columns: the carried indices need a
+    second call)."""
     import torch
 
+    if name == "topk_smallest":
+        d, _, k = args
+        return lambda: torch.topk(d, k, dim=1, largest=False)
     if name == "gather":
         src, idx = args[:2]
         flat = idx.clamp(min=0).long().reshape(idx.shape[0], -1)
@@ -375,6 +433,162 @@ def measure(kernels, mods, calls, train):
     return report
 
 
+def recording(calls, fn):
+    """``fn`` that appends (args, kwargs, output) of every call to
+    ``calls``."""
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    return wrapped
+
+
+def grid_recall(args, kwargs, out):
+    """Phase 11 for one recorded grid search: its table against the exact
+    K3 table of the same row, radius and k."""
+    import torch
+
+    from curvecloudnet_tpu_torch.ops import knn
+
+    query, points, q_valid, p_valid, k, radius = args
+    g_idx, _, n_dropped = out
+    e_idx, e_dist = knn.knn_search(query, points, q_valid, p_valid, k, radius)
+    exact = e_idx >= 0
+    found = ((e_idx[..., :, None] == g_idx[..., None, :]).any(-1)) & exact
+    n_exact = exact.sum(-1)
+    rows = n_exact > 0
+    recall = float((found.sum(-1)[rows] / n_exact[rows]).mean())
+    missing = exact & ~found
+    kth = torch.where(exact, e_dist, torch.zeros_like(e_dist)).amax(-1)
+    inside = missing & (e_dist < kth[..., None])
+    proven = kwargs["hash_bits"] is not None
+    log(f"grid table n={points.shape[1]} r={radius} cap={kwargs['cap']} "
+        f"({'voxel-proven' if proven else 'curve-sampled'}): recall "
+        f"{recall:.6f}, {int(missing.sum())} exact neighbors missing "
+        f"({int(inside.sum())} inside the k-th distance), "
+        f"{int(n_dropped.sum())} points dropped past the cap and the "
+        f"overflow rows")
+    if proven and bool(inside.any()):
+        raise AssertionError("voxel-proven grid table lost a neighbor "
+                             "inside the k-th distance")
+    if not proven and recall < RECALL_FLOOR:
+        raise AssertionError(f"grid recall {recall} < {RECALL_FLOOR}")
+    return recall
+
+
+def run_kitti(P, mods, dev, kernel_launches):
+    """Phases 9-12 -> (report rows, launches by path)."""
+    import torch
+
+    from curvecloudnet_tpu_torch.ops import grid_knn, grid_topk
+
+    # 9. capture one KITTI forward, compare and time every recorded call
+    model = P.build_model(KITTI_CONFIG, KITTI_N_PAD, dev)
+    n_beams = P.N_BEAMS[P.dataset_of(KITTI_CONFIG)]
+    scan0 = P.synthetic_scan(0, KITTI_N_PAD, dev, n_beams)
+    searches = []
+    with replaced(grid_knn, "grid_knn", recording(searches,
+                                                  grid_knn.grid_knn)):
+        calls, _ = capture(KITTI_KERNELS, mods,
+                           lambda: P.predict(model, *scan0))
+    report = measure(KITTI_KERNELS, mods, calls, train=False)
+    topk_calls = []
+    for args, _, out in calls["grid_topk"]:
+        table, counts, nbr, query, q_valid, k, r2 = args
+        planes = grid_topk.planes(table, nbr, query, q_valid, r2)
+        got = grid_topk.topk_smallest(*planes, k)
+        if not (torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])):
+            raise AssertionError("K10 on the candidate planes differs from K5")
+        topk_calls.append(((*planes, k), {}, got))
+    del calls
+    report.update(measure(TOPK_KERNELS, mods, {"topk_smallest": topk_calls},
+                          train=False))
+    del topk_calls
+
+    # 10. three scans through predict, launches counted
+    want = kernel_launches(model.spec, KITTI_N_PAD)
+    for name, mod, wrapper, *_ in KITTI_KERNELS:
+        getattr(mods[mod], wrapper).launches = 0
+    scan_ms, peaks = [], []
+    for seed in range(SCANS):
+        inputs = (scan0 if seed == 0 else
+                  P.synthetic_scan(seed, KITTI_N_PAD, dev, n_beams))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, valid, _ = P.predict(model, *inputs)
+        torch.cuda.synchronize()
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        if logits.shape != (1, KITTI_N_PAD, model.spec.n_out) or not bool(
+                torch.isfinite(logits[valid]).all()):
+            raise AssertionError(f"KITTI scan {seed}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        if seed == 0:
+            logits0, valid0 = logits, valid
+        log(f"KITTI scan {seed}: {scan_ms[-1]:.1f} ms, peak memory "
+            f"{peaks[-1]:.2f} GiB, {int(valid.sum())} valid points")
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in KITTI_KERNELS}
+    log("KITTI launches:", launched, "spec per scan:", want)
+    for name, got in launched.items():
+        if got != SCANS * want.get(name, 0) or not got:
+            raise AssertionError(f"{name}: {got} KITTI launches, "
+                                 f"want {SCANS} x {want.get(name, 0)}")
+    log(f"KITTI per-scan latency ms: {scan_ms}; peak memory GiB: {peaks}")
+
+    # 11. recall of each grid table of scan 0
+    for args, kwargs, out in searches:
+        grid_recall(args, kwargs, out)
+
+    # 12. the plain path on the card, then the planes tail
+    with contextlib.ExitStack() as stack:
+        for name, mod, wrapper, ref_name, *_ in KITTI_KERNELS + TOPK_KERNELS:
+            m = mods[mod]
+            stack.enter_context(replaced(m, wrapper, getattr(m, ref_name)))
+        t0 = time.perf_counter()
+        plain = P.predict(model, *scan0)[0]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((logits0 - plain)[valid0].abs().max())
+    log(f"KITTI logits kernel path vs plain path on the card: max abs err "
+        f"{err:.3g}; plain forward {plain_ms:.1f} ms")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"KITTI logits differ from the plain path by {err}")
+    for name, mod, wrapper, *_ in KITTI_KERNELS + TOPK_KERNELS:
+        getattr(mods[mod], wrapper).launches = 0
+    planes_searches = []
+    planes_tail = functools.partial(grid_knn.grid_knn, tail="planes")
+    with replaced(grid_knn, "grid_knn", recording(planes_searches,
+                                                  planes_tail)):
+        t0 = time.perf_counter()
+        p_logits = P.predict(model, *scan0)[0]
+        torch.cuda.synchronize()
+        planes_ms = (time.perf_counter() - t0) * 1e3
+    planes_launched = {name: getattr(mods[mod], w).launches
+                       for name, mod, w, *_ in KITTI_KERNELS + TOPK_KERNELS}
+    log(f"KITTI planes tail: {planes_ms:.1f} ms, launches {planes_launched}")
+    if planes_launched["topk_smallest"] != want["grid_topk"] or \
+            planes_launched["grid_topk"]:
+        raise AssertionError("planes tail: K10 launches "
+                             f"{planes_launched['topk_smallest']}, want "
+                             f"{want['grid_topk']} (and no K5)")
+    if len(planes_searches) != len(searches):
+        raise AssertionError("planes tail ran another set of grid searches")
+    for (_, _, a), (_, _, b) in zip(searches, planes_searches):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("planes tail: neighbor tables differ from "
+                                 "the records tail's")
+    if not torch.equal(p_logits[valid0], logits0[valid0]):
+        raise AssertionError("planes tail: logits differ from the records "
+                             "tail's")
+    log("KITTI planes tail: neighbor tables and logits identical to the "
+        "records tail's")
+    by_path = {"kitti": launched, "kitti_planes": {
+        "topk_smallest": planes_launched["topk_smallest"]}}
+    return report, by_path
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -391,7 +605,8 @@ def main():
     from curvecloudnet_tpu_torch.models import kernel_launches
     from curvecloudnet_tpu_torch.ops import _build
     from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
-                                             group_reduce, group_train, knn)
+                                             grid_topk, group_reduce,
+                                             group_train, knn)
     from curvecloudnet_tpu_torch.train import LossConfig, train_step
     from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
     from curvecloudnet_tpu_torch.train.trainer import create_optimizer
@@ -400,7 +615,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     mods = {"conv1d_chain": conv1d_chain, "group_reduce": group_reduce,
             "knn": knn, "fps": fps, "gather": gather,
-            "group_train": group_train}
+            "group_train": group_train, "grid_topk": grid_topk}
     dev = torch.device("cuda", 0)
 
     # 1. the card
@@ -592,6 +807,9 @@ def main():
         f"{results['plain'][1]:.1f} ms, peak "
         f"{results['plain'][2] / 2**30:.2f} GiB; losses {losses}")
 
+    del init, opt, batch
+    kitti_report, kitti_launched = run_kitti(P, mods, dev, kernel_launches)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -603,9 +821,17 @@ def main():
             row["max_abs_err"] = max(row["max_abs_err"],
                                      report[name]["max_abs_err"])
         report[name] = row
+    for name, row in kitti_report.items():
+        if name in report:   # the nuScenes capture's times; the worst error
+            report[name]["max_abs_err"] = max(row["max_abs_err"],
+                                              report[name]["max_abs_err"])
+        else:                # K5, K10
+            report[name] = row
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0)}
+        for path, counts in kitti_launched.items():
+            by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     log(json.dumps({"kernels": list(report.values())}))

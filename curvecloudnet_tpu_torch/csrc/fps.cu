@@ -10,8 +10,9 @@
 //
 // Bound on the H100: latency.  The picks are serial, so the cost is
 // budget x (one sweep of N points + one block-wide argmax).  Design: one
-// block of 1024 threads per row keeps positions and the min-distance field
-// in shared memory (16 B a point: 92 KB at the flagship's 5760-point row),
+// block of 1024 threads per row; positions live in shared memory (12 B a
+// point: 216 KB at the KITTI 18432-point row) and each thread keeps the
+// min-distance field of its PER points (j = tid + t * 1024) in registers,
 // so each pick touches no device memory; the argmax is a warp-shuffle
 // reduction then one across the 32 warps.  Distances use round-to-nearest
 // intrinsics in the order (dx*dx + dy*dy) + dz*dz, with no FMA contraction,
@@ -36,30 +37,38 @@ __device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
   }
 }
 
-__global__ void fps_kernel(const float* __restrict__ pos,
-                           const unsigned char* __restrict__ valid,
-                           const int* __restrict__ start,
-                           int* __restrict__ out, int N, int budget) {
+#define FPS_THREADS 1024
+
+template <int PER>
+__global__ void __launch_bounds__(FPS_THREADS)
+    fps_kernel(const float* __restrict__ pos,
+               const unsigned char* __restrict__ valid,
+               const int* __restrict__ start, int* __restrict__ out, int N,
+               int budget) {
   extern __shared__ float sm[];
   float* px = sm;
   float* py = px + N;
   float* pz = py + N;
-  float* mind = pz + N;
   __shared__ float red_v[32];
   __shared__ int red_i[32];
   __shared__ int s_last;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const float* pb = pos + (size_t)b * N * 3;
   const unsigned char* vb = valid + (size_t)b * N;
-  for (int j = tid; j < N; j += nt) {
-    px[j] = pb[3 * j];
-    py[j] = pb[3 * j + 1];
-    pz[j] = pb[3 * j + 2];
-    mind[j] = vb[j] ? 1e30f : -1e30f;
+  float mind[PER];
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int j = tid + t * FPS_THREADS;
+    mind[t] = -1e30f;
+    if (j < N) {
+      px[j] = pb[3 * j];
+      py[j] = pb[3 * j + 1];
+      pz[j] = pb[3 * j + 2];
+      if (vb[j]) mind[t] = 1e30f;
+    }
   }
   __syncthreads();
 
@@ -69,17 +78,21 @@ __global__ void fps_kernel(const float* __restrict__ pos,
     const float lx = px[last], ly = py[last], lz = pz[last];
     float bv = -CUDART_INF_F;
     int bi = 0x7fffffff;
-    for (int j = tid; j < N; j += nt) {
-      const float dx = __fsub_rn(px[j], lx);
-      const float dy = __fsub_rn(py[j], ly);
-      const float dz = __fsub_rn(pz[j], lz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      const float mv = fminf(mind[j], d2);
-      mind[j] = mv;
-      if (mv > bv) {
-        bv = mv;
-        bi = j;
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int j = tid + t * FPS_THREADS;
+      if (j < N) {
+        const float dx = __fsub_rn(px[j], lx);
+        const float dy = __fsub_rn(py[j], ly);
+        const float dz = __fsub_rn(pz[j], lz);
+        const float d2 = __fadd_rn(
+            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+        const float mv = fminf(mind[t], d2);
+        mind[t] = mv;
+        if (mv > bv) {
+          bv = mv;
+          bi = j;
+        }
       }
     }
     warp_argmax(bv, bi);
@@ -89,9 +102,8 @@ __global__ void fps_kernel(const float* __restrict__ pos,
     }
     __syncthreads();
     if (warp == 0) {
-      const int nw = nt >> 5;
-      bv = lane < nw ? red_v[lane] : -CUDART_INF_F;
-      bi = lane < nw ? red_i[lane] : 0x7fffffff;
+      bv = red_v[lane];
+      bi = red_i[lane];
       warp_argmax(bv, bi);
       if (lane == 0) s_last = bi;
     }
@@ -100,17 +112,28 @@ __global__ void fps_kernel(const float* __restrict__ pos,
   }
 }
 
+template <int PER>
+static int launch(const float* pos, const unsigned char* valid,
+                  const int* start, int* out, int B, int N, int budget,
+                  cudaStream_t st) {
+  const size_t smem = (size_t)N * 3 * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      fps_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fps_kernel<PER><<<B, FPS_THREADS, smem, st>>>(pos, valid, start, out, N,
+                                                budget);
+  return (int)cudaGetLastError();
+}
+
 // pos (B, N, 3) f32; valid (B, N) bool; start (B,) int32; out (B, budget)
-// int32 pick order.
+// int32 pick order.  N <= 20 * 1024, within shared memory at 12 B a point.
 extern "C" int ccn_fps(const float* pos, const unsigned char* valid,
                        const int* start, int* out, int B, int N, int budget,
                        void* stream) {
-  if (N < 1 || budget < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)N * 4 * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  fps_kernel<<<B, 1024, smem, (cudaStream_t)stream>>>(pos, valid, start, out,
-                                                      N, budget);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || budget < 1 || N > 20 * FPS_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 8 * FPS_THREADS)
+    return launch<8>(pos, valid, start, out, B, N, budget, st);
+  return launch<20>(pos, valid, start, out, B, N, budget, st);
 }

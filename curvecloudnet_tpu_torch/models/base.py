@@ -11,10 +11,13 @@ head MLP.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from ..ops.neighbors import TABLE_K, TABLE_MAX_N, TableCache
+from ..ops import neighbors
+from ..ops.neighbors import TABLE_K, TableCache
 from .cloud import Cloud
 from .layers import MLP
 from .modules import (CurveFPStep, CurveSAStep, EdgeConvStep, FPStep,
@@ -23,13 +26,35 @@ from .modules import (CurveFPStep, CurveSAStep, EdgeConvStep, FPStep,
 from .spec import ModelSpec
 
 
+def _voxel_cell_occupancy(cell: float, v: float) -> int:
+    """Exact max count of v-voxels meeting any grid cell of edge ``cell``
+    (cubed), both grids anchored at the origin.  Integer rationalization
+    (1e-6 quantum) makes the per-axis sweep exact; the pattern repeats
+    with period v / gcd, so the sweep is short."""
+    ci, vi = round(cell * 1e6), round(v * 1e6)
+    g = math.gcd(ci, vi)
+    per_axis = 0
+    for i in range(vi // g):
+        per_axis = max(per_axis,
+                       ((i + 1) * ci - 1) // vi - (i * ci) // vi + 1)
+    return per_axis ** 3
+
+
 def row_radius_bounds(spec: ModelSpec):
-    """Per step, the radius bound of the shared table of the row it
-    searches: the max radius over every 3D same-row table consumer of that
-    row, or None when some consumer is unbounded (the first list of
-    ``curvecloudnet_tpu.models.base._row_radius_bounds``)."""
+    """Per step, for the row it searches (the three lists of
+    ``curvecloudnet_tpu.models.base._row_radius_bounds``):
+
+    * bounds: the max radius over every 3D same-row table consumer of the
+      row, or None when some consumer is unbounded;
+    * grid bounds: on a voxel-produced row, the max consumer radius whose
+      cell's voxel occupancy fits ``grid_cap(TABLE_K)``, so one grid table
+      at that radius serves those consumers; None elsewhere (curve-sampled
+      rows have no density bound);
+    * grid caps: the cap that occupancy proves for that table (rounded up
+      to a multiple of 32, at least 32)."""
     row, next_row = 0, 1
     down_stack, searches, step_row = [], [], []
+    row_voxel = {0: None}     # row -> voxel size that produced it
     for step in spec.steps:
         step_row.append(row)
         if step.name == "sgcnn":
@@ -45,16 +70,41 @@ def row_radius_bounds(spec: ModelSpec):
         if step.name in ("sa", "sa-geo", "sa-global"):
             down_stack.append(row)
             row, next_row = next_row, next_row + 1
+            row_voxel[row] = (step.voxel_size if step.name == "sa"
+                              and step.downsample_type == "voxel" else None)
         elif step.name in ("fp", "fp-geo"):
             row = down_stack.pop()
-    bounds = {}
+    bounds, radii = {}, {}
     for rid, r in searches:
+        radii.setdefault(rid, []).append(r)
         if rid in bounds:
             bounds[rid] = (None if bounds[rid] is None or r is None
                            else max(bounds[rid], r))
         else:
             bounds[rid] = r
-    return [bounds.get(r) for r in step_row]
+    grid_bounds, grid_caps = {}, {}
+    limit = neighbors.grid_cap(TABLE_K)
+    for rid, rs in radii.items():
+        v = row_voxel.get(rid)
+        eligible = [r for r in rs if r is not None
+                    and _voxel_cell_occupancy(r, v) <= limit] if v else []
+        if eligible:
+            gb = max(eligible)
+            proven = _voxel_cell_occupancy(gb, v)
+            grid_bounds[rid] = gb
+            grid_caps[rid] = max(TABLE_K, -(-proven // 32) * 32)
+    return ([bounds.get(r) for r in step_row],
+            [grid_bounds.get(r) for r in step_row],
+            [grid_caps.get(r) for r in step_row])
+
+
+def _search_radius(step):
+    """The radius of a step's 3D search (None: unbounded)."""
+    if step.name == "sgcnn":
+        return step.radius if step.radius is not None else 1.0
+    if step.use_fast_knn:
+        return step.radius if step.radius is not None else 0.25
+    return None
 
 
 def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
@@ -66,14 +116,17 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
     passes, one more for the attention BN, and the output pass; its
     backward runs B_att (attend), B_msg and L-1 B_mid passes.  Both: K4
     once per sgcnn step (its self-row gather; K4b once in the backward),
-    K6 once per FPS step, K3 once per shared row table and per fp sweep
-    (plus once per search on a row too large for a table)."""
+    K6 once per FPS step, K3 once per exact shared row table and per fp
+    sweep, K5 (``grid_topk``, listed only where it runs) once per distinct
+    grid table of a row above ``neighbors.TABLE_MAX_N``; a search no table
+    serves launches its own."""
     counts = ({"group_train_fwd": 0, "group_train_bwd": 0, "gather": 0,
                "scatter": 0, "knn": 0, "fps": 0} if train else
               {"conv1d_chain": 0, "group_reduce": 0, "gather": 0, "knn": 0,
                "fps": 0})
-    bounds = row_radius_bounds(spec)
-    sizes, row, down_stack, tables = [n_points], 0, [], set()
+    bounds, grid_bounds, grid_caps = row_radius_bounds(spec)
+    sizes, row, down_stack = [n_points], 0, []
+    tables = {}      # distinct shared table -> the kernel that builds it
     for i, step in enumerate(spec.steps):
         n = sizes[row]
         if step.name == "conv1d-fast-v2" and not train:
@@ -93,10 +146,16 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
         if step.name == "sa" and step.downsample_type == "fps":
             counts["fps"] += 1
         if step.name in ("sa", "sgcnn"):
-            if step.knn <= TABLE_K and n <= TABLE_MAX_N:
-                tables.add((row, bounds[i]))
+            radius = _search_radius(step)
+            if step.knn <= TABLE_K and n <= neighbors.TABLE_MAX_N:
+                tables[(row, bounds[i])] = "knn"
+            elif step.knn <= TABLE_K and radius is not None:
+                gr, cap = neighbors.grid_table_args(radius, grid_bounds[i],
+                                                    grid_caps[i])
+                tables[(row, gr, cap)] = neighbors.search_kernel(n, gr, cap)
             else:
-                counts["knn"] += 1
+                name = neighbors.search_kernel(n, radius)
+                counts[name] = counts.get(name, 0) + 1
         if step.name == "fp":
             counts["knn"] += 1
         if step.name in ("sa", "sa-geo"):
@@ -105,7 +164,8 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
             row = len(sizes) - 1
         elif step.name in ("fp", "fp-geo"):
             row = down_stack.pop()
-    counts["knn"] += len(tables)
+    for name in tables.values():
+        counts[name] = counts.get(name, 0) + 1
     return counts
 
 
@@ -121,7 +181,7 @@ class CurveCloudNet(nn.Module):
         if spec.with_seg_category:
             raise NotImplementedError("the lin_categorical head is not ported")
         self.spec = spec
-        bounds = row_radius_bounds(spec)
+        bounds, grid_bounds, grid_caps = row_radius_bounds(spec)
         steps = []
         widths = []          # x width of each step's input cloud
         w, n_now = feat_channels, n_points
@@ -132,7 +192,8 @@ class CurveCloudNet(nn.Module):
             name = step.name
             if name == "sa":
                 n_now = step.out_budget(n_now)
-                mod = SAStep(spec, step, dims, w, n_now, bounds[i])
+                mod = SAStep(spec, step, dims, w, n_now, bounds[i],
+                             grid_bounds[i], grid_caps[i])
             elif name == "sa-geo":
                 n_now = step.out_budget(n_now)
                 mod = CurveSAStep(spec, step, dims, w, n_now)
@@ -147,7 +208,8 @@ class CurveCloudNet(nn.Module):
                 mod = SkipConnectStep(spec, step, dims, w, [
                     3 if widths[j] is None else widths[j] for j in take])
             elif name == "sgcnn":
-                mod = EdgeConvStep(spec, step, dims, w, bounds[i])
+                mod = EdgeConvStep(spec, step, dims, w, bounds[i],
+                                   grid_bounds[i], grid_caps[i])
             elif name == "conv1d-fast-v2":
                 mod = SymmetricCurveConvStep(spec, step, w)
             elif name == "mlp":

@@ -204,16 +204,21 @@ class CurveSAStep(nn.Module):
 
 class SAStep(nn.Module):
     """PointNet++ set abstraction (reference pointnet2.py:33-78): voxel or
-    FPS downsampling, kNN grouping from the row table, PointNetConv."""
+    FPS downsampling, kNN grouping from the row table (exact, or the grid
+    table at ``grid_bound`` / ``grid_cap`` on a row above
+    ``neighbors.TABLE_MAX_N``), PointNetConv."""
 
-    def __init__(self, spec, step, dims, c_in, budget: int, table_bound):
+    def __init__(self, spec, step, dims, c_in, budget: int, table_bound,
+                 grid_bound=None, grid_cap=None):
         super().__init__()
         if step.downsample_type not in ("voxel", "fps"):
             raise NotImplementedError(
                 f"sa downsample_type {step.downsample_type!r} is not ported")
         if not step.knn:
             raise NotImplementedError("sa ball grouping is not ported")
-        self.step, self.budget, self.table_bound = step, budget, table_bound
+        self.step, self.budget = step, budget
+        self.table_bound, self.grid_bound, self.grid_cap = (
+            table_bound, grid_bound, grid_cap)
         msg_w = 3 if c_in is None else c_in + 3
         self.conv = _point_conv(spec, step, (msg_w,) + tuple(dims[1:]),
                                 act="relu")
@@ -233,7 +238,8 @@ class SAStep(nn.Module):
             radius = step.radius if step.radius is not None else 0.25
         nbr_idx, _ = neighbors.subset_knn(
             cloud.pos, cloud.valid, idx, down.valid, step.knn, radius=radius,
-            table_bound=self.table_bound, tables=tables)
+            table_bound=self.table_bound, grid_bound=self.grid_bound,
+            grid_cap=self.grid_cap, tables=tables)
         idx_km = nbr_idx.transpose(1, 2)                         # (B, K, M)
         rel = (neighbors.gather_neighbors(cloud.pos, idx_km, fill=train)
                - down.pos[:, None])
@@ -254,14 +260,17 @@ class EdgeConvStep(nn.Module):
     gather(x @ (Wt - Wb)) + x_i @ Wb (+ b), so the (B, N, K, 2C) message
     concat never materializes."""
 
-    def __init__(self, spec, step, dims, c_in, table_bound):
+    def __init__(self, spec, step, dims, c_in, table_bound, grid_bound=None,
+                 grid_cap=None):
         super().__init__()
         if step.name != "sgcnn" or step.use_sparse_feat_agg:
             raise NotImplementedError(
                 f"{step.name} (sparse={step.use_sparse_feat_agg}) is not ported")
         if step.aggr_type != "max":
             raise NotImplementedError(f"sgcnn aggr_type {step.aggr_type!r}")
-        self.step, self.table_bound = step, table_bound
+        self.step = step
+        self.table_bound, self.grid_bound, self.grid_cap = (
+            table_bound, grid_bound, grid_cap)
         cx = xyz_width(c_in, step.with_xyz)
         self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
 
@@ -272,7 +281,8 @@ class EdgeConvStep(nn.Module):
         r = step.radius if step.radius is not None else 1.0
         nbr_idx, _ = neighbors.same_set_knn(
             cloud.pos, cloud.valid, step.knn, radius=r,
-            table_bound=self.table_bound, tables=tables)
+            table_bound=self.table_bound, grid_bound=self.grid_bound,
+            grid_cap=self.grid_cap, tables=tables)
         nbr_idx = neighbors.add_self_loops(nbr_idx, cloud.valid)
         lin0 = self.nn.lins[0]
         c = x.shape[-1]

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, ``build/libccn_kernels.so`` at the repository
-root, loaded with ``ctypes``.  A hash of the sources and flags, stored beside
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together) and links the objects into one shared library with a
+plain C interface, ``build/libccn_kernels.so`` at the repository root,
+loaded with ``ctypes``.  A hash of the sources and flags, stored beside
 the library, triggers a rebuild whenever either changes.  Only a wrapper
 that was handed a CUDA tensor calls :func:`library`, so importing the
 package, or running it on CPU tensors, never builds anything.
@@ -23,7 +24,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build"
 LIB_NAME = "libccn_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM = 232448
 
@@ -62,14 +63,32 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = os.getpid()
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {src.name} (rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out[-3000:]}")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stdout[-3000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib
@@ -90,6 +109,8 @@ _SIGNATURES = {
     "ccn_scatter_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_group_train": [_I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                         _I, _P, _P],
+    "ccn_grid_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "ccn_topk_smallest": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -15,6 +15,7 @@ from . import _build
 from .segments import sq_norm3
 
 _BIG = 1e30
+MAX_N = 20 * 1024
 
 
 def fps_picks_ref(pos, valid, start, budget: int):
@@ -39,8 +40,11 @@ def fps_picks(pos, valid, start, budget: int):
     if pos.device.type == "cpu":
         return fps_picks_ref(pos, valid, start, budget)
     b, n, _ = pos.shape
-    if n * 16 > _build.MAX_SMEM:
-        raise ValueError(f"fps kernel: row of {n} points exceeds shared memory")
+    # positions in shared memory (12 B a point, beside ~1 KB of the
+    # kernel's own); the min-distance field in registers, 20 a thread
+    if n * 12 > _build.MAX_SMEM - 1024 or n > MAX_N:
+        raise ValueError(f"fps kernel: a row of {n} points exceeds its "
+                         f"shared memory or registers")
     start = start.to(torch.int32).contiguous()
     out = torch.empty((b, budget), dtype=torch.int32, device=pos.device)
     args = (

@@ -1,44 +1,103 @@
-"""Exact k-nearest-neighbor searches and per-row shared tables
-(counterpart of ``curvecloudnet_tpu/ops/neighbors.py``, exact paths only).
+"""k-nearest-neighbor searches and per-row shared tables (counterpart of
+``curvecloudnet_tpu/ops/neighbors.py``).
 
 Outputs are dense ``(B, Q, K)`` neighbor indices with ``-1`` fill.  Every
-3D search at one resolution row is a filtered view of ONE exact k=32 table
-of that row (the k'-nearest-within-r of a query are a prefix of its
-32-nearest when k' <= 32), built radius-bounded at the largest radius any
-consumer of the row uses (``models/base.row_radius_bounds``).  All searches
-run kernel K3 (``ops/knn.py``); every row of the flagship fits a table
-(at most ``TABLE_MAX_N`` points).
+3D search at one resolution row is a filtered view of ONE k=32 table of
+that row (the k'-nearest-within-r of a query are a prefix of its
+32-nearest when k' <= 32):
+
+* rows of at most ``TABLE_MAX_N`` points: one exact table (kernel K3,
+  ``ops/knn.py``), built radius-bounded at the largest radius any consumer
+  of the row uses (``models/base.row_radius_bounds``);
+* larger rows: one grid-hash table per (row, radius, cap)
+  (``ops/grid_knn.py``, kernel K5), at the search's own radius or, on a
+  voxel-produced row, at the row's grid bound with the cap its voxel
+  spacing proves.  A radius of 0.15 or more on a row of at most 40960
+  points stays exact (such cells hold more points than any affordable
+  cap), and a search with no radius is exact too.
+
+Unlike the JAX package on the TPU, rows at or below ``TABLE_MAX_N`` are
+never served by the grid (its 8-cell-stencil and "proven grid first"
+routes): those answer the TPU's extraction cost, which K3 does not have.
+``TABLE_MAX_N`` is read at call time, so tests may lower it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import grid_knn as _grid
 from . import knn as _k3
 from .gather import gather_rows_km
 from .knn import INF
 from .segments import take_rows
 
-# Largest row served by a shared table (the JAX package's BRUTE_MAX_N;
-# above it the JAX package switches to its grid search on the TPU, and
-# the port searches per consumer).
+# Largest row served by an exact shared table (the JAX package's
+# BRUTE_MAX_N, its TABLE_MAX_N too); larger rows take grid tables.
 TABLE_MAX_N = 24576
 TABLE_K = 32
+# rows up to this size keep searches of radius >= GRID_EXACT_MIN_R exact
+GRID_EXACT_MAX_N = 40960
+GRID_EXACT_MIN_R = 0.15
+GRID_OVERFLOW_PLANES = 2
 
 
-def knn(query, points, q_valid, p_valid, k: int, radius=None):
-    """Exact masked kNN: (idx (B, Q, k) int32 with -1 fill, dist (B, Q, k)
-    f32 with 1e30 fill); neighbors beyond ``radius`` are dropped."""
-    return _k3.knn_search(query, points, q_valid, p_valid,
-                          min(k, points.shape[1]), radius)
+def grid_cap(k: int) -> int:
+    """Per-cell candidate cap of a grid table without a proven cap (sized
+    for post-downsampling rows: measured max ~200 points a cell on the
+    curve-fps rows in the JAX package)."""
+    return max(192, 4 * k)
+
+
+def search_kernel(n: int, radius, cap=None) -> str:
+    """The kernel that serves a 3D search over ``n`` points: "grid_topk"
+    (the grid search, K5) or "knn" (exact, K3).  A spec-proven ``cap``
+    forces the grid."""
+    if radius is None:
+        return "knn"
+    if cap is not None:
+        return "grid_topk"
+    if n > TABLE_MAX_N and not (n <= GRID_EXACT_MAX_N
+                                and radius >= GRID_EXACT_MIN_R):
+        return "grid_topk"
+    return "knn"
+
+
+def knn(query, points, q_valid, p_valid, k: int, radius=None, cap=None):
+    """Masked kNN: (idx (B, Q, k) int32 with -1 fill, dist (B, Q, k) f32
+    with 1e30 fill); neighbors beyond ``radius`` are dropped.  Exact (K3)
+    unless :func:`search_kernel` picks the grid; a proven ``cap`` takes a
+    grid table of that cap with 2 more hash bits (fewer collisions merging
+    near-full cells), up to 2^16 rows."""
+    n = points.shape[1]
+    k = min(k, n)
+    if search_kernel(n, radius, cap) == "grid_topk":
+        hash_bits = None
+        if cap:
+            hash_bits = _grid.default_hash_bits(n)
+            hash_bits = hash_bits + 2 if hash_bits + 2 <= 16 else hash_bits
+        idx, dist, _ = _grid.grid_knn(
+            query, points, q_valid, p_valid, k, float(radius),
+            cap=cap or grid_cap(k), hash_bits=hash_bits,
+            overflow_planes=GRID_OVERFLOW_PLANES)
+        return idx, dist
+    return _k3.knn_search(query, points, q_valid, p_valid, k, radius)
 
 
 class TableCache:
     """Per-forward cache of the per-row tables, keyed by the identity of
-    the row's (pos, valid) tensors and the table's radius bound."""
+    the row's (pos, valid) tensors and the table's radius (and cap)."""
 
     def __init__(self):
         self._tables = {}
+
+    def _get(self, key, pos, valid, build):
+        hit = self._tables.get(key)
+        if hit is not None and hit[0] is pos and hit[1] is valid:
+            return hit[2]
+        table = build()
+        self._tables[key] = (pos, valid, table)
+        return table
 
     def row_table(self, pos, valid, bound=None):
         """Build or fetch the row's exact k=32 table, or None for rows
@@ -46,12 +105,16 @@ class TableCache:
         if pos.shape[1] > TABLE_MAX_N:
             return None
         key = (id(pos), id(valid), None if bound is None else float(bound))
-        hit = self._tables.get(key)
-        if hit is not None and hit[0] is pos and hit[1] is valid:
-            return hit[2]
-        table = knn(pos, pos, valid, valid, TABLE_K, radius=bound)
-        self._tables[key] = (pos, valid, table)
-        return table
+        return self._get(key, pos, valid, lambda: knn(
+            pos, pos, valid, valid, TABLE_K, radius=bound))
+
+    def grid_table(self, pos, valid, radius: float, cap=None):
+        """Build or fetch the row's k=32 table at ``radius`` for a row
+        above ``TABLE_MAX_N`` (a grid search, or exact where
+        :func:`search_kernel` keeps it so)."""
+        key = ("grid", id(pos), id(valid), float(radius), cap)
+        return self._get(key, pos, valid, lambda: knn(
+            pos, pos, valid, valid, TABLE_K, radius=float(radius), cap=cap))
 
 
 def _filter_table(idx, dist, k: int, radius):
@@ -64,21 +127,48 @@ def _filter_table(idx, dist, k: int, radius):
     return idx[..., :k], dist[..., :k]
 
 
+def grid_table_args(radius: float, grid_bound, grid_cap):
+    """(radius, cap) of the grid table that serves a search of ``radius``:
+    the row's ``grid_bound`` with its proven ``grid_cap`` (declared only
+    where voxel spacing proves the cap) when the bound covers the search,
+    else the search's own radius with no proven cap."""
+    if grid_bound is not None and float(grid_bound) >= float(radius):
+        return float(grid_bound), grid_cap
+    return radius, None
+
+
+def _grid_table(tables, pos, valid, radius, grid_bound, grid_cap):
+    """(table, its radius) of a search on a row above ``TABLE_MAX_N``."""
+    gr, cap = grid_table_args(radius, grid_bound, grid_cap)
+    return tables.grid_table(pos, valid, gr, cap), gr
+
+
 def same_set_knn(pos, valid, k: int, radius=None, table_bound=None,
+                 grid_bound=None, grid_cap=None,
                  tables: TableCache | None = None):
     """kNN of a 3D point set against itself via the shared row table."""
     if tables is not None and k <= TABLE_K:
         table = tables.row_table(pos, valid, table_bound)
         if table is not None:
             return _filter_table(*table, k, radius)
+        if radius is not None:
+            table, gr = _grid_table(tables, pos, valid, radius, grid_bound,
+                                    grid_cap)
+            return _filter_table(*table, k, radius if gr != radius else None)
     return knn(pos, pos, valid, valid, k, radius=radius)
 
 
 def subset_knn(pos, valid, sub_idx, sub_valid, k: int, radius=None,
-               table_bound=None, tables: TableCache | None = None):
+               table_bound=None, grid_bound=None, grid_cap=None,
+               tables: TableCache | None = None):
     """kNN of row-subset queries ``pos[sub_idx]`` against the full row."""
     if tables is not None and k <= TABLE_K:
         table = tables.row_table(pos, valid, table_bound)
+        if table is None and radius is not None:
+            table, gr = _grid_table(tables, pos, valid, radius, grid_bound,
+                                    grid_cap)
+            if gr == radius:
+                radius = None      # the table is filtered at this radius
         if table is not None:
             idx, dist = (take_rows(t, sub_idx) for t in table)
             sv = sub_valid[..., None]

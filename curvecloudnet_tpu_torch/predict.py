@@ -7,9 +7,11 @@ jitter).  Run, e.g. on the GPU::
 
     python -m curvecloudnet_tpu_torch.predict --config configs/nuscenes.yaml \\
         --scans 3 --device cuda
+    python -m curvecloudnet_tpu_torch.predict --config configs/kitti.yaml
 
-which serves synthetic scans (seeds 0, 1, ...) at the config's ``n_pad``
-with B=1 and prints one JSON line per scan.
+which serves synthetic scans (seeds 0, 1, ...) of the config's dataset's
+sensor at the config's ``n_pad`` with B=1 and prints one JSON line per
+scan.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from .config import load_config
 from .data import lidar_batch
 from .models import CurveCloudNet, cloud_from_arrays, parse_model_config
 
-# output classes of the ported dataset (curvecloudnet_tpu/run/tasks.py)
-N_OUT = {"nuscenes": 17}
+# output classes of the ported datasets (curvecloudnet_tpu/run/tasks.py)
+N_OUT = {"nuscenes": 17, "kitti": 20}
+# beams (curves) of each dataset's lidar: nuScenes' sensor has 32, KITTI's
+# 64 (the JAX package's grid recall tests draw 64 for KITTI rows; its
+# bench.py draws 32 at every size)
+N_BEAMS = {"nuscenes": 32, "kitti": 64}
 FEAT_CHANNELS = 1   # per-point reflectance of the lidar loaders
 IN_DIM = 4          # the spec's declared input width: reflectance + xyz
 
@@ -47,6 +53,10 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                 t.copy_(0.5 + torch.rand(t.shape, generator=generator))
             elif leaf in ("bias", "running_mean"):
                 t.copy_(0.1 * torch.randn(t.shape, generator=generator))
+
+
+def dataset_of(config_path: str) -> str:
+    return load_config(config_path).get("dataset_source", "nuscenes")
 
 
 def build_model(config_path: str, n_pad: int, device, generator=None):
@@ -70,10 +80,10 @@ def predict(model, pos, feat, curve_id, valid):
     return logits, out_valid, logits.argmax(dim=-1)
 
 
-def synthetic_scan(seed: int, n_pad: int, device):
+def synthetic_scan(seed: int, n_pad: int, device, n_beams: int = 32):
     """One synthetic lidar sweep (B=1) as tensors on ``device``."""
     pos, feat, curve_id, valid, _ = lidar_batch(
-        np.random.default_rng(seed), 1, n_pad)
+        np.random.default_rng(seed), 1, n_pad, n_beams=n_beams)
     return tuple(torch.from_numpy(a).to(device)
                  for a in (pos, feat, curve_id, valid))
 
@@ -88,9 +98,10 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     n_pad = int(load_config(args.config)["n_pad"])
+    n_beams = N_BEAMS[dataset_of(args.config)]
     model = build_model(args.config, n_pad, device)
     for scan in range(args.scans):
-        inputs = synthetic_scan(scan, n_pad, device)
+        inputs = synthetic_scan(scan, n_pad, device, n_beams)
         t0 = time.perf_counter()
         logits, valid, pred = predict(model, *inputs)
         if device.type == "cuda":

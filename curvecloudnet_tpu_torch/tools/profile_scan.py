@@ -1,15 +1,17 @@
-"""Device time of one flagship scan by kernel, and the device's idle share
+"""Device time of one eval scan by kernel, and the device's idle share
 (GPU, ``torch.profiler``).
 
-Builds the nuScenes flagship at n_pad 36864, B=1, serves two warm-up scans,
-times one unprofiled scan on the host clock, then profiles one more with
-CPU and CUDA activities.  Device busy time is the sum of
+Builds a config's model (default the nuScenes flagship) at its ``n_pad``,
+B=1, on a synthetic sweep of its dataset's sensor, serves two warm-up
+scans, times one unprofiled scan on the host clock, then profiles one more
+with CPU and CUDA activities.  Device busy time is the sum of
 ``self_device_time_total`` over the CUDA-side ``key_averages()`` entries.
 Run::
 
     python -m curvecloudnet_tpu_torch.tools.profile_scan
+    python -m curvecloudnet_tpu_torch.tools.profile_scan --config configs/kitti.yaml
 
-Prints the busy time by group (K1/K2/K3/K6, cuBLAS gemm, other), the
+Prints the busy time by group (K1-K6, cuBLAS gemm, other), the
 profiled wall and its idle share (measured, profiler on), the unprofiled
 wall and the idle share it implies (an estimate: busy time comes from the
 profiled scan), then the top device kernels and host ops.
@@ -17,6 +19,7 @@ profiled scan), then the top device kernels and host ops.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -25,10 +28,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import predict as P
+from ..config import load_config
 
-N_PAD = 36864
 GROUPS = (("K2", "group_"), ("K3", "knn_kernel"), ("K1", "conv1d_chain"),
-          ("K6", "fps_kernel"), ("gemm", "gemm"))
+          ("K6", "fps_kernel"), ("K4", "gather_km"), ("K5", "grid_topk"),
+          ("gemm", "gemm"))
 
 
 def scan_ms(model, scan) -> float:
@@ -39,13 +43,18 @@ def scan_ms(model, scan) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="configs/nuscenes.yaml")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_scan: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    model = P.build_model("configs/nuscenes.yaml", N_PAD, dev)
-    scan = P.synthetic_scan(0, N_PAD, dev)
+    n_pad = int(load_config(args.config)["n_pad"])
+    model = P.build_model(args.config, n_pad, dev)
+    scan = P.synthetic_scan(0, n_pad, dev,
+                            P.N_BEAMS[P.dataset_of(args.config)])
     for _ in range(2):
         scan_ms(model, scan)
     plain_wall = scan_ms(model, scan)
@@ -60,6 +69,7 @@ def main() -> None:
         g = next((g for g, s in GROUPS if s in e.key), "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     print(json.dumps({
+        "config": args.config, "n_pad": n_pad,
         "device": torch.cuda.get_device_name(0), "busy_ms": busy,
         "by_group_ms": groups, "launches": sum(e.count for e in kern),
         "profiled_wall_ms": wall, "idle_share_profiled": 1 - busy / wall,

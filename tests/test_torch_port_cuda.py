@@ -17,7 +17,8 @@ activation's derivative jumps at 0 (1 vs 0.01) and a max picks one of two
 near-equal slots, so rare rows within rounding of such a point take
 another branch in the kernel than in the plain version, moving single
 elements by up to their own size.  K4 copies rows (exact);
-K4b adds with atomics (1e-5).  The whole train step is held to the CPU
+K4b adds with atomics (1e-5).  K5 and K10 compute squared distances in the
+plain versions' order and break ties alike (the earlier column): equal.  The whole train step is held to the CPU
 plain path against a yardstick: the plain path's own change under a 1e-5
 relative weight perturbation (train-mode BatchNorm over 33 steps amplifies
 rounding-sized differences).
@@ -29,7 +30,8 @@ import torch
 
 from curvecloudnet_tpu_torch import predict
 from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
-                                         group_reduce, group_train, knn)
+                                         grid_knn, grid_topk, group_reduce,
+                                         group_train, knn)
 from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
 from curvecloudnet_tpu_torch.train.trainer import (LossConfig,
                                                    create_optimizer,
@@ -116,6 +118,19 @@ def test_fps_kernel(dev):
     start = torch.tensor([0, 7], dtype=torch.int32)
     args = tuple(t.to(dev) for t in (pos, valid, start))
     assert torch.equal(fps.fps_picks(*args, 400), fps.fps_picks_ref(*args, 400))
+
+
+def test_fps_kernel_at_kitti_row(dev):
+    """The KITTI fps row: 18432 points (the field in registers at 20 a
+    thread, positions in 216 KB of shared memory), 5530 picks."""
+    g = torch.Generator().manual_seed(7)
+    pos = torch.randn(1, 18432, 3, generator=g)
+    valid = torch.ones(1, 18432, dtype=torch.bool)
+    valid[0, 17000:] = False
+    start = torch.tensor([0], dtype=torch.int32)
+    args = tuple(t.to(dev) for t in (pos, valid, start))
+    assert torch.equal(fps.fps_picks(*args, 5530),
+                       fps.fps_picks_ref(*args, 5530))
 
 
 def test_small_scan_matches_cpu_path(dev):
@@ -224,3 +239,44 @@ def test_small_train_step_matches_cpu_path(dev):
         err = float((grads[2][k] - want).abs().max())
         noise = float((grads[1][k] - want).abs().max())
         assert err <= 3 * noise + 2e-3 * float(want.abs().max()) + floor, k
+
+
+@pytest.mark.parametrize("n,radius,cap,bits", [(73728, 0.04, 192, 14),
+                                               (36864, 0.1, 64, 15)])
+def test_grid_kernels_at_kitti_tables(dev, n, radius, cap, bits):
+    """K5 and K10 at the two KITTI grid tables' shapes (a 64-beam sweep of
+    the row's size, every point a query, k 32, two overflow rows)."""
+    pos, _, _, valid = predict.synthetic_scan(0, n, dev, n_beams=64)
+    table, counts, _, _, _ = grid_knn.build_table(pos, valid, radius, cap,
+                                                  bits, 2)
+    nbr = grid_knn.stencil_rows(pos, radius, radius, 27, bits, 2)[0]
+    args = (table, counts, nbr.int().contiguous(), pos[0].contiguous(),
+            valid[0].contiguous(), 32, float(np.float32(radius * radius)))
+    got = grid_topk.grid_topk_records(*args)
+    want = grid_topk.grid_topk_records_ref(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    planes = grid_topk.planes(args[0], *args[2:5], args[6])
+    k10 = grid_topk.topk_smallest(*planes, 32)
+    k10_ref = grid_topk.topk_smallest_ref(*planes, 32)
+    for a, b, c in zip(k10, k10_ref, got):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cap,stencil,planes,k", [(8, 27, 2, 32),
+                                                  (1, 8, 0, 12)])
+def test_grid_search_spills_on_the_card(dev, cap, stencil, planes, k):
+    """A dense cluster past the cap, k above most queries' live
+    candidates (and, at cap 1 on the 8-cell stencil, above the candidate
+    width): both tails on the card equal the CPU plain path."""
+    g = torch.Generator().manual_seed(6)
+    pts = torch.cat([0.05 + 0.005 * torch.randn(1, 300, 3, generator=g),
+                     torch.rand(1, 1500, 3, generator=g) - 0.5], dim=1)
+    valid = torch.rand(1, 1800, generator=g) > 0.1
+    args = (pts[:, :700], pts, valid[:, :700], valid, k, 0.1)
+    kw = dict(cap=cap, stencil=stencil, overflow_planes=planes)
+    want = grid_knn.grid_knn(*args, **kw)
+    for tail in grid_knn.TAILS:
+        got = grid_knn.grid_knn(*(t.to(dev) if torch.is_tensor(t) else t
+                                  for t in args), tail=tail, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
