@@ -19,17 +19,19 @@ Phases (any failure raises and exits non-zero before the result line):
   5. the same first scan through the plain versions on the card: logits
      within 2e-3;
   6. one capture train step (n_pad 36864, B=1, synthetic sweep 0 and its
-     labels, NLL + Lovász) recording K7's forward and backward and K4/K4b;
-     each recorded call re-run through the kernel and its plain version,
-     compared and timed (the backward under the call's own cotangents;
-     the plain backward takes the plain forward's residuals; backward
-     outputs compared in relative L2 norm against a perturbation
-     yardstick, see TRAIN_KERNELS);
+     labels, NLL + Lovász) recording K8's three passes (forward, reduce,
+     t), K7's forward and backward and K4/K4b; each recorded call re-run
+     through the kernel and its plain version, compared and timed (the
+     backward under the call's own cotangents; K7's plain backward takes
+     the plain forward's residuals; backward outputs compared in relative
+     L2 norm against a perturbation yardstick, see TRAIN_KERNELS; K8's
+     forward statistics within 1e-5);
   7. launch counters set to 0, five train steps through ``train_step``:
-     losses finite and falling, K7/K4/K4b/K3/K6 launches equal to five
+     losses finite and falling, K8/K7/K4/K4b/K3/K6 launches equal to five
      times the spec-derived counts;
   8. one train step from the same weights through the kernels and through
-     the plain versions: loss within 1e-4 relative, running statistics
+     the plain versions (K8's: the plain chain under torch autograd): loss
+     within 1e-4 relative, running statistics
      within 1e-5 (relative to max(1, |stat|)), every parameter gradient
      within 2e-3 of that parameter's largest -- or, for a gradient the
      model's own conditioning cannot hold to that, within 3x the plain
@@ -54,7 +56,14 @@ Phases (any failure raises and exits non-zero before the result line):
  12. scan 0 through the plain versions of every kernel on the card
      (logits within 2e-3 of the kernel path), then through the grid's
      ``planes`` tail (K10; launch counters set to 0 before it): neighbor
-     tables and logits identical to the ``records`` tail's.
+     tables and logits identical to the ``records`` tail's;
+ 13. the nuScenes flagship on the fused edge route (``edge_kernel="fused"``,
+     same weights): launch counters set to 0, scan 0 served through
+     ``predict`` with launches equal to the spec-derived counts (K9 on the
+     five sgcnn steps the gate admits) and logits within 2e-3 of the
+     ``group`` route's; then a capture forward holding each K9 call
+     against its plain version (1e-4 of max(1, |plain|)), timed beside the
+     K4 + K2 time of the same step in phase 3.
 
 Prints per-phase lines, then a JSON line of the kernels, the card's name
 and power limit, and as the last line
@@ -122,6 +131,19 @@ TOPK_KERNELS = [
 # elements by up to their own size (measured up to 3.9e-3 in L2 at the
 # flagship's 519- and 1728-query sites)
 TRAIN_KERNELS = [
+    # K8: forward z 1e-4 and its statistics 1e-5 (of max(1, |plain|));
+    # reduce and t passes K7's backward yardstick, z perturbed
+    ("conv1d_train_fwd", "conv1d_train", "conv1d_train_fwd_layer",
+     "conv1d_train_fwd_layer_ref",
+     "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
+     "curvecloudnet_tpu/ops/pallas_conv1d.py:407", 1e-4),
+    ("conv1d_train_reduce", "conv1d_train", "conv1d_train_bwd_reduce",
+     "conv1d_train_bwd_reduce_ref",
+     "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
+     "curvecloudnet_tpu/ops/pallas_conv1d.py:431", 1e-3),
+    ("conv1d_train_t", "conv1d_train", "conv1d_train_bwd_t",
+     "conv1d_train_bwd_t_ref", "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
+     "curvecloudnet_tpu/ops/pallas_conv1d.py:477", 1e-3),
     ("group_train_fwd", "group_train", "group_train_fwd",
      "group_train_fwd_ref", "curvecloudnet_tpu_torch/csrc/group_train.cu",
      "curvecloudnet_tpu/ops/pallas_group_train.py:591", 1e-4),
@@ -135,12 +157,24 @@ TRAIN_KERNELS = [
      "curvecloudnet_tpu_torch/csrc/gather.cu",
      "curvecloudnet_tpu/ops/pallas_gather.py:237", 1e-5),
 ]
-# the kernels of the train path counted in phase 7 (the four above, K3, K6)
-TRAIN_COUNTED = [("group_train_fwd", "group_train", "group_train_fwd"),
+# the plain chain that phase 8's plain path takes for K8 (torch autograd)
+PLAIN_CHAINS = [("conv1d_chain_train", "conv1d_train", "conv1d_chain_train",
+                 "conv1d_chain_train_ref")]
+# the kernels of the train path counted in phase 7 (the seven above, K3, K6)
+TRAIN_COUNTED = [("conv1d_train_fwd", "conv1d_train", "conv1d_train_fwd_layer"),
+                 ("conv1d_train_reduce", "conv1d_train",
+                  "conv1d_train_bwd_reduce"),
+                 ("conv1d_train_t", "conv1d_train", "conv1d_train_bwd_t"),
+                 ("group_train_fwd", "group_train", "group_train_fwd"),
                  ("group_train_bwd", "group_train", "group_train_bwd"),
                  ("gather", "gather", "gather_km"),
                  ("scatter", "gather", "scatter_km"),
                  ("knn", "knn", "knn_search"), ("fps", "fps", "fps_picks")]
+# phase 13: K9 on the fused edge route
+EDGE_KERNELS = [
+    ("edge_mlp", "edge_mlp", "fused_edge_mlp_max", "fused_edge_mlp_max_ref",
+     "curvecloudnet_tpu_torch/csrc/edge_mlp.cu",
+     "curvecloudnet_tpu/ops/pallas_edge.py:85", 1e-4)]
 
 
 def log(*parts):
@@ -208,6 +242,14 @@ def compare(name, out, ref, tol):
             raise AssertionError(f"{name}: differs from its plain version "
                                  f"({int((i_k != i_r).sum())} indices)")
         return 0.0
+    if name == "edge_mlp":
+        # MAX_FILL (-100) is exact in both; scale by the other values
+        rest = ref[ref != -100.0]
+        err = float((out - ref).abs().max())
+        scale = max(1.0, float(rest.abs().max())) if rest.numel() else 1.0
+        if not bool(torch.isfinite(out).all()) or err / scale > tol:
+            raise AssertionError(f"edge_mlp: max abs err {err} (scale {scale})")
+        return err
     if name == "fps":
         err = float((out.long() - ref.long()).abs().max())
         if err > tol:
@@ -222,13 +264,53 @@ def _rows(mask):
     return mask.any(-1)
 
 
+def _shaken(t, seed=7):
+    """t perturbed by 1e-5 relative noise."""
+    import torch
+
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    return t * (1 + 1e-5 * torch.randn(t.shape, generator=g, device=t.device))
+
+
+def _yardstick(name, outs, tol, what):
+    """Backward outputs [(kernel, plain, plain under a 1e-5 perturbation of
+    an input)]: each within ``tol`` in relative L2 norm plus 3x the plain
+    version's own change; norms floored at 1e-3 of the call's largest (for
+    outputs that are zero in exact arithmetic).  Returns the max abs err."""
+    import torch
+
+    floor = 1e-3 * max(float(want.norm()) for _, want, _ in outs)
+    err = worst = 0.0
+    for i, (got, want, shaken) in enumerate(outs):
+        scale = max(float(want.norm()), floor)
+        rel = float((got - want).norm()) / scale
+        bound = tol + 3 * float((shaken - want).norm()) / scale
+        if not bool(torch.isfinite(got).all()) or rel > bound:
+            raise AssertionError(f"{name}: output {i} ({what}) relative L2 "
+                                 f"err {rel} > {bound}")
+        err = max(err, float((got - want).abs().max()))
+        worst = max(worst, rel / bound)
+    log(f"  {name}: relative L2 errors within {worst:.3g} of their bounds")
+    return err
+
+
 def compare_train(name, args, kern_out, ref_fn, tol):
     """Kernel outputs of a recorded train call against its plain version.
     Returns (max abs err, plain callable for timing)."""
-    import torch
-
     from curvecloudnet_tpu_torch.ops import group_train as G
 
+    if name == "conv1d_train_fwd":
+        ref = ref_fn(*args)
+        err = max(_err(name, kern_out[0], ref[0], tol),
+                  _err(name + " mean", kern_out[1], ref[1], 1e-5),
+                  _err(name + " var", kern_out[2], ref[2], 1e-5))
+        return err, lambda: ref_fn(*args)
+    if name in ("conv1d_train_reduce", "conv1d_train_t"):
+        # the reduce pass's four sums; the t pass's d_u_prev, dW, db
+        shaken = ref_fn(args[0], _shaken(args[1]), *args[2:])
+        err = _yardstick(name, list(zip(kern_out, ref_fn(*args), shaken)),
+                         tol, "in the pass's output order")
+        return err, lambda: ref_fn(*args)
     if name == "group_train_fwd":
         h1, mask, cfg, params = args
         ref = ref_fn(*args)
@@ -246,30 +328,15 @@ def compare_train(name, args, kern_out, ref_fn, tol):
                                                          params)
         r_args = (h1, mask, cfg, params, r_stats, r_n, r_extras, dout)
         d_h1, grads = ref_fn(*r_args)
-        g = torch.Generator(device=h1.device).manual_seed(7)
-        h1_s = h1 * (1 + 1e-5 * torch.randn(h1.shape, generator=g,
-                                            device=h1.device))
+        h1_s = _shaken(h1)
         _, s_stats, s_n, s_extras = G.group_train_fwd_ref(h1_s, mask, cfg,
                                                          params)
         s_h1, s_grads = ref_fn(h1_s, mask, cfg, params, s_stats, s_n,
                                s_extras, dout)
         outs = list(zip((kern_out[0],) + tuple(kern_out[1]),
                         (d_h1,) + tuple(grads), (s_h1,) + tuple(s_grads)))
-        # gradients that are zero in exact arithmetic (a bias before a BN)
-        # are held to 1e-3 of the call's largest output norm
-        floor = 1e-3 * max(float(want.norm()) for _, want, _ in outs)
-        err = worst = 0.0
-        for i, (got, want, shaken) in enumerate(outs):
-            scale = max(float(want.norm()), floor)
-            rel = float((got - want).norm()) / scale
-            bound = tol + 3 * float((shaken - want).norm()) / scale
-            if not bool(torch.isfinite(got).all()) or rel > bound:
-                raise AssertionError(f"{name}: output {i} (0: d_h1, then the "
-                                     f"params' gradients) relative L2 err "
-                                     f"{rel} > {bound}")
-            err = max(err, float((got - want).abs().max()))
-            worst = max(worst, rel / bound)
-        log(f"  {name}: relative L2 errors within {worst:.3g} of their bounds")
+        err = _yardstick(name, outs, tol, "0: d_h1, then the params' "
+                         "gradients")
         return err, lambda: ref_fn(*r_args)
     ref = ref_fn(*args)
     return _err(name, kern_out, ref, tol), lambda: ref_fn(*args)
@@ -322,6 +389,24 @@ def work(name, args, out):
     if name == "topk_smallest":
         d, idx = args[:2]
         return nbytes(d, idx, out), d.numel()    # one compare per value
+    if name == "conv1d_train_fwd":
+        # the window product at every slot (z is written past ``used`` too)
+        z_prev, w = args[0], args[2]
+        rows = z_prev.shape[0] * z_prev.shape[1]
+        return nbytes(args[:5], out), 2 * rows * w.shape[0] * w.shape[1]
+    if name == "conv1d_train_reduce":
+        # ~10 FP32 operations per element (affine, kink, four sums)
+        return nbytes(args[:4], out), 10 * args[1].numel()
+    if name == "conv1d_train_t":
+        # the transposed window product and the weight gradient
+        z_prev, w = args[2], args[5]
+        rows = z_prev.shape[0] * z_prev.shape[1]
+        return nbytes(args[:9], out), 4 * rows * w.shape[0] * w.shape[1]
+    if name == "edge_mlp":
+        # the whole MLP on every live (query, slot) edge
+        nbr_idx, weights = args[1:3]
+        macs = sum(w.shape[0] * w.shape[1] for w in weights)
+        return nbytes(args[:4], out), 2 * int((nbr_idx >= 0).sum()) * macs
     cfg = args[2]
     rows = int(args[1].sum())
     macs = sum(a * b for a, b in zip(cfg.dims[:-1], cfg.dims[1:]))
@@ -386,8 +471,9 @@ def capture(kernels, mods, run):
     return calls, result
 
 
-def measure(kernels, mods, calls, train):
-    """Compare and time every recorded call -> report rows."""
+def measure(kernels, mods, calls, train, per_call=None):
+    """Compare and time every recorded call -> report rows; ``per_call``
+    (a dict) collects each call's kernel ms by name."""
     import torch
 
     report = {}
@@ -422,6 +508,8 @@ def measure(kernels, mods, calls, train):
                 f"plain {r_ms:.3f} ms")
             row["max_abs_err"] = max(row["max_abs_err"], e)
             row["ms"] += k_ms
+            if per_call is not None:
+                per_call.setdefault(name, []).append(k_ms)
             row["plain_ms"] += r_ms
         row["bound_by"] = ("operations" if flops_total / PEAK_FP32
                            > bytes_total / PEAK_BYTES else "bytes")
@@ -589,6 +677,55 @@ def run_kitti(P, mods, dev, kernel_launches):
     return report, by_path
 
 
+def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
+              group_call_ms):
+    """Phase 13 -> (report rows, launches of the fused route's scan)."""
+    import torch
+
+    model = P.build_model(CONFIG, N_PAD, dev, edge_kernel="fused")
+    want = kernel_launches(model.spec, N_PAD, edge_kernel="fused")
+    kernels = EVAL_KERNELS + EDGE_KERNELS
+    for name, mod, wrapper, *_ in kernels:
+        getattr(mods[mod], wrapper).launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, valid, _ = P.predict(model, *scan0)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in kernels}
+    log("fused edge route launches:", launched, "spec per scan:", want)
+    for name, got in launched.items():
+        if got != want.get(name, 0) or not got:
+            raise AssertionError(f"{name}: {got} launches on the fused edge "
+                                 f"route, want {want.get(name, 0)}")
+    err = float((logits - group_logits)[valid0].abs().max())
+    log(f"fused edge route: scan 0 {scan_ms:.1f} ms; logits vs the group "
+        f"route: max abs err {err:.3g}")
+    if not (torch.equal(valid, valid0) and err <= LOGIT_TOL):
+        raise AssertionError(f"fused edge route logits differ by {err}")
+    calls, _ = capture(EDGE_KERNELS, mods, lambda: P.predict(model, *scan0))
+    k9_ms = {}
+    report = measure(EDGE_KERNELS, mods, calls, train=False, per_call=k9_ms)
+    # each admitted step's K9 call beside the same step's K4 and K2 calls
+    # of the group route (phase 3), matched by order of the steps
+    steps = model.spec.steps
+    sgcnn = [i for i, st in enumerate(steps) if st.name == "sgcnn"]
+    grouping = [i for i, st in enumerate(steps)
+                if st.name in ("sa", "sa-geo", "sgcnn")]
+    admitted = [i for i, m in enumerate(model.steps)
+                if getattr(m, "fused", False)]
+    if len(admitted) != len(k9_ms["edge_mlp"]):
+        raise AssertionError(f"{len(k9_ms['edge_mlp'])} K9 calls for the "
+                             f"admitted steps {admitted}")
+    for i, k9 in zip(admitted, k9_ms["edge_mlp"]):
+        k4 = group_call_ms["gather"][sgcnn.index(i)]
+        k2 = group_call_ms["group_reduce"][grouping.index(i)]
+        log(f"  step_{i} sgcnn: K9 {k9:.3f} ms; K4 {k4:.3f} + K2 {k2:.3f} = "
+            f"{k4 + k2:.3f} ms")
+    return report, launched
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -604,7 +741,8 @@ def main():
     from curvecloudnet_tpu_torch import predict as P
     from curvecloudnet_tpu_torch.models import kernel_launches
     from curvecloudnet_tpu_torch.ops import _build
-    from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
+    from curvecloudnet_tpu_torch.ops import (conv1d_chain, conv1d_train,
+                                             edge_mlp, fps, gather,
                                              grid_topk, group_reduce,
                                              group_train, knn)
     from curvecloudnet_tpu_torch.train import LossConfig, train_step
@@ -615,7 +753,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     mods = {"conv1d_chain": conv1d_chain, "group_reduce": group_reduce,
             "knn": knn, "fps": fps, "gather": gather,
-            "group_train": group_train, "grid_topk": grid_topk}
+            "group_train": group_train, "grid_topk": grid_topk,
+            "conv1d_train": conv1d_train, "edge_mlp": edge_mlp}
     dev = torch.device("cuda", 0)
 
     # 1. the card
@@ -635,7 +774,9 @@ def main():
     scan0 = P.synthetic_scan(0, N_PAD, dev)
     calls, (logits0, valid0, _) = capture(
         EVAL_KERNELS, mods, lambda: P.predict(model, *scan0))
-    eval_report = measure(EVAL_KERNELS, mods, calls, train=False)
+    group_call_ms = {}
+    eval_report = measure(EVAL_KERNELS, mods, calls, train=False,
+                          per_call=group_call_ms)
     del calls
 
     # 4. the eval path: three scans through predict, launches counted
@@ -676,7 +817,7 @@ def main():
     if not err <= LOGIT_TOL:
         raise AssertionError(f"logits differ from the plain path by {err}")
     log(f"per-scan latency ms: {scan_ms}")
-    del model, plain, logits0
+    del model, plain
 
     # 6. capture one train step, compare and time every recorded call
     loss_cfg = LossConfig(ignore_index=0, use_lovasz=True)
@@ -697,8 +838,8 @@ def main():
         gen = torch.Generator(device=dev).manual_seed(0)
         with contextlib.ExitStack() as stack:
             if plain_path:
-                for name, mod, wrapper, ref_name, *_ in (EVAL_KERNELS
-                                                         + TRAIN_KERNELS):
+                for name, mod, wrapper, ref_name, *_ in (
+                        EVAL_KERNELS + TRAIN_KERNELS + PLAIN_CHAINS):
                     m = mods[mod]
                     stack.enter_context(replaced(m, wrapper,
                                                  getattr(m, ref_name)))
@@ -809,6 +950,8 @@ def main():
 
     del init, opt, batch
     kitti_report, kitti_launched = run_kitti(P, mods, dev, kernel_launches)
+    fused_report, fused_launched = run_fused(
+        P, mods, dev, kernel_launches, scan0, logits0, valid0, group_call_ms)
 
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
@@ -827,9 +970,11 @@ def main():
                                               report[name]["max_abs_err"])
         else:                # K5, K10
             report[name] = row
+    report.update(fused_report)  # K9
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
-                   "train": train_launched.get(name, 0)}
+                   "train": train_launched.get(name, 0),
+                   "eval_fused": fused_launched.get(name, 0)}
         for path, counts in kitti_launched.items():
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())

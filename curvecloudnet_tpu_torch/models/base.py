@@ -20,9 +20,9 @@ from ..ops import neighbors
 from ..ops.neighbors import TABLE_K, TableCache
 from .cloud import Cloud
 from .layers import MLP
-from .modules import (CurveFPStep, CurveSAStep, EdgeConvStep, FPStep,
-                      SAStep, SharedMLPStep, SkipConnectStep,
-                      SymmetricCurveConvStep)
+from .modules import (EDGE_ROUTES, CurveFPStep, CurveSAStep, EdgeConvStep,
+                      FPStep, SAStep, SharedMLPStep, SkipConnectStep,
+                      SymmetricCurveConvStep, fused_edge_admits)
 from .spec import ModelSpec
 
 
@@ -107,21 +107,29 @@ def _search_radius(step):
     return None
 
 
-def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
+def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
+                    edge_kernel: str = "group"):
     """Kernel launches of one eval forward, or with ``train`` of one train
     step (forward + backward), any batch size, derived from the spec.
 
     Eval: K1 once per conv step, K2 once per grouping step.  Train: per
-    grouping step with L kernel-side denses, the K7 forward runs L stats
-    passes, one more for the attention BN, and the output pass; its
+    conv step with L layers, K8 runs L forward, L reduce and L t passes;
+    per grouping step with L kernel-side denses, the K7 forward runs L
+    stats passes, one more for the attention BN, and the output pass; its
     backward runs B_att (attend), B_msg and L-1 B_mid passes.  Both: K4
     once per sgcnn step (its self-row gather; K4b once in the backward),
     K6 once per FPS step, K3 once per exact shared row table and per fp
     sweep, K5 (``grid_topk``, listed only where it runs) once per distinct
     grid table of a row above ``neighbors.TABLE_MAX_N``; a search no table
-    serves launches its own."""
-    counts = ({"group_train_fwd": 0, "group_train_bwd": 0, "gather": 0,
-               "scatter": 0, "knn": 0, "fps": 0} if train else
+    serves launches its own.  With ``edge_kernel="fused"`` an eval sgcnn
+    step whose widths ``fused_edge_admits`` launches K9 (``edge_mlp``,
+    listed only where it runs) in place of K4 and K2."""
+    if edge_kernel not in EDGE_ROUTES:
+        raise ValueError(f"edge_kernel {edge_kernel!r}")
+    counts = ({"conv1d_train_fwd": 0, "conv1d_train_reduce": 0,
+               "conv1d_train_t": 0, "group_train_fwd": 0,
+               "group_train_bwd": 0, "gather": 0, "scatter": 0, "knn": 0,
+               "fps": 0} if train else
               {"conv1d_chain": 0, "group_reduce": 0, "gather": 0, "knn": 0,
                "fps": 0})
     bounds, grid_bounds, grid_caps = row_radius_bounds(spec)
@@ -129,9 +137,17 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
     tables = {}      # distinct shared table -> the kernel that builds it
     for i, step in enumerate(spec.steps):
         n = sizes[row]
-        if step.name == "conv1d-fast-v2" and not train:
-            counts["conv1d_chain"] += 1
-        if step.name in ("sa", "sa-geo", "sgcnn"):
+        if step.name == "conv1d-fast-v2":
+            if train:
+                for name in ("fwd", "reduce", "t"):
+                    counts["conv1d_train_" + name] += len(step.feat_dims)
+            else:
+                counts["conv1d_chain"] += 1
+        fused = (step.name == "sgcnn" and not train and edge_kernel == "fused"
+                 and fused_edge_admits(spec.input_dim(i)))
+        if fused:
+            counts["edge_mlp"] = counts.get("edge_mlp", 0) + 1
+        elif step.name in ("sa", "sa-geo", "sgcnn"):
             if train:
                 n_loc = len(spec.input_dim(i)) - 2
                 attend = int(step.aggr_type == "attend")
@@ -139,7 +155,7 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False):
                 counts["group_train_bwd"] += attend + n_loc
             else:
                 counts["group_reduce"] += 1
-        if step.name == "sgcnn":
+        if step.name == "sgcnn" and not fused:
             counts["gather"] += 1
             if train:
                 counts["scatter"] += 1
@@ -173,10 +189,14 @@ class CurveCloudNet(nn.Module):
     """The full network: steps (``steps.{i}``) + head MLP (``mlp``).
 
     ``feat_channels`` is the width of the input cloud's features (None for
-    position-only inputs); ``n_points`` is the padded full-resolution row.
+    position-only inputs); ``n_points`` is the padded full-resolution row;
+    ``edge_kernel`` is the eval route of the sgcnn steps: ``"group"`` (K4 +
+    K2) or ``"fused"`` (K9 where the widths admit it, see
+    ``modules.fused_edge_admits``).
     """
 
-    def __init__(self, spec: ModelSpec, n_points: int, feat_channels=None):
+    def __init__(self, spec: ModelSpec, n_points: int, feat_channels=None,
+                 edge_kernel: str = "group"):
         super().__init__()
         if spec.with_seg_category:
             raise NotImplementedError("the lin_categorical head is not ported")
@@ -209,7 +229,7 @@ class CurveCloudNet(nn.Module):
                     3 if widths[j] is None else widths[j] for j in take])
             elif name == "sgcnn":
                 mod = EdgeConvStep(spec, step, dims, w, bounds[i],
-                                   grid_bounds[i], grid_caps[i])
+                                   grid_bounds[i], grid_caps[i], edge_kernel)
             elif name == "conv1d-fast-v2":
                 mod = SymmetricCurveConvStep(spec, step, w)
             elif name == "mlp":

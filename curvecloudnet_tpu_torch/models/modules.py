@@ -22,10 +22,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import (conv1d_chain, curve1d, group_reduce, group_train,
-                   interpolate, neighbors, sampling)
+from ..ops import (conv1d_chain, conv1d_train, curve1d, edge_mlp,
+                   group_reduce, group_train, interpolate, neighbors,
+                   sampling)
 from .cloud import Cloud
-from .layers import MLP, MaskedBatchNorm, leaky_relu
+from .layers import MLP, MaskedBatchNorm
 from .spec import ModelSpec, StepSpec
 
 
@@ -102,7 +103,8 @@ class SymmetricCurveConvStep(nn.Module):
     """conv1d-fast-v2: symmetric 1D convolution along curves over the
     reference's zero-stuffed sequence (reference fast_conv1d.py:49-74).
     Taps are stored as (O, I, h+1) weights (``conv_modules.j``) with
-    BatchNorm ``norm_modules.j``; the chain runs in kernel K1."""
+    BatchNorm ``norm_modules.j``; the chain runs in kernel K1 in eval,
+    kernel K8 in train."""
 
     def __init__(self, spec: ModelSpec, step: StepSpec, c_in: Optional[int]):
         super().__init__()
@@ -141,19 +143,22 @@ class SymmetricCurveConvStep(nn.Module):
         return cloud.with_features(curve1d.gap_gather(out, exp_idx, valid))
 
     def _train_chain(self, xe, used, bn_momentum):
-        """The plain expanded chain (K8 is off by default in the JAX
-        package): BN statistics over every live slot of the gap layout,
-        gap slots included (the JAX package's ``mask_exp``)."""
-        live = (torch.arange(xe.shape[1], device=xe.device)[None, :]
-                < used[:, None].long())
+        """Kernel K8 over the gap layout: BN statistics over every live slot,
+        gap slots included (the JAX package's ``mask_exp``); the running
+        statistics are written from K8's batch statistics, as ``_grouped``
+        does for K7."""
+        params = []
         for conv, norm in zip(self.conv_modules, self.norm_modules):
             o, i, taps = conv.weight.shape
-            w = conv.weight.permute(2, 1, 0).reshape(taps * i, o)
-            xe = curve1d.window_concat_nomask(xe, self.half_k) @ w + conv.bias
-            xe = leaky_relu(norm(xe, mask=live, train=True,
-                                 momentum=bn_momentum))
-            xe = xe * live[..., None].to(xe.dtype)
-        return xe
+            params.append((conv.weight.permute(2, 1, 0).reshape(taps * i, o),
+                           conv.bias, norm.weight, norm.bias))
+        out, stats = conv1d_train.conv1d_chain_train(xe, params, used,
+                                                     self.half_k)
+        with torch.no_grad():
+            for norm, st in zip(self.norm_modules, stats):
+                norm(st[0][None], train=True, momentum=bn_momentum,
+                     stats_override=st, update_running=True)
+        return out
 
 
 class _Taps(nn.Module):
@@ -254,25 +259,42 @@ class SAStep(nn.Module):
             self.conv.attend_nn, step.aggr_type, train, bn_momentum))
 
 
+EDGE_ROUTES = ("group", "fused")
+
+
+def fused_edge_admits(dims) -> bool:
+    """The JAX package's gate for its fused edge kernel (modules.py:715-721):
+    every width of the edge MLP ``dims`` (its input 2C included) at most
+    512; its other bound, x at most 300 wide, follows from 2C <= 512, and
+    its max aggregation is the port's only sgcnn aggregation."""
+    return max(dims) <= 512
+
+
 class EdgeConvStep(nn.Module):
     """sgcnn edge convolution, fast message order [x_j, x_i - x_j]
     (reference dgcnn.py:158-207).  Layer 0 re-associates as
     gather(x @ (Wt - Wb)) + x_i @ Wb (+ b), so the (B, N, K, 2C) message
-    concat never materializes."""
+    concat never materializes.  With ``edge_kernel="fused"``, eval runs the
+    whole MLP and the masked max in kernel K9 (``ops/edge_mlp.py``) where
+    :func:`fused_edge_admits` the widths; train always takes K4/K4b + K7."""
 
     def __init__(self, spec, step, dims, c_in, table_bound, grid_bound=None,
-                 grid_cap=None):
+                 grid_cap=None, edge_kernel: str = "group"):
         super().__init__()
         if step.name != "sgcnn" or step.use_sparse_feat_agg:
             raise NotImplementedError(
                 f"{step.name} (sparse={step.use_sparse_feat_agg}) is not ported")
         if step.aggr_type != "max":
             raise NotImplementedError(f"sgcnn aggr_type {step.aggr_type!r}")
+        if edge_kernel not in EDGE_ROUTES:
+            raise ValueError(f"edge_kernel {edge_kernel!r}: one of "
+                             f"{EDGE_ROUTES}")
         self.step = step
         self.table_bound, self.grid_bound, self.grid_cap = (
             table_bound, grid_bound, grid_cap)
         cx = xyz_width(c_in, step.with_xyz)
         self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
+        self.fused = edge_kernel == "fused" and fused_edge_admits(self.nn.dims)
 
     def forward(self, cloud: Cloud, tables, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
@@ -284,6 +306,11 @@ class EdgeConvStep(nn.Module):
             table_bound=self.table_bound, grid_bound=self.grid_bound,
             grid_cap=self.grid_cap, tables=tables)
         nbr_idx = neighbors.add_self_loops(nbr_idx, cloud.valid)
+        valid = cloud.valid[..., None]
+        if self.fused and not train:
+            out = edge_mlp.fused_edge_mlp_max(
+                x, nbr_idx, *edge_mlp.fold_edge_mlp_eval(self.nn))
+            return cloud.with_features(out * valid.to(out.dtype))
         lin0 = self.nn.lins[0]
         c = x.shape[-1]
         w_top, w_bot = lin0.weight[:, :c], lin0.weight[:, c:]
@@ -297,7 +324,7 @@ class EdgeConvStep(nn.Module):
             + v[:, None])
         out = _grouped(first.contiguous(), (nbr_idx >= 0).contiguous(),
                        self.nn, None, "max", train, bn_momentum)
-        return cloud.with_features(out * cloud.valid[..., None].to(out.dtype))
+        return cloud.with_features(out * valid.to(out.dtype))
 
 
 class SharedMLPStep(nn.Module):

@@ -8,10 +8,12 @@ jitter).  Run, e.g. on the GPU::
     python -m curvecloudnet_tpu_torch.predict --config configs/nuscenes.yaml \\
         --scans 3 --device cuda
     python -m curvecloudnet_tpu_torch.predict --config configs/kitti.yaml
+    python -m curvecloudnet_tpu_torch.predict --edge-kernel fused
 
 which serves synthetic scans (seeds 0, 1, ...) of the config's dataset's
 sensor at the config's ``n_pad`` with B=1 and prints one JSON line per
-scan.
+scan.  ``--edge-kernel`` picks the sgcnn steps' eval route: ``group`` (K4 +
+K2, the default) or ``fused`` (K9 on the steps whose widths admit it).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from .config import load_config
 from .data import lidar_batch
 from .models import CurveCloudNet, cloud_from_arrays, parse_model_config
+from .models.modules import EDGE_ROUTES
 
 # output classes of the ported datasets (curvecloudnet_tpu/run/tasks.py)
 N_OUT = {"nuscenes": 17, "kitti": 20}
@@ -59,13 +62,16 @@ def dataset_of(config_path: str) -> str:
     return load_config(config_path).get("dataset_source", "nuscenes")
 
 
-def build_model(config_path: str, n_pad: int, device, generator=None):
+def build_model(config_path: str, n_pad: int, device, generator=None,
+                edge_kernel: str = "group"):
     """The config's model with random weights from ``generator`` (seed 0
-    when None), in eval mode on ``device``."""
+    when None), in eval mode on ``device``, its sgcnn steps on the eval
+    route ``edge_kernel`` (the weights do not depend on it)."""
     cfg = load_config(config_path)
     n_out = N_OUT[cfg.get("dataset_source", "nuscenes")]
     spec = parse_model_config(cfg["model"], in_dim=IN_DIM, n_out=n_out)
-    model = CurveCloudNet(spec, n_points=n_pad, feat_channels=FEAT_CHANNELS)
+    model = CurveCloudNet(spec, n_points=n_pad, feat_channels=FEAT_CHANNELS,
+                          edge_kernel=edge_kernel)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
@@ -93,13 +99,15 @@ def main(argv=None) -> None:
     ap.add_argument("--config", default="configs/nuscenes.yaml")
     ap.add_argument("--scans", type=int, default=3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--edge-kernel", default="group", choices=EDGE_ROUTES)
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     n_pad = int(load_config(args.config)["n_pad"])
     n_beams = N_BEAMS[dataset_of(args.config)]
-    model = build_model(args.config, n_pad, device)
+    model = build_model(args.config, n_pad, device,
+                        edge_kernel=args.edge_kernel)
     for scan in range(args.scans):
         inputs = synthetic_scan(scan, n_pad, device, n_beams)
         t0 = time.perf_counter()

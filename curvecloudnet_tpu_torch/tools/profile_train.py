@@ -26,8 +26,9 @@ from ..train.__main__ import setup
 from ..train.trainer import train_step
 
 N_PAD = 36864
-GROUPS = (("K7", "group_train"), ("K4", "gather_km"), ("K4b", "scatter_km"),
-          ("K3", "knn_kernel"), ("K6", "fps_kernel"), ("gemm", "gemm"))
+GROUPS = (("K7", "group_train"), ("K8", "conv1d_train"), ("K4", "gather_km"),
+          ("K4b", "scatter_km"), ("K3", "knn_kernel"), ("K6", "fps_kernel"),
+          ("gemm", "gemm"))
 
 
 def main() -> None:

@@ -16,7 +16,12 @@ the call's largest, for tensors that are zero in exact arithmetic): the
 activation's derivative jumps at 0 (1 vs 0.01) and a max picks one of two
 near-equal slots, so rare rows within rounding of such a point take
 another branch in the kernel than in the plain version, moving single
-elements by up to their own size.  K4 copies rows (exact);
+elements by up to their own size.  K8: forward z 1e-4, its statistics
+1e-5, the reduce and t passes K7's yardstick with z perturbed, the whole
+chain's value 1e-4 and gradients 1e-3 in relative L2 norm against torch
+autograd of the plain chain.  K9 sums products in another order than the
+plain MLP: 1e-4 relative to the largest value other than the -100 fill.
+K4 copies rows (exact);
 K4b adds with atomics (1e-5).  K5 and K10 compute squared distances in the
 plain versions' order and break ties alike (the earlier column): equal.  The whole train step is held to the CPU
 plain path against a yardstick: the plain path's own change under a 1e-5
@@ -29,8 +34,9 @@ import pytest
 import torch
 
 from curvecloudnet_tpu_torch import predict
-from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
-                                         grid_knn, grid_topk, group_reduce,
+from curvecloudnet_tpu_torch.ops import (conv1d_chain, conv1d_train,
+                                         edge_mlp, fps, gather, grid_knn,
+                                         grid_topk, group_reduce,
                                          group_train, knn)
 from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
 from curvecloudnet_tpu_torch.train.trainer import (LossConfig,
@@ -280,3 +286,100 @@ def test_grid_search_spills_on_the_card(dev, cap, stencil, planes, k):
                                   for t in args), tail=tail, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def _yardstick_ok(got, want, shaken, tol=1e-3):
+    """Relative L2 within ``tol`` plus 3x the plain version's own change
+    under a 1e-5 input perturbation (norms floored at 1e-3 of the
+    largest)."""
+    floor = 1e-3 * max(float(w.norm()) for w in want)
+    for g, w, s in zip(got, want, shaken):
+        scale = max(float(w.norm()), floor)
+        assert float((g - w).norm()) <= tol * scale + 3 * float((s - w).norm())
+
+
+@pytest.mark.parametrize("c0,dims,h", [(8, (32, 32, 32), 2),
+                                       (262, (32, 32, 32), 2),
+                                       (5, (16, 24), 1)])
+def test_conv1d_train_kernels(dev, c0, dims, h):
+    g = torch.Generator().manual_seed(8)
+    n_exp = 3000
+    used = torch.tensor([2900, 1700], dtype=torch.int32)
+    xe = torch.randn(2, n_exp, c0, generator=g)
+    xe[0, 2900:] = 0
+    xe[1, 1700:] = 0
+    params, cin = [], c0
+    for cout in dims:
+        params.append((torch.randn((h + 1) * cin, cout, generator=g)
+                       / ((h + 1) * cin) ** 0.5,
+                       0.1 * torch.randn(cout, generator=g),
+                       0.5 + torch.rand(cout, generator=g),
+                       0.1 * torch.randn(cout, generator=g)))
+        cin = cout
+    xe, used = xe.to(dev), used.to(dev)
+    params = [tuple(t.to(dev) for t in p) for p in params]
+    cot = torch.randn(2, n_exp, dims[-1], generator=g).to(dev)
+    # each pass against its plain version on the same inputs
+    z_prev, bn_prev = xe, None
+    for w, b, gam, bet in params:
+        args = (z_prev, bn_prev, w, b, used, h)
+        z, mean, var = conv1d_train.conv1d_train_fwd_layer(*args)
+        r_z, r_mean, r_var = conv1d_train.conv1d_train_fwd_layer_ref(*args)
+        assert _rel_err(z, r_z) <= 1e-4
+        assert _rel_err(mean, r_mean) <= 1e-5 and _rel_err(var, r_var) <= 1e-5
+        bn = (r_mean, torch.rsqrt(r_var + 1e-5), gam, bet)
+        d_u = torch.randn(z.shape, generator=g).to(dev)
+        z_s = z * (1 + 1e-5 * torch.randn(z.shape, generator=g).to(dev))
+        red = conv1d_train.conv1d_train_bwd_reduce(d_u, r_z, bn, used)
+        r_red = conv1d_train.conv1d_train_bwd_reduce_ref(d_u, r_z, bn, used)
+        s_red = conv1d_train.conv1d_train_bwd_reduce_ref(d_u, z_s, bn, used)
+        _yardstick_ok(red, r_red, s_red)
+        c1, c2 = r_red[0] / used.sum(), r_red[1] / used.sum()
+        t_args = (d_u, r_z, z_prev, bn, bn_prev, w, c1, c2, used, h)
+        _yardstick_ok(conv1d_train.conv1d_train_bwd_t(*t_args),
+                      conv1d_train.conv1d_train_bwd_t_ref(*t_args),
+                      conv1d_train.conv1d_train_bwd_t_ref(
+                          d_u, z_s, *t_args[2:]))
+        z_prev, bn_prev = r_z, bn
+    # the chain through the autograd Function against torch autograd
+    outs = []
+    for chain in (conv1d_train.conv1d_chain_train,
+                  conv1d_train.conv1d_chain_train_ref):
+        x = xe.clone().requires_grad_(True)
+        ps = [[t.clone().requires_grad_(True) for t in p] for p in params]
+        out, stats = chain(x, ps, used, h)
+        (out * cot).sum().backward()
+        outs.append((out.detach(),
+                     [[t.detach() for t in s[:2]] for s in stats],
+                     [x.grad] + [t.grad for p in ps for t in p]))
+    (out, stats, grads), (r_out, r_stats, r_grads) = outs
+    assert _rel_err(out, r_out) <= 1e-4
+    for (m, v), (r_m, r_v) in zip(stats, r_stats):
+        assert _rel_err(m, r_m) <= 1e-5 and _rel_err(v, r_v) <= 1e-5
+    for got, want in zip(grads, r_grads):
+        assert float((got - want).norm()) <= 1e-3 * max(
+            float(want.norm()), 1e-3 * float(r_grads[0].norm()))
+
+
+@pytest.mark.parametrize("c,widths", [(67, (64, 64, 64)), (131, (128, 128)),
+                                      (256, (256, 256)), (5, (7,))])
+def test_edge_mlp_kernel(dev, c, widths):
+    g = torch.Generator().manual_seed(9)
+    n, k = 700, 21
+    x = torch.randn(2, n, c, generator=g)
+    idx = torch.randint(0, n, (2, n, k), generator=g, dtype=torch.int32)
+    idx[:, :, 0] = torch.arange(n, dtype=torch.int32)
+    idx[torch.rand(2, n, k, generator=g) < 0.3] = -1
+    idx[:, 600:] = -1                      # padding queries: no live slot
+    dims = (2 * c,) + widths
+    weights = tuple(torch.randn(a, b, generator=g) / a ** 0.5
+                    for a, b in zip(dims[:-1], dims[1:]))
+    biases = tuple(0.1 * torch.randn(b, generator=g) for b in widths)
+    args = (x.to(dev), idx.to(dev), tuple(w.to(dev) for w in weights),
+            tuple(b.to(dev) for b in biases))
+    got = edge_mlp.fused_edge_mlp_max(*args)
+    want = edge_mlp.fused_edge_mlp_max_ref(*args)
+    assert bool((got[:, 600:] == -100.0).all())
+    rest = want[want != -100.0]
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(rest.abs().max()))
