@@ -301,10 +301,12 @@ def compare_train(name, args, kern_out, ref_fn, tol):
 
     if name == "conv1d_train_fwd":
         ref = ref_fn(*args)
-        err = max(_err(name, kern_out[0], ref[0], tol),
-                  _err(name + " mean", kern_out[1], ref[1], 1e-5),
-                  _err(name + " var", kern_out[2], ref[2], 1e-5))
-        return err, lambda: ref_fn(*args)
+        errs = (_err(name, kern_out[0], ref[0], tol),
+                _err(name + " mean", kern_out[1], ref[1], 1e-5),
+                _err(name + " var", kern_out[2], ref[2], 1e-5))
+        log(f"  {name}: z err {errs[0]:.3g}, mean err {errs[1]:.3g}, "
+            f"var err {errs[2]:.3g}")
+        return max(errs), lambda: ref_fn(*args)
     if name in ("conv1d_train_reduce", "conv1d_train_t"):
         # the reduce pass's four sums; the t pass's d_u_prev, dW, db
         shaken = ref_fn(args[0], _shaken(args[1]), *args[2:])
@@ -403,10 +405,23 @@ def work(name, args, out):
         rows = z_prev.shape[0] * z_prev.shape[1]
         return nbytes(args[:9], out), 4 * rows * w.shape[0] * w.shape[1]
     if name == "edge_mlp":
-        # the whole MLP on every live (query, slot) edge
+        # layer 0 is linear in [x_j, x_i - x_j] = x_j (W_top - W_bot) +
+        # x_i W_bot: one C-wide product a point for each of the two (valid
+        # queries, live neighbour rows), then one h1-wide add per live
+        # edge; the later layers on every live edge
         nbr_idx, weights = args[1:3]
-        macs = sum(w.shape[0] * w.shape[1] for w in weights)
-        return nbytes(args[:4], out), 2 * int((nbr_idx >= 0).sum()) * macs
+        b, n, _ = nbr_idx.shape
+        live = nbr_idx >= 0
+        c, h1 = weights[0].shape[0] // 2, weights[0].shape[1]
+        rows = (nbr_idx.long() +
+                n * torch.arange(b, device=nbr_idx.device).view(b, 1, 1))
+        seen = torch.zeros(b * n, dtype=torch.bool, device=nbr_idx.device)
+        seen[rows[live]] = True
+        points = int(live.any(-1).sum()) + int(seen.sum())
+        later = sum(w.shape[0] * w.shape[1] for w in weights[1:])
+        edges = int(live.sum())
+        return (nbytes(args[:4], out),
+                2 * points * c * h1 + edges * (h1 + 2 * later))
     cfg = args[2]
     rows = int(args[1].sum())
     macs = sum(a * b for a, b in zip(cfg.dims[:-1], cfg.dims[1:]))
