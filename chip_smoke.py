@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero before the result line):
      recording every eval kernel call (K1, K2, K3, K6, K4); each recorded
      call is re-run through the kernel and through its plain PyTorch
      version and the outputs compared (tolerances below), both timed with
-     CUDA events;
+     CUDA events; one line per K2 call (step, M, K, widths, aggregation,
+     live rows, kernel / plain / bound ms and the 3xTF32 floor);
   4. launch counters set to 0, three synthetic scans (seeds 0, 1, 2) served
      through ``predict``; each kernel's count must equal the spec-derived
      count per scan;
@@ -42,7 +43,7 @@ Phases (any failure raises and exits non-zero before the result line):
      n_pad 131072, B=1, on a 64-beam synthetic sweep (seed 0), recording
      every K1, K2, K3, K4, K5 and K6 call and every grid search; each call
      compared with its plain version and timed (K5: indices and distances
-     equal); K10 held against its plain version (equal) on each K5 call's
+     equal), a line per K2 call as in phase 3; K10 held against its plain version (equal) on each K5 call's
      candidate planes, and against K5's answer, timed beside torch.topk;
  10. launch counters set to 0, three KITTI scans (seeds 0, 1, 2) through
      ``predict``: logits finite of shape (1, 131072, 20), launches equal to
@@ -63,7 +64,8 @@ Phases (any failure raises and exits non-zero before the result line):
      five sgcnn steps the gate admits) and logits within 2e-3 of the
      ``group`` route's; then a capture forward holding each K9 call
      against its plain version (1e-4 of max(1, |plain|)), timed beside the
-     K4 + K2 time of the same step in phase 3.
+     K4 + K2 time of the same step in phase 3, and each of the route's ten
+     K2 calls against its plain version (as in phase 3).
 
 Prints per-phase lines, then a JSON line of the kernels, the card's name
 and power limit, and as the last line
@@ -93,6 +95,7 @@ LOGIT_TOL = 2e-3  # the full-model bar of the JAX package's parity tests
 # FP32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12   # dense TF32 tensor-core FLOP/s (K2's 3xTF32 floor)
 
 # (name, module, wrapper, plain version, source, Pallas call it replaces,
 #  tolerance: max |kernel - plain| / max(1, max |plain|) on float outputs)
@@ -517,14 +520,17 @@ def measure(kernels, mods, calls, train, per_call=None):
                         lib, reps)
             nb, fl = work(name, args, out)
             bytes_total, flops_total = bytes_total + nb, flops_total + fl
-            row["bound_ms"] += max(nb / PEAK_BYTES, fl / PEAK_FP32) * 1e3
+            bound = max(nb / PEAK_BYTES, fl / PEAK_FP32) * 1e3
+            row["bound_ms"] += bound
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
             log(f"  {name} {shapes}: err {e:.3g}, kernel {k_ms:.3f} ms, "
                 f"plain {r_ms:.3f} ms")
             row["max_abs_err"] = max(row["max_abs_err"], e)
             row["ms"] += k_ms
             if per_call is not None:
-                per_call.setdefault(name, []).append(k_ms)
+                per_call.setdefault(name, []).append(
+                    {"ms": k_ms, "plain_ms": r_ms, "bound_ms": bound,
+                     "flops": fl})
             row["plain_ms"] += r_ms
         row["bound_by"] = ("operations" if flops_total / PEAK_FP32
                            > bytes_total / PEAK_BYTES else "bytes")
@@ -534,6 +540,37 @@ def measure(kernels, mods, calls, train, per_call=None):
             f"({row['bound_by']}), library {row['library_ms']}")
         report[name] = row
     return report
+
+
+def k2_sites(label, spec, calls, per_call):
+    """Phases 3 and 9: one line per K2 call of the captured forward (the
+    grouping steps, in order; batch row 0's queries with no live slot, and
+    how many of those have K equal h1 planes), and their sums with the
+    3xTF32 floor (3x the FP32 operations at the TF32 tensor-core peak)."""
+    steps = [i for i, st in enumerate(spec.steps)
+             if st.name in ("sa", "sa-geo", "sgcnn")]
+    sums = dict.fromkeys(("ms", "plain_ms", "bound_ms", "floor_ms"), 0.0)
+    for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
+        h1, mask, _, local, att = args[:5]
+        aggr = kwargs["aggr"]
+        widths = [h1.shape[-1]] + [w.shape[1] for w, _ in local]
+        att_w = [w.shape[1] for w, _ in att] if aggr == "attend" else []
+        floor = 3 * t["flops"] / PEAK_TF32 * 1e3
+        dead = ~mask[0].any(-1)
+        equal = (h1[0][:, dead] == h1[0][:1, dead]).all(-1).all(0)
+        log(f"K2 site {label} step_{steps[i]}: M {h1.shape[2]}, K "
+            f"{h1.shape[1]}, widths {widths}, attend {att_w}, {aggr}, live "
+            f"rows {int(mask.sum())} of {mask.numel()}, {int(dead.sum())} "
+            f"queries with no live slot ({int(equal.sum())} with K equal "
+            f"planes), kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms, 3xTF32 floor {floor:.3f} ms")
+        for key in ("ms", "plain_ms", "bound_ms"):
+            sums[key] += t[key]
+        sums["floor_ms"] += floor
+    log(f"K2 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
+        f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms, "
+        f"3xTF32 floor {sums['floor_ms']:.3f} ms")
 
 
 def recording(calls, fn):
@@ -594,7 +631,11 @@ def run_kitti(P, mods, dev, kernel_launches):
                                                   grid_knn.grid_knn)):
         calls, _ = capture(KITTI_KERNELS, mods,
                            lambda: P.predict(model, *scan0))
-    report = measure(KITTI_KERNELS, mods, calls, train=False)
+    per_call = {}
+    report = measure(KITTI_KERNELS, mods, calls, train=False,
+                     per_call=per_call)
+    k2_sites("KITTI", model.spec, calls["group_reduce"],
+             per_call["group_reduce"])
     topk_calls = []
     for args, _, out in calls["grid_topk"]:
         table, counts, nbr, query, q_valid, k, r2 = args
@@ -694,7 +735,8 @@ def run_kitti(P, mods, dev, kernel_launches):
 
 def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
               group_call_ms):
-    """Phase 13 -> (report rows, launches of the fused route's scan)."""
+    """Phase 13 -> (K9's report row, launches of the fused route's scan,
+    the worst error of its K2 calls)."""
     import torch
 
     model = P.build_model(CONFIG, N_PAD, dev, edge_kernel="fused")
@@ -719,9 +761,12 @@ def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
         f"route: max abs err {err:.3g}")
     if not (torch.equal(valid, valid0) and err <= LOGIT_TOL):
         raise AssertionError(f"fused edge route logits differ by {err}")
-    calls, _ = capture(EDGE_KERNELS, mods, lambda: P.predict(model, *scan0))
+    # K9's calls and the route's K2 calls (same tolerance as phase 3)
+    held = EDGE_KERNELS + [k for k in EVAL_KERNELS if k[0] == "group_reduce"]
+    calls, _ = capture(held, mods, lambda: P.predict(model, *scan0))
     k9_ms = {}
-    report = measure(EDGE_KERNELS, mods, calls, train=False, per_call=k9_ms)
+    report = measure(held, mods, calls, train=False, per_call=k9_ms)
+    k2_err = report.pop("group_reduce")["max_abs_err"]
     # each admitted step's K9 call beside the same step's K4 and K2 calls
     # of the group route (phase 3), matched by order of the steps
     steps = model.spec.steps
@@ -733,12 +778,12 @@ def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
     if len(admitted) != len(k9_ms["edge_mlp"]):
         raise AssertionError(f"{len(k9_ms['edge_mlp'])} K9 calls for the "
                              f"admitted steps {admitted}")
-    for i, k9 in zip(admitted, k9_ms["edge_mlp"]):
-        k4 = group_call_ms["gather"][sgcnn.index(i)]
-        k2 = group_call_ms["group_reduce"][grouping.index(i)]
+    for i, k9 in zip(admitted, (t["ms"] for t in k9_ms["edge_mlp"])):
+        k4 = group_call_ms["gather"][sgcnn.index(i)]["ms"]
+        k2 = group_call_ms["group_reduce"][grouping.index(i)]["ms"]
         log(f"  step_{i} sgcnn: K9 {k9:.3f} ms; K4 {k4:.3f} + K2 {k2:.3f} = "
             f"{k4 + k2:.3f} ms")
-    return report, launched
+    return report, launched, k2_err
 
 
 def grads_and_stats(model):
@@ -792,6 +837,8 @@ def main():
     group_call_ms = {}
     eval_report = measure(EVAL_KERNELS, mods, calls, train=False,
                           per_call=group_call_ms)
+    k2_sites("nuScenes", model.spec, calls["group_reduce"],
+             group_call_ms["group_reduce"])
     del calls
 
     # 4. the eval path: three scans through predict, launches counted
@@ -965,7 +1012,7 @@ def main():
 
     del init, opt, batch
     kitti_report, kitti_launched = run_kitti(P, mods, dev, kernel_launches)
-    fused_report, fused_launched = run_fused(
+    fused_report, fused_launched, fused_k2_err = run_fused(
         P, mods, dev, kernel_launches, scan0, logits0, valid0, group_call_ms)
 
     reference = [m for m in sys.modules
@@ -986,6 +1033,8 @@ def main():
         else:                # K5, K10
             report[name] = row
     report.update(fused_report)  # K9
+    report["group_reduce"]["max_abs_err"] = max(
+        report["group_reduce"]["max_abs_err"], fused_k2_err)
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0),

@@ -3,7 +3,10 @@
 The port's parameters carry the reference torch ``state_dict`` names that
 ``curvecloudnet_tpu/checkpoint.py`` ``load_torch_checkpoint`` reads, so
 :func:`from_jax_variables` is that function's inverse, and a released
-reference ``.pth`` loads into the port as it is.  Every map below is
+reference ``.pth`` loads into the port through
+:func:`load_reference_state_dict` (which renames torch_geometric's
+``norms.N.module.*`` and drops BatchNorm's ``num_batches_tracked``).  Every
+map below is
 linear, so ``from_jax_variables(grads, {}, spec)`` also carries a flax
 gradient tree (the params' structure) to the port's parameter names:
 
@@ -22,7 +25,8 @@ gradient tree (the params' structure) to the port's parameter names:
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -83,3 +87,16 @@ def from_jax_variables(params, batch_stats, spec) -> Dict[str, torch.Tensor]:
         _mlp(out, "mlp", params["mlp"], batch_stats.get("mlp", {}))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def load_reference_state_dict(model: torch.nn.Module,
+                              state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Load a reference torch ``state_dict`` (a released ``.pth``, after
+    ``torch.load``) into a port model, strictly: torch_geometric's
+    ``norms.N.module.X`` names become ``norms.N.X`` and every
+    ``num_batches_tracked`` counter is dropped (the port's BatchNorm keeps
+    none; the JAX loader ignores it too)."""
+    sd = {re.sub(r"(^|\.)norms\.(\d+)\.module\.", r"\1norms.\2.", k): v
+          for k, v in state_dict.items()
+          if not k.endswith(".num_batches_tracked")}
+    model.load_state_dict(sd, strict=True)

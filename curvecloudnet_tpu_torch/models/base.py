@@ -200,6 +200,10 @@ class CurveCloudNet(nn.Module):
         super().__init__()
         if spec.with_seg_category:
             raise NotImplementedError("the lin_categorical head is not ported")
+        if spec.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {spec.compute_dtype!r}: the port computes in "
+                "float32 only")
         self.spec = spec
         bounds, grid_bounds, grid_caps = row_radius_bounds(spec)
         steps = []

@@ -129,8 +129,8 @@ class ModelSpec:
     version: float = 2.0
     skip_connect_state_store: Tuple[str, ...] = ()
     identity_head: bool = False
-    # "float32" or "bfloat16": matmul compute dtype (params stay float32;
-    # BatchNorm statistics and reductions stay float32)
+    # "float32" or "bfloat16" in the JAX package (its matmul compute dtype);
+    # the port computes in float32 only and CurveCloudNet raises on bfloat16
     compute_dtype: str = "float32"
     # static per-row curve-count budget for the conv1d-fast-v2 gap layout
     # (reference fast_conv1d.py:49-74 zero-stuffs every curve boundary);

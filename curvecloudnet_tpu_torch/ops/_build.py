@@ -101,8 +101,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (every function returns its cudaError_t as int)
     "ccn_conv1d_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "ccn_group_reduce": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _P, _P, _P],
+    "ccn_group_reduce": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P] + [_I] * 9
+                        + [_P, _P],
     "ccn_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "ccn_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ccn_gather_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],

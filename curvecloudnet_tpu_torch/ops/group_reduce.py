@@ -5,7 +5,9 @@ Counterpart of ``curvecloudnet_tpu/ops/pallas_group.py``
 ``fold_full_mlp_eval``).  The CUDA kernel is ``csrc/group_reduce.cu``;
 :func:`group_reduce_ref` is its plain PyTorch version, the materialized
 composition the JAX package runs on CPU.  The wrapper runs the plain
-version for CPU tensors and the kernel for CUDA tensors.
+version for CPU tensors and the kernel for CUDA tensors; the kernel runs
+its dense layers in 3xTF32 on the tensor cores (each operand split as
+:func:`tf32_split` does) over the live (query, plane) rows only.
 
 h1 (B, K, M, C1) holds the layer-0 pre-norm messages, plane-major; mask
 (B, M, K) is query-major with its columns in h1's plane order.
@@ -83,33 +85,74 @@ def group_reduce_ref(h1, mask, affine0, local, attend=None, aggr="max",
     return masked_attend(msg.transpose(1, 2), logits.transpose(1, 2), mask)
 
 
-def _pick_tm(widths, c_out: int, attend: bool) -> int:
-    """Largest query tile (a multiple of 4) whose buffers leave room for two
-    blocks per SM; four queries if even that needs the whole SM."""
-    cmax = max(widths)
-    smem = lambda tm: tm * (2 * cmax + (4 if attend else 2) * c_out) * 4  # noqa
-    for tm in (32, 16, 8, 4):
-        if smem(tm) <= _build.MAX_SMEM // 2:
-            return tm
-    if smem(4) <= _build.MAX_SMEM:
-        return 4
-    raise ValueError(f"group kernel: width {cmax} too wide for shared memory")
+def tf32_round(x):
+    """f32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as the card's ``cvt.rna.tf32.f32`` rounds: the f32 bits with
+    half of the 13 dropped bits' unit added and those bits cleared.
+    Infinities and NaNs pass unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
 
 
-# blocks per SM worth aiming at: the best of 8/16/32 at the flagship's
-# sites (curvecloudnet_tpu_torch/tools/k2_sweep.py, NVIDIA H100 80GB HBM3)
-_BLOCKS_PER_SM = 32
+def tf32_split(x):
+    """x -> (hi, lo), both TF32 values, hi = rna(x), lo = rna(x - hi): the
+    split the kernel applies to each operand of its 3xTF32 products
+    (lo*hi + hi*lo + hi*hi)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+# rows a chunk, widest first; weight rows a stage, most first; queries a
+# block at most (curvecloudnet_tpu_torch/tools/k2_sweep.py sweeps rows and
+# the query cap)
+_ROWS = (64, 32, 16)
+_STAGE_ROWS = (32, 16, 8)
+_MAX_TQ = 64
+# accumulators of a block (256 threads x 128): rows x the widest layer
+_ACC = 32768
+
+
+def _round(c: int, to: int) -> int:
+    return -(-c // to) * to
+
+
+def _smem_bytes(rows: int, tq: int, kc: int, k: int, dims, c_out: int,
+                attend: bool) -> int:
+    """Shared memory of a launch (``smem_bytes`` in the kernel source):
+    two weight stages, the activations (and the messages under attend),
+    the carried aggregation state and the row list."""
+    ldx = _round(max(dims), 32) + 4
+    ldw = _round(max(dims[1:], default=8), 32) + 8
+    floats = (2 * kc * ldw + rows * ldx +
+              (rows * (_round(c_out, 32) + 4) if attend else 0) +
+              2 * (3 if attend else 1) * c_out)
+    return 4 * floats + 4 * (3 * tq + 1) + 2 * tq * k
+
+
+def _launch_shape(dims, c_out: int, attend: bool, k: int, queries: int,
+                  sms: int):
+    """(rows a chunk, queries a block, weight rows a stage): the widest
+    chunk whose accumulators fit the registers and whose buffers fit the
+    block's shared memory, with the deepest weight stage that still fits;
+    at most _MAX_TQ queries a block, as many as fill whole waves of one
+    block an SM (the buffers leave room for one)."""
+    waves = -(-queries // (sms * _MAX_TQ))
+    tq = -(-queries // (sms * waves))
+    for rows in _ROWS:
+        if _round(max(dims[1:], default=8), 8) * rows > _ACC:
+            continue
+        for kc in _STAGE_ROWS:
+            if _smem_bytes(rows, tq, kc, k, dims, c_out,
+                           attend) <= _build.MAX_SMEM:
+                return rows, tq, kc
+    raise ValueError(f"group kernel: width {max(dims)} too wide for shared "
+                     "memory")
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _pick_splits(tiles: int, k: int, sms: int) -> int:
-    """Split the K planes over several blocks per query tile when the
-    query tiles alone give too few blocks (every site but sa-geo's)."""
-    return max(1, min(k, _BLOCKS_PER_SM * sms // max(tiles, 1)))
 
 
 def group_reduce(h1, mask, affine0, local, attend=None, aggr="max",
@@ -131,22 +174,20 @@ def group_reduce(h1, mask, affine0, local, attend=None, aggr="max",
     c_out = dims[len(local)]
     if attend and dims[-1] != c_out:
         raise ValueError("group kernel: attention MLP must end at C_out")
-    woff, boff, off = [], [], 0
-    for w, bias in layers:
-        woff.append(off)
-        off += w.numel()
-        boff.append(off)
-        off += bias.numel()
-    wp = (torch.cat([t.reshape(-1).float() for wb in layers for t in wb])
-          if layers else torch.zeros(1, device=h1.device))
+    # every layer's W, each from a 16-byte boundary, then the biases
+    parts = [torch.nn.functional.pad(w.float().reshape(-1),
+                                     (0, -w.numel() % 4)) for w, _ in layers]
+    parts += [bias.float().reshape(-1) for _, bias in layers]
+    offsets = [0]
+    for t in parts:
+        offsets.append(offsets[-1] + t.numel())
+    woff, boff = offsets[:len(layers)], offsets[len(layers):-1]
+    wp = torch.cat(parts) if layers else torch.zeros(1, device=h1.device)
     s0 = affine0[0].float().contiguous()
     t0 = affine0[1].float().contiguous()
-    tm = _pick_tm(dims, c_out, aggr == "attend")
-    splits = _pick_splits(b * -(-m // tm), k, _sm_count(h1.device))
+    rows, tq, kc = _launch_shape(dims, c_out, aggr == "attend", k, b * m,
+                                 _sm_count(h1.device))
     out = torch.empty((b, m, c_out), dtype=torch.float32, device=h1.device)
-    fields = 3 if aggr == "attend" else 1
-    part = torch.empty((splits * fields * b * m * c_out if splits > 1 else 1,),
-                       dtype=torch.float32, device=h1.device)
     args = (
         _build.ptr(h1, torch.float32, "h1", 4),
         _build.ptr(mask, torch.bool, "mask", 3),
@@ -158,8 +199,7 @@ def group_reduce(h1, mask, affine0, local, attend=None, aggr="max",
         _build.host_array(ctypes.c_longlong, woff or [0]),
         _build.host_array(ctypes.c_longlong, boff or [0]),
         int(aggr == "attend"), _ACT_CODES[act], _ACT_CODES[attend_act],
-        b, k, m, tm, splits, out.data_ptr(), part.data_ptr(),
-        _build.stream_ptr(h1.device))
+        b, k, m, rows, tq, kc, out.data_ptr(), _build.stream_ptr(h1.device))
     rc = _build.library().ccn_group_reduce(*args)
     _build.check(rc, "ccn_group_reduce")
     group_reduce.launches += 1

@@ -6,9 +6,10 @@ port's labelled synthetic sweep.  Run, e.g. on the GPU::
 
 It builds the model at the config's ``n_pad`` with B=1 and random weights
 from ``--seed`` (``predict.init_weights``), trains on synthetic sweep
-``--seed`` with its labels (NLL + Lovász with ignore index 0 when the
-config sets ``use_lovasz_loss``), learning rate from the config on its
-schedule, BatchNorm momentum 0.1, and prints one JSON line per step.
+``--seed`` of the config's dataset's sensor with its labels (the dataset's
+loss as the JAX train entry picks it, ``run/tasks.loss_for``), learning
+rate from the config on its schedule, BatchNorm momentum 0.1, and prints
+one JSON line per step.
 """
 
 from __future__ import annotations
@@ -23,16 +24,20 @@ import torch
 from ..config import load_config
 from ..data import lidar_batch
 from ..models import cloud_from_arrays
-from ..predict import build_model
-from .trainer import (Batch, LossConfig, create_optimizer, make_schedule,
-                      train_step)
+from ..predict import N_BEAMS, N_OUT, build_model
+from ..run.tasks import loss_for
+from .trainer import Batch, create_optimizer, make_schedule, train_step
 
 
-def synthetic_batch(seed: int, n_pad: int, device, batch: int = 1) -> Batch:
-    """Labelled synthetic sweeps (seed ``seed``) as a Batch on ``device``."""
+def synthetic_batch(seed: int, n_pad: int, device, batch: int = 1,
+                    dataset: str = "nuscenes") -> Batch:
+    """Labelled synthetic sweeps (seed ``seed``) of ``dataset``'s sensor
+    (its beams and class count) as a Batch on ``device``."""
     pos, feat, cid, valid, labels = (
         torch.from_numpy(a).to(device)
-        for a in lidar_batch(np.random.default_rng(seed), batch, n_pad))
+        for a in lidar_batch(np.random.default_rng(seed), batch, n_pad,
+                             n_beams=N_BEAMS[dataset],
+                             n_classes=N_OUT[dataset]))
     return Batch(cloud=cloud_from_arrays(pos, cid, valid, feat),
                  labels=labels)
 
@@ -46,10 +51,10 @@ def setup(config_path: str, device, seed: int = 0, n_pad: int | None = None):
     opt = create_optimizer(model, weight_decay=float(
         cfg.get("weight_decay", 0.0)))
     sched = make_schedule(cfg.get("scheduler"), float(cfg["lr"]), 1)
-    loss_cfg = LossConfig(ignore_index=0,
-                          use_lovasz=bool(cfg.get("use_lovasz_loss", False)))
+    dataset = cfg.get("dataset_source", "nuscenes")
     gen = torch.Generator(device=device).manual_seed(seed)
-    return model, opt, sched, loss_cfg, synthetic_batch(seed, n_pad, device), gen
+    return (model, opt, sched, loss_for(cfg),
+            synthetic_batch(seed, n_pad, device, dataset=dataset), gen)
 
 
 def main(argv=None) -> None:

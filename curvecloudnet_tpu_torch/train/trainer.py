@@ -31,6 +31,7 @@ class LossConfig:
     use_lovasz: bool = False
     lovasz_weight: float = 1.0
     mean_over_all: bool = False
+    class_weights: Optional[tuple] = None   # NLL weight of each class
 
 
 def make_schedule(scheduler_cfg: dict, base_lr: float, steps_per_epoch: int):
@@ -83,9 +84,10 @@ def create_optimizer(model: torch.nn.Module, lr: float = 0.0,
     return torch.optim.Adam(model.parameters(), **kw)
 
 
-def compute_loss(logits, out_valid, batch: Batch, cfg: LossConfig,
-                 class_weights=None):
+def compute_loss(logits, out_valid, batch: Batch, cfg: LossConfig):
     lv = batch.label_valid if batch.label_valid is not None else out_valid
+    class_weights = (None if cfg.class_weights is None else torch.tensor(
+        cfg.class_weights, dtype=torch.float32, device=logits.device))
     return losses_lib.seg_loss(
         logits, batch.labels, lv & out_valid, ignore_index=cfg.ignore_index,
         use_lovasz=cfg.use_lovasz, lovasz_weight=cfg.lovasz_weight,
@@ -93,13 +95,12 @@ def compute_loss(logits, out_valid, batch: Batch, cfg: LossConfig,
 
 
 def train_step(model, optimizer, lr: float, batch: Batch, generator=None,
-               bn_momentum: float = 0.1, loss_cfg: LossConfig = LossConfig(),
-               class_weights=None):
+               bn_momentum: float = 0.1, loss_cfg: LossConfig = LossConfig()):
     """One optimizer step; returns {"loss": detached scalar}."""
     optimizer.zero_grad(set_to_none=True)
     logits, out_valid = model(batch.cloud, train=True,
                               bn_momentum=bn_momentum, generator=generator)
-    loss = compute_loss(logits, out_valid, batch, loss_cfg, class_weights)
+    loss = compute_loss(logits, out_valid, batch, loss_cfg)
     loss.backward()
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -108,9 +109,8 @@ def train_step(model, optimizer, lr: float, batch: Batch, generator=None,
 
 
 @torch.no_grad()
-def eval_step(model, batch: Batch, loss_cfg: LossConfig = LossConfig(),
-              class_weights=None):
+def eval_step(model, batch: Batch, loss_cfg: LossConfig = LossConfig()):
     """(logits, out_valid, loss) of the eval forward."""
     logits, out_valid = model(batch.cloud)
     return logits, out_valid, compute_loss(logits, out_valid, batch,
-                                           loss_cfg, class_weights)
+                                           loss_cfg)

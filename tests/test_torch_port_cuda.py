@@ -5,8 +5,9 @@ machine with one (and nvcc), run::
 
     python -m pytest tests/test_torch_port_cuda.py -q
 
-Tolerances: K1/K2 sum f32 products in another order than the plain
-matmuls, 1e-4 relative to the output scale; K3 distances and K6 picks use
+Tolerances: K1 sums f32 products in another order than the plain
+matmuls, and K2 in 3xTF32 on the tensor cores (f32 accuracy), 1e-4
+relative to the output scale; K3 distances and K6 picks use
 round-to-nearest arithmetic in the plain versions' order, so they match
 exactly (indices may differ only between slots of equal distance).  K7:
 forward outputs and batch statistics 1e-4 relative to their scale;
@@ -79,27 +80,58 @@ def test_conv1d_chain_kernel(dev, c0, dims, h):
     assert _rel_err(got, conv1d_chain.conv1d_chain_eval_ref(*args)) <= 1e-4
 
 
-@pytest.mark.parametrize("aggr,k,widths", [("max", 21, (64, 64, 64)),
-                                           ("attend", 25, (64, 128, 192, 256)),
-                                           ("max", 32, (1024, 1024, 1024))])
-def test_group_reduce_kernel(dev, aggr, k, widths):
+# aggr, K, message widths (h1's first), attention widths, live fraction of
+# the slots, queries: the main path's sites (sa-geo's 3-4 live slots of 25,
+# KITTI's K = 31, the 512-wide attend and 1024-wide max sites), a ragged
+# width, the single-layer MLP (h1 is the message); M is no multiple of any
+# query tile, and 5% of the queries have no live slot, half of them with K
+# equal planes
+GROUP_CASES = [
+    ("max", 21, (64, 64, 64), None, 0.6, 3001),
+    ("attend", 25, (64, 128, 192, 256), (256, 256, 256), 0.15, 2999),
+    ("attend", 31, (64, 128, 192, 256), (256, 256, 256), 0.1, 1501),
+    ("attend", 32, (128, 128, 128), (128, 64, 128), 0.5, 1203),
+    ("attend", 32, (512, 512, 512), (512, 256, 512), 0.8, 301),
+    ("max", 32, (1024, 1024, 1024), None, 0.85, 203),
+    ("max", 21, (1024, 1024), None, 0.85, 203),
+    ("max", 21, (36, 20, 44), None, 0.7, 517),
+    ("max", 21, (128,), None, 0.7, 517),
+    ("attend", 25, (128,), (128, 64, 128), 0.3, 517),
+]
+
+
+@pytest.mark.parametrize("aggr,k,widths,att,live,m", GROUP_CASES)
+def test_group_reduce_kernel(dev, aggr, k, widths, att, live, m):
     g = torch.Generator().manual_seed(1)
-    m, c1 = 300, widths[0]
+    c1 = widths[0]
     h1 = torch.randn(1, k, m, c1, generator=g)
-    mask = torch.rand(1, m, k, generator=g) > 0.3
-    aff = (0.5 + torch.rand(c1, generator=g), 0.1 * torch.randn(c1, generator=g))
+    mask = torch.rand(1, m, k, generator=g) < live
+    mask[:, torch.rand(m, generator=g) < 0.05] = False
+    # every other query with no live slot has K equal planes (padding)
+    padded = torch.nonzero(~mask[0].any(-1))[::2, 0]
+    h1[0, :, padded] = h1[0, :1, padded]
     layers = lambda ws: tuple(  # noqa: E731
         (torch.randn(a, b, generator=g) / a ** 0.5,
          0.1 * torch.randn(b, generator=g)) for a, b in zip(ws[:-1], ws[1:]))
-    local = layers(widths)
-    att = layers((widths[-1],) * 3) if aggr == "attend" else None
+    if len(widths) == 1:     # one-layer MLP: identity affine and act
+        aff, act = (torch.ones(c1), torch.zeros(c1)), "identity"
+    else:
+        aff = (0.5 + torch.rand(c1, generator=g),
+               0.1 * torch.randn(c1, generator=g))
+        act = "leaky_relu"
     move = lambda ls: None if ls is None else tuple(  # noqa: E731
         (w.to(dev), b.to(dev)) for w, b in ls)
     args = (h1.to(dev), mask.to(dev), tuple(t.to(dev) for t in aff),
-            move(local), move(att))
-    kw = dict(aggr=aggr, act="leaky_relu")
+            move(layers(widths)), move(None if att is None else layers(att)))
+    kw = dict(aggr=aggr, act=act)
     got = group_reduce.group_reduce(*args, **kw)
-    assert _rel_err(got, group_reduce.group_reduce_ref(*args, **kw)) <= 1e-4
+    want = group_reduce.group_reduce_ref(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-4
+    dead = ~mask.any(-1).to(dev)
+    assert bool(dead.any())
+    if aggr == "max":
+        assert bool((got[dead] == -100.0).all())
 
 
 @pytest.mark.parametrize("k,radius", [(32, 0.3), (3, None), (20, None)])
