@@ -26,7 +26,10 @@ Phases (any failure raises and exits non-zero before the result line):
      backward under the call's own cotangents; K7's plain backward takes
      the plain forward's residuals; backward outputs compared in relative
      L2 norm against a perturbation yardstick, see TRAIN_KERNELS; K8's
-     forward statistics within 1e-5);
+     forward statistics within 1e-5); one line per K7 site (step, M, K,
+     widths, aggregation, live rows, queries with no live slot, whose
+     ``dout`` must be exactly 0; forward and backward kernel / plain /
+     bound / 3xTF32-floor ms and the kernel's ms per pass);
   7. launch counters set to 0, five train steps through ``train_step``:
      losses finite and falling, K8/K7/K4/K4b/K3/K6 launches equal to five
      times the spec-derived counts;
@@ -430,10 +433,16 @@ def work(name, args, out):
     macs = sum(a * b for a, b in zip(cfg.dims[:-1], cfg.dims[1:]))
     if cfg.attend:
         macs += 2 * cfg.dims[-1] * cfg.att_dim
-    # the backward recomputes the chain (no activation is an input) and
-    # takes two products per dense: 3x the forward's multiply-adds
-    mult = 2 if name == "group_train_fwd" else 6
-    return nbytes(args[:2], args[3:], out), mult * rows * macs
+    if name == "group_train_fwd":
+        # out, stats and n: the kernel's residuals (its extras) are a
+        # design's choice, not the function's output
+        return nbytes(args, out[:3]), 2 * rows * macs
+    # two products per dense (data and weight gradient) from the chain
+    # that K7's forward stored in its extras (int32 row list first); a
+    # backward whose inputs hold no activation (the plain version's
+    # extras) recomputes the chain too: 3x the forward's multiply-adds
+    stored = args[6][0].dtype == torch.int32
+    return nbytes(args, out), (4 if stored else 6) * rows * macs
 
 
 def library_call(name, args):
@@ -571,6 +580,84 @@ def k2_sites(label, spec, calls, per_call):
     log(f"K2 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
         f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms, "
         f"3xTF32 floor {sums['floor_ms']:.3f} ms")
+
+
+def pass_times(G, fn):
+    """Run ``fn()`` once to warm up, then once with every K7 launch timed
+    (``G.launch_times``) -> {pass: ms}; the time outside the launches
+    (torch glue) is ``"glue"``."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with G.launch_times() as times:
+        a.record()
+        fn()
+        b.record()
+    out = {}
+    for (pass_, _), ms in times.items():
+        out[pass_] = out.get(pass_, 0.0) + ms
+    out["glue"] = a.elapsed_time(b) - sum(out.values())
+    return out
+
+
+def k7_sites(spec, calls, per_call, G):
+    """Phase 6: one line per K7 call of the captured train step (the
+    grouping steps, in order), forward and backward: live rows, queries
+    with no live slot and the check that the call's ``dout`` is exactly 0
+    at every one of them (the contract that lets K7 drop their rows),
+    kernel / plain / bound / 3xTF32-floor ms and the kernel's ms per pass;
+    then their sums."""
+    import torch
+
+    steps = [i for i, st in enumerate(spec.steps)
+             if st.name in ("sa", "sa-geo", "sgcnn")]
+    fwd, bwd = calls["group_train_fwd"], calls["group_train_bwd"]
+    t_fwd, t_bwd = per_call["group_train_fwd"], per_call["group_train_bwd"]
+    # autograd runs the backward calls in reverse; pair them by h1
+    by_h1 = {(a[0].data_ptr(), tuple(a[0].shape)): (a, t)
+             for (a, _, _), t in zip(bwd, t_bwd)}
+    if len(fwd) != len(steps) or len(by_h1) != len(fwd):
+        raise AssertionError(f"K7: {len(fwd)} forward and {len(bwd)} "
+                             f"backward calls for {len(steps)} steps")
+    keys = ("ms", "plain_ms", "bound_ms", "floor_ms")
+    sums = {d: dict.fromkeys(keys, 0.0) for d in ("fwd", "bwd")}
+    passes = {"fwd": {}, "bwd": {}}
+    for step, (args, _, _), tf in zip(steps, fwd, t_fwd):
+        h1, mask, cfg, params = args
+        b_args, tb = by_h1[(h1.data_ptr(), tuple(h1.shape))]
+        dout = b_args[7]
+        dead = ~mask.any(-1)
+        nonzero = int((dout[dead] != 0).any(-1).sum())
+        if nonzero:
+            raise AssertionError(f"K7 step_{step}: dout is not 0 at "
+                                 f"{nonzero} queries with no live slot")
+        with torch.no_grad():
+            pf = pass_times(G, lambda: G.group_train_fwd(*args))
+            pb = pass_times(G, lambda: G.group_train_bwd(*b_args))
+        line = []
+        for d, t, pt in (("fwd", tf, pf), ("bwd", tb, pb)):
+            floor = 3 * t["flops"] / PEAK_TF32 * 1e3
+            for key, v in zip(keys, (t["ms"], t["plain_ms"], t["bound_ms"],
+                                     floor)):
+                sums[d][key] += v
+            for k, v in pt.items():
+                passes[d][k] = passes[d].get(k, 0.0) + v
+            per = ", ".join(f"{k} {v:.3f}" for k, v in pt.items())
+            line.append(f"{d} kernel {t['ms']:.3f} ms, plain "
+                        f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f}"
+                        f" ms, 3xTF32 floor {floor:.3f} ms ({per})")
+        log(f"K7 site step_{step}: M {h1.shape[2]}, K {h1.shape[1]}, widths "
+            f"{list(cfg.dims)}, attend {cfg.att_dim}, {cfg.aggr}, live rows "
+            f"{int(mask.sum())} of {mask.numel()}, {int(dead.sum())} queries "
+            f"with no live slot (dout 0 at all); " + "; ".join(line))
+    for d in ("fwd", "bwd"):
+        s = sums[d]
+        per = ", ".join(f"{k} {v:.3f}" for k, v in passes[d].items())
+        log(f"K7 {d}, {len(fwd)} calls: kernel {s['ms']:.3f} ms, plain "
+            f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms, 3xTF32 "
+            f"floor {s['floor_ms']:.3f} ms; by pass: {per}")
 
 
 def recording(calls, fn):
@@ -917,7 +1004,10 @@ def main():
     calls, (cap_loss, cap_ms, _) = capture(
         TRAIN_KERNELS, mods, lambda: one_step(init, lr=0.0))
     log(f"train capture step: loss {cap_loss:.6g}, {cap_ms:.1f} ms")
-    train_report = measure(TRAIN_KERNELS, mods, calls, train=True)
+    train_call_ms = {}
+    train_report = measure(TRAIN_KERNELS, mods, calls, train=True,
+                           per_call=train_call_ms)
+    k7_sites(init.spec, calls, train_call_ms, group_train)
     del calls
 
     # 7. the train path: five steps through train_step, launches counted

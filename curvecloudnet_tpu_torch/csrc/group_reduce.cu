@@ -36,7 +36,8 @@
 //    memory, the layer-0 affine and activation applied on load.  A query's
 //    rows may straddle two chunks: its max or online-softmax state is
 //    carried to the next chunk, so no second kernel merges partial states.
-//  * Tensor cores at f32 accuracy: mma.sync m16n8k8 TF32 with 3xTF32.  Each
+//  * Tensor cores at f32 accuracy: mma.sync m16n8k8 TF32 with 3xTF32
+//    (the helpers in tf32_mma.cuh, shared with K7).  Each
 //    operand x splits as hi = rna(x), lo = rna(x - hi), rna the rounding of
 //    cvt.rna.tf32.f32 (ops/group_reduce.py tf32_split is the same on the
 //    CPU), and a product sums lo*hi + hi*lo + hi*hi in f32.  W streams
@@ -46,8 +47,7 @@
 //    bias and activation are applied to the accumulators as they are
 //    stored.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 #define GR_MAX_LAYERS 8
 #define GR_THREADS 256
@@ -60,84 +60,6 @@ struct GroupMeta {
   long long woff[2 * GR_MAX_LAYERS];  // in floats
   long long boff[2 * GR_MAX_LAYERS];
 };
-
-__device__ __forceinline__ float act_fn(float v, int kind) {
-  if (kind == 0) return fmaxf(v, 0.f);            // relu
-  if (kind == 1) return v > 0.f ? v : 0.01f * v;  // leaky_relu
-  return v;                                       // identity
-}
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero; equal for every finite x and infinity) in two integer
-// operations: type conversions run at 1/8 of the FP32 rate on Hopper.
-// ops/group_reduce.py tf32_round is the same formula.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One dense layer's weights: W (cin, cout) row-major in device memory; vec
-// when cout % 4 == 0 and W is 16-byte aligned (16-byte copies).
-struct WLayer {
-  const float* W;
-  int cin, cout;
-  bool vec;
-};
-
-// Rows k0 .. k0 + kc - 1 of L.W, columns up to cout rounded to 8, into a
-// stage of kc rows with row stride ldw, by cp.async; 0 past cin and cout.
-__device__ void stage_w(float* dst, int ldw, const WLayer& L, int k0,
-                        int kc) {
-  const int cout8 = (L.cout + 7) & ~7;
-  const int per = L.vec ? cout8 >> 2 : cout8;  // copies a row
-  const int sh = (per & (per - 1)) == 0 ? __ffs(per) - 1 : -1;
-  for (int i = threadIdx.x; i < kc * per; i += blockDim.x) {
-    const int kr = sh >= 0 ? i >> sh : i / per;
-    const int c = (i - kr * per) * (L.vec ? 4 : 1), k = k0 + kr;
-    float* d = dst + kr * ldw + c;
-    const bool in = k < L.cin && c < L.cout;
-    if (L.vec) {
-      if (in)
-        cp_async16(d, L.W + (size_t)k * L.cout + c);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      if (in)
-        cp_async4(d, L.W + (size_t)k * L.cout + c);
-      else
-        *d = 0.f;
-    }
-  }
-}
 
 // out (R, cout) = act(in (R, cin) @ W + b), in 3xTF32 on the tensor cores.
 // in and out lie in shared memory (row strides ldi, ldo = 4 mod 32, so the
@@ -340,6 +262,7 @@ __global__ void __launch_bounds__(GR_THREADS, 1)
   const int n_layers = g.n_local + (aggr == 1 ? g.n_attend : 0);
   auto layer = [&](int li) {
     const WLayer L = {wp + g.woff[li], g.dims[li], g.dims[li + 1],
+                      g.dims[li + 1],
                       (g.dims[li + 1] & 3) == 0 && (g.woff[li] & 3) == 0};
     return L;
   };

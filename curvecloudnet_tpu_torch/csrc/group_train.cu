@@ -4,84 +4,85 @@
 // Replaces curvecloudnet_tpu/ops/pallas_group_train.py: the passes of
 // _pass_stats (_stats_kernel), _pass_out (_out_kernel), _pass_b_att
 // (_b_att_kernel), _pass_b_msg (_b_msg_kernel) and _pass_b_mid
-// (_b_mid_kernel), all reaching pl.pallas_call through _call.  One C entry
-// runs one pass; ops/group_train.py sequences them and finishes the tiny
-// per-channel reductions between passes.
-//
-// Rows are (plane k, query m) pairs of the k-major slab h1 (B, K, M, C0);
-// the mask is query-major (B, M, K).  Per row (notation of the .py):
+// (_b_mid_kernel), all reaching pl.pallas_call through _call.
+// ops/group_train.py sequences the kernels below; notation as there, per
+// (plane, query) row:
 //     v_0 = h1;  u_i = act(BN_i(v_i));  v_{i+1} = u_i @ W_i + b_i
 //     msg = v_L;  attend: g = msg @ Wa0 + ba0;  logits = act_a(BN_a(g)) @ Wa1 + ba1
-// A "sequence" index s names v_s (s <= L), g (s = L+1), logits (s = L+2).
 //
-// Design: one block per tile of TM queries of one batch row loops over the
-// K planes; each plane's chain is recomputed from h1 in shared memory
-// (K2's design), so no per-pair activation but h1 and the backward's
-// cotangent slabs T ever reaches device memory.  The row buffers of the
-// chain live in NS shared slots of TM x cmax floats, sequence value s in
-// slot s % NS; a dense reads its input pre-BN and applies BN + activation
-// as it loads (so the pre-BN values, which the backward needs for x-hat
-// and act', stay).  Each thread computes 4x4 output micro-tiles (K2's
-// dense_tile).  Weight gradients are 4x4 micro-tiles summed over the
-// tile's TM rows and added with f32 atomicAdd (one add per weight per
-// block-plane); per-channel sums (batch statistics, bias gradients, the BN
-// backward's sum T and sum T*x-hat) likewise.  Atomics make the sums' order
-// vary from run to run, within f32 rounding.
-//
-// Two things keep the work near what the data needs: a plane where no
-// query of the tile has a live slot is skipped (the flagship's sa-geo
-// windows hold ~3.6 live slots of 25, per curve, so most of a curve tile's
-// planes are empty); and every pass but the out pass, whose outputs are
-// sums or per-plane slabs, splits the planes over several blocks per tile,
-// so the 519- and 1728-query sites still fill the card.
-//
-// Bound on the H100: FP32 FMAs of the recomputed chains (each pass
-// recomputes the chain to its depth: the forward ~L+2 chains, the backward
-// ~2L+3 dense-sized products) and the weight-gradient atomics.  No tensor
-// cores yet (FP32 FMA, so results stay within f32 rounding of the plain
-// version).
+// Bound on the H100: the multiply-adds of the dense layers and of their
+// two backward products on the live rows -- at the FP32 rate (67 TFLOP/s)
+// the flagship's 15 sites need ~3.4 ms forward and (with the chain
+// recomputed, as the plain backward does) ~10 ms backward; 3xTF32 runs
+// three TF32 products per multiply-add, a floor of 3x those operations at
+// 495 TFLOP/s.  What the design does about it:
+//  * Live rows only.  The wrapper compacts the live (plane, query) rows of
+//    a call once, in the forward, query-major (a query's live planes in
+//    plane order, queries in order): the aggregation then reads each
+//    query's rows as one contiguous run, and the k-major h1 is gathered by
+//    a row index.  Rows of a dead slot are never loaded or multiplied: by
+//    the contract of ops/group_train.py their cotangents are exactly 0, and
+//    queries with no live slot (whose outputs every consumer masks, so that
+//    their dout is 0) get the max fill -100 under max and 0 under attend.
+//  * Store, do not recompute.  Each dense runs once: the forward stores
+//    v_1..v_L (and g, logits under attend) of the live rows, and the
+//    backward reads them.  The max backward finds its argmax by equality
+//    with the stored values.
+//  * Every product is one tiled GEMM over the row list: gt_gemm takes
+//    64-row x 64-column output tiles over a 32-deep inner stage in 3xTF32
+//    mma.sync m16n8k8 (tf32_mma.cuh), 4 warps of 32 x 32.  Its A operand
+//    is rows of a stored array (or of h1 through the row index), with an
+//    elementwise transform applied on load (BN + activation, the BN
+//    backward, the max or softmax backward) and split into (hi, lo) as it
+//    is stored in shared memory; B (a weight matrix, its transpose, or the
+//    rows of a cotangent) streams in by cp.async, double-buffered.  The
+//    epilogue adds the bias, or multiplies by act'(y), or adds the softmax
+//    term, stores, and sums its 64 rows per column (batch statistics, or
+//    the BN backward's sum T and sum T * x-hat).  The weight gradient is
+//    the same GEMM with the rows as the inner dimension (A transposed in
+//    shared memory): a block keeps its 64 x 64 tile of dW in its
+//    accumulators over its share of the rows.
+//  * No atomics.  Every sum across blocks (statistics, dW, biases, the BN
+//    backward's sums) is written as one partial per block and summed in a
+//    fixed order by gt_finalize, so gradients repeat bit for bit.
 
-#include <cuda_runtime.h>
+#include "tf32_mma.cuh"
 
-#define GT_MAXL 8
-#define GT_THREADS 256
+#define GT_THREADS 128
+#define GT_BM 64   // output rows (weight gradient: input channels) a tile
+#define GT_BN 64   // output columns a tile
+#define GT_BK 32   // inner depth a stage
+#define GT_SA 36   // A stage row stride, [m][k] layout (4 mod 32)
+#define GT_SAT 72  // A stage row stride, [k][m] layout (8 mod 32)
+#define GT_SB 72   // B stage row stride (8 mod 32)
+#define GT_A_WORDS (GT_BM * GT_SA > GT_BK * GT_SAT ? GT_BM * GT_SA : GT_BK * GT_SAT)
 
-struct GT {
-  int L, A, attend, act, aact, cmax, B, K, M;
-  int dims[GT_MAXL + 1];
-  // packed-constant offsets, per local level: mu, inv, gamma, beta, W, W^T, b
-  long long mu[GT_MAXL], inv[GT_MAXL], gam[GT_MAXL], bet[GT_MAXL];
-  long long w[GT_MAXL], wt[GT_MAXL], b[GT_MAXL];
-  // attention: Wa0, Wa0^T, ba0, mu_a, inv_a, gamma_a, beta_a, Wa1, Wa1^T, ba1
-  long long wa0, wa0t, ba0, mua, inva, gama, beta, wa1, wa1t, ba1;
+// A-operand transforms
+enum { TR_NONE = 0, TR_BN_ACT = 1, TR_BNB = 2, TR_MAXB = 3, TR_DLOGIT = 4 };
+// epilogues
+enum { EP_FWD = 0, EP_DGRAD = 1, EP_ATT = 2 };
+
+struct GJob {
+  // A: rows of x (row stride ldx; row r at xidx[r] when xidx is set)
+  const float* x;
+  const int* xidx;
+  const float* x2;  // TR_BNB: the stored v of the level; TR_DLOGIT: msg
+  const float *mu, *inv, *gam, *bet;  // BN of the transform (and TR_BNB)
+  const float *c0, *c1, *c2;          // TR_BNB: (gamma inv, sum T / n, sum T x-hat / n)
+  const int* qry;                     // row -> query (b * M + m)
+  const float *qd, *qmx, *qaux, *qout;  // per query: dout, max, den | count, out
+  float* asave;                       // the transformed A, (R, K)
+  const float* w;                     // B: row-major (K, N), or the rows (R, N)
+  const float* bias;
+  float* y;                           // output (R, N)
+  float* part;                        // per-block partial sums
+  // epilogue EP_DGRAD: x-hat and y of the output's level from rows of ex
+  const float* ex;
+  const int* exidx;
+  const float *emu, *einv, *egam, *ebet;
+  const float* elg;  // EP_ATT: the logits (R, N)
+  int ldx, tr, act, R, K, N, ep, stats, ldex, eact, rps;
 };
-
-struct Ptrs {
-  const float* h1;
-  const unsigned char* mask;
-  const float* cst;
-  const float* dout;
-  const float* out_in;  // attend: the forward's output (B, M, CL)
-  float* mx;            // out pass: running max out; backward: in
-  float* den;           // attend: denominator; max: tie count
-  const float* tin;     // b_mid: T slab of the level
-  const float* coef;    // (ginv, cg, cp) of the BN whose backward runs here
-  float* tout;          // T slab of the level below
-  float *dw, *db, *dw2, *db2, *rs, *rp, *s, *ss;
-  float* out;           // out pass: (B, M, CL)
-};
-
-// BN + activation applied as a dense loads its input; mu == nullptr: none
-struct Xf {
-  const float *mu, *inv, *g, *b;
-  int act;
-};
-
-__device__ __forceinline__ float act_fn(float v, int kind) {
-  if (kind == 0) return fmaxf(v, 0.f);            // relu
-  if (kind == 1) return v > 0.f ? v : 0.01f * v;  // leaky_relu
-  return v;                                       // identity
-}
 
 __device__ __forceinline__ float dact_fn(float y, int kind) {
   if (kind == 0) return y > 0.f ? 1.f : 0.f;
@@ -92,8 +93,8 @@ __device__ __forceinline__ float dact_fn(float y, int kind) {
 // BN as the plain version rounds it, x-hat = (v - mu) * inv and
 // y = x-hat * gamma + beta, each op rounded once: the explicit intrinsics
 // keep the compiler from contracting some call sites into FMAs and not
-// others, so every pass recomputes bit-identical chain values (a max
-// aggregation's backward finds its argmax by equality with the forward's)
+// others, so the forward's activation and the backward's act' and x-hat
+// see the same y
 __device__ __forceinline__ float bn_xhat(float v, float mu, float inv) {
   return __fmul_rn(__fsub_rn(v, mu), inv);
 }
@@ -102,626 +103,518 @@ __device__ __forceinline__ float bn_y(float xh, float g, float b) {
   return __fadd_rn(__fmul_rn(xh, g), b);
 }
 
-__device__ __forceinline__ float xf_apply(const Xf& x, float v, int c) {
-  if (x.mu == nullptr) return v;
-  return act_fn(bn_y(bn_xhat(v, x.mu[c], x.inv[c]), x.g[c], x.b[c]), x.act);
-}
-
-__device__ __forceinline__ int seq_width(const GT& g, int s) {
-  return s <= g.L ? g.dims[s] : (s == g.L + 1 ? g.A : g.dims[g.L]);
-}
-
-// the transform of the dense leaving sequence value s
-__device__ __forceinline__ Xf seq_xf(const GT& g, const float* cst, int s) {
-  Xf x;
-  if (s < g.L) {
-    x.mu = cst + g.mu[s];
-    x.inv = cst + g.inv[s];
-    x.g = cst + g.gam[s];
-    x.b = cst + g.bet[s];
-    x.act = g.act;
-  } else if (s == g.L + 1) {
-    x.mu = cst + g.mua;
-    x.inv = cst + g.inva;
-    x.g = cst + g.gama;
-    x.b = cst + g.beta;
-    x.act = g.aact;
-  } else {
-    x.mu = x.inv = x.g = x.b = nullptr;
-    x.act = 2;
-  }
-  return x;
-}
-
-// out (TM, cout) = xf(in (TM, cin)) @ W (cin, cout) (+ bias), row-major
-// tiles in shared memory; 4x4 micro-tiles per thread.
-template <int TM>
-__device__ void dense_tile(const float* in, int cin, float* outp, int cout,
-                           const float* __restrict__ W,
-                           const float* __restrict__ bias, const Xf xf) {
-  const int ncg = (cout + 3) >> 2;
-  const int items = (TM / 4) * ncg;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int rg = it / ncg, cg = it - rg * ncg;
-    const int r0 = rg * 4, c0 = cg * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    const float* in0 = in + r0 * cin;
-    for (int ci = 0; ci < cin; ++ci) {
-      const float* wrow = W + (size_t)ci * cout + c0;
-      float w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = (c0 + j < cout) ? wrow[j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = xf_apply(xf, in0[i * cin + ci], ci);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
+__device__ __forceinline__ float transform(const GJob& j, float x, float x2,
+                                           int r, int c) {
+  switch (j.tr) {
+    case TR_NONE:
+      return x;
+    case TR_BN_ACT:
+      return act_fn(bn_y(bn_xhat(x, j.mu[c], j.inv[c]), j.gam[c], j.bet[c]),
+                    j.act);
+    case TR_BNB: {  // gamma inv (t - (sum t / n + x-hat sum t x-hat / n))
+      const float xh = bn_xhat(x2, j.mu[c], j.inv[c]);
+      return __fmul_rn(j.c0[c],
+                       __fsub_rn(x, __fadd_rn(j.c1[c], __fmul_rn(xh, j.c2[c]))));
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (c0 + j >= cout) continue;
-      const float bb = bias ? bias[c0 + j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        outp[(r0 + i) * cout + c0 + j] = __fadd_rn(acc[i][j], bb);
+    case TR_MAXB: {  // dout at the query's argmax, shared among its ties
+      const size_t o = (size_t)j.qry[r] * j.ldx + c;
+      return x == j.qmx[o] ? __fdiv_rn(j.qd[o], fmaxf(j.qaux[o], 1.f)) : 0.f;
     }
-  }
-  __syncthreads();
-}
-
-// dW (cin, cout) += xf(A (TM, cin))^T @ D (TM, cout), atomically
-template <int TM>
-__device__ void wgrad_tile(const float* A, int cin, const Xf xf,
-                           const float* D, int cout, float* dW) {
-  const int ncg = (cout + 3) >> 2;
-  const int items = ((cin + 3) >> 2) * ncg;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int ig = it / ncg, cg = it - ig * ncg;
-    const int i0 = ig * 4, c0 = cg * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    // the 4 columns' BN affine, hoisted out of the row loop
-    float bm[4], bi[4], bg[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = min(i0 + i, cin - 1);
-      bm[i] = xf.mu ? xf.mu[c] : 0.f;
-      bi[i] = xf.mu ? xf.inv[c] : 1.f;
-      bg[i] = xf.mu ? xf.g[c] : 1.f;
-      bb[i] = xf.mu ? xf.b[c] : 0.f;
-    }
-    for (int r = 0; r < TM; ++r) {
-      float a[4], d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = A[r * cin + min(i0 + i, cin - 1)];
-        a[i] = i0 + i >= cin ? 0.f
-               : xf.mu ? act_fn(bn_y(bn_xhat(v, bm[i], bi[i]), bg[i], bb[i]),
-                                xf.act)
-                       : v;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) d[j] = (c0 + j < cout) ? D[r * cout + c0 + j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i0 + i >= cin) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c0 + j < cout) atomicAdd(dW + (size_t)(i0 + i) * cout + c0 + j, acc[i][j]);
+    default: {  // TR_DLOGIT: softmax weight w (msg - out) dout
+      const size_t o = (size_t)j.qry[r] * j.ldx + c;
+      const float w = __fdiv_rn(expf(x - j.qmx[o]), j.qaux[o]);
+      return __fmul_rn(__fmul_rn(w, __fsub_rn(x2, j.qout[o])), j.qd[o]);
     }
   }
 }
 
-// dst[c] += sum over the TM rows of D (TM, C)
-template <int TM>
-__device__ void colsum_add(const float* D, int C, float* dst) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < TM; ++r) s += D[r * C + c];
-    atomicAdd(dst + c, s);
-  }
-}
-
-template <int TM>
-struct Tile {
-  float* sm;      // NS slots of TM * cmax
-  float* mcol;    // (TM,) 0/1 mask column of the plane
-  int NS, b, m0, k;
-  int k0, k1;     // the block's share of the planes (all but the out pass)
-  __device__ float* slot(const GT& g, int s) const {
-    return sm + (size_t)(s % NS) * TM * g.cmax;
-  }
+// Raw A values of one stage in registers, 4 float4 a thread (and x2's,
+// where the transform reads it): non-WG rows m0.. (64) x columns k0..
+// (32) of x; WG rows k0.. (32, bounded by rend) x columns m0.. (64).
+// row[i] is -1 past the rows.
+struct ATile {
+  float v[4][4], v2[4][4];
+  int row[4], col[4];
 };
 
-// load plane t.k's mask column; returns (block-uniformly) whether any of
-// the tile's queries has a live slot there.  A plane with none is skipped
-// by every pass: its rows add nothing to any sum (their mask, their
-// cotangents and, for attend, their softmax weights are exactly 0).
-template <int TM>
-__device__ bool plane_mask(const GT& g, const Ptrs& p, const Tile<TM>& t) {
-  int live = 0;
-  for (int r = threadIdx.x; r < TM; r += blockDim.x) {
-    const int m = t.m0 + r;
-    const bool on = m < g.M && p.mask[((size_t)t.b * g.M + m) * g.K + t.k];
-    t.mcol[r] = on ? 1.f : 0.f;
-    live |= on;
-  }
-  return __syncthreads_or(live);
-}
-
-// write zeros into the T slab rows of a skipped plane
-template <int TM>
-__device__ void zero_tout(const GT& g, const Ptrs& p, const Tile<TM>& t,
-                          int C) {
-  for (int i = threadIdx.x; i < TM * C; i += blockDim.x) {
-    const int r = i / C, m = t.m0 + r;
-    if (m < g.M)
-      p.tout[(((size_t)t.b * g.K + t.k) * g.M + m) * C + i - r * C] = 0.f;
-  }
-}
-
-// load plane t.k of h1 (after plane_mask), then run the chain to sequence
-// value `target`
-template <int TM>
-__device__ void chain(const GT& g, const Ptrs& p, const Tile<TM>& t,
-                      int target) {
-  const int c0 = g.dims[0];
-  float* v0 = t.slot(g, 0);
-  const float* hk = p.h1 + ((size_t)t.b * g.K + t.k) * (size_t)g.M * c0;
-  for (int i = threadIdx.x; i < TM * c0; i += blockDim.x) {
-    const int r = i / c0, c = i - r * c0;
-    const int m = t.m0 + r;
-    v0[i] = m < g.M ? hk[(size_t)m * c0 + c] : 0.f;
-  }
-  __syncthreads();
-  for (int s = 0; s < target; ++s) {
-    const float *W, *bias;
-    if (s < g.L) {
-      W = p.cst + g.w[s];
-      bias = p.cst + g.b[s];
-    } else if (s == g.L) {
-      W = p.cst + g.wa0;
-      bias = p.cst + g.ba0;
+template <bool WG>
+__device__ __forceinline__ void load_a(const GJob& j, ATile& a, int m0,
+                                       int k0, int rend) {
+  const bool two = j.tr == TR_BNB || j.tr == TR_DLOGIT;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = threadIdx.x + GT_THREADS * i;
+    const int tr = WG ? f >> 4 : f >> 3;
+    const int tc = WG ? (f & 15) * 4 : (f & 7) * 4;
+    const int r = WG ? k0 + tr : m0 + tr;
+    const int c = WG ? m0 + tc : k0 + tc;
+    const int ncol = j.K;  // WG: K is the channel count of x
+    a.row[i] = r < rend ? r : -1;
+    a.col[i] = c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a.v[i][e] = a.v2[i][e] = 0.f;
+    if (r >= rend) continue;
+    const size_t base = (size_t)(j.xidx ? j.xidx[r] : r) * j.ldx;
+    const float* p = j.x + base + c;
+    if ((j.ldx & 3) == 0 && (reinterpret_cast<size_t>(j.x) & 15) == 0 &&
+        c + 3 < ncol) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+      a.v[i][0] = q.x; a.v[i][1] = q.y; a.v[i][2] = q.z; a.v[i][3] = q.w;
     } else {
-      W = p.cst + g.wa1;
-      bias = p.cst + g.ba1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < ncol) a.v[i][e] = __ldg(p + e);
     }
-    dense_tile<TM>(t.slot(g, s), seq_width(g, s), t.slot(g, s + 1),
-                   seq_width(g, s + 1), W, bias, seq_xf(g, p.cst, s));
+    if (two) {  // x2 has x's layout, never gathered
+      const float* p2 = j.x2 + (size_t)r * j.ldx + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < ncol) a.v2[i][e] = __ldg(p2 + e);
+    }
   }
 }
 
-// index of (b, m, c) in a (B, M, C) array
-__device__ __forceinline__ size_t bmc(const GT& g, int b, int m, int c, int C) {
-  return ((size_t)b * g.M + m) * C + c;
-}
-
-// the backward of one local level li (its dense W_li and BN_li), given the
-// cotangent D (TM, C_{li+1}) of v_{li+1} in shared memory and v_li in slot
-// `vs`: dW_li, db_li, the T slab of level li, sum T and sum T * x-hat
-template <int TM>
-__device__ void level_tail(const GT& g, const Ptrs& p, const Tile<TM>& t,
-                           int li, const float* D, int vs, int xs) {
-  const int cin = g.dims[li], cout = g.dims[li + 1];
-  const float* V = t.slot(g, vs);
-  const Xf xf = seq_xf(g, p.cst, li);
-  wgrad_tile<TM>(V, cin, xf, D, cout, p.dw);
-  colsum_add<TM>(D, cout, p.db);
-  float* X = t.slot(g, xs);
-  const Xf none = {nullptr, nullptr, nullptr, nullptr, 2};
-  dense_tile<TM>(D, cout, X, cin, p.cst + g.wt[li], nullptr, none);
-  for (int c = threadIdx.x; c < cin; c += blockDim.x) {
-    float rs = 0.f, rp = 0.f;
-    for (int r = 0; r < TM; ++r) {
-      const float xh = bn_xhat(V[r * cin + c], xf.mu[c], xf.inv[c]);
-      const float y = bn_y(xh, xf.g[c], xf.b[c]);
-      const float tv = X[r * cin + c] * dact_fn(y, g.act) * t.mcol[r];
-      const int m = t.m0 + r;
-      if (m < g.M)
-        p.tout[(((size_t)t.b * g.K + t.k) * g.M + m) * cin + c] = tv;
-      rs += tv;
-      rp += tv * xh;
+// Transform, (non-WG, column tile 0) save, split and store a loaded tile.
+template <bool WG>
+__device__ __forceinline__ void store_a(const GJob& j, const ATile& a,
+                                        uint32_t* hi, uint32_t* lo,
+                                        bool save) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = threadIdx.x + GT_THREADS * i;
+    const int tr = WG ? f >> 4 : f >> 3;
+    const int tc = WG ? (f & 15) * 4 : (f & 7) * 4;
+    float t[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = a.col[i] + e;
+      t[e] = (a.row[i] >= 0 && c < j.K)
+                 ? transform(j, a.v[i][e], a.v2[i][e], a.row[i], c)
+                 : 0.f;
     }
-    atomicAdd(p.rs + c, rs);
-    atomicAdd(p.rp + c, rp);
-  }
-  __syncthreads();
-}
-
-// pass 0: masked sums (s, ss) of sequence value `depth`
-template <int TM>
-__device__ void pass_stats(const GT& g, const Ptrs& p, Tile<TM>& t, int depth,
-                           float* acc) {
-  const int C = seq_width(g, depth);
-  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) acc[c] = 0.f;
-  for (int k = t.k0; k < t.k1; ++k) {
-    t.k = k;
-    if (!plane_mask<TM>(g, p, t)) continue;
-    chain<TM>(g, p, t, depth);
-    const float* V = t.slot(g, depth);
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      float s = 0.f, ss = 0.f;
-      for (int r = 0; r < TM; ++r) {
-        const float v = V[r * C + c];
-        const float vm = v * t.mcol[r];
-        s += vm;
-        ss += vm * v;
-      }
-      acc[c] += s;
-      acc[C + c] += ss;
+    if (save && a.row[i] >= 0) {
+      float* d = j.asave + (size_t)a.row[i] * j.K + a.col[i];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (a.col[i] + e < j.K) d[e] = t[e];
     }
-    __syncthreads();
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    atomicAdd(p.s + c, acc[c]);
-    atomicAdd(p.ss + c, acc[C + c]);
+    const int o = WG ? tr * GT_SAT + tc : tr * GT_SA + tc;
+    uint4 h, l;
+    h.x = tf32_rna(t[0]); h.y = tf32_rna(t[1]);
+    h.z = tf32_rna(t[2]); h.w = tf32_rna(t[3]);
+    l.x = tf32_lo(t[0], h.x); l.y = tf32_lo(t[1], h.y);
+    l.z = tf32_lo(t[2], h.z); l.w = tf32_lo(t[3], h.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
   }
 }
 
-// pass 1: the chain and the online masked aggregation over the planes
-template <int TM>
-__device__ void pass_out(const GT& g, const Ptrs& p, Tile<TM>& t, float* RM,
-                         float* DEN, float* ACC) {
-  const int CL = g.dims[g.L];
-  for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-    RM[i] = -1e30f;
-    DEN[i] = 0.f;
-    if (g.attend) ACC[i] = 0.f;
-  }
-  const int target = g.attend ? g.L + 2 : g.L;
-  // attend visits the planes with a live slot first; a plane with none
-  // is then an exact no-op for every row that has met a live slot (its
-  // logit -500 is at least ~150 below the running max, so exp underflows
-  // to 0), and is run only for a row that has met none
-  for (int sweep = 0; sweep < (g.attend ? 2 : 1); ++sweep)
-  for (int k = 0; k < g.K; ++k) {
-    t.k = k;
-    const bool live = plane_mask<TM>(g, p, t);
-    if (!live && !g.attend) {   // max: the fill -100 competes, analytically
-      for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-        DEN[i] = -100.f > RM[i] ? 1.f : DEN[i] + (RM[i] == -100.f ? 1.f : 0.f);
-        RM[i] = fmaxf(RM[i], -100.f);
-      }
-      continue;
-    }
-    if (g.attend && live != (sweep == 0)) continue;
-    if (!live) {
-      int need = 0;
-      for (int i = threadIdx.x; i < TM * CL; i += blockDim.x)
-        need |= t.m0 + i / CL < g.M && RM[i] <= -350.f;
-      if (!__syncthreads_or(need)) continue;
-    }
-    chain<TM>(g, p, t, target);
-    const float* MSG = t.slot(g, g.L);
-    const float* LG = t.slot(g, target);
-    for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-      const float mk = t.mcol[i / CL];
-      if (g.attend) {
-        const float l = mk > 0.f ? LG[i] : -500.f;
-        const float nm = fmaxf(RM[i], l);
-        const float sc = expf(RM[i] - nm);
-        const float e = expf(l - nm);
-        DEN[i] = DEN[i] * sc + e;
-        ACC[i] = ACC[i] * sc + e * MSG[i];
-        RM[i] = nm;
+// One stage's products: acc[i][jn] (rows wm*32 + i*16.., columns
+// wn*32 + jn*8..) += A (hi, lo) x B (split here), 3xTF32.
+template <bool WG>
+__device__ __forceinline__ void mma_stage(const uint32_t* Ahi,
+                                          const uint32_t* Alo, const float* Bs,
+                                          float (&acc)[2][4][4], int wm,
+                                          int wn, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < GT_BK; kk += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = wm * 32 + i * 16 + g;
+      int o[4];
+      if (WG) {
+        o[0] = (kk + t) * GT_SAT + m;
+        o[1] = o[0] + 8;
+        o[2] = o[0] + 4 * GT_SAT;
+        o[3] = o[2] + 8;
       } else {
-        const float hit = mk > 0.f ? MSG[i] : -100.f;
-        DEN[i] = hit > RM[i] ? 1.f : DEN[i] + (hit == RM[i] ? 1.f : 0.f);
-        RM[i] = fmaxf(RM[i], hit);
+        o[0] = m * GT_SA + kk + t;
+        o[1] = o[0] + 8 * GT_SA;
+        o[2] = o[0] + 4;
+        o[3] = o[1] + 4;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[i][e] = Ahi[o[e]];
+        al[i][e] = Alo[o[e]];
       }
     }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-    const int r = i / CL, c = i - r * CL, m = t.m0 + r;
-    if (m >= g.M) continue;
-    const size_t o = bmc(g, t.b, m, c, CL);
-    if (g.attend) {
-      p.out[o] = ACC[i] / DEN[i];
-      p.mx[o] = RM[i];
-    } else {
-      p.out[o] = RM[i];
-    }
-    p.den[o] = DEN[i];
-  }
-}
-
-// pass 2 (attend): dWa1, dba1 and the BN_a sums, no slab
-template <int TM>
-__device__ void pass_b_att(const GT& g, const Ptrs& p, Tile<TM>& t) {
-  const int L = g.L, CL = g.dims[L], A = g.A;
-  for (int k = t.k0; k < t.k1; ++k) {
-    t.k = k;
-    if (!plane_mask<TM>(g, p, t)) continue;
-    chain<TM>(g, p, t, L + 2);
-    const float* MSG = t.slot(g, L);
-    const float* G = t.slot(g, L + 1);
-    float* LG = t.slot(g, L + 2);
-    float* X = t.slot(g, L + 3);
-    for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-      const int r = i / CL, c = i - r * CL, m = t.m0 + r;
-      float dl = 0.f;
-      if (m < g.M) {
-        const size_t o = bmc(g, t.b, m, c, CL);
-        const float mk = t.mcol[r];
-        const float l = mk > 0.f ? LG[i] : -500.f;
-        const float w = expf(l - p.mx[o]) / p.den[o];
-        dl = w * (MSG[i] - p.out_in[o]) * p.dout[o] * mk;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const float* b = Bs + (kk + t) * GT_SB + wn * 32 + jn * 8 + g;
+      const float w0 = b[0], w1 = b[4 * GT_SB];
+      const uint32_t bh0 = tf32_rna(w0), bh1 = tf32_rna(w1);
+      const uint32_t bl0 = tf32_lo(w0, bh0), bl1 = tf32_lo(w1, bh1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_tf32(acc[i][jn], al[i], bh0, bh1);
+        mma_tf32(acc[i][jn], ah[i], bl0, bl1);
+        mma_tf32(acc[i][jn], ah[i], bh0, bh1);
       }
-      LG[i] = dl;
     }
-    __syncthreads();
-    const Xf xa = seq_xf(g, p.cst, L + 1);
-    wgrad_tile<TM>(G, A, xa, LG, CL, p.dw);
-    colsum_add<TM>(LG, CL, p.db);
-    const Xf none = {nullptr, nullptr, nullptr, nullptr, 2};
-    dense_tile<TM>(LG, CL, X, A, p.cst + g.wa1t, nullptr, none);
-    for (int c = threadIdx.x; c < A; c += blockDim.x) {
-      float rs = 0.f, rp = 0.f;
-      for (int r = 0; r < TM; ++r) {
-        const float xh = bn_xhat(G[r * A + c], xa.mu[c], xa.inv[c]);
-        const float y = bn_y(xh, xa.g[c], xa.b[c]);
-        const float ta = X[r * A + c] * dact_fn(y, g.aact) * t.mcol[r];
-        rs += ta;
-        rp += ta * xh;
-      }
-      atomicAdd(p.rs + c, rs);
-      atomicAdd(p.rp + c, rp);
-    }
-    __syncthreads();
   }
 }
 
-// pass 3: the aggregation's backward + the last local level
-template <int TM>
-__device__ void pass_b_msg(const GT& g, const Ptrs& p, Tile<TM>& t) {
-  const int L = g.L, CL = g.dims[L], A = g.A;
-  for (int k = t.k0; k < t.k1; ++k) {
-    t.k = k;
-    if (!plane_mask<TM>(g, p, t)) {
-      zero_tout<TM>(g, p, t, g.dims[L - 1]);
-      continue;
-    }
-    chain<TM>(g, p, t, g.attend ? L + 2 : L);
-    float* MSG = t.slot(g, L);
-    float* D;
-    if (g.attend) {
-      const float* G = t.slot(g, L + 1);
-      float* LG = t.slot(g, L + 2);
-      float* X = t.slot(g, L + 3);
-      float* WD = t.slot(g, L + 4);
-      for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-        const int r = i / CL, c = i - r * CL, m = t.m0 + r;
-        float wd = 0.f, dl = 0.f;
-        if (m < g.M) {
-          const size_t o = bmc(g, t.b, m, c, CL);
-          const float mk = t.mcol[r];
-          const float l = mk > 0.f ? LG[i] : -500.f;
-          const float w = expf(l - p.mx[o]) / p.den[o];
-          wd = w * p.dout[o];
-          dl = w * (MSG[i] - p.out_in[o]) * p.dout[o] * mk;
+__device__ __forceinline__ float sum_over_g(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// The non-WG epilogue: value, store, and the per-column sums of this
+// tile's rows (fixed order: a thread's rows, then the g lanes, then the
+// two row warps) into part (gridDim.x, 2N) when j.stats.
+__device__ __forceinline__ void epilogue(const GJob& j,
+                                         const float (&acc)[2][4][4],
+                                         float* red, int m0, int n0,
+                                         int ncols, int wm, int wn, int g,
+                                         int t) {
+  const int tid = threadIdx.x;
+  float sa[4][2], sb[4][2];
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+    sa[jn][0] = sa[jn][1] = sb[jn][0] = sb[jn][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm * 32 + i * 16 + g + 8 * h;
+      if (r >= j.R) continue;
+      const int q = j.ep == EP_ATT ? j.qry[r] : 0;
+      const size_t erow = j.ep == EP_DGRAD
+          ? (size_t)(j.exidx ? j.exidx[r] : r) * j.ldex : 0;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int n = n0 + wn * 32 + jn * 8 + 2 * t + p;
+          if (n >= j.N) continue;
+          const float a = acc[i][jn][2 * h + p];
+          float v, u = 0.f;
+          if (j.ep == EP_FWD) {
+            v = __fadd_rn(a, j.bias[n]);
+            u = __fmul_rn(v, v);
+          } else if (j.ep == EP_DGRAD) {
+            const float xh = bn_xhat(j.ex[erow + n], j.emu[n], j.einv[n]);
+            v = __fmul_rn(a, dact_fn(bn_y(xh, j.egam[n], j.ebet[n]), j.eact));
+            u = __fmul_rn(v, xh);
+          } else {  // EP_ATT: msg's cotangent w dout + dg1 @ Wa0^T
+            const size_t o = (size_t)q * j.N + n;
+            const float w = __fdiv_rn(
+                expf(j.elg[(size_t)r * j.N + n] - j.qmx[o]), j.qaux[o]);
+            v = __fadd_rn(__fmul_rn(w, j.qd[o]), a);
+          }
+          j.y[(size_t)r * j.N + n] = v;
+          sa[jn][p] += v;
+          sb[jn][p] += u;
         }
-        WD[i] = wd;
-        LG[i] = dl;
-      }
-      __syncthreads();
-      const Xf none = {nullptr, nullptr, nullptr, nullptr, 2};
-      dense_tile<TM>(LG, CL, X, A, p.cst + g.wa1t, nullptr, none);
-      const Xf xa = seq_xf(g, p.cst, L + 1);
-      const float *ginv = p.coef, *cg = p.coef + A, *cp = p.coef + 2 * A;
-      for (int c = threadIdx.x; c < A; c += blockDim.x) {
-        for (int r = 0; r < TM; ++r) {
-          const float mk = t.mcol[r];
-          const float xh = bn_xhat(G[r * A + c], xa.mu[c], xa.inv[c]);
-          const float y = bn_y(xh, xa.g[c], xa.b[c]);
-          const float ta = X[r * A + c] * dact_fn(y, g.aact) * mk;
-          X[r * A + c] = ginv[c] * (ta - mk * (cg[c] + xh * cp[c]));
-        }
-      }
-      __syncthreads();
-      wgrad_tile<TM>(MSG, CL, none, X, A, p.dw2);
-      colsum_add<TM>(X, A, p.db2);
-      dense_tile<TM>(X, A, LG, CL, p.cst + g.wa0t, nullptr, none);
-      for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) LG[i] += WD[i];
-      __syncthreads();
-      D = LG;
-    } else {
-      for (int i = threadIdx.x; i < TM * CL; i += blockDim.x) {
-        const int r = i / CL, c = i - r * CL, m = t.m0 + r;
-        float dm = 0.f;
-        if (m < g.M) {
-          const size_t o = bmc(g, t.b, m, c, CL);
-          const float mk = t.mcol[r];
-          const float hit = mk > 0.f ? MSG[i] : -100.f;
-          const float eq = hit == p.mx[o] ? 1.f : 0.f;
-          dm = p.dout[o] * eq * mk / fmaxf(p.den[o], 1.f);
-        }
-        MSG[i] = dm;
-      }
-      __syncthreads();
-      D = MSG;
     }
-    level_tail<TM>(g, p, t, L - 1, D, L - 1, g.attend ? L + 3 : L + 1);
+  if (!j.stats) return;
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      sa[jn][p] = sum_over_g(sa[jn][p]);
+      sb[jn][p] = sum_over_g(sb[jn][p]);
+    }
+  if (g == 0) {
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int c = wn * 32 + jn * 8 + 2 * t + p;
+        red[wm * 64 + c] = sa[jn][p];
+        red[128 + wm * 64 + c] = sb[jn][p];
+      }
+  }
+  __syncthreads();
+  if (tid < ncols) {
+    float* pr = j.part + (size_t)blockIdx.x * 2 * j.N;
+    pr[n0 + tid] = red[tid] + red[64 + tid];
+    pr[j.N + n0 + tid] = red[128 + tid] + red[192 + tid];
   }
 }
 
-// pass 4: level `lv`'s BN backward from its T slab, then level lv-1
-template <int TM>
-__device__ void pass_b_mid(const GT& g, const Ptrs& p, Tile<TM>& t, int lv) {
-  const int C = g.dims[lv];
-  const float *ginv = p.coef, *cg = p.coef + C, *cp = p.coef + 2 * C;
-  const float *mu = p.cst + g.mu[lv], *inv = p.cst + g.inv[lv];
-  for (int k = t.k0; k < t.k1; ++k) {
-    t.k = k;
-    if (!plane_mask<TM>(g, p, t)) {
-      zero_tout<TM>(g, p, t, g.dims[lv - 1]);
-      continue;
-    }
-    chain<TM>(g, p, t, lv);
-    float* V = t.slot(g, lv);
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      for (int r = 0; r < TM; ++r) {
-        const int m = t.m0 + r;
-        const float tin =
-            m < g.M ? p.tin[(((size_t)t.b * g.K + k) * g.M + m) * C + c] : 0.f;
-        const float xh = bn_xhat(V[r * C + c], mu[c], inv[c]);
-        V[r * C + c] = ginv[c] * (tin - t.mcol[r] * (cg[c] + xh * cp[c]));
-      }
-    }
-    __syncthreads();
-    level_tail<TM>(g, p, t, lv - 1, V, lv - 1, lv + 1);
-  }
-}
-
-template <int TM>
+// Non-WG: y (R, N) = T(A) (R, K) @ B (K, N), epilogue j.ep, per-block
+// column sums into part (gridDim.x, 2N) when j.stats.  WG: part
+// (gridDim.z, K + 1, N) = per row split, T(A)^T (K, rows) @ B (rows, N)
+// and, in blocks of the first channel tile, row K: the column sums of B.
+template <bool WG>
 __global__ void __launch_bounds__(GT_THREADS)
-group_train_kernel(GT g, Ptrs p, int pass, int level, int NS, int kper) {
-  extern __shared__ float sm[];
-  Tile<TM> t;
-  t.sm = sm;
-  t.NS = NS;
-  t.mcol = sm + (size_t)NS * TM * g.cmax;
-  t.b = blockIdx.y;
-  t.m0 = blockIdx.x * TM;
-  t.k = 0;
-  t.k0 = blockIdx.z * kper;
-  t.k1 = min(g.K, t.k0 + kper);
-  float* extra = t.mcol + TM;
-  const int CL = g.dims[g.L];
-  switch (pass) {
-    case 0: pass_stats<TM>(g, p, t, level, extra); break;
-    case 1:
-      pass_out<TM>(g, p, t, extra, extra + TM * CL, extra + 2 * TM * CL);
-      break;
-    case 2: pass_b_att<TM>(g, p, t); break;
-    case 3: pass_b_msg<TM>(g, p, t); break;
-    default: pass_b_mid<TM>(g, p, t, level); break;
+    gt_gemm(const GJob j) {
+  extern __shared__ float4 sm4[];
+  uint32_t* Ahi = reinterpret_cast<uint32_t*>(sm4);  // 2 stages each
+  uint32_t* Alo = Ahi + 2 * GT_A_WORDS;
+  float* Bs = reinterpret_cast<float*>(Alo + 2 * GT_A_WORDS);
+  float* red = Bs + 2 * GT_BK * GT_SB;  // 4 x 64
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * GT_BM, n0 = blockIdx.y * GT_BN;
+  // the inner range: K channels, or this split's rows
+  const int kbeg = WG ? blockIdx.z * j.rps : 0;
+  const int kend = WG ? min(j.R, kbeg + j.rps) : j.K;
+  const int nst = max(0, (kend - kbeg + GT_BK - 1) / GT_BK);
+  const int ncols = min(GT_BN, j.N - n0);
+  const WLayer B = {j.w + n0, kend, ncols, j.N,
+                    (j.N & 3) == 0 && (reinterpret_cast<size_t>(j.w) & 15) == 0};
+  const bool save = !WG && j.asave != nullptr && blockIdx.y == 0;
+  const bool dbsum = WG && blockIdx.x == 0;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jn][e] = 0.f;
+  float db = 0.f;
+
+  ATile at;
+  if (nst > 0) {
+    stage_w(Bs, GT_SB, B, kbeg, GT_BK);
+    cp_async_commit();
+    load_a<WG>(j, at, m0, kbeg, WG ? kend : j.R);
+    store_a<WG>(j, at, Ahi, Alo, save);
+  }
+  for (int s = 0; s < nst; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    const bool more = s + 1 < nst;
+    if (more) {
+      stage_w(Bs + nxt * GT_BK * GT_SB, GT_SB, B, kbeg + (s + 1) * GT_BK,
+              GT_BK);
+      cp_async_commit();
+      load_a<WG>(j, at, m0, kbeg + (s + 1) * GT_BK, WG ? kend : j.R);
+    }
+    const float* bs = Bs + cur * GT_BK * GT_SB;
+    if (dbsum && (tid & 63) < ncols) {
+      const int half = tid >> 6;
+      for (int r = 0; r < 16; ++r) db += bs[(half * 16 + r) * GT_SB + (tid & 63)];
+    }
+    mma_stage<WG>(Ahi + cur * GT_A_WORDS, Alo + cur * GT_A_WORDS, bs, acc, wm,
+                  wn, g, t);
+    if (more)
+      store_a<WG>(j, at, Ahi + nxt * GT_A_WORDS, Alo + nxt * GT_A_WORDS, save);
+  }
+
+  if constexpr (WG) {
+    const size_t zb = (size_t)blockIdx.z * (j.K + 1) * j.N;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+        if (m >= j.K) continue;
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int n = n0 + wn * 32 + jn * 8 + 2 * t + p;
+            if (n < j.N) j.part[zb + (size_t)m * j.N + n] = acc[i][jn][2 * h + p];
+          }
+      }
+    if (dbsum) {
+      __syncthreads();
+      red[tid] = db;
+      __syncthreads();
+      if (tid < ncols)
+        j.part[zb + (size_t)j.K * j.N + n0 + tid] = red[tid] + red[64 + tid];
+    }
+  } else {
+    epilogue(j, acc, red, m0, n0, ncols, wm, wn, g, t);
   }
 }
 
-// shared-memory row buffers each pass keeps live (ops/group_train._slots)
-static int pass_slots(int pass, int attend) {
-  switch (pass) {
-    case 0: return 2;
-    case 1: return attend ? 3 : 2;
-    case 2: return 4;
-    case 3: return attend ? 6 : 3;
-    default: return 3;
+// Masked sums (v, v * v) of the rows of x (through idx) per 64-row tile:
+// part (gridDim.x, 2C), the statistics of the first BN.
+__global__ void gt_rowstats(const float* __restrict__ x,
+                            const int* __restrict__ idx, int ldx, int R, int C,
+                            float* __restrict__ part) {
+  const int r0 = blockIdx.x * GT_BM, r1 = min(R, r0 + GT_BM);
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f, ss = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const float v = x[(size_t)idx[r] * ldx + c];
+      s += v;
+      ss += __fmul_rn(v, v);
+    }
+    part[(size_t)blockIdx.x * 2 * C + c] = s;
+    part[(size_t)blockIdx.x * 2 * C + C + c] = ss;
   }
 }
 
-template <int TM>
-static cudaError_t launch(const GT& g, const Ptrs& p, int pass, int level,
-                          int splits, cudaStream_t st) {
-  const int NS = pass_slots(pass, g.attend);
-  size_t floats = (size_t)NS * TM * g.cmax + TM;
-  if (pass == 0) floats += 2 * (size_t)g.cmax;
-  if (pass == 1) floats += (g.attend ? 3 : 2) * (size_t)TM * g.dims[g.L];
-  const size_t smem = floats * sizeof(float);
-  if (smem > 232448) return cudaErrorInvalidValue;
+// out[c] = sum over p of part[p, c] in a fixed order (8 strided lanes,
+// then the lanes in order), for c < ncol, and with pair also
+// out[ncol + c] from part[p, ncol + c].  mode 1 (statistics; pair):
+// aux = (mean, var, rsqrt(var + eps)) of the sums (s, ss) over n rows;
+// mode 2 (BN backward; pair): aux = (gamma inv, sum T / n, sum T x-hat / n).
+__global__ void __launch_bounds__(256)
+    gt_finalize(const float* __restrict__ part, int P, long long ld,
+                long long ncol, int pair, float* __restrict__ out, int mode,
+                float n, float eps, const float* __restrict__ gam,
+                const float* __restrict__ inv, float* aux0, float* aux1,
+                float* aux2) {
+  __shared__ float sa[8][32], sb[8][32];
+  const int lane = threadIdx.x >> 5, cl = threadIdx.x & 31;
+  const long long c = (long long)blockIdx.x * 32 + cl;
+  float a = 0.f, b = 0.f;
+  if (c < ncol)
+    for (int p = lane; p < P; p += 8) {
+      a += part[p * ld + c];
+      if (pair) b += part[p * ld + ncol + c];
+    }
+  sa[lane][cl] = a;
+  sb[lane][cl] = b;
+  __syncthreads();
+  if (lane != 0 || c >= ncol) return;
+  a = b = 0.f;
+  for (int l = 0; l < 8; ++l) {
+    a += sa[l][cl];
+    b += sb[l][cl];
+  }
+  out[c] = a;
+  if (pair) out[ncol + c] = b;
+  if (mode == 1) {
+    const float mu = __fdiv_rn(a, n);
+    const float var =
+        fmaxf(__fsub_rn(__fdiv_rn(b, n), __fmul_rn(mu, mu)), 0.f);
+    aux0[c] = mu;
+    aux1[c] = var;
+    aux2[c] = rsqrtf(__fadd_rn(var, eps));
+  } else if (mode == 2) {
+    aux0[c] = __fmul_rn(gam[c], inv[c]);
+    aux1[c] = __fdiv_rn(a, n);
+    aux2[c] = __fdiv_rn(b, n);
+  }
+}
+
+// The masked aggregation of each query's run of rows [start[q],
+// start[q+1]) in v (R, C) (query-major): max with the fill -100 where the
+// query has a dead slot (aux: the count of slots at the max, dead slots
+// included); attend with the softmax over the rows' logits lg (aux: the
+// denominator, mx: the largest logit; a query with no live slot: out 0).
+__global__ void gt_aggregate(const float* __restrict__ v,
+                             const float* __restrict__ lg,
+                             const int* __restrict__ start, int Q, int C,
+                             int K, int attend, float* __restrict__ out,
+                             float* __restrict__ mx, float* __restrict__ aux) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)Q * C) return;
+  const int q = (int)(i / C), c = (int)(i - (long long)q * C);
+  const int s = start[q], e = start[q + 1], dead = K - (e - s);
+  if (!attend) {
+    float m = dead > 0 ? -100.f : -__int_as_float(0x7f800000);
+    for (int r = s; r < e; ++r) m = fmaxf(m, v[(size_t)r * C + c]);
+    float cnt = dead > 0 && m == -100.f ? (float)dead : 0.f;
+    for (int r = s; r < e; ++r) cnt += v[(size_t)r * C + c] == m ? 1.f : 0.f;
+    out[i] = m;
+    aux[i] = cnt;
+    return;
+  }
+  if (e == s) {
+    out[i] = 0.f;
+    mx[i] = -500.f;
+    aux[i] = 1.f;
+    return;
+  }
+  float m = -__int_as_float(0x7f800000);
+  for (int r = s; r < e; ++r) m = fmaxf(m, lg[(size_t)r * C + c]);
+  float den = 0.f, acc = 0.f;
+  for (int r = s; r < e; ++r) {
+    const float w = expf(lg[(size_t)r * C + c] - m);
+    den += w;
+    acc += w * v[(size_t)r * C + c];
+  }
+  out[i] = acc / den;
+  mx[i] = m;
+  aux[i] = den;
+}
+
+static size_t gemm_smem() {
+  return (4 * (size_t)GT_A_WORDS + 2 * GT_BK * GT_SB + 4 * 64) * 4;
+}
+
+template <bool WG>
+static cudaError_t launch_gemm(const GJob& j, int splits, cudaStream_t st) {
+  const size_t smem = gemm_smem();
   cudaError_t e = cudaFuncSetAttribute(
-      group_train_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gt_gemm<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const int kper = (g.K + splits - 1) / splits;
-  dim3 grid((g.M + TM - 1) / TM, g.B, (g.K + kper - 1) / kper);
-  group_train_kernel<TM><<<grid, GT_THREADS, smem, st>>>(g, p, pass, level,
-                                                          NS, kper);
+  const int rows = WG ? j.K : j.R;  // WG: the tile's rows are channels
+  dim3 grid(max(1, (rows + GT_BM - 1) / GT_BM), (j.N + GT_BN - 1) / GT_BN,
+            WG ? splits : 1);
+  gt_gemm<WG><<<grid, GT_THREADS, smem, st>>>(j);
   return cudaGetLastError();
 }
 
-// pass: 0 stats (level = sequence depth), 1 out, 2 b_att, 3 b_msg, 4 b_mid
-// (level = the BN level whose T slab arrives).  dims (L+1,) host; offs host
-// offsets into the packed constants (7 per local level, then 10 for the
-// attention MLP: see ops/group_train._pack).  ptrs: GT_NPTR device
-// pointers in the order of ops/group_train._PTR_SLOTS (h1, mask, cst, dout,
-// out, mx, den, tin, coef, tout, dw, db, dw2, db2, rs, rp, s, ss).
-// Accumulated outputs (dw, db, dw2, db2, rs, rp, s, ss) must be zeroed.
-// splits > 1 splits the K planes over that many blocks per query tile
-// (every pass but the out pass, whose outputs are sums or per-plane).
-extern "C" int ccn_group_train(int pass, int level, int L, const int* dims,
-                               int A, int attend, int act, int attend_act,
-                               const long long* offs, int B, int K, int M,
-                               int tm, int splits, void* const* ptrs,
-                               void* stream) {
-  if (L < 1 || L > GT_MAXL || pass < 0 || pass > 4 || B < 1 || K < 1 ||
-      M < 1 || (attend && A < 1) || splits < 1 || splits > K ||
-      (pass == 1 && splits != 1))
+// One product over the row list.  ptrs: device pointers in the order of
+// ops/group_train._GEMM_PTRS; ints: ldx, tr, act, R, K, N, ep, stats,
+// ldex, eact, rps.  wg = 1: the weight gradient, splits row splits of
+// rps rows.  Outputs (y, part, asave) need no zeroing.
+extern "C" int ccn_gt_gemm(int wg, void* const* ptrs, const int* ints,
+                           int splits, void* stream) {
+  GJob j;
+  const float** f[] = {&j.x, &j.x2, &j.mu, &j.inv, &j.gam, &j.bet, &j.c0,
+                       &j.c1, &j.c2, &j.qd, &j.qmx, &j.qaux, &j.qout, &j.w,
+                       &j.bias, &j.ex, &j.emu, &j.einv, &j.egam, &j.ebet,
+                       &j.elg};
+  const int nf = sizeof(f) / sizeof(f[0]);
+  for (int i = 0; i < nf; ++i) *f[i] = (const float*)ptrs[i];
+  j.xidx = (const int*)ptrs[nf];
+  j.qry = (const int*)ptrs[nf + 1];
+  j.exidx = (const int*)ptrs[nf + 2];
+  j.asave = (float*)ptrs[nf + 3];
+  j.y = (float*)ptrs[nf + 4];
+  j.part = (float*)ptrs[nf + 5];
+  j.ldx = ints[0];
+  j.tr = ints[1];
+  j.act = ints[2];
+  j.R = ints[3];
+  j.K = ints[4];
+  j.N = ints[5];
+  j.ep = ints[6];
+  j.stats = ints[7];
+  j.ldex = ints[8];
+  j.eact = ints[9];
+  j.rps = ints[10];
+  if (j.R < 0 || j.K < 1 || j.N < 1 || j.tr < 0 || j.tr > TR_DLOGIT ||
+      (wg && (splits < 1 || j.rps < 1 || j.rps % GT_BK)))
     return (int)cudaErrorInvalidValue;
-  GT g;
-  g.L = L;
-  g.A = attend ? A : 0;
-  g.attend = attend;
-  g.act = act;
-  g.aact = attend_act;
-  g.B = B;
-  g.K = K;
-  g.M = M;
-  g.cmax = attend ? A : 1;
-  for (int i = 0; i <= L; ++i) {
-    g.dims[i] = dims[i];
-    if (dims[i] > g.cmax) g.cmax = dims[i];
-  }
-  for (int i = 0; i < L; ++i) {
-    const long long* o = offs + 7 * i;
-    g.mu[i] = o[0];
-    g.inv[i] = o[1];
-    g.gam[i] = o[2];
-    g.bet[i] = o[3];
-    g.w[i] = o[4];
-    g.wt[i] = o[5];
-    g.b[i] = o[6];
-  }
-  const long long* o = offs + 7 * L;
-  g.wa0 = o[0];
-  g.wa0t = o[1];
-  g.ba0 = o[2];
-  g.mua = o[3];
-  g.inva = o[4];
-  g.gama = o[5];
-  g.beta = o[6];
-  g.wa1 = o[7];
-  g.wa1t = o[8];
-  g.ba1 = o[9];
-  Ptrs p;
-  p.h1 = (const float*)ptrs[0];
-  p.mask = (const unsigned char*)ptrs[1];
-  p.cst = (const float*)ptrs[2];
-  p.dout = (const float*)ptrs[3];
-  p.out = (float*)ptrs[4];
-  p.out_in = (const float*)ptrs[4];
-  p.mx = (float*)ptrs[5];
-  p.den = (float*)ptrs[6];
-  p.tin = (const float*)ptrs[7];
-  p.coef = (const float*)ptrs[8];
-  p.tout = (float*)ptrs[9];
-  p.dw = (float*)ptrs[10];
-  p.db = (float*)ptrs[11];
-  p.dw2 = (float*)ptrs[12];
-  p.db2 = (float*)ptrs[13];
-  p.rs = (float*)ptrs[14];
-  p.rp = (float*)ptrs[15];
-  p.s = (float*)ptrs[16];
-  p.ss = (float*)ptrs[17];
   cudaStream_t st = (cudaStream_t)stream;
-  switch (tm) {
-    case 4: return (int)launch<4>(g, p, pass, level, splits, st);
-    case 8: return (int)launch<8>(g, p, pass, level, splits, st);
-    case 16: return (int)launch<16>(g, p, pass, level, splits, st);
-    case 32: return (int)launch<32>(g, p, pass, level, splits, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)(wg ? launch_gemm<true>(j, splits, st)
+                  : launch_gemm<false>(j, 1, st));
+}
+
+extern "C" int ccn_gt_rowstats(const float* x, const int* idx, int ldx, int R,
+                               int C, float* part, void* stream) {
+  const int tiles = R > 0 ? (R + GT_BM - 1) / GT_BM : 1;
+  gt_rowstats<<<tiles, 256, 0, (cudaStream_t)stream>>>(x, idx, ldx, R, C,
+                                                       part);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ccn_gt_finalize(const float* part, int P, long long ld,
+                               long long ncol, int pair, float* out, int mode,
+                               float n, float eps, const float* gam,
+                               const float* inv, float* aux0, float* aux1,
+                               float* aux2, void* stream) {
+  if (P < 1 || ncol < 1) return (int)cudaErrorInvalidValue;
+  const long long blocks = (ncol + 31) / 32;
+  gt_finalize<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      part, P, ld, ncol, pair, out, mode, n, eps, gam, inv, aux0, aux1, aux2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ccn_gt_aggregate(const float* v, const float* lg,
+                                const int* start, int Q, int C, int K,
+                                int attend, float* out, float* mx, float* aux,
+                                void* stream) {
+  const long long n = (long long)Q * C;
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  gt_aggregate<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      v, lg, start, Q, C, K, attend, out, mx, aux);
+  return (int)cudaGetLastError();
 }

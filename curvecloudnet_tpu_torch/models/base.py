@@ -114,9 +114,12 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
 
     Eval: K1 once per conv step, K2 once per grouping step.  Train: per
     conv step with L layers, K8 runs L forward, L reduce and L t passes;
-    per grouping step with L kernel-side denses, the K7 forward runs L
-    stats passes, one more for the attention BN, and the output pass; its
-    backward runs B_att (attend), B_msg and L-1 B_mid passes.  Both: K4
+    per grouping step with L kernel-side denses (``ops/group_train``), the
+    K7 forward runs 2L + 2 launches (the first BN's row statistics, L
+    denses, a finalize per BN, the aggregation) and 3 more under attend
+    (two denses, a finalize); its backward runs 4 per dense (data
+    gradient, weight gradient, a finalize each) and 7 more under attend.
+    Both: K4
     once per sgcnn step (its self-row gather; K4b once in the backward),
     K6 once per FPS step, K3 once per exact shared row table and per fp
     sweep, K5 (``grid_topk``, listed only where it runs) once per distinct
@@ -151,8 +154,8 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
             if train:
                 n_loc = len(spec.input_dim(i)) - 2
                 attend = int(step.aggr_type == "attend")
-                counts["group_train_fwd"] += n_loc + attend + 1
-                counts["group_train_bwd"] += attend + n_loc
+                counts["group_train_fwd"] += 2 * n_loc + 2 + 3 * attend
+                counts["group_train_bwd"] += 4 * n_loc + 7 * attend
             else:
                 counts["group_reduce"] += 1
         if step.name == "sgcnn" and not fused:

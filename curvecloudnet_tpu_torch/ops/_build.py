@@ -107,8 +107,10 @@ _SIGNATURES = {
     "ccn_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ccn_gather_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_scatter_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
-    "ccn_group_train": [_I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
-                        _I, _P, _P],
+    "ccn_gt_gemm": [_I, _P, _P, _I, _P],
+    "ccn_gt_rowstats": [_P, _P, _I, _I, _I, _P, _P],
+    "ccn_gt_finalize": [_P, _I, _L, _L, _I, _P, _I, _F, _F] + [_P] * 6,
+    "ccn_gt_aggregate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ccn_grid_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "ccn_topk_smallest": [_P, _P, _I, _I, _I, _P, _P, _P],
     "ccn_conv1d_train_fwd": [_P] * 9 + [_I] * 6 + [_P],

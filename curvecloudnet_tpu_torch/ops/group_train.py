@@ -13,32 +13,42 @@ plane) row; the layer-0 dense runs outside, as one plain matmul:
 
 Every BN normalizes all rows with the statistics of the masked rows
 (count n = max(sum(mask), 1), biased variance), and the gradients run
-through the batch mean and variance.  Pass plan, as in the JAX package:
+through the batch mean and variance.  The plain versions
+:func:`group_train_fwd_ref` and :func:`group_train_bwd_ref` compute the
+whole slab, as the JAX package's passes do.  The kernels
+(``csrc/group_train.cu``) touch the live (plane, query) rows alone,
+compacted once per call by :func:`row_list`, and store what the backward
+reads instead of recomputing it:
 
-    forward:  S_0..S_{L-1}, S_a (masked sums per BN), then P_out (the
-              aggregation; writes the backward's residuals: running logit
-              max and denominator for attend, the tie count for max);
-    backward: B_att (attend head), B_msg (aggregation + last dense), then
-              B_mid(l) for l = L-1..1, each writing the k-major cotangent
-              slab T of the level below; the elementwise epilogue T_0 ->
-              d_h1 stays plain PyTorch glue, as the JAX package leaves it
-              to XLA.
+    forward:  the first BN's statistics of h1's live rows; per dense one
+              GEMM (BN + activation on load, bias, the next BN's partial
+              statistics in the epilogue) storing v_1..v_L (and g, logits)
+              and a finalize per BN; the aggregation per query;
+    backward: per dense a data-gradient GEMM (the BN backward or the
+              aggregation's backward on load, act' and the BN backward's
+              partial sums in the epilogue), a weight-gradient GEMM (rows
+              as the inner dimension, bias gradient beside) and a finalize
+              for each; the elementwise epilogue T_0 -> d_h1 stays plain
+              PyTorch glue, as the JAX package leaves it to XLA.
 
-The CUDA kernels are ``csrc/group_train.cu`` (one C entry, a pass code);
-:func:`group_train_fwd_ref` and :func:`group_train_bwd_ref` compute the same
-passes in plain PyTorch over the whole slab.  The wrappers
-:func:`group_train_fwd` / :func:`group_train_bwd` run the plain versions for
-CPU tensors and the kernels for CUDA tensors; :class:`_GroupTrain` is the
-``torch.autograd.Function`` around them.
+Every GEMM runs 3xTF32 on the tensor cores; every sum across blocks is a
+partial per block summed in a fixed order (:func:`finalize_ref` is that
+order on the CPU), so the kernels' gradients repeat bit for bit.  The
+wrappers :func:`group_train_fwd` / :func:`group_train_bwd` run the plain
+versions for CPU tensors and the kernels for CUDA tensors;
+:class:`_GroupTrain` is the ``torch.autograd.Function`` around them.
 
 Layouts: h1 (B, K, M, C0) k-major, mask (B, M, K) bool query-major with its
 columns in h1's plane order.  Rows of fully masked queries carry junk
 values and junk gradients, as in the JAX package; every consumer masks
-them by row validity.
+them by row validity, so their cotangents are zero in any real loss, and
+the cotangents at masked slots are exactly zero: the kernels drop both
+(the max fill -100, or 0 under attend, at queries with no live slot).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -46,12 +56,9 @@ import torch
 
 from . import _build
 from .aggregate import ATTEND_FILL, MAX_FILL
+from .group_reduce import _sm_count
 
 _ACT_CODES = {"relu": 0, "leaky_relu": 1, "identity": 2}
-_PASSES = {"stats": 0, "out": 1, "b_att": 2, "b_msg": 3, "b_mid": 4}
-# the device-pointer slots of ccn_group_train, in its order (see csrc)
-_PTR_SLOTS = ("h1", "mask", "cst", "dout", "out", "mx", "den", "tin", "coef",
-              "tout", "dw", "db", "dw2", "db2", "rs", "rp", "s", "ss")
 
 
 def _act(x, kind: str):
@@ -234,109 +241,169 @@ def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
 # the kernels
 # ---------------------------------------------------------------------------
 
-
-def _pack(cfg, params, stats=None):
-    """Packed f32 constants + host offsets in the C order: per local level
-    (mu, inv, gamma, beta, W, W^T, b), then for attend (Wa_0, Wa_0^T, ba_0,
-    mu_a, inv_a, gamma_a, beta_a, Wa_1, Wa_1^T, ba_1).  Statistics not yet
-    known are zeros (the stats passes fill them in: see ``_set_stats``)."""
-    parts, offs, off = [], [], 0
-
-    def add(t):
-        nonlocal off
-        parts.append(t.detach().reshape(-1).float())
-        offs.append(off)
-        off += t.numel()
-
-    def mu_inv(i, c, like):
-        if stats is None:
-            return torch.zeros(c, device=like.device), torch.ones(
-                c, device=like.device)
-        mu, var = stats[i]
-        return mu, torch.rsqrt(var + cfg.eps)
-
-    for i in range(cfg.n_loc):
-        g, bt, w, b = _local(cfg, params, i)
-        for t in (*mu_inv(i, cfg.dims[i], g), g, bt, w, w.t(), b):
-            add(t)
-    if cfg.attend:
-        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
-        for t in (wa0, wa0.t(), ba0, *mu_inv(cfg.n_loc, cfg.att_dim, ga),
-                  ga, bta, wa1, wa1.t(), ba1):
-            add(t)
-    else:
-        offs += [0] * 10
-    return torch.cat(parts).contiguous(), offs
+# A-operand transforms and epilogues of ccn_gt_gemm (csrc/group_train.cu)
+_TR = {"none": 0, "bn_act": 1, "bnb": 2, "maxb": 3, "dlogit": 4}
+_EP = {"fwd": 0, "dgrad": 1, "att": 2}
+# its device-pointer and int slots, in the C order
+_GEMM_PTRS = ("x", "x2", "mu", "inv", "gam", "bet", "c0", "c1", "c2", "qd",
+              "qmx", "qaux", "qout", "w", "bias", "ex", "emu", "einv", "egam",
+              "ebet", "elg", "xidx", "qry", "exidx", "asave", "y", "part")
+_GEMM_INTS = ("ldx", "tr", "act", "R", "K", "N", "ep", "stats", "ldex",
+              "eact", "rps")
+# rows (and output columns) of a GEMM tile; rows of an inner stage
+TILE = 64
+STAGE = 32
+# weight gradient: blocks worth aiming at (four of 56 KB fit an SM) and
+# the fewest rows a block reduces
+_WG_BLOCKS_PER_SM = 4
+_WG_MIN_ROWS = 128
 
 
-def _set_stats(cst, offs, cfg, level, mu, var):
-    """Write a finished BN's (mu, inv) into the packed constants."""
-    base = 7 * level if level < cfg.n_loc else 7 * cfg.n_loc + 3
-    c = mu.numel()
-    cst[offs[base]:offs[base] + c] = mu
-    cst[offs[base + 1]:offs[base + 1] + c] = torch.rsqrt(var + cfg.eps)
+def row_list(mask):
+    """The live (plane, query) rows of mask (B, M, K), query-major (a
+    query's live planes in plane order, queries in order) -> (rows: each
+    row's index in the k-major slab (B, K, M), queries: its b * M + m,
+    start (B * M + 1,): each query's first row), all int32.  One host
+    sync (the row count)."""
+    b, m, k = mask.shape
+    flat = mask.reshape(-1).nonzero().squeeze(1)
+    qry = torch.div(flat, k, rounding_mode="floor")
+    bb = torch.div(qry, m, rounding_mode="floor")
+    rows = (bb * k + flat - qry * k) * m + qry - bb * m
+    start = torch.zeros(b * m + 1, dtype=torch.int64, device=mask.device)
+    start[1:] = torch.cumsum(mask.sum(-1).reshape(-1), 0)
+    return rows.int(), qry.int(), start.int()
 
 
-def _slots(pass_: str, cfg) -> int:
-    """Shared-memory row buffers a pass keeps live (csrc/group_train.cu)."""
-    return {"stats": 2, "out": 3 if cfg.attend else 2,
-            "b_att": 4, "b_msg": 6 if cfg.attend else 3, "b_mid": 3}[pass_]
+def wgrad_split(rows: int, c_in: int, c_out: int, sms: int):
+    """(row splits, rows a split) of a weight gradient: enough blocks of
+    64 x 64 tiles of dW for _WG_BLOCKS_PER_SM an SM, each over at least
+    _WG_MIN_ROWS rows, a multiple of the 32-row stage."""
+    tiles = -(-c_in // TILE) * -(-c_out // TILE)
+    splits = max(1, min(-(-_WG_BLOCKS_PER_SM * sms // tiles),
+                        -(-rows // _WG_MIN_ROWS)))
+    rps = -(-max(rows, 1) // splits)
+    rps = -(-rps // STAGE) * STAGE
+    return max(1, -(-rows // rps)), rps
 
 
-def _smem_bytes(pass_: str, cfg, tm: int) -> int:
-    cmax = max(cfg.dims + ((cfg.att_dim,) if cfg.attend else ()))
-    floats = _slots(pass_, cfg) * tm * cmax + tm
-    if pass_ == "stats":
-        floats += 2 * cmax
-    elif pass_ == "out":
-        floats += (3 if cfg.attend else 2) * tm * cfg.dims[-1]
-    return 4 * floats
+def finalize_ref(part):
+    """The fixed summation order of ccn_gt_finalize on the CPU: part (P,
+    ...) flattened to (P, N); lane l of 8 sums rows l, l + 8, ... in
+    order, then the 8 lane sums in order -> (N,)."""
+    flat = part.reshape(part.shape[0], -1)
+    lanes = []
+    for lane in range(8):
+        acc = torch.zeros_like(flat[0])
+        for p in range(lane, flat.shape[0], 8):
+            acc = acc + flat[p]
+        lanes.append(acc)
+    out = lanes[0]
+    for acc in lanes[1:]:
+        out = out + acc
+    return out
 
 
-# blocks worth aiming at: two per SM of the H100's 132
-_TARGET_BLOCKS = 264
+def _dptr(t):
+    if t is None:
+        return None
+    if t.device.type != "cuda" or not t.is_contiguous() or t.dtype not in (
+            torch.float32, torch.int32):
+        raise ValueError(f"group train kernel: operand {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.data_ptr()
 
 
-def _pick_launch(pass_: str, cfg, b: int, k: int, m: int):
-    """(query tile, plane splits).  Every pass but the out pass splits the
-    K planes over several blocks per tile (its outputs are sums or
-    per-plane), so it takes the largest tile that fits shared memory (a
-    weight gradient takes one atomic add per tile and plane) and splits
-    the planes until the card holds ~2 blocks per SM.  The out pass, which
-    aggregates over all planes in one block and adds no weight gradient,
-    takes the largest tile that still fills the 132 SMs, else the
-    smallest."""
-    fits = [tm for tm in (32, 16, 8, 4)
-            if _smem_bytes(pass_, cfg, tm) <= _build.MAX_SMEM]
-    if not fits:
-        raise ValueError(f"group train kernel: widths {cfg.dims} too wide")
-    tiles = lambda tm: b * -(-m // tm)  # noqa: E731
-    if pass_ != "out":
-        tm = fits[0]
-        return tm, max(1, min(k, -(-_TARGET_BLOCKS // tiles(tm))))
-    for tm in fits:
-        if tiles(tm) >= 132:
-            return tm, 1
-    return fits[-1], 1
+class _Timing:
+    """CUDA events of the launches made inside :func:`launch_times`."""
+
+    def __init__(self):
+        self.site = ""
+        self.events = []
 
 
-def _launch(counter, pass_: str, level: int, cfg, h1, mask, cst, offs,
-            **ptrs):
-    b, k, m, _ = h1.shape
-    tm, splits = _pick_launch(pass_, cfg, b, k, m)
-    ptrs.update(h1=h1, mask=mask, cst=cst)
-    arr = (ctypes.c_void_p * len(_PTR_SLOTS))(*[
-        _build.ptr(ptrs[s], torch.bool if s == "mask" else torch.float32, s)
-        if s in ptrs else None for s in _PTR_SLOTS])
-    dims = cfg.dims
-    rc = _build.library().ccn_group_train(
-        _PASSES[pass_], level, cfg.n_loc,
-        _build.host_array(ctypes.c_int, dims), cfg.att_dim, int(cfg.attend),
-        _ACT_CODES[cfg.act], _ACT_CODES[cfg.attend_act],
-        _build.host_array(ctypes.c_longlong, offs), b, k, m, tm, splits, arr,
-        _build.stream_ptr(h1.device))
-    _build.check(rc, f"ccn_group_train({pass_})")
+_timing: _Timing | None = None
+
+
+@contextlib.contextmanager
+def launch_times():
+    """Time every kernel launch made inside the block with CUDA events.
+    Yields a dict that, once the block has ended, maps (pass, site) to
+    the milliseconds summed over its launches; a site names the call
+    (aggregation, widths, K, M)."""
+    global _timing
+    timing, times = _Timing(), {}
+    _timing = timing
+    try:
+        yield times
+    finally:
+        _timing = None
+    torch.cuda.synchronize()
+    for key, a, b in timing.events:
+        times[key] = times.get(key, 0.0) + a.elapsed_time(b)
+
+
+def _label(h1, cfg):
+    """Name the call for :func:`launch_times`."""
+    if _timing is not None:
+        _timing.site = (f"{cfg.aggr} {cfg.dims} K={h1.shape[1]} "
+                        f"M={h1.shape[2]}")
+
+
+def _launch(counter, pass_: str, fn: str, *args):
+    """One kernel launch of ``fn`` (pass name ``pass_``), counted, and
+    timed inside :func:`launch_times`."""
+    timing = _timing
+    if timing is not None:
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+    _build.check(getattr(_build.library(), fn)(*args), f"{fn}({pass_})")
     counter.launches += 1
+    if timing is not None:
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        timing.events.append(((pass_, timing.site), a, b))
+
+
+def _gemm(counter, pass_: str, wg: bool, dev, splits=1, **kw):
+    ptrs = (ctypes.c_void_p * len(_GEMM_PTRS))(
+        *[_dptr(kw.get(s)) for s in _GEMM_PTRS])
+    ints = _build.host_array(ctypes.c_int, [kw.get(s, 0) for s in _GEMM_INTS])
+    _launch(counter, pass_, "ccn_gt_gemm", int(wg), ptrs, ints, splits,
+            _build.stream_ptr(dev))
+
+
+def _finalize(counter, dev, part, ncol: int, pair: bool, mode=0, n=1.0,
+              eps=0.0, gam=None, inv=None):
+    """Sum the per-block partials of ``part`` (P, ...) in a fixed order ->
+    (sums (ncol or 2 ncol,), aux: mode 1 (mean, var, inv), mode 2 (gamma
+    inv, sum T / n, sum T x-hat / n), else ())."""
+    out = torch.empty(ncol * (2 if pair else 1), device=dev)
+    aux = [torch.empty(ncol, device=dev) for _ in range(3)] if mode else []
+    _launch(counter, "finalize", "ccn_gt_finalize", _dptr(part),
+            part.shape[0], part[0].numel(), ncol, int(pair), _dptr(out), mode,
+            n, eps, _dptr(gam), _dptr(inv),
+            *[_dptr(a) for a in aux or [None] * 3], _build.stream_ptr(dev))
+    return out, aux
+
+
+def _bn_args(g, bt, mu, inv, act):
+    """A BN + activation of the GEMM's A-operand transform."""
+    return dict(mu=mu, inv=inv, gam=g.detach().contiguous(),
+                bet=bt.detach().contiguous(), act=_ACT_CODES[act])
+
+
+def _kernel_wgrad(counter, dev, x, d, c_in, c_out, rows, xidx=None,
+                  tr="none", **bn):
+    """(dW (c_in, c_out), db (c_out,)) = sum over the rows of
+    T(x)^T d and of d: per-split partials, then the fixed-order sum."""
+    splits, rps = wgrad_split(rows, c_in, c_out, _sm_count(dev))
+    part = torch.empty(splits, c_in + 1, c_out, device=dev)
+    _gemm(counter, "wgrad", True, dev, splits, x=x, xidx=xidx, ldx=c_in,
+          tr=_TR[tr], w=d, R=rows, K=c_in, N=c_out, rps=rps, part=part, **bn)
+    out, _ = _finalize(counter, dev, part, (c_in + 1) * c_out, False)
+    out = out.view(c_in + 1, c_out)
+    return out[:c_in], out[c_in]
 
 
 def _check_inputs(h1, mask, cfg):
@@ -346,104 +413,172 @@ def _check_inputs(h1, mask, cfg):
                          f"{h1.dtype}, want f32 width {cfg.dims[0]}")
     if tuple(mask.shape) != (b, m, k):
         raise ValueError(f"group train kernel: mask {tuple(mask.shape)}")
-    if cfg.n_loc < 1 or cfg.n_loc > 8 or cfg.aggr not in ("max", "attend"):
+    if cfg.n_loc < 1 or cfg.aggr not in ("max", "attend"):
         raise ValueError(f"group train kernel: {cfg}")
     return h1.contiguous(), mask.contiguous()
 
 
+def _w(w):
+    return w.detach().contiguous()
+
+
 def group_train_fwd(h1, mask, cfg: TrainCfg, params):
-    """Kernel K7's forward passes for CUDA tensors, the plain version for
-    CPU tensors.  Returns what :func:`group_train_fwd_ref` returns."""
+    """Kernel K7's forward for CUDA tensors, the plain version for CPU
+    tensors.  Returns what :func:`group_train_fwd_ref` returns, but for its
+    extras: the kernel's own residuals (rows, queries, out, max, den |
+    count, the stored v_1..v_L (and g, logits under attend) of the live
+    rows, each BN's inverse deviation)."""
     if h1.device.type == "cpu":
         return group_train_fwd_ref(h1, mask, cfg, params)
+    return _kernel_fwd(h1, mask, cfg, params)
+
+
+def _kernel_fwd(h1, mask, cfg, params):
     h1, mask = _check_inputs(h1, mask, cfg)
-    b, k, m, _ = h1.shape
-    dev = h1.device
-    cst, offs = _pack(cfg, params)
-    n = torch.clamp(mask.sum().float(), min=1.0)
-    stats = []
-    for level in range(cfg.n_bns):
-        depth = level if level < cfg.n_loc else cfg.n_loc + 1
-        c = cfg.dims[level] if level < cfg.n_loc else cfg.att_dim
-        s = torch.zeros(c, device=dev)
-        ss = torch.zeros(c, device=dev)
-        _launch(group_train_fwd, "stats", depth, cfg, h1, mask, cst, offs,
-                s=s, ss=ss)
-        mu = s / n
-        var = torch.clamp(ss / n - mu * mu, min=0.0)
+    _label(h1, cfg)
+    b, k, m, c0 = h1.shape
+    dev, L, dims = h1.device, cfg.n_loc, cfg.dims
+    rows, qry, start = row_list(mask)
+    r = rows.numel()
+    n_rows = float(max(r, 1))
+    tiles = max(1, -(-r // TILE))
+    stream = _build.stream_ptr(dev)
+    cnt = group_train_fwd
+    stats, invs, vals = [], [], []
+
+    def statistics(part, c):
+        _, (mu, var, inv) = _finalize(cnt, dev, part, c, True, 1, n_rows,
+                                      cfg.eps)
         stats.append((mu, var))
-        _set_stats(cst, offs, cfg, level, mu, var)
-    co = cfg.dims[-1]
-    out = torch.empty((b, m, co), device=dev)
-    dc = torch.empty((b, m, co), device=dev)
+        invs.append(inv)
+
+    part = torch.empty(tiles, 2 * c0, device=dev)
+    _launch(cnt, "stats", "ccn_gt_rowstats", _dptr(h1), _dptr(rows), c0, r,
+            c0, _dptr(part), stream)
+    statistics(part, c0)
+    x, xidx = h1, rows
+    for lv in range(L):
+        g, bt, w, bias = _local(cfg, params, lv)
+        cout, more = dims[lv + 1], lv + 1 < L
+        y = torch.empty(r, cout, device=dev)
+        part = torch.empty(tiles, 2 * cout, device=dev) if more else None
+        _gemm(cnt, "dense", False, dev, x=x, xidx=xidx, ldx=dims[lv],
+              tr=_TR["bn_act"],
+              **_bn_args(g, bt, stats[lv][0], invs[lv], cfg.act),
+              w=_w(w), bias=_w(bias), y=y, part=part, R=r, K=dims[lv],
+              N=cout, ep=_EP["fwd"], stats=int(more))
+        if more:
+            statistics(part, cout)
+        vals.append(y)
+        x, xidx = y, None
+    msg, cl, lg = x, dims[L], None
     if cfg.attend:
-        mx = torch.empty((b, m, co), device=dev)
-        _launch(group_train_fwd, "out", 0, cfg, h1, mask, cst, offs,
-                out=out, mx=mx, den=dc)
-        return out, stats, n, (out, mx, dc)
-    _launch(group_train_fwd, "out", 0, cfg, h1, mask, cst, offs,
-            out=out, den=dc)
-    return out, stats, n, (out, dc)
+        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
+        a = cfg.att_dim
+        gv = torch.empty(r, a, device=dev)
+        part = torch.empty(tiles, 2 * a, device=dev)
+        _gemm(cnt, "dense", False, dev, x=msg, ldx=cl, tr=_TR["none"],
+              w=_w(wa0), bias=_w(ba0), y=gv, part=part, R=r, K=cl, N=a,
+              ep=_EP["fwd"], stats=1)
+        statistics(part, a)
+        lg = torch.empty(r, cl, device=dev)
+        _gemm(cnt, "dense", False, dev, x=gv, ldx=a, tr=_TR["bn_act"],
+              **_bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act),
+              w=_w(wa1), bias=_w(ba1), y=lg, R=r, K=a, N=cl, ep=_EP["fwd"])
+        vals += [gv, lg]
+    out = torch.empty((b, m, cl), device=dev)
+    mx = torch.empty((b, m, cl), device=dev) if cfg.attend else out
+    aux = torch.empty((b, m, cl), device=dev)
+    _launch(cnt, "aggregate", "ccn_gt_aggregate", _dptr(msg), _dptr(lg),
+            _dptr(start), b * m, cl, k, int(cfg.attend), _dptr(out),
+            _dptr(mx), _dptr(aux), stream)
+    n = torch.full((), n_rows, device=dev)
+    return out, stats, n, (rows, qry, out, mx, aux, *vals, *invs)
 
 
 def group_train_bwd(h1, mask, cfg: TrainCfg, params, stats, n, extras,
                     dout):
-    """Kernel K7's backward passes for CUDA tensors, the plain version for
-    CPU tensors.  Returns what :func:`group_train_bwd_ref` returns."""
+    """Kernel K7's backward for CUDA tensors (``extras`` from
+    :func:`group_train_fwd`), the plain version for CPU tensors.  Returns
+    what :func:`group_train_bwd_ref` returns."""
     if h1.device.type == "cpu":
         return group_train_bwd_ref(h1, mask, cfg, params, stats, n, extras,
                                    dout)
+    return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout)
+
+
+def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout):
     h1, mask = _check_inputs(h1, mask, cfg)
-    b, k, m, _ = h1.shape
+    _label(h1, cfg)
+    c0 = h1.shape[-1]
     dev, L, dims = h1.device, cfg.n_loc, cfg.dims
-    cst, offs = _pack(cfg, params, stats)
+    rows, qry, out, mx, aux = extras[:5]
+    vals = extras[5:5 + L + 2 * cfg.attend]
+    invs = extras[5 + L + 2 * cfg.attend:]
+    r = rows.numel()
+    n_rows = float(max(r, 1))
+    tiles = max(1, -(-r // TILE))
+    cnt = group_train_bwd
     dout = dout.float().contiguous()
-    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    v = [h1] + list(vals[:L])          # v_0 through the row index
     grads = [None] * cfg.n_params
-    t = torch.empty((b, k, m, dims[L - 1]), device=dev)
-    dw, db = zeros(dims[L - 1], dims[L]), zeros(dims[L])
-    rs, rp = zeros(dims[L - 1]), zeros(dims[L - 1])
+    per_query = dict(qry=qry, qd=dout, qmx=mx, qaux=aux, qout=out)
+
+    def dgrad(x, tr, save, w, cout, cin, ex, exidx, bn_e, act, **kw):
+        """T (rows, cin) = (T(x) @ w^T) * act'(y) of the level below, and
+        its BN backward's sums -> (T, (gamma, beta) grads, coef)."""
+        t = torch.empty(r, cin, device=dev)
+        part = torch.empty(tiles, 2 * cin, device=dev)
+        _gemm(cnt, "dgrad", False, dev, x=x, ldx=cout, tr=_TR[tr],
+              asave=save, w=w.detach().t().contiguous(), y=t, part=part,
+              R=r, K=cout, N=cin, ep=_EP["dgrad"], stats=1, ex=ex,
+              exidx=exidx, ldex=cin, emu=bn_e["mu"], einv=bn_e["inv"],
+              egam=bn_e["gam"], ebet=bn_e["bet"], eact=_ACT_CODES[act], **kw)
+        sums, coef = _finalize(cnt, dev, part, cin, True, 2, n_rows,
+                               gam=bn_e["gam"], inv=bn_e["inv"])
+        return t, [sums[cin:], sums[:cin]], coef
+
     if cfg.attend:
-        out, mx, den = extras
-        a = cfg.att_dim
-        dwa1, dba1, rsa, rpa = zeros(a, dims[L]), zeros(dims[L]), zeros(a), \
-            zeros(a)
-        _launch(group_train_bwd, "b_att", 0, cfg, h1, mask, cst, offs,
-                dout=dout, out=out, mx=mx, den=den, dw=dwa1, db=dba1,
-                rs=rsa, rp=rpa)
-        ga = _att(cfg, params)[2].detach()
-        inva = torch.rsqrt(stats[L][1] + cfg.eps)
-        coef = torch.cat([ga * inva, rsa / n, rpa / n]).contiguous()
-        dwa0, dba0 = zeros(dims[L], a), zeros(a)
-        _launch(group_train_bwd, "b_msg", 0, cfg, h1, mask, cst, offs,
-                dout=dout, out=out, mx=mx, den=den, coef=coef, tout=t,
-                dw=dw, db=db, dw2=dwa0, db2=dba0, rs=rs, rp=rp)
-        grads[4 * L:4 * L + 6] = [dwa0, dba0, rpa, rsa, dwa1, dba1]
+        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
+        a, cl = cfg.att_dim, dims[L]
+        gv, lg = vals[L], vals[L + 1]
+        bn_a = _bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act)
+        dl = torch.empty(r, cl, device=dev)
+        ta, g_a, coef_a = dgrad(lg, "dlogit", dl, wa1, cl, a, gv, None, bn_a,
+                                cfg.attend_act, x2=v[L], **per_query)
+        dwa1, dba1 = _kernel_wgrad(cnt, dev, gv, dl, a, cl, r, tr="bn_act",
+                                   **bn_a)
+        dg1 = torch.empty(r, a, device=dev)
+        dv = torch.empty(r, cl, device=dev)
+        _gemm(cnt, "dgrad", False, dev, x=ta, x2=gv, ldx=a, tr=_TR["bnb"],
+              mu=bn_a["mu"], inv=bn_a["inv"], c0=coef_a[0], c1=coef_a[1],
+              c2=coef_a[2], asave=dg1, w=wa0.detach().t().contiguous(),
+              y=dv, R=r, K=a, N=cl, ep=_EP["att"], elg=lg, **per_query)
+        dwa0, dba0 = _kernel_wgrad(cnt, dev, v[L], dg1, cl, a, r)
+        grads[4 * L:4 * L + 6] = [dwa0, dba0, *g_a, dwa1, dba1]
+        d_in, tr, kw = dv, "none", {}
     else:
-        mx, cnt = extras
-        _launch(group_train_bwd, "b_msg", 0, cfg, h1, mask, cst, offs,
-                dout=dout, mx=mx, den=cnt, tout=t, dw=dw, db=db, rs=rs,
-                rp=rp)
-    grads[4 * (L - 1) + 2:4 * L] = [dw, db]
-    for level in range(L - 1, 0, -1):
-        grads[4 * level:4 * level + 2] = [rp, rs]
-        g = _local(cfg, params, level)[0].detach()
-        coef = torch.cat([g * torch.rsqrt(stats[level][1] + cfg.eps),
-                          rs / n, rp / n]).contiguous()
-        t_in, t = t, torch.empty((b, k, m, dims[level - 1]), device=dev)
-        dw, db = zeros(dims[level - 1], dims[level]), zeros(dims[level])
-        rs, rp = zeros(dims[level - 1]), zeros(dims[level - 1])
-        _launch(group_train_bwd, "b_mid", level, cfg, h1, mask, cst, offs,
-                tin=t_in, coef=coef, tout=t, dw=dw, db=db, rs=rs, rp=rp)
-        grads[4 * (level - 1) + 2:4 * level] = [dw, db]
-    grads[0:2] = [rp, rs]
-    # epilogue T_0 -> d_h1: elementwise glue over the k-major slab
-    g0 = _local(cfg, params, 0)[0].detach()
-    mu0, var0 = stats[0]
-    inv0 = torch.rsqrt(var0 + cfg.eps)
-    mk = _plane_mask(mask, torch.float32)
-    xhat0 = (h1 - mu0) * inv0
-    d_h1 = g0 * inv0 * (t - mk * (rs / n + xhat0 * (rp / n)))
+        d_in, tr, kw = v[L], "maxb", per_query
+    for lv in reversed(range(L)):
+        g, bt, w, _ = _local(cfg, params, lv)
+        cin, cout = dims[lv], dims[lv + 1]
+        bn_l = _bn_args(g, bt, stats[lv][0], invs[lv], cfg.act)
+        save = None if tr == "none" else torch.empty(r, cout, device=dev)
+        xe, xidx = (h1, rows) if lv == 0 else (v[lv], None)
+        t, g_l, coef = dgrad(d_in, tr, save, w, cout, cin, xe, xidx, bn_l,
+                             cfg.act, **kw)
+        dw, db = _kernel_wgrad(cnt, dev, xe, d_in if save is None else save,
+                               cin, cout, r, xidx, "bn_act", **bn_l)
+        grads[4 * lv:4 * lv + 4] = [*g_l, dw, db]
+        d_in, tr = t, "bnb"
+        kw = dict(x2=xe, mu=bn_l["mu"], inv=bn_l["inv"], c0=coef[0],
+                  c1=coef[1], c2=coef[2])
+    # epilogue T_0 -> d_h1: elementwise glue over the live rows
+    idx = rows.long()
+    xhat0 = (h1.reshape(-1, c0).index_select(0, idx) - stats[0][0]) * invs[0]
+    d0 = coef[0] * (d_in - (coef[1] + xhat0 * coef[2]))
+    d_h1 = torch.zeros_like(h1)
+    d_h1.view(-1, c0).index_copy_(0, idx, d0)
     return d_h1, tuple(grads)
 
 

@@ -3,8 +3,9 @@ the device's idle share (GPU, ``torch.profiler`` and CUDA events).
 
 Builds the nuScenes flagship at n_pad 36864, B=1, trains on synthetic
 sweep 0 with its labels (NLL + Lovász), runs one warm-up step, times one
-step on the host clock, times every K7 pass launch of one step with CUDA
-events, then profiles one more step with CPU and CUDA activities.  Run::
+step on the host clock, times every K7 launch of one step with CUDA
+events (by pass and by site), then profiles one more step with CPU and
+CUDA activities.  Run::
 
     python -m curvecloudnet_tpu_torch.tools.profile_train
 
@@ -26,7 +27,8 @@ from ..train.__main__ import setup
 from ..train.trainer import train_step
 
 N_PAD = 36864
-GROUPS = (("K7", "group_train"), ("K8", "conv1d_train"), ("K4", "gather_km"),
+GROUPS = (("K7", "gt_gemm"), ("K7", "gt_finalize"), ("K7", "gt_aggregate"),
+          ("K7", "gt_rowstats"), ("K8", "conv1d_train"), ("K4", "gather_km"),
           ("K4b", "scatter_km"), ("K3", "knn_kernel"), ("K6", "fps_kernel"),
           ("gemm", "gemm"))
 
@@ -51,30 +53,14 @@ def main() -> None:
     wall = step()
     peak = torch.cuda.max_memory_allocated()
 
-    # every K7 pass of one step, timed with CUDA events
-    events = []
-    launch = group_train._launch
-
-    def timed(counter, pass_, level, cfg, h1, *args, **kw):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch(counter, pass_, level, cfg, h1, *args, **kw)
-        b.record()
-        events.append((pass_, f"{cfg.aggr} {cfg.dims} K={h1.shape[1]} "
-                       f"M={h1.shape[2]}", a, b))
-
-    group_train._launch = timed
-    try:
+    # every K7 launch of one step, timed with CUDA events, by pass and by
+    # site (the call of the wrapper around it)
+    with group_train.launch_times() as times:
         step()
-    finally:
-        group_train._launch = launch
-    torch.cuda.synchronize()
     by_pass, by_site = {}, {}
-    for pass_, site, a, b in events:
-        ms = a.elapsed_time(b)
+    for (pass_, where), ms in times.items():
         by_pass[pass_] = by_pass.get(pass_, 0.0) + ms
-        by_site[site] = by_site.get(site, 0.0) + ms
+        by_site[where] = by_site.get(where, 0.0) + ms
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

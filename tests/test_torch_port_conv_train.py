@@ -284,3 +284,56 @@ def test_train_launch_counts_count_k8(narrow):
                                  "conv1d_train_t")} == {
         "conv1d_train_fwd": 6, "conv1d_train_reduce": 6, "conv1d_train_t": 6}
     assert "conv1d_chain" not in want
+
+
+def test_train_launch_counts_count_k7(narrow, monkeypatch):
+    """K7's launches a flagship train step: its wrappers' kernel paths run
+    on the CPU against a stand-in library that launches nothing, once per
+    grouping step at the step's widths, K and aggregation; their counted
+    launches sum to ``kernel_launches`` (2L + 2 forward and 4L backward a
+    site of L denses, 3 and 7 more under attend: 88 and 120)."""
+    from curvecloudnet_tpu_torch.models.modules import attend_dims
+    from curvecloudnet_tpu_torch.ops import _build, group_train
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(group_train, "_dptr", lambda t: None)
+    monkeypatch.setattr(group_train, "_sm_count", lambda dev: 132)
+    _, tspec = narrow
+    g = torch.Generator().manual_seed(0)
+    fwd = bwd = 0
+    for i, step in enumerate(tspec.steps):
+        if step.name not in ("sa", "sa-geo", "sgcnn"):
+            continue
+        dims = tuple(tspec.input_dim(i))[1:]
+        att = (attend_dims(tspec, step, dims[-1])[1]
+               if step.aggr_type == "attend" else 0)
+        cfg = group_train.TrainCfg(dims=dims, att_dim=att,
+                                   aggr=step.aggr_type, act="leaky_relu")
+        k, m = step.knn or 25, 70
+        h1 = torch.randn(1, k, m, dims[0], generator=g)
+        mask = torch.rand(1, m, k, generator=g) < 0.5
+        params = []
+        for ci, co in zip(dims[:-1], dims[1:]):
+            params += [torch.ones(ci), torch.zeros(ci), torch.ones(ci, co),
+                       torch.zeros(co)]
+        if att:
+            params += [torch.ones(dims[-1], att), torch.zeros(att),
+                       torch.ones(att), torch.zeros(att),
+                       torch.ones(att, dims[-1]), torch.zeros(dims[-1])]
+        group_train.group_train_fwd.launches = 0
+        group_train.group_train_bwd.launches = 0
+        out, stats, _, extras = group_train._kernel_fwd(h1, mask, cfg, params)
+        d_h1, grads = group_train._kernel_bwd(h1, mask, cfg, params, stats,
+                                              extras, torch.zeros_like(out))
+        assert d_h1.shape == h1.shape
+        assert [t.shape for t in grads] == [p.shape for p in params]
+        fwd += group_train.group_train_fwd.launches
+        bwd += group_train.group_train_bwd.launches
+    want = kernel_launches(tspec, 36864, train=True)
+    assert (fwd, bwd) == (want["group_train_fwd"], want["group_train_bwd"])
+    assert (fwd, bwd) == (88, 120)

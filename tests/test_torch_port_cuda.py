@@ -17,7 +17,8 @@ the call's largest, for tensors that are zero in exact arithmetic): the
 activation's derivative jumps at 0 (1 vs 0.01) and a max picks one of two
 near-equal slots, so rare rows within rounding of such a point take
 another branch in the kernel than in the plain version, moving single
-elements by up to their own size.  K8: forward z 1e-4, its statistics
+elements by up to their own size; K7 sums across blocks in a fixed order,
+so two runs agree bit for bit.  K8: forward z 1e-4, its statistics
 1e-5, the reduce and t passes K7's yardstick with z perturbed, the whole
 chain's value 1e-4 and gradients 1e-3 in relative L2 norm against torch
 autograd of the plain chain.  K9 sums products in another order than the
@@ -182,18 +183,19 @@ def test_small_scan_matches_cpu_path(dev):
     assert np.abs((gpu.cpu() - cpu)[valid].numpy()).max() <= 2e-3
 
 
-@pytest.mark.parametrize("aggr,k,m,dims,a", [
-    ("attend", 25, 300, (64, 128, 192, 256), 256),
-    ("attend", 32, 200, (512, 512, 512), 256),
-    ("max", 21, 300, (64, 64, 64), 0),
-    ("max", 32, 100, (1024, 1024, 1024), 0),
-    ("max", 21, 150, (1024, 1024), 0)])
-def test_group_train_kernels(dev, aggr, k, m, dims, a):
-    g = torch.Generator().manual_seed(4)
-    h1 = torch.randn(2, k, m, dims[0], generator=g)
-    mask = torch.rand(2, m, k, generator=g) > 0.4
-    mask[0, 7] = False
-    mask[:, :, ::4] = False    # planes no query of a tile reaches: skipped
+def _k7_case(aggr, k, m, dims, a, live, b=2, seed=4):
+    """K7 inputs: live=None keeps the first cases' masks (60% live slots,
+    every fourth plane dead); otherwise a live fraction of the slots, 5%
+    of the queries with no live slot."""
+    g = torch.Generator().manual_seed(seed)
+    h1 = torch.randn(b, k, m, dims[0], generator=g)
+    if live is None:
+        mask = torch.rand(b, m, k, generator=g) > 0.4
+        mask[0, 7] = False
+        mask[:, :, ::4] = False
+    else:
+        mask = torch.rand(b, m, k, generator=g) < live
+        mask[torch.rand(b, m, generator=g) < 0.05] = False
     params = []
     for ci, co in zip(dims[:-1], dims[1:]):
         params += [0.5 + torch.rand(ci, generator=g),
@@ -210,19 +212,49 @@ def test_group_train_kernels(dev, aggr, k, m, dims, a):
                    0.1 * torch.randn(co, generator=g)]
     cfg = group_train.TrainCfg(dims=dims, att_dim=a, aggr=aggr,
                                act="leaky_relu")
+    return g, cfg, h1, mask, params
+
+
+# aggr, K, M, widths, attention width, live fraction (None: the first
+# cases' masks), batch: the main path's sites -- sa-geo's ~3.6 live slots
+# of 25 at M 23040, the 512-wide attend site, the 1024-wide max sites, a
+# KITTI-sa-geo-like site (M 73728, K 31) whose stored values must fit --
+# with row counts that are no multiple of the 64-row tile
+K7_CASES = [
+    ("attend", 25, 300, (64, 128, 192, 256), 256, None, 2),
+    ("attend", 32, 200, (512, 512, 512), 256, None, 2),
+    ("max", 21, 300, (64, 64, 64), 0, None, 2),
+    ("max", 32, 100, (1024, 1024, 1024), 0, None, 2),
+    ("max", 21, 150, (1024, 1024), 0, None, 2),
+    ("attend", 25, 23040, (64, 128, 192, 256), 256, 0.144, 1),
+    ("attend", 32, 1728, (512, 512, 512), 256, 0.5, 1),
+    ("max", 32, 519, (1024, 1024, 1024), 0, 0.457, 1),
+    ("max", 21, 519, (1024, 1024), 0, 0.46, 1),
+    ("attend", 31, 73728, (64, 128, 192, 256), 256, 0.128, 1),
+]
+
+
+@pytest.mark.parametrize("aggr,k,m,dims,a,live,b", K7_CASES)
+def test_group_train_kernels(dev, aggr, k, m, dims, a, live, b):
+    g, cfg, h1, mask, params = _k7_case(aggr, k, m, dims, a, live, b)
+    assert int(mask.sum()) % group_train.TILE or live is None
     args = (h1.to(dev), mask.to(dev), cfg, tuple(p.to(dev) for p in params))
     out, stats, n, extras = group_train.group_train_fwd(*args)
     r_out, r_stats, r_n, r_extras = group_train.group_train_fwd_ref(*args)
     rows = mask.to(dev).any(-1)
     assert _rel_err(out[rows], r_out[rows]) <= 1e-4
+    if aggr == "max":
+        assert bool((out[~rows] == -100.0).all())
     for (mu, var), (r_mu, r_var) in zip(stats, r_stats):
         assert _rel_err(mu, r_mu) <= 1e-4 and _rel_err(var, r_var) <= 1e-4
-    dout = torch.randn(2, m, dims[-1], generator=g).to(dev) * rows[..., None]
+    dout = torch.randn(b, m, dims[-1], generator=g).to(dev) * rows[..., None]
     # each backward takes its own forward's residuals: a max aggregation's
-    # ties are exact equalities of recomputed values
+    # ties are exact equalities of the stored (or recomputed) values
     d_h1, grads = group_train.group_train_bwd(*args, stats, n, extras, dout)
+    del extras
     r_h1, r_grads = group_train.group_train_bwd_ref(*args, r_stats, r_n,
                                                     r_extras, dout)
+    del r_extras
     h1_s = args[0] * (1 + 1e-5 * torch.randn(h1.shape, generator=g).to(dev))
     s_args = (h1_s,) + args[1:]
     s_h1, s_grads = group_train.group_train_bwd_ref(
@@ -234,6 +266,24 @@ def test_group_train_kernels(dev, aggr, k, m, dims, a):
         scale = max(float(want.norm()), floor)
         assert (float((got - want).norm())
                 <= 1e-3 * scale + 3 * float((shaken - want).norm()))
+
+
+@pytest.mark.parametrize("aggr,dims,a", [("attend", (64, 128, 192, 256), 256),
+                                         ("max", (512, 512, 512), 0)])
+def test_group_train_kernels_repeat_bitwise(dev, aggr, dims, a):
+    """No atomics: two runs of the same forward and backward give equal
+    outputs, statistics and gradients, bit for bit."""
+    g, cfg, h1, mask, params = _k7_case(aggr, 25, 2000, dims, a, 0.3, 1)
+    args = (h1.to(dev), mask.to(dev), cfg, tuple(p.to(dev) for p in params))
+    dout = torch.randn(1, 2000, dims[-1], generator=g).to(dev)
+    runs = []
+    for _ in range(2):
+        out, stats, n, extras = group_train.group_train_fwd(*args)
+        d_h1, grads = group_train.group_train_bwd(*args, stats, n, extras,
+                                                  dout)
+        runs.append([out, *[t for mv in stats for t in mv], d_h1, *grads])
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("c,fill", [(64, True), (1024, False), (35, True)])
