@@ -13,7 +13,12 @@ Phases (any failure raises and exits non-zero before the result line):
      call is re-run through the kernel and through its plain PyTorch
      version and the outputs compared (tolerances below), both timed with
      CUDA events; one line per K2 call (step, M, K, widths, aggregation,
-     live rows, kernel / plain / bound ms and the 3xTF32 floor);
+     live rows, kernel / plain / bound ms and the 3xTF32 floor); one line
+     per K3 call (row table or query set, Q, N, k, radius, valid counts,
+     kernel / plain / bound ms, the share of tiles visited) and per K6
+     call (row, valid points, picks, launch shape, kernel / plain / bound
+     ms, us a pick, the fixed cost of a round on a 1024-point row and the
+     serial floor: that cost x the picks up to the last valid point);
   4. launch counters set to 0, three synthetic scans (seeds 0, 1, 2) served
      through ``predict``; each kernel's count must equal the spec-derived
      count per scan;
@@ -29,7 +34,8 @@ Phases (any failure raises and exits non-zero before the result line):
      forward statistics within 1e-5); one line per K7 site (step, M, K,
      widths, aggregation, live rows, queries with no live slot, whose
      ``dout`` must be exactly 0; forward and backward kernel / plain /
-     bound / 3xTF32-floor ms and the kernel's ms per pass);
+     bound / 3xTF32-floor ms and the kernel's ms per pass); the step's K3
+     and K6 calls held and timed as in phase 3, with their lines;
   7. launch counters set to 0, five train steps through ``train_step``:
      losses finite and falling, K8/K7/K4/K4b/K3/K6 launches equal to five
      times the spec-derived counts;
@@ -46,7 +52,8 @@ Phases (any failure raises and exits non-zero before the result line):
      n_pad 131072, B=1, on a 64-beam synthetic sweep (seed 0), recording
      every K1, K2, K3, K4, K5 and K6 call and every grid search; each call
      compared with its plain version and timed (K5: indices and distances
-     equal), a line per K2 call as in phase 3; K10 held against its plain version (equal) on each K5 call's
+     equal), a line per K2, K3 and K6 call as in phase 3; K10 held
+     against its plain version (equal) on each K5 call's
      candidate planes, and against K5's answer, timed beside torch.topk;
  10. launch counters set to 0, three KITTI scans (seeds 0, 1, 2) through
      ``predict``: logits finite of shape (1, 131072, 20), launches equal to
@@ -163,6 +170,8 @@ TRAIN_KERNELS = [
      "curvecloudnet_tpu_torch/csrc/gather.cu",
      "curvecloudnet_tpu/ops/pallas_gather.py:237", 1e-5),
 ]
+# K3 and K6 in the train capture (phase 6), held as in phase 3
+TRAIN_HELD = [k for k in EVAL_KERNELS if k[0] in ("knn", "fps")]
 # the plain chain that phase 8's plain path takes for K8 (torch autograd)
 PLAIN_CHAINS = [("conv1d_chain_train", "conv1d_train", "conv1d_chain_train",
                  "conv1d_chain_train_ref")]
@@ -377,11 +386,16 @@ def work(name, args, out):
                    tuple(att or ()))
         return nbytes(h1, mask, aff, local, att, out), 2 * rows * macs
     if name == "knn":
-        q, p, qv, pv = args[:4]
-        return nbytes(q, p, qv, pv, out), 8 * int(qv.sum()) * int(pv.sum())
+        # 8 FP32 operations (3 sub, 3 mul, 2 add) a pair of a valid query
+        # and a valid point in a tile any exact search must open
+        return nbytes(*args[:4], out), 8 * knn_needed_pairs(*args, out[0])
     if name == "fps":
+        # 9 FP32 operations a valid point a round (3 sub, 3 mul, 2 add, one
+        # min); a round a pick until every valid point of the row is picked
         pos, valid, start, budget = args
-        return nbytes(pos, valid, start, out), 9 * budget * int(valid.sum())
+        v = valid.sum(-1)
+        return (nbytes(pos, valid, start, out),
+                9 * int((v.clamp(max=budget) * v).sum()))
     if name in ("gather", "scatter"):
         return nbytes(*args[:2], out), 0
     if name == "grid_topk":
@@ -443,6 +457,42 @@ def work(name, args, out):
     # extras) recomputes the chain too: 3x the forward's multiply-adds
     stored = args[6][0].dtype == torch.int32
     return nbytes(args, out), (4 if stored else 6) * rows * macs
+
+
+def knn_needed_pairs(query, points, q_valid, p_valid, k, radius, idx,
+                     tile=32):
+    """(valid query, valid point) pairs in the ``tile``-point tiles of the
+    row whose box of valid points lies within the query's final k-th d2
+    (r2 where fewer than k were found): those no exact search can skip."""
+    import numpy as np
+    import torch
+    from curvecloudnet_tpu_torch.ops.segments import sq_norm3
+
+    b, n, _ = points.shape
+    nt = -(-n // tile)
+    pts = torch.nn.functional.pad(points, (0, 0, 0, nt * tile - n))
+    pv = torch.nn.functional.pad(p_valid, (0, nt * tile - n))
+    pts, pv = pts.view(b, nt, tile, 3), pv.view(b, nt, tile, 1)
+    lo = torch.where(pv, pts, float("inf")).amin(2)       # (B, NT, 3)
+    hi = torch.where(pv, pts, float("-inf")).amax(2)
+    count = pv[..., 0].sum(-1)                             # (B, NT)
+    r2 = (float("inf") if radius is None
+          else float(np.float32(radius * radius)))
+    kth = idx[..., k - 1].long()
+    near = torch.gather(points, 1, kth.clamp(min=0)[..., None].expand(
+        -1, -1, 3))
+    thr = torch.where(kth >= 0, sq_norm3(query - near),
+                      torch.full_like(query[..., 0], r2))
+    total = 0
+    for row in range(b):
+        for c in range(0, query.shape[1], 4096):
+            q = query[row, c:c + 4096, None, :]
+            gap = torch.maximum(torch.maximum(lo[row] - q, q - hi[row]),
+                                torch.zeros_like(q))
+            need = ((sq_norm3(gap) <= thr[row, c:c + 4096, None]) &
+                    q_valid[row, c:c + 4096, None])
+            total += int((need * count[row]).sum())
+    return total
 
 
 def library_call(name, args):
@@ -580,6 +630,76 @@ def k2_sites(label, spec, calls, per_call):
     log(f"K2 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
         f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms, "
         f"3xTF32 floor {sums['floor_ms']:.3f} ms")
+
+
+def k3_calls(label, calls, per_call, knn):
+    """Phases 3, 6 and 9: one line per K3 call (a row's shared table, or
+    a query set against a row: the fp sweeps), with the share of
+    (query, tile) pairs the kernel visited (``knn.tile_visits``), and
+    their sums."""
+    sums = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    seen = tested = 0
+    for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
+        query, points, q_valid, p_valid, k, radius = args
+        site = "row table" if query is points else "query set"
+        v, n = knn.tile_visits(*args, **kwargs)
+        seen, tested = seen + v, tested + n
+        share = f"{v / max(n, 1):.4f} ({v} of {n})"
+        log(f"K3 call {label} {i} {site}: B {query.shape[0]}, Q "
+            f"{query.shape[1]}, N {points.shape[1]}, k {k}, radius {radius}, "
+            f"valid queries {int(q_valid.sum())}, valid points "
+            f"{int(p_valid.sum())}, kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, tiles "
+            f"visited {share}")
+        for key in sums:
+            sums[key] += t[key]
+    log(f"K3 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
+        f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms, tiles "
+        f"visited {seen / max(tested, 1):.4f}")
+
+
+def k6_calls(label, calls, per_call, fps):
+    """Phases 3, 6 and 9: one line per K6 call: the row, its valid count,
+    the picks, kernel and plain ms, us a pick, and the per-pick fixed cost:
+    the same kernel (the same launch shape, ``fps.launch_config``) on a
+    1024-point row of random points, all valid, with the same number of
+    picks up to 1024 (past them every later pick would repeat one point,
+    which the kernel does without a round); the serial floor is that cost
+    x the rounds the call needs: its picks up to the last valid point of
+    its fullest row."""
+    import torch
+
+    sums = dict.fromkeys(("ms", "plain_ms", "bound_ms", "fixed_ms"), 0.0)
+    picks = 0
+    for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
+        pos, valid, start, budget = args
+        n = pos.shape[1]
+        g = torch.Generator(device=pos.device).manual_seed(i)
+        small = (torch.randn((pos.shape[0], 1024, 3), generator=g,
+                             device=pos.device),
+                 torch.ones_like(valid[:, :1024]), torch.zeros_like(start))
+        few = min(budget, 1024)
+        cfg = fps.launch_config(n)
+        shape = f"{cfg[0]} threads, {cfg[1]} points a thread"
+        fixed = cuda_ms(lambda: fps.fps_picks_config(*small, few, cfg))
+        rounds = min(budget, int(valid.sum(-1).max()))
+        floor = fixed * rounds / few
+        log(f"K6 call {label} {i}: N {n}, valid {int(valid.sum())}, picks "
+            f"{budget} x {pos.shape[0]} rows ({shape}), kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms, "
+            f"{t['ms'] * 1e3 / budget:.3f} us a pick, fixed cost "
+            f"{fixed * 1e3 / few:.3f} us a pick ({few} picks of a "
+            f"1024-point row: {fixed:.3f} ms), serial floor {floor:.3f} ms "
+            f"({rounds} rounds)")
+        for key in ("ms", "plain_ms", "bound_ms"):
+            sums[key] += t[key]
+        sums["fixed_ms"] += floor
+        picks += budget
+    log(f"K6 {label}, {len(calls)} calls, {picks} picks: kernel "
+        f"{sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms, serial floor (rounds x fixed cost) "
+        f"{sums['fixed_ms']:.3f} ms")
 
 
 def pass_times(G, fn):
@@ -723,6 +843,8 @@ def run_kitti(P, mods, dev, kernel_launches):
                      per_call=per_call)
     k2_sites("KITTI", model.spec, calls["group_reduce"],
              per_call["group_reduce"])
+    k3_calls("KITTI", calls["knn"], per_call["knn"], mods["knn"])
+    k6_calls("KITTI", calls["fps"], per_call["fps"], mods["fps"])
     topk_calls = []
     for args, _, out in calls["grid_topk"]:
         table, counts, nbr, query, q_valid, k, r2 = args
@@ -926,6 +1048,8 @@ def main():
                           per_call=group_call_ms)
     k2_sites("nuScenes", model.spec, calls["group_reduce"],
              group_call_ms["group_reduce"])
+    k3_calls("nuScenes", calls["knn"], group_call_ms["knn"], knn)
+    k6_calls("nuScenes", calls["fps"], group_call_ms["fps"], fps)
     del calls
 
     # 4. the eval path: three scans through predict, launches counted
@@ -1002,12 +1126,16 @@ def main():
 
     # learning rate 0: the recorded calls hold views of the weights
     calls, (cap_loss, cap_ms, _) = capture(
-        TRAIN_KERNELS, mods, lambda: one_step(init, lr=0.0))
+        TRAIN_KERNELS + TRAIN_HELD, mods, lambda: one_step(init, lr=0.0))
     log(f"train capture step: loss {cap_loss:.6g}, {cap_ms:.1f} ms")
     train_call_ms = {}
     train_report = measure(TRAIN_KERNELS, mods, calls, train=True,
                            per_call=train_call_ms)
     k7_sites(init.spec, calls, train_call_ms, group_train)
+    held_report = measure(TRAIN_HELD, mods, calls, train=False,
+                          per_call=train_call_ms)
+    k3_calls("train", calls["knn"], train_call_ms["knn"], knn)
+    k6_calls("train", calls["fps"], train_call_ms["fps"], fps)
     del calls
 
     # 7. the train path: five steps through train_step, launches counted
@@ -1116,7 +1244,7 @@ def main():
             row["max_abs_err"] = max(row["max_abs_err"],
                                      report[name]["max_abs_err"])
         report[name] = row
-    for name, row in kitti_report.items():
+    for name, row in list(held_report.items()) + list(kitti_report.items()):
         if name in report:   # the nuScenes capture's times; the worst error
             report[name]["max_abs_err"] = max(row["max_abs_err"],
                                               report[name]["max_abs_err"])

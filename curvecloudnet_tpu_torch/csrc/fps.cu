@@ -1,139 +1,275 @@
-// K6: farthest point sampling, the serial pick loop.
+// K6: farthest point sampling, the serial pick loop, one CTA a batch row.
 //
 // Replaces curvecloudnet_tpu/ops/pallas_fps.py _fps_pallas_batched (the
 // Pallas kernel _fps_kernel).  For each batch row, `budget` picks: pick i
 // is `last`; every point's running min squared distance to the picks is
 // updated with its distance to `last`, and the next `last` is the argmax of
 // that field over valid points (invalid points hold -1e30 and are never
-// chosen), ties to the lowest index as jnp.argmax.  The output is the pick
-// order; the ascending sort and slot validity stay in PyTorch.
+// chosen while a valid point is left), ties to the lowest index as
+// jnp.argmax.  The output is the pick order; the ascending sort and slot
+// validity stay in PyTorch.
 //
-// Bound on the H100: latency.  The picks are serial, so the cost is
-// budget x (one sweep of N points + one block-wide argmax).  Design: one
-// block of 1024 threads per row; positions live in shared memory (12 B a
-// point: 216 KB at the KITTI 18432-point row) and each thread keeps the
-// min-distance field of its PER points (j = tid + t * 1024) in registers,
-// so each pick touches no device memory; the argmax is a warp-shuffle
-// reduction then one across the 32 warps.  Distances use round-to-nearest
-// intrinsics in the order (dx*dx + dy*dy) + dz*dz, with no FMA contraction,
-// so they equal the plain PyTorch version bit for bit.
+// Bound on the H100: the serial chain of picks.  A call's operations and
+// bytes are microseconds of work (9 FLOP a valid point a round), but pick
+// i+1 cannot start before every point has seen pick i, so the time is
+// rounds x (one sweep of the points + one argmax over every thread that
+// holds some + the barrier between).  The floor a design reaches is the
+// rounds x the cost of one round on a tiny row (the fixed cost
+// chip_smoke.py measures on a 1024-point row).
+//
+// Design.  Only valid points can be picked while one is left (invalid
+// points hold -1e30 for good), so the CTA first ranks the row's V valid
+// points in index order (a block scan of the mask) and keeps their
+// positions, compacted, in shared memory (12 B a point); the picks are
+// ranks until a last pass maps them to indices.  Each thread holds the
+// field of points tid, tid + T, ... in registers, and the positions of
+// its first 32 of them too (24 in the build for rows past 32 T points),
+// so a row of up to 24 T valid points (6144 at the default 256 threads:
+// every main-path row) sweeps registers only; points past those are read
+// from shared memory, as the parent design read every point.  A pick sweeps a thread's points, each warp's argmax
+// (two redux.sync) goes into its 64-bit slot as (key, ~rank), one
+// __syncthreads, and every thread takes the largest slot (the largest
+// field at the lowest rank, i.e. the lowest index) and the winner's
+// coordinates; the slots alternate by pick parity, so one barrier a pick
+// is enough.  (A shared 64-bit atomicMax in their place cost ~0.5 us a
+// round; a cluster of CTAs, ~1.0-1.3 us a round whatever its size, lost to
+// one CTA at every main-path row.)  Once the largest field is 0 every
+// valid point is picked and every later pick is the same point: the rest
+// of the budget is written without a round.  Distances use round-to-
+// nearest intrinsics in the order (dx*dx + dy*dy) + dz*dz, with no FMA
+// contraction, and the field is updated with fminf, so picks equal the
+// plain PyTorch version's bit for bit.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-__device__ __forceinline__ void argmax_merge(float& bv, int& bi, float ov,
-                                             int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
+#define NO_INDEX 0xffffffffu
+// points a thread whose positions sit in registers where P > 32 (the
+// field of all P takes registers too: 32 would spill at P = 76)
+#define REG_POINTS 24
+
+// A field value as an unsigned key that orders like the value for the
+// argmax: every negative value (-1e30 of an invalid point, -inf of a slot
+// past the row's end) is 0, a value v >= 0 its bits + 1 (bits of
+// non-negative floats order as the floats do).  Ties are broken by index.
+__device__ __forceinline__ unsigned field_key(float v) {
+  return v >= 0.f ? __float_as_uint(v) + 1u : 0u;
 }
 
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    argmax_merge(bv, bi, ov, oi);
-  }
+// (key, index) of the largest key, lowest index, over the warp; every lane
+// gets it (two redux.sync)
+__device__ __forceinline__ void warp_argmax(unsigned& key, unsigned& idx) {
+  const unsigned m = __reduce_max_sync(0xffffffffu, key);
+  idx = __reduce_min_sync(0xffffffffu, key == m ? idx : NO_INDEX);
+  key = m;
 }
 
-#define FPS_THREADS 1024
+// Shared memory through 32-bit window addresses held in registers: with
+// plain pointers the compiler recomputes the window's base (an S2UR of the
+// CTA id) at each use in the pick loop, ~0.09 us a round.
+__device__ __forceinline__ unsigned smem_at(const void* p) {
+  unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("" : "+r"(a));
+  return a;
+}
 
-template <int PER>
-__global__ void __launch_bounds__(FPS_THREADS)
+__device__ __forceinline__ float lds_f32(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ ulonglong2 lds_u64x2(unsigned a) {
+  ulonglong2 v;
+  asm volatile("ld.shared.v2.u64 {%0, %1}, [%2];"
+               : "=l"(v.x), "=l"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts_u64(unsigned a, unsigned long long v) {
+  asm volatile("st.shared.u64 [%0], %1;" :: "r"(a), "l"(v) : "memory");
+}
+
+// 16 points a thread take ~90 registers (at most 512 threads), more up to
+// ~190 (at most 256)
+template <int P>
+__global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
     fps_kernel(const float* __restrict__ pos,
                const unsigned char* __restrict__ valid,
                const int* __restrict__ start, int* __restrict__ out, int N,
                int budget) {
-  extern __shared__ float sm[];
-  float* px = sm;
-  float* py = px + N;
-  float* pz = py + N;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_last;
+  constexpr int PR = P <= 32 ? P : REG_POINTS;
+  const int T = blockDim.x, NW = T >> 5;
+  extern __shared__ uint4 smem[];
+  // [2][32] per-warp slots, then x, y and z of the N (at most) valid points
+  unsigned long long* S = reinterpret_cast<unsigned long long*>(smem);
+  float* sx = reinterpret_cast<float*>(smem + 32);
+  float* sy = sx + N;
+  float* sz = sy + N;
+  __shared__ unsigned warp_cnt[32];
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* pb = pos + (size_t)b * N * 3;
   const unsigned char* vb = valid + (size_t)b * N;
-  float mind[PER];
+  int* ob = out + (size_t)b * budget;
+
+  // ranks of the valid points in index order
+  const int chunk = (N + T - 1) / T;
+  const int j0 = min(N, tid * chunk), j1 = min(N, j0 + chunk);
+  unsigned cnt = 0;
+  for (int j = j0; j < j1; ++j) cnt += vb[j] != 0;
+  unsigned incl = cnt;
 #pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int j = tid + t * FPS_THREADS;
-    mind[t] = -1e30f;
-    if (j < N) {
-      px[j] = pb[3 * j];
-      py[j] = pb[3 * j + 1];
-      pz[j] = pb[3 * j + 2];
-      if (vb[j]) mind[t] = 1e30f;
-    }
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
   }
+  if (lane == 31) warp_cnt[warp] = incl;
+  __syncthreads();
+  unsigned before = 0, V = 0;
+  for (int w = 0; w < NW; ++w) {
+    const unsigned c = warp_cnt[w];
+    before += w < warp ? c : 0u;
+    V += c;
+  }
+  before += incl - cnt;
+
+  if (V == 0) {   // no valid point: start, then index 0 (argmax of an all
+                  // -1e30 field)
+    for (int i = tid; i < budget; i += T) ob[i] = i == 0 ? start[b] : 0;
+    return;
+  }
+  for (int j = j0, r = (int)before; j < j1; ++j) {
+    if (!vb[j]) continue;
+    sx[r] = pb[3 * j];
+    sy[r] = pb[3 * j + 1];
+    sz[r] = pb[3 * j + 2];
+    ++r;
+  }
+  // every slot, those of warps past NW too (a pair is read at a time)
+  for (int s = tid; s < 64; s += T) S[s] = 0ull;
   __syncthreads();
 
-  int last = start[b];
-  for (int i = 0; i < budget; ++i) {
-    if (tid == 0) out[(size_t)b * budget + i] = last;
-    const float lx = px[last], ly = py[last], lz = pz[last];
-    float bv = -CUDART_INF_F;
-    int bi = 0x7fffffff;
+  // the field of points tid + p T in registers, and the positions of the
+  // first PR; slots past V hold -inf (never chosen)
+  const int pu = ((int)V + T - 1) / T;
+  float x[PR], y[PR], z[PR], f[P];
 #pragma unroll
-    for (int t = 0; t < PER; ++t) {
-      const int j = tid + t * FPS_THREADS;
-      if (j < N) {
-        const float dx = __fsub_rn(px[j], lx);
-        const float dy = __fsub_rn(py[j], ly);
-        const float dz = __fsub_rn(pz[j], lz);
-        const float d2 = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        const float mv = fminf(mind[t], d2);
-        mind[t] = mv;
-        if (mv > bv) {
-          bv = mv;
-          bi = j;
-        }
+  for (int p = 0; p < P; ++p) {
+    const int l = tid + p * T;
+    const bool real = l < (int)V;
+    if (p < PR) {
+      x[p < PR ? p : 0] = real ? sx[l] : 0.f;
+      y[p < PR ? p : 0] = real ? sy[l] : 0.f;
+      z[p < PR ? p : 0] = real ? sz[l] : 0.f;
+    }
+    f[p] = real ? 1e30f : -__int_as_float(0x7f800000);
+  }
+  int last = start[b];    // an index; every later pick a rank
+  float lx = pb[3 * last], ly = pb[3 * last + 1], lz = pb[3 * last + 2];
+  const unsigned a_slots = smem_at(S), a_x = smem_at(sx), a_y = smem_at(sy),
+                 a_z = smem_at(sz);
+  asm volatile("" : "+l"(ob));   // in registers too, not rebuilt each pick
+
+  for (int i = 0;; ++i) {
+    if (tid == 0) ob[i] = last;
+    if (i + 1 == budget) break;
+    // the sweep; p ascends with the rank, so strict > keeps the lowest.
+    // A break, not a guard, past the points in use: a guarded slot is
+    // issued predicated off, which costs a large P as much as a full sweep
+    float bv = -__int_as_float(0x7f800000);
+    int bp = -1;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p >= pu) break;
+      // (a thread past the last point reads the last: its field is -inf)
+      const int l = min(tid + p * T, (int)V - 1);
+      const float px = p < PR ? x[p < PR ? p : 0] : sx[l];
+      const float py = p < PR ? y[p < PR ? p : 0] : sy[l];
+      const float pz = p < PR ? z[p < PR ? p : 0] : sz[l];
+      const float dx = __fsub_rn(px, lx);
+      const float dy = __fsub_rn(py, ly);
+      const float dz = __fsub_rn(pz, lz);
+      const float d2 = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      f[p] = fminf(f[p], d2);
+      if (f[p] > bv) {
+        bv = f[p];
+        bp = p;
       }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
+    unsigned key = field_key(bv);
+    unsigned g = bp >= 0 ? (unsigned)(tid + bp * T) : NO_INDEX;
+    // the warp's (key, ~rank) into its slot: the largest of the slots is
+    // the largest key at the lowest rank (the lowest index)
+    warp_argmax(key, g);
+    const unsigned slots = a_slots + (i & 1) * 256;
+    if (lane == 0)
+      sts_u64(slots + 8 * warp, ((unsigned long long)key << 32) | ~g);
     __syncthreads();
-    if (warp == 0) {
-      bv = red_v[lane];
-      bi = red_i[lane];
-      warp_argmax(bv, bi);
-      if (lane == 0) s_last = bi;
+    unsigned long long w = 0ull;
+    for (int s = 0; s < NW; s += 2) {
+      const ulonglong2 v = lds_u64x2(slots + 8 * s);
+      w = max(w, max(v.x, v.y));
     }
-    __syncthreads();
-    last = s_last;
+    const unsigned wg = ~(unsigned)w, wk = (unsigned)(w >> 32);
+    lx = lds_f32(a_x + 4 * wg);
+    ly = lds_f32(a_y + 4 * wg);
+    lz = lds_f32(a_z + 4 * wg);
+    last = (int)wg;
+    // the largest field is 0: every valid point is picked, the field no
+    // longer changes, and every later pick is `last`
+    if (wk <= 1u) {
+      for (int r = i + 1 + tid; r < budget; r += T) ob[r] = last;
+      break;
+    }
   }
+
+  // picks 1.. are ranks: map them to indices through a table in sx
+  __syncthreads();
+  int* index = reinterpret_cast<int*>(sx);
+  for (int j = j0, r = (int)before; j < j1; ++j)
+    if (vb[j]) index[r++] = j;
+  __syncthreads();
+  for (int i = 1 + tid; i < budget; i += T) ob[i] = index[__ldcg(ob + i)];
 }
 
-template <int PER>
+template <int P>
 static int launch(const float* pos, const unsigned char* valid,
-                  const int* start, int* out, int B, int N, int budget,
+                  const int* start, int* out, int B, int N, int budget, int T,
                   cudaStream_t st) {
-  const size_t smem = (size_t)N * 3 * sizeof(float);
+  // slots, then x, y and z of N points
+  const size_t smem = 32 * sizeof(uint4) + (size_t)N * 12;
   cudaError_t e = cudaFuncSetAttribute(
-      fps_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fps_kernel<PER><<<B, FPS_THREADS, smem, st>>>(pos, valid, start, out, N,
-                                                budget);
+  fps_kernel<P><<<B, T, smem, st>>>(pos, valid, start, out, N, budget);
   return (int)cudaGetLastError();
 }
 
 // pos (B, N, 3) f32; valid (B, N) bool; start (B,) int32; out (B, budget)
-// int32 pick order.  N <= 20 * 1024, within shared memory at 12 B a point.
+// int32 pick order.  A row runs on one CTA of T threads (a multiple of 32;
+// at most 1024, 512 for P > 8, 256 for P > 16), P points a thread (1, 2,
+// 4, 8, 12, 16, 24, 32 or 76) with P * T >= N, 12 B of shared memory a
+// point beside 512 B of slots.
 extern "C" int ccn_fps(const float* pos, const unsigned char* valid,
                        const int* start, int* out, int B, int N, int budget,
-                       void* stream) {
+                       int T, int P, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || budget < 1 || N > 20 * FPS_THREADS)
+  if (N < 1 || budget < 1 || B < 1 || T < 32 ||
+      T > (P > 16 ? 256 : (P > 8 ? 512 : 1024)) || T % 32 ||
+      (long long)P * T < N)
     return (int)cudaErrorInvalidValue;
-  if (N <= 8 * FPS_THREADS)
-    return launch<8>(pos, valid, start, out, B, N, budget, st);
-  return launch<20>(pos, valid, start, out, B, N, budget, st);
+  switch (P) {
+    case 1: return launch<1>(pos, valid, start, out, B, N, budget, T, st);
+    case 2: return launch<2>(pos, valid, start, out, B, N, budget, T, st);
+    case 4: return launch<4>(pos, valid, start, out, B, N, budget, T, st);
+    case 8: return launch<8>(pos, valid, start, out, B, N, budget, T, st);
+    case 12: return launch<12>(pos, valid, start, out, B, N, budget, T, st);
+    case 16: return launch<16>(pos, valid, start, out, B, N, budget, T, st);
+    case 24: return launch<24>(pos, valid, start, out, B, N, budget, T, st);
+    case 32: return launch<32>(pos, valid, start, out, B, N, budget, T, st);
+    case 76: return launch<76>(pos, valid, start, out, B, N, budget, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -103,8 +103,8 @@ _SIGNATURES = {
     "ccn_conv1d_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "ccn_group_reduce": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P] + [_I] * 9
                         + [_P, _P],
-    "ccn_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
-    "ccn_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ccn_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I] + [_P] * 7,
+    "ccn_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ccn_gather_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_scatter_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_gt_gemm": [_I, _P, _P, _I, _P],

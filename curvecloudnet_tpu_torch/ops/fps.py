@@ -15,7 +15,14 @@ from . import _build
 from .segments import sq_norm3
 
 _BIG = 1e30
-MAX_N = 20 * 1024
+# launch shapes (csrc/fps.cu): the points a thread the kernel is built for
+# and the most threads a CTA each takes; the threads a CTA of the wrapper
+# (tools/fps_sweep.py)
+_POINTS = {1: 1024, 2: 1024, 4: 1024, 8: 1024, 12: 512, 16: 512, 24: 256,
+           32: 256, 76: 256}
+_THREADS = 256
+# a row's points in shared memory at 12 B, beside the kernel's 640 B
+MAX_N = (_build.MAX_SMEM - 1024) // 12
 
 
 def fps_picks_ref(pos, valid, start, budget: int):
@@ -35,25 +42,41 @@ def fps_picks_ref(pos, valid, start, budget: int):
     return picks
 
 
-def fps_picks(pos, valid, start, budget: int):
-    """Kernel K6 for CUDA tensors, its plain version for CPU tensors."""
-    if pos.device.type == "cpu":
-        return fps_picks_ref(pos, valid, start, budget)
-    b, n, _ = pos.shape
-    # positions in shared memory (12 B a point, beside ~1 KB of the
-    # kernel's own); the min-distance field in registers, 20 a thread
-    if n * 12 > _build.MAX_SMEM - 1024 or n > MAX_N:
+def launch_config(n: int):
+    """(T threads, P points a thread) of a row of ``n`` points: one CTA of
+    ``_THREADS``, the fewest points a thread that cover the row."""
+    if n > MAX_N:
         raise ValueError(f"fps kernel: a row of {n} points exceeds its "
-                         f"shared memory or registers")
+                         f"shared memory (at most {MAX_N})")
+    t = _THREADS
+    return t, next(p for p, most in _POINTS.items()
+                   if t <= most and p * t >= n)
+
+
+def fps_picks_config(pos, valid, start, budget: int, config):
+    """Kernel K6 with the launch shape ``config`` = (T, P) (CUDA tensors);
+    :func:`fps_picks` takes :func:`launch_config`'s."""
+    t, p = config
+    b, n, _ = pos.shape
     start = start.to(torch.int32).contiguous()
     out = torch.empty((b, budget), dtype=torch.int32, device=pos.device)
     args = (
         _build.ptr(pos, torch.float32, "pos", 3),
         _build.ptr(valid, torch.bool, "valid", 2),
         _build.ptr(start, torch.int32, "start", 1),
-        out.data_ptr(), b, n, budget, _build.stream_ptr(pos.device))
+        out.data_ptr(), b, n, budget, t, p,
+        _build.stream_ptr(pos.device))
     rc = _build.library().ccn_fps(*args)
     _build.check(rc, "ccn_fps")
+    return out
+
+
+def fps_picks(pos, valid, start, budget: int):
+    """Kernel K6 for CUDA tensors, its plain version for CPU tensors."""
+    if pos.device.type == "cpu":
+        return fps_picks_ref(pos, valid, start, budget)
+    out = fps_picks_config(pos, valid, start, budget,
+                           launch_config(pos.shape[1]))
     fps_picks.launches += 1
     return out
 

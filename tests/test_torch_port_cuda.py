@@ -160,8 +160,9 @@ def test_fps_kernel(dev):
 
 
 def test_fps_kernel_at_kitti_row(dev):
-    """The KITTI fps row: 18432 points (the field in registers at 20 a
-    thread, positions in 216 KB of shared memory), 5530 picks."""
+    """The KITTI fps row: 18432 points, 17000 of them valid (past the 32
+    points a thread whose positions sit in registers: the rest read from
+    shared memory), 5530 picks."""
     g = torch.Generator().manual_seed(7)
     pos = torch.randn(1, 18432, 3, generator=g)
     valid = torch.ones(1, 18432, dtype=torch.bool)
@@ -170,6 +171,166 @@ def test_fps_kernel_at_kitti_row(dev):
     args = tuple(t.to(dev) for t in (pos, valid, start))
     assert torch.equal(fps.fps_picks(*args, 5530),
                        fps.fps_picks_ref(*args, 5530))
+
+
+def _sweep_row(seed, n, n_beams, n_valid=None, dup=0):
+    """A lidar-like row of ``n`` slots in scan order (the port's synthetic
+    sweep): its first ``n_valid`` slots valid, the rest junk; ``dup``
+    consecutive points of its second half copied near its start (exact
+    ties in a tile of lower index than the original's)."""
+    from curvecloudnet_tpu_torch.data.synthetic import lidar_sweep
+
+    rng = np.random.default_rng(seed)
+    n_valid = n if n_valid is None else n_valid
+    pos = lidar_sweep(rng, 2 * n_valid, n_beams)[0]
+    pos = pos[np.sort(rng.permutation(len(pos))[:n_valid - dup])]
+    if dup:
+        at = int(rng.integers(len(pos) // 2, len(pos) - dup))
+        pos = np.insert(pos, len(pos) // 20, pos[at:at + dup], axis=0)
+    full = rng.normal(size=(n, 3)).astype(np.float32)
+    full[:len(pos)] = pos
+    valid = np.zeros(n, bool)
+    valid[:len(pos)] = True
+    return torch.from_numpy(full), torch.from_numpy(valid)
+
+
+def _assert_knn_equal(args, k, radius):
+    i_k, d_k = knn.knn_search(*args, k, radius)
+    i_r, d_r = knn.knn_search_ref(*args, k, radius)
+    assert torch.equal(d_k, d_r)
+    assert not bool(((i_k != i_r) & (d_k != d_r)).any())
+
+
+# (rows of (n, n_beams, valid points), subset queries: every other point,
+# k, radius, duplicated points): the flagship's 23040-point table and the
+# KITTI 5530-point row (a quarter valid), an fp-style query set (Q != N),
+# B = 2 with different valid counts, duplicates, a ragged last tile, a
+# radius that admits only the query itself, k above the valid count
+KNN_ROWS = [
+    (((23040, 32, None),), False, 32, 0.04, 0),
+    (((5530, 64, 1242),), False, 32, 0.5, 0),
+    (((11520, 32, 9420),), True, 3, None, 0),
+    (((5760, 32, 3019), (5760, 32, 2500)), False, 32, 0.3, 0),
+    (((4001, 32, 3000),), False, 32, 0.1, 200),
+    (((1037, 16, 1037), (1037, 16, 900)), True, 8, 1e-6, 0),
+    (((1037, 16, 20),), False, 32, None, 0),
+]
+
+
+@pytest.mark.parametrize("rows,subset,k,radius,dup", KNN_ROWS)
+def test_knn_kernel_at_sweep_rows(dev, rows, subset, k, radius, dup):
+    made = [_sweep_row(i, n, beams, nv, dup)
+            for i, (n, beams, nv) in enumerate(rows)]
+    p = torch.stack([m[0] for m in made])
+    pv = torch.stack([m[1] for m in made])
+    q, qv = (p[:, 1::2].contiguous(), pv[:, 1::2].contiguous()) if subset \
+        else (p, pv)
+    if subset:
+        p, pv = p[:, ::2].contiguous(), pv[:, ::2].contiguous()
+    args = tuple(t.to(dev) for t in (q, p, qv, pv))
+    _assert_knn_equal(args, min(k, p.shape[1]), radius)
+    seen, total = knn.tile_visits(*args, min(k, p.shape[1]), radius)
+    assert 0 < seen <= total
+
+
+def _split_row(seed, n_q, n_p, shuffled, dup=0):
+    """A synthetic sweep of n_q + n_p points split into a query set and a
+    row, each in the sweep's order or shuffled; ``dup`` points of the row
+    copied onto others (exact ties)."""
+    from curvecloudnet_tpu_torch.data.synthetic import lidar_sweep
+
+    rng = np.random.default_rng(seed)
+    pts = lidar_sweep(rng, 2 * (n_q + n_p), 32)[0]
+    pts = pts[np.sort(rng.permutation(len(pts))[:n_q + n_p])]
+    if shuffled:
+        pts = pts[rng.permutation(len(pts))]
+    pick = np.zeros(len(pts), bool)
+    pick[rng.permutation(len(pts))[:n_p]] = True
+    q, p = pts[~pick], pts[pick].copy()
+    if dup:
+        p[rng.permutation(n_p)[:dup]] = p[rng.permutation(n_p)[:dup]]
+    return torch.from_numpy(q), torch.from_numpy(p)
+
+
+# calls that launch K3's brute-force route (k <= 8, at least
+# knn.BRUTE_MIN_Q queries): rows without scan-order locality take it (randn,
+# a shuffled sweep with duplicates and a radius), and B = 2 with a row in
+# scan order (the tiled search) beside a shuffled one
+@pytest.mark.parametrize("kind,k,radius,dup", [
+    ("randn", 3, None, 0), ("shuffled", 8, 0.3, 300), ("mixed", 5, None, 0)])
+def test_knn_kernel_brute_route(dev, kind, k, radius, dup):
+    n_q, n_p = knn.BRUTE_MIN_Q + 600, 12000
+    g = torch.Generator().manual_seed(4)
+    if kind == "randn":
+        qs, ps = torch.randn(1, n_q, 3, generator=g), torch.randn(
+            1, n_p, 3, generator=g)
+    else:
+        made = [_split_row(30 + i, n_q, n_p, kind == "shuffled" or i == 1,
+                           dup) for i in range(1 if kind == "shuffled" else 2)]
+        qs = torch.stack([m[0] for m in made])
+        ps = torch.stack([m[1] for m in made])
+    qv = torch.rand(qs.shape[:2], generator=g) > 0.05
+    pv = torch.rand(ps.shape[:2], generator=g) > 0.1
+    args = tuple(t.to(dev) for t in (qs, ps, qv, pv))
+    _assert_knn_equal(args, k, radius)
+    seen, total = knn.tile_visits(*args, k, radius)
+    if kind == "mixed":
+        assert 0.45 * total < seen < total
+    else:
+        assert seen == total
+
+
+def test_knn_kernel_all_queries_invalid(dev):
+    p, pv = _sweep_row(3, 2000, 32)
+    args = tuple(t.to(dev) for t in (p[None], p[None],
+                                     torch.zeros(1, 2000, dtype=torch.bool),
+                                     pv[None]))
+    i_k, d_k = knn.knn_search(*args, 16, 0.2)
+    assert bool((i_k == -1).all()) and bool((d_k == 1e30).all())
+    _assert_knn_equal(args, 16, 0.2)
+    assert knn.tile_visits(*args, 16, 0.2) == (0, 0)
+
+
+# (row size, valid counts, budget, duplicated points): ties across warps,
+# B = 2 with different valid counts, budget equal to and above the valid
+# count, the nuScenes 5760-point row, the largest row the wrapper takes
+FPS_ROWS = [
+    (5760, (3019,), 1728, 0),
+    (5760, (3019, 2700), 1728, 300),
+    (2000, (1500,), 1500, 0),
+    (1728, (906, 700), 1000, 50),
+    (fps.MAX_N, (19000,), 600, 0),
+]
+
+
+@pytest.mark.parametrize("n,valids,budget,dup", FPS_ROWS)
+def test_fps_kernel_at_sweep_rows(dev, n, valids, budget, dup):
+    made = [_sweep_row(10 + i, n, 32, nv, dup) for i, nv in enumerate(valids)]
+    pos = torch.stack([m[0] for m in made])
+    valid = torch.stack([m[1] for m in made])
+    start = torch.tensor([5 * i for i in range(len(valids))],
+                         dtype=torch.int32)
+    args = tuple(t.to(dev) for t in (pos, valid, start))
+    assert torch.equal(fps.fps_picks(*args, budget),
+                       fps.fps_picks_ref(*args, budget))
+
+
+@pytest.mark.parametrize("n,config", [(700, (32, 24)), (2400, (32, 76)),
+                                      (700, (96, 8))])
+def test_fps_kernel_narrow_ctas(dev, n, config):
+    """Launch shapes the wrapper does not take (``tools/fps_sweep.py``
+    does): one warp, whose slot pair's second slot no warp writes, without
+    and with points read from shared memory (more than 32 a thread);
+    three warps."""
+    made = [_sweep_row(20 + i, n, 32, nv, 40)
+            for i, nv in enumerate((n - 50, n * 2 // 3))]
+    pos = torch.stack([m[0] for m in made])
+    valid = torch.stack([m[1] for m in made])
+    start = torch.tensor([3, 0], dtype=torch.int32)
+    args = tuple(t.to(dev) for t in (pos, valid, start))
+    for budget in (300, n):
+        assert torch.equal(fps.fps_picks_config(*args, budget, config),
+                           fps.fps_picks_ref(*args, budget))
 
 
 def test_small_scan_matches_cpu_path(dev):
