@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero before the result line):
      recording every eval kernel call (K1, K2, K3, K6, K4); each recorded
      call is re-run through the kernel and through its plain PyTorch
      version and the outputs compared (tolerances below), both timed with
-     CUDA events; one line per K2 call (step, M, K, widths, aggregation,
+     CUDA events (a line per call; K1's name the step and give the 3xTF32
+     floor: 3x the FP32 operations at the TF32 tensor-core peak); one line
+     per K2 call (step, M, K, widths, aggregation,
      live rows, kernel / plain / bound ms and the 3xTF32 floor); one line
      per K3 call (row table or query set, Q, N, k, radius, valid counts,
      kernel / plain / bound ms, the share of tiles visited) and per K6
@@ -31,7 +33,9 @@ Phases (any failure raises and exits non-zero before the result line):
      backward under the call's own cotangents; K7's plain backward takes
      the plain forward's residuals; backward outputs compared in relative
      L2 norm against a perturbation yardstick, see TRAIN_KERNELS; K8's
-     forward statistics within 1e-5); one line per K7 site (step, M, K,
+     forward statistics within 1e-5; K8's lines name the step and layer,
+     its forward and t lines give the 3xTF32 floor, each time the median
+     of 21 runs); one line per K7 site (step, M, K,
      widths, aggregation, live rows, queries with no live slot, whose
      ``dout`` must be exactly 0; forward and backward kernel / plain /
      bound / 3xTF32-floor ms and the kernel's ms per pass); the step's K3
@@ -548,9 +552,34 @@ def capture(kernels, mods, run):
     return calls, result
 
 
-def measure(kernels, mods, calls, train, per_call=None):
+# the conv1d-fast-v2 kernels on tensor cores: their per-call lines give the
+# 3xTF32 floor (3x the FP32 operations at the TF32 tensor-core peak)
+CONV_TC = ("conv1d_chain", "conv1d_train_fwd", "conv1d_train_t")
+
+
+def conv_labels(spec, calls):
+    """{name: a label per recorded K1 / K8 call}: the conv step, and K8's
+    layer (the forward's calls in order; the reduce and t passes by the z
+    they take, the forward's output)."""
+    steps = [(i, len(st.feat_dims)) for i, st in enumerate(spec.steps)
+             if st.name == "conv1d-fast-v2"]
+    labels = {"conv1d_chain": [f"step_{i}" for i, _ in steps]}
+    if "conv1d_train_fwd" in calls:
+        layers = [f"step_{i} layer {li + 1}" for i, n in steps
+                  for li in range(n)]
+        by_z = {out[0].data_ptr(): lab for (_, _, out), lab in
+                zip(calls["conv1d_train_fwd"], layers)}
+        labels["conv1d_train_fwd"] = layers
+        for name in ("conv1d_train_reduce", "conv1d_train_t"):
+            labels[name] = [by_z.get(args[1].data_ptr(), "?")
+                            for args, _, _ in calls[name]]
+    return labels
+
+
+def measure(kernels, mods, calls, train, per_call=None, labels=None):
     """Compare and time every recorded call -> report rows; ``per_call``
-    (a dict) collects each call's kernel ms by name."""
+    (a dict) collects each call's kernel ms by name; ``labels`` (a dict of
+    lists) names each call on its line."""
     import torch
 
     report = {}
@@ -562,7 +591,8 @@ def measure(kernels, mods, calls, train, per_call=None):
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "bound_by": "bytes", "library_ms": None}
         flops_total = bytes_total = 0
-        for args, kwargs, out in calls[name]:
+        names = (labels or {}).get(name, [])
+        for i, (args, kwargs, out) in enumerate(calls[name]):
             with torch.no_grad():
                 if train:
                     e, plain = compare_train(name, args, out, ref, tol)
@@ -570,7 +600,9 @@ def measure(kernels, mods, calls, train, per_call=None):
                     e = compare(name, kern(*args, **kwargs),
                                 ref(*args, **kwargs), tol)
                     plain = lambda: ref(*args, **kwargs)  # noqa: E731
-                reps = 1 if train else 3
+                # K8's passes take a millisecond or less, most of it the
+                # host's on the narrow layers: the median of 21 runs a call
+                reps = (21 if name.startswith("conv1d") else 1) if train else 3
                 k_ms = cuda_ms(lambda: kern(*args, **kwargs), reps)
                 r_ms = cuda_ms(plain, reps)
                 lib = library_call(name, args)
@@ -582,8 +614,12 @@ def measure(kernels, mods, calls, train, per_call=None):
             bound = max(nb / PEAK_BYTES, fl / PEAK_FP32) * 1e3
             row["bound_ms"] += bound
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            log(f"  {name} {shapes}: err {e:.3g}, kernel {k_ms:.3f} ms, "
-                f"plain {r_ms:.3f} ms")
+            label = f" {names[i]}" if i < len(names) else ""
+            extra = (f", bound {bound:.3f} ms, 3xTF32 floor "
+                     f"{3 * fl / PEAK_TF32 * 1e3:.3f} ms"
+                     if name in CONV_TC else "")
+            log(f"  {name}{label} {shapes}: err {e:.3g}, kernel {k_ms:.3f} "
+                f"ms, plain {r_ms:.3f} ms{extra}")
             row["max_abs_err"] = max(row["max_abs_err"], e)
             row["ms"] += k_ms
             if per_call is not None:
@@ -840,7 +876,7 @@ def run_kitti(P, mods, dev, kernel_launches):
                            lambda: P.predict(model, *scan0))
     per_call = {}
     report = measure(KITTI_KERNELS, mods, calls, train=False,
-                     per_call=per_call)
+                     per_call=per_call, labels=conv_labels(model.spec, calls))
     k2_sites("KITTI", model.spec, calls["group_reduce"],
              per_call["group_reduce"])
     k3_calls("KITTI", calls["knn"], per_call["knn"], mods["knn"])
@@ -1045,7 +1081,8 @@ def main():
         EVAL_KERNELS, mods, lambda: P.predict(model, *scan0))
     group_call_ms = {}
     eval_report = measure(EVAL_KERNELS, mods, calls, train=False,
-                          per_call=group_call_ms)
+                          per_call=group_call_ms,
+                          labels=conv_labels(model.spec, calls))
     k2_sites("nuScenes", model.spec, calls["group_reduce"],
              group_call_ms["group_reduce"])
     k3_calls("nuScenes", calls["knn"], group_call_ms["knn"], knn)
@@ -1130,7 +1167,8 @@ def main():
     log(f"train capture step: loss {cap_loss:.6g}, {cap_ms:.1f} ms")
     train_call_ms = {}
     train_report = measure(TRAIN_KERNELS, mods, calls, train=True,
-                           per_call=train_call_ms)
+                           per_call=train_call_ms,
+                           labels=conv_labels(init.spec, calls))
     k7_sites(init.spec, calls, train_call_ms, group_train)
     held_report = measure(TRAIN_HELD, mods, calls, train=False,
                           per_call=train_call_ms)

@@ -113,9 +113,9 @@ _SIGNATURES = {
     "ccn_gt_aggregate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ccn_grid_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "ccn_topk_smallest": [_P, _P, _I, _I, _I, _P, _P, _P],
-    "ccn_conv1d_train_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    "ccn_conv1d_train_fwd": [_P] * 12 + [_I] * 6 + [_P],
     "ccn_conv1d_train_reduce": [_P] * 6 + [_I] * 4 + [_P],
-    "ccn_conv1d_train_t": [_P] * 10 + [_I] * 6 + [_P],
+    "ccn_conv1d_train_t": [_P] * 19 + [_I] * 7 + [_P],
     "ccn_edge_mlp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
 }
 

@@ -2,10 +2,15 @@
 
 Counterpart of ``curvecloudnet_tpu/ops/pallas_conv1d.py``
 (``conv1d_chain_eval``, ``fold_conv_bn_eval``).  The CUDA kernel is
-``csrc/conv1d_chain.cu``; :func:`conv1d_chain_eval_ref` is its plain
-PyTorch version, the JAX package's exact path (window concat -> Dense ->
-leaky -> tail mask per layer).  The wrapper runs the plain version for CPU
-tensors and the kernel for CUDA tensors.
+``csrc/conv1d_chain.cu``: a block of ROWS slots runs the whole chain on
+its tile of :func:`tile_rows` outputs and their halo, each layer one
+3xTF32 tensor-core product of the input rows and the stacked taps
+[W_0 | ... | W_h], shifted and pair-summed on the (h+1) C_out-wide side
+(``csrc/conv_tc.cuh``; ``ops/conv_tc.py`` models it on the CPU).
+:func:`conv1d_chain_eval_ref` is its plain PyTorch version, the JAX
+package's exact path (window concat -> Dense -> leaky -> tail mask per
+layer).  The wrapper runs the plain version for CPU tensors and the kernel
+for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -45,14 +50,20 @@ def conv1d_chain_eval_ref(xe, weights, used, half_k: int):
     return a
 
 
-def _pick_tile(c0: int, widths, h: int, n_layers: int) -> int:
-    pad = h * n_layers
-    cmax = max(widths[:-1], default=1)
-    for tile in (128, 64, 32):
-        smem = ((tile + 2 * pad) * c0 + 2 * (tile + 2 * (pad - h)) * cmax) * 4
-        if smem <= _build.MAX_SMEM:
-            return tile
-    raise ValueError(f"conv1d chain: C0={c0} too wide for shared memory")
+# slots a block takes (csrc/conv_tc.cuh CV_ROWS) and the widest stacked
+# product (h+1) C_out a layer may have (the kernels' accumulator tiles)
+ROWS = 128
+MAX_N = 96
+
+
+def tile_rows(h: int, n_layers: int) -> int:
+    """Output slots of a K1 block: its ROWS slots less the halo of h L
+    slots each side."""
+    tile = ROWS - 2 * h * n_layers
+    if tile < 1:
+        raise ValueError(f"conv1d chain: halo {h} x {n_layers} layers too wide "
+                         f"for a {ROWS}-slot block")
+    return tile
 
 
 def conv1d_chain_eval(xe, weights, used, half_k: int):
@@ -62,7 +73,9 @@ def conv1d_chain_eval(xe, weights, used, half_k: int):
     b, n_exp, c0 = xe.shape
     dims = [c0]
     for w, bias in weights:
-        if w.shape[0] != (half_k + 1) * dims[-1] or bias.shape != (w.shape[1],):
+        if (w.shape[0] != (half_k + 1) * dims[-1]
+                or bias.shape != (w.shape[1],)
+                or (half_k + 1) * w.shape[1] > MAX_N):
             raise ValueError(f"conv1d chain: bad layer shapes {tuple(w.shape)}")
         dims.append(w.shape[1])
     wp = torch.cat([t.reshape(-1).float() for wb in weights for t in wb])
@@ -72,7 +85,7 @@ def conv1d_chain_eval(xe, weights, used, half_k: int):
         off += w.numel()
         boff.append(off)
         off += bias.numel()
-    tile = _pick_tile(c0, dims[1:], half_k, len(weights))
+    tile = tile_rows(half_k, len(weights))
     used = used.to(torch.int32).contiguous()
     out = torch.empty((b, n_exp, dims[-1]), dtype=torch.float32,
                       device=xe.device)

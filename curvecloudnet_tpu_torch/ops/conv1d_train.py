@@ -22,7 +22,12 @@ live-slot sums of dxh, dxh * xhat, da and da * xhat, where da = du * m *
 leaky'(y), dxh = da * gamma) and a t pass (dz, the transposed window
 product d_u_{l-1}, dW and db).  leaky'(0) = 1, as in the JAX kernel.
 
-The CUDA kernels are ``csrc/conv1d_train.cu``; :func:`conv1d_train_fwd_layer_ref`,
+The CUDA kernels are ``csrc/conv1d_train.cu``: the window products of the
+forward and the t pass are 3xTF32 tensor-core products with the shifts on
+the C_out-wide side (``csrc/conv_tc.cuh``; ``ops/conv_tc.py`` models them
+on the CPU), the forward by tiles of :func:`fwd_tile` slots, the t pass's
+d_u_prev by tiles of ROWS slots and its dW / db by the row splits of
+:func:`dw_splits`.  :func:`conv1d_train_fwd_layer_ref`,
 :func:`conv1d_train_bwd_reduce_ref` and :func:`conv1d_train_bwd_t_ref` are
 their plain PyTorch versions, over the whole batch at once (the JAX
 functions run one sample and sum; the forward returns finished statistics
@@ -38,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .conv1d_chain import MAX_N, ROWS
 from .curve1d import window_concat_nomask
 
 EPS = 1e-5
@@ -140,19 +146,40 @@ def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
 # ---------------------------------------------------------------------------
 
 
-def _pick_tile(rows_floats) -> int:
-    """Largest row tile whose shared memory leaves room for two blocks per
-    SM, else the largest that fits; ``rows_floats(tile)`` counts the
-    floats a tile keeps."""
-    for budget in (_build.MAX_SMEM // 2, _build.MAX_SMEM):
-        for tile in (128, 64, 32, 16):
-            if 4 * rows_floats(tile) <= budget:
-                return tile
-    raise ValueError("conv1d train kernel: widths too wide for shared memory")
+# dW and db: inputs up to DW_FUSED channels wide are summed a ROWS-slot
+# tile a block by the d_u_prev kernel; wider ones by about DW_BLOCKS blocks
+# a call (m-chunks of DW_M input channels x row splits x samples), each its
+# split's slots in stages of DW_STAGE (csrc/conv1d_train.cu TDF_MAX,
+# TDW_M, TDW_ROWS)
+DW_FUSED = 32
+DW_BLOCKS = 256
+DW_M = 64
+DW_STAGE = 32
+
+
+def fwd_tile(h: int) -> int:
+    """Output slots of a forward block: ROWS less an h-slot halo each side."""
+    return ROWS - 2 * h
+
+
+def dw_splits(n_exp: int, c_in: int, bsz: int):
+    """(splits, slots a split) of the t pass's weight gradient: the
+    ROWS-slot tiles for inputs up to DW_FUSED wide, else rows of a sample
+    cut into ranges of a multiple of DW_STAGE slots, so that about
+    DW_BLOCKS blocks run; depends on the shapes only (a call's partials are
+    summed in the same order every time)."""
+    if c_in <= DW_FUSED:
+        return -(-n_exp // ROWS), ROWS
+    m_chunks = -(-c_in // DW_M)
+    want = max(1, -(-DW_BLOCKS // (m_chunks * bsz)))
+    rps = -(-n_exp // want)
+    rps = -(-rps // DW_STAGE) * DW_STAGE
+    return -(-n_exp // rps), rps
 
 
 def _check(z_prev, w, half_k: int):
-    if z_prev.dim() != 3 or w.shape[0] != (half_k + 1) * z_prev.shape[-1]:
+    if (z_prev.dim() != 3 or w.shape[0] != (half_k + 1) * z_prev.shape[-1]
+            or (half_k + 1) * w.shape[1] > MAX_N or fwd_tile(half_k) < 1):
         raise ValueError(f"conv1d train kernel: input {tuple(z_prev.shape)} "
                          f"and W {tuple(w.shape)} with h={half_k}")
 
@@ -168,8 +195,20 @@ def _bn_pack(bn, c: int, device):
     return out
 
 
-def _ptr_or_null(t, name: str):
-    return None if t is None else _build.ptr(t, torch.float32, name, 1)
+def _vec_ptrs(vecs, c: int, name: str):
+    """Device pointers of per-channel vectors (a BN's mean, inv, gamma,
+    beta, ...) as the caller holds them, each (C,) f32 contiguous; four
+    nulls for no BN."""
+    if vecs is None:
+        return [None] * 4
+    out = []
+    for i, t in enumerate(vecs):
+        if t.numel() != c:
+            raise ValueError(f"conv1d train kernel: {name}[{i}] of width "
+                             f"{t.numel()}, want {c}")
+        # a view of the caller's storage (no copy that the launch outlives)
+        out.append(_build.ptr(t.detach(), torch.float32, f"{name}[{i}]", 1))
+    return out
 
 
 def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int):
@@ -181,10 +220,9 @@ def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int):
     bsz, n_exp, c_in = z_prev.shape
     c_out = w.shape[1]
     dev = z_prev.device
-    tile = _pick_tile(lambda t: (t + 2 * half_k) * c_in + t * c_out)
+    tile = fwd_tile(half_k)
     n_tiles = -(-n_exp // tile)
     z_prev = z_prev.float().contiguous()
-    bnp = _bn_pack(bn_prev, c_in, dev)
     wc = w.detach().float().contiguous()
     bc = b.detach().float().contiguous()
     used = used.to(torch.int32).contiguous()
@@ -194,7 +232,7 @@ def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int):
     var = torch.empty(c_out, device=dev)
     rc = _build.library().ccn_conv1d_train_fwd(
         _build.ptr(z_prev, torch.float32, "z_prev", 3),
-        _ptr_or_null(bnp, "bn_prev"),
+        *_vec_ptrs(bn_prev, c_in, "bn_prev"),
         _build.ptr(wc, torch.float32, "w", 2),
         _build.ptr(bc, torch.float32, "b", 1),
         _build.ptr(used, torch.int32, "used", 1),
@@ -244,32 +282,32 @@ def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
     bsz, n_exp, c_out = z.shape
     c_in = z_prev.shape[-1]
     dev = z.device
-    tile = _pick_tile(lambda t: (t + 2 * h) * (c_in + c_out))
-    n_tiles = -(-n_exp // tile)
+    splits, rps = dw_splits(n_exp, c_in, bsz)
     d_u = d_u.float().contiguous()
     z = z.float().contiguous()
     z_prev = z_prev.float().contiguous()
-    # (mean, inv, gamma, beta, c1, c2) of this layer, then the previous BN
-    coef = torch.cat([_bn_pack(bn, c_out, dev), c1.reshape(-1).float(),
-                      c2.reshape(-1).float()]).contiguous()
-    bnp = _bn_pack(bn_prev, c_in, dev)
     w_t = (w.detach().float().reshape(h + 1, c_in, c_out).transpose(1, 2)
            .contiguous())
     used = used.to(torch.int32).contiguous()
     n_dw = (h + 1) * c_in * c_out
     d_u_prev = torch.empty((bsz, n_exp, c_in), device=dev)
-    parts = torch.empty((bsz * n_tiles, n_dw + c_out), device=dev)
+    # dz for the dW kernel of wide inputs
+    dz = (torch.empty((bsz, n_exp, c_out), device=dev)
+          if c_in > DW_FUSED else None)
+    parts = torch.empty((bsz * splits, n_dw + c_out), device=dev)
     sums = torch.empty(n_dw + c_out, device=dev)
     rc = _build.library().ccn_conv1d_train_t(
         _build.ptr(d_u, torch.float32, "d_u", 3),
         _build.ptr(z, torch.float32, "z", 3),
         _build.ptr(z_prev, torch.float32, "z_prev", 3),
-        _build.ptr(coef, torch.float32, "coef", 1),
-        _ptr_or_null(bnp, "bn_prev"),
+        *_vec_ptrs((*bn, c1, c2), c_out, "bn"),
+        *_vec_ptrs(bn_prev, c_in, "bn_prev"),
         _build.ptr(w_t, torch.float32, "w_t", 3),
         _build.ptr(used, torch.int32, "used", 1),
-        d_u_prev.data_ptr(), parts.data_ptr(), sums.data_ptr(),
-        bsz, n_exp, c_in, c_out, h, tile, _build.stream_ptr(dev))
+        d_u_prev.data_ptr(), None if dz is None else dz.data_ptr(),
+        parts.data_ptr(),
+        sums.data_ptr(), bsz, n_exp, c_in, c_out, h, splits, rps,
+        _build.stream_ptr(dev))
     _build.check(rc, "ccn_conv1d_train_t")
     conv1d_train_bwd_t.launches += 1
     return d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:]

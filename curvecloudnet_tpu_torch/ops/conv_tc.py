@@ -1,0 +1,240 @@
+"""A CPU model of the tensor-core design of K1 and K8 (``csrc/conv_tc.cuh``,
+``csrc/conv1d_chain.cu``, ``csrc/conv1d_train.cu``), for the tests.
+
+Nothing on the main path calls this module.  It repeats the kernels'
+arithmetic step for step: every window product is a 3xTF32 product
+(:func:`mm3`, operands split by ``group_reduce.tf32_split``) of the layer
+input and the stacked taps [W_0 | ... | W_h], shifted and pair-summed on the
+(h+1) C_out-wide side (:func:`shift_sum`); the backward multiplies the
+windows of dz (:func:`windows`) instead.  Rows go by the tiles the wrappers
+pick (``conv1d_chain.tile_rows``, ``conv1d_train.fwd_tile``, ``ROWS`` slots a
+d_u_prev block, ``conv1d_train.dw_splits`` for the weight gradient), each
+with its halo, zero outside [0, n_exp); the cross-block sums follow the
+kernels' fixed orders (:func:`chan_combine`, :func:`colsum`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .conv1d_chain import ROWS, tile_rows
+from .conv1d_train import (DW_FUSED, DW_STAGE, _affine, _dleaky, _live,
+                           _u_of, dw_splits, fwd_tile)
+from .group_reduce import tf32_split
+
+MOMENT_THREADS = 256  # the moments kernel's block (CT_THREADS)
+
+
+def mm3(a, b):
+    """a @ b in 3xTF32: lo*hi + hi*lo + hi*hi, each TF32 product exact in
+    f32, summed in f32."""
+    ah, al = tf32_split(a.contiguous())
+    bh, bl = tf32_split(b.contiguous())
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def stacked_taps(w, h: int):
+    """W ((h+1) C_in, C_out), tap d in row block d -> [W_0 | ... | W_h]
+    (C_in, (h+1) C_out)."""
+    c_out = w.shape[1]
+    return w.reshape(h + 1, -1, c_out).permute(1, 0, 2).reshape(
+        -1, (h + 1) * c_out)
+
+
+def shift_sum(p, h: int, c_out: int):
+    """P (..., R, (h+1) C_out) -> P_0(r) + sum_d (P_d(r-d) + P_d(r+d)) at
+    rows r in [h, R - h): (..., R - 2h, C_out)."""
+    r = p.shape[-2]
+    z = p[..., h:r - h, :c_out]
+    for d in range(1, h + 1):
+        blk = p[..., d * c_out:(d + 1) * c_out]
+        z = z + (blk[..., h - d:r - h - d, :] + blk[..., h + d:r - h + d, :])
+    return z
+
+
+def windows(x, h: int):
+    """x (..., R, C) -> [x(r), x(r-1) + x(r+1), ..., x(r-h) + x(r+h)] at
+    rows r in [h, R - h): (..., R - 2h, (h+1) C)."""
+    r = x.shape[-2]
+    return torch.cat([x[..., h:r - h, :]] + [
+        x[..., h - d:r - h - d, :] + x[..., h + d:r - h + d, :]
+        for d in range(1, h + 1)], dim=-1)
+
+
+def rows_of(x, start: int, n: int):
+    """Rows start .. start + n - 1 of x (B, n_exp, C), 0 outside
+    [0, n_exp)."""
+    out = x.new_zeros((x.shape[0], n, x.shape[2]))
+    lo, hi = max(start, 0), min(start + n, x.shape[1])
+    if hi > lo:
+        out[:, lo - start:hi - start] = x[:, lo:hi]
+    return out
+
+
+def chain_eval_model(xe, weights, used, h: int):
+    """K1: per block of ROWS slots (``tile_rows`` outputs and h L halo
+    slots each side), each layer P = mm3(a, taps), y = shift_sum(P) + b,
+    leaky, 0 past ``used``; the valid rows shrink by h each side."""
+    bsz, n_exp, _ = xe.shape
+    n_layers = len(weights)
+    pad, tile = h * n_layers, tile_rows(h, n_layers)
+    live_end = used.long().clamp(max=n_exp)[:, None]
+    taps = [stacked_taps(w, h) for w, _ in weights]
+    out = xe.new_zeros((bsz, n_exp, weights[-1][0].shape[1]))
+    for t0 in range(0, n_exp, tile):
+        a = rows_of(xe, t0 - pad, ROWS)
+        for li, ((w, b), wst) in enumerate(zip(weights, taps)):
+            y = shift_sum(mm3(a, wst), h, w.shape[1]) + b
+            slot = t0 - pad + (li + 1) * h + torch.arange(y.shape[1])
+            live = (slot[None] >= 0) & (slot[None] < live_end)
+            a = torch.where(live[..., None], F.leaky_relu(y, 0.01),
+                            torch.zeros_like(y))
+        n = min(tile, n_exp - t0)
+        out[:, t0:t0 + n] = a[:, :n]
+    return out
+
+
+def chan(a, b):
+    """Chan's pairwise combination of (count, mean, M2), per channel, as
+    the kernel's ``chan`` (a side with no count passes the other)."""
+    n_a, m_a, q_a = a
+    n_b, m_b, q_b = b
+    n = n_a + n_b
+    d = m_b - m_a
+    f = n_b / torch.where(n > 0, n, torch.ones_like(n))
+    out = (n, m_a + d * f, q_a + q_b + d * d * n_a * f)
+    keep_a, keep_b = n_b == 0, (n_a == 0) & (n_b != 0)
+    return tuple(torch.where(keep_a, x, torch.where(keep_b, y, o))
+                 for x, y, o in zip(a, b, out))
+
+
+def chan_combine(parts, c_out: int):
+    """The moments kernel: per-block (count, mean, M2) rows combined in its
+    fixed order (thread t takes rows t, t + 256, ...; then a tree) ->
+    (mean, biased variance)."""
+    zero = torch.zeros(c_out)
+    slots = []
+    for t in range(MOMENT_THREADS):
+        acc = (zero, zero, zero)
+        for cnt, mean, m2 in parts[t::MOMENT_THREADS]:
+            acc = chan(acc, (torch.full((c_out,), float(cnt)), mean, m2))
+        slots.append(acc)
+    s = MOMENT_THREADS // 2
+    while s:
+        slots = [chan(slots[i], slots[i + s]) for i in range(s)]
+        s //= 2
+    n, mean, m2 = slots[0]
+    var = torch.where(n > 0, torch.clamp(m2 / torch.where(n > 0, n, 1.0),
+                                         min=0.0), zero)
+    return mean, var
+
+
+def tile_moments(zt, cnt: int):
+    """A forward tile's (count, mean, M2) over its first ``cnt`` rows: 8
+    groups of 16 rows, each in two passes, combined in order by
+    :func:`chan`."""
+    c_out = zt.shape[1]
+    acc = (torch.zeros(c_out),) * 3
+    for k in range(8):
+        g = zt[16 * k:min(16 * k + 16, cnt)]
+        n = g.shape[0]
+        mean = g.sum(0) / n if n else torch.zeros(c_out)
+        acc = chan(acc, (torch.full((c_out,), float(n)), mean,
+                         ((g - mean) ** 2).sum(0)))
+    return acc
+
+
+def fwd_model(z_prev, bn_prev, w, b, used, h: int):
+    """K8's forward: per block of ROWS slots (``fwd_tile`` outputs and an
+    h-slot halo each side) z = shift_sum(mm3(u, taps)) + b, the tile's
+    (count, mean, M2) over its live slots (:func:`tile_moments`), combined
+    by :func:`chan_combine`."""
+    bsz, n_exp, _ = z_prev.shape
+    c_out = w.shape[1]
+    u = _u_of(z_prev, bn_prev, _live(used, n_exp, z_prev.device))
+    tile, wst = fwd_tile(h), stacked_taps(w, h)
+    z = z_prev.new_empty((bsz, n_exp, c_out))
+    parts = []
+    for bi in range(bsz):
+        live_end = min(int(used[bi]), n_exp)
+        for t0 in range(0, n_exp, tile):
+            zt = shift_sum(mm3(rows_of(u[bi:bi + 1], t0 - h, ROWS), wst), h,
+                           c_out)[0] + b
+            n = min(tile, n_exp - t0)
+            z[bi, t0:t0 + n] = zt[:n]
+            cnt = max(0, min(t0 + tile, live_end) - t0)
+            parts.append((cnt, *tile_moments(zt, cnt)[1:]))
+    return (z, *chan_combine(parts, c_out))
+
+
+def colsum(parts):
+    """The colsum kernel's fixed order: row lane k (of 8) adds rows k,
+    k + 8, ...; then the lanes 0..7 in turn."""
+    lanes = []
+    for k in range(8):
+        s = torch.zeros(parts.shape[1])
+        for row in parts[k::8]:
+            s = s + row
+        lanes.append(s)
+    out = lanes[0]
+    for s in lanes[1:]:
+        out = out + s
+    return out
+
+
+def t_model(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used, h: int):
+    """K8's t pass: dz as the plain version forms it; d_u_prev per block of
+    ROWS slots = mm3(windows(dz), W^T); dW and db per row split
+    (``dw_splits``): for inputs up to DW_FUSED wide a ROWS-slot tile in one
+    product u^T windows(dz), else the split's stages of DW_STAGE slots each
+    in two 16-slot halves, summed half by half and the halves added; the
+    splits' partial rows summed by :func:`colsum`; db by 8 row lanes (lane k
+    takes rows k, k + 8, .. of every stage), added in order."""
+    bsz, n_exp, c_out = z.shape
+    c_in = z_prev.shape[-1]
+    live = _live(used, n_exp, z.device)
+    _, inv, gam, _ = bn
+    xhat, y = _affine(z, bn)
+    dz = inv * (d_u * live * _dleaky(y) * gam - live * (c1 + xhat * c2))
+    w_t = w.reshape(h + 1, c_in, c_out).transpose(1, 2).reshape(-1, c_in)
+    d_u_prev = z.new_empty((bsz, n_exp, c_in))
+    for t0 in range(0, n_exp, ROWS):
+        n = min(ROWS, n_exp - t0)
+        win = windows(rows_of(dz, t0 - h, ROWS + 2 * h), h)
+        d_u_prev[:, t0:t0 + n] = mm3(win, w_t)[:, :n]
+    u = _u_of(z_prev, bn_prev, live)
+    splits, rps = dw_splits(n_exp, c_in, bsz)
+    fused = c_in <= DW_FUSED
+    # the fused route takes a tile in one product; the dW kernel its
+    # split's stages, each in two halves
+    step, parts_of = (ROWS, 1) if fused else (DW_STAGE, 2)
+    parts = []
+    for bi in range(bsz):
+        live_end = min(int(used[bi]), n_exp)
+        for s in range(splits):
+            lo = s * rps
+            hi = min(lo + rps, n_exp) if fused else min(lo + rps, n_exp,
+                                                        live_end + h)
+            acc = [torch.zeros(c_in, (h + 1) * c_out)
+                   for _ in range(parts_of)]
+            lanes = [torch.zeros(c_out) for _ in range(8)]
+            for p0 in range(lo, hi, step):
+                us = rows_of(u[bi:bi + 1], p0, step)[0]
+                win = windows(rows_of(dz[bi:bi + 1], p0 - h, step + 2 * h),
+                              h)[0]
+                size = step // parts_of
+                for k in range(parts_of):
+                    rows = slice(k * size, (k + 1) * size)
+                    acc[k] = acc[k] + mm3(us[rows].t(), win[rows])
+                for p, row in enumerate(win[:, :c_out]):
+                    lanes[p % 8] = lanes[p % 8] + row
+            db = lanes[0]
+            for lane in lanes[1:]:
+                db = db + lane
+            dw = acc[0] if fused else acc[0] + acc[1]
+            dw = dw.reshape(c_in, h + 1, c_out)
+            parts.append(torch.cat([dw.transpose(0, 1).reshape(-1), db]))
+    sums = colsum(torch.stack(parts))
+    n_dw = (h + 1) * c_in * c_out
+    return d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:]
