@@ -77,9 +77,12 @@ Phases (any failure raises and exits non-zero before the result line):
      ``predict`` with launches equal to the spec-derived counts (K9 on the
      five sgcnn steps the gate admits) and logits within 2e-3 of the
      ``group`` route's; then a capture forward holding each K9 call
-     against its plain version (1e-4 of max(1, |plain|)), timed beside the
-     K4 + K2 time of the same step in phase 3, and each of the route's ten
-     K2 calls against its plain version (as in phase 3).
+     against its plain version (1e-4 of max(1, |plain|); its line gives
+     the 3xTF32 floor), each timed beside the group route's cost of the
+     same step: K4 + K2 from phase 3 and the layer-0 matmuls (the group
+     route's own ``EdgeConvStep.layer0`` on the call's x),
+     and each of the route's ten K2 calls against its plain version (as in
+     phase 3).
 
 Prints per-phase lines, then a JSON line of the kernels, the card's name
 and power limit, and as the last line
@@ -552,9 +555,10 @@ def capture(kernels, mods, run):
     return calls, result
 
 
-# the conv1d-fast-v2 kernels on tensor cores: their per-call lines give the
-# 3xTF32 floor (3x the FP32 operations at the TF32 tensor-core peak)
-CONV_TC = ("conv1d_chain", "conv1d_train_fwd", "conv1d_train_t")
+# kernels on tensor cores whose per-call lines give the 3xTF32 floor (3x
+# the FP32 operations at the TF32 tensor-core peak; K2's and K7's come
+# with their site lines)
+TC_LINES = ("conv1d_chain", "conv1d_train_fwd", "conv1d_train_t", "edge_mlp")
 
 
 def conv_labels(spec, calls):
@@ -617,7 +621,7 @@ def measure(kernels, mods, calls, train, per_call=None, labels=None):
             label = f" {names[i]}" if i < len(names) else ""
             extra = (f", bound {bound:.3f} ms, 3xTF32 floor "
                      f"{3 * fl / PEAK_TF32 * 1e3:.3f} ms"
-                     if name in CONV_TC else "")
+                     if name in TC_LINES else "")
             log(f"  {name}{label} {shapes}: err {e:.3g}, kernel {k_ms:.3f} "
                 f"ms, plain {r_ms:.3f} ms{extra}")
             row["max_abs_err"] = max(row["max_abs_err"], e)
@@ -1023,11 +1027,24 @@ def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
     if len(admitted) != len(k9_ms["edge_mlp"]):
         raise AssertionError(f"{len(k9_ms['edge_mlp'])} K9 calls for the "
                              f"admitted steps {admitted}")
-    for i, k9 in zip(admitted, (t["ms"] for t in k9_ms["edge_mlp"])):
+    total = dict.fromkeys(("k9", "floor", "k4", "k2", "mm"), 0.0)
+    for i, (args, _, _), t in zip(admitted, calls["edge_mlp"],
+                                  k9_ms["edge_mlp"]):
         k4 = group_call_ms["gather"][sgcnn.index(i)]["ms"]
         k2 = group_call_ms["group_reduce"][grouping.index(i)]["ms"]
-        log(f"  step_{i} sgcnn: K9 {k9:.3f} ms; K4 {k4:.3f} + K2 {k2:.3f} = "
-            f"{k4 + k2:.3f} ms")
+        with torch.no_grad():
+            mm = cuda_ms(functools.partial(model.steps[i].layer0, args[0]))
+        floor = 3 * t["flops"] / PEAK_TF32 * 1e3
+        for key, v in zip(total, (t["ms"], floor, k4, k2, mm)):
+            total[key] += v
+        log(f"  step_{i} sgcnn: x {tuple(args[0].shape)}, K9 (projection + "
+            f"edge) {t['ms']:.3f} ms (bound {t['bound_ms']:.3f}, 3xTF32 "
+            f"floor {floor:.3f}); group route: K4 {k4:.3f} + K2 {k2:.3f} + "
+            f"layer-0 matmuls {mm:.3f} = {k4 + k2 + mm:.3f} ms")
+    log(f"K9 on the fused route, {len(admitted)} steps: {total['k9']:.3f} ms "
+        f"(3xTF32 floor {total['floor']:.3f}); the group route on the same steps: K4 {total['k4']:.3f} + K2 "
+        f"{total['k2']:.3f} + layer-0 matmuls {total['mm']:.3f} = "
+        f"{total['k4'] + total['k2'] + total['mm']:.3f} ms")
     return report, launched, k2_err
 
 

@@ -8,192 +8,185 @@
 //     eval BN folded);  msg = h_{L-1} W_{L-1} + b_{L-1}
 //     out_i = max_k (msg if j >= 0 else -100)
 //
-// Design: the JAX wrapper gathers the (N, K, C) neighbor planes in device
-// memory before its kernel; here a block takes a tile of tq queries, reads
-// their index rows and gathers the rows x_j itself into shared memory, so
-// only x, the indices and the weights are read and only the (N, O) output is
-// written.  The tq * K message rows of every layer stay in two shared
-// buffers (ping-pong, tq * K rows of the widest activation each); layer 0
-// builds [x_j, x_i - x_j] on the fly from the gathered rows and x_i.  The
-// weights stream through the read-only cache.  Each thread computes a
-// 4-row x OT-channel micro-tile (8 row lanes x 32 channel lanes, channels
-// fastest, so weight reads coalesce and activation reads broadcast).  A tile
-// whose slots are all masked (padding queries) writes -100 and stops.
+// Bound on the H100: the multiply-adds, with layer 0 once a point (below)
+// and the later layers on the live edges only: 0.49 ms at the FP32 rate
+// for the flagship's five admitted steps; the 3xTF32 tensor-core floor
+// (three TF32 products a multiply-add at 495 TFLOP/s) is ~0.2 ms.
 //
-// Bound on the H100: FP32 FMAs (every live and masked slot runs the whole
-// MLP: the flagship's admitted steps do 16-48 GFLOP each).  No tensor cores
-// yet (FP32 FMA, so results stay within f32 rounding of the plain version).
+// Design.
+//  * Layer 0 once a point.  With W_0 = [Wt; Wb] (the x_j and x_i - x_j
+//    halves), h_0 W_0 = x_j (Wt - Wb) + x_i Wb, so a projection kernel
+//    computes [U | V] = x [Wt - Wb | Wb] + [0 | b_0] for every point, one
+//    (rows, C) x (C, 2 H_0) 3xTF32 product (dense_mma of group_chain.cuh
+//    over tiles of 64 rows x 128 columns, two blocks an SM; C padded to 8
+//    with zeros in shared memory),
+//    and layer 0 of edge (i, j) is U[j] + V[i]: one add, not 2C
+//    multiply-adds an edge.
+//  * The rest on K2's live-row chain (group_chain.cuh): a block compacts
+//    its queries' live (query, slot) rows (padding queries have none: they
+//    get -100 and never gather), builds each chunk's rows as
+//    relu(U[j] + V[i]) from the gathered U rows and the query's V row (the
+//    identity for a one-layer MLP), runs the later layers through 3xTF32
+//    mma.sync with W staged by cp.async, and takes the masked max, carried
+//    across a query's chunks (a query with a dead slot starts at -100).
+//    Neither h_0 nor the (N, K, H) planes ever reach device memory: what
+//    is read is x, the indices, the weights and [U | V] (scratch the
+//    wrapper allocates), and the (N, O) output is written.
 
-#include <cuda_runtime.h>
+#include "group_chain.cuh"
 
-#define EM_MAXL 8
-#define EM_THREADS 256
-#define EM_RT 4
-#define EM_MAX_FILL -100.0f
+#define EP_ROWS 64   // rows of a projection tile
+#define EP_COLS 128  // its output columns: two 8-column tiles a warp
+#define EP_BLOCKS 2  // projection blocks an SM (ops/edge_mlp.py sizes p_kc)
 
-struct EdgeMeta {
-  int n_layers;
-  int dims[EM_MAXL + 1];  // dims[0] = 2C
-  long long woff[EM_MAXL];
-  long long boff[EM_MAXL];
+// [U | V] (rows, H2) = x (rows, C) W (C, H2) + bias, 3xTF32; a block the
+// tile of EP_ROWS rows and EP_COLS columns (blockIdx.y), two blocks an SM.
+// X holds the tile's input (zero from C up to a multiple of 8) and then
+// its output, row stride ldx.
+__global__ void __launch_bounds__(GR_THREADS, EP_BLOCKS)
+    edge_project_kernel(const float* __restrict__ x,
+                        const float* __restrict__ W,
+                        const float* __restrict__ bias, float* __restrict__ P,
+                        int rows, int C, int H2, int ldx, int ldw, int kc) {
+  extern __shared__ float4 sm4[];
+  float* Ws = reinterpret_cast<float*>(sm4);
+  float* X = Ws + 2 * kc * ldw;
+  const int r0 = blockIdx.x * EP_ROWS, nrow = min(EP_ROWS, rows - r0);
+  const int c0 = blockIdx.y * EP_COLS, nc = min(EP_COLS, H2 - c0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const WLayer L = {W + c0, C, nc, H2,
+                    (H2 & 3) == 0 &&
+                        (reinterpret_cast<size_t>(W + c0) & 15) == 0};
+  stage_w(Ws, ldw, L, 0, kc);
+  cp_async_commit();
+  const int c8 = (C + 7) & ~7;
+  for (int i = tid; i < EP_ROWS * c8; i += nt) {
+    const int j = i / c8, c = i - j * c8;
+    X[j * ldx + c] =
+        j < nrow && c < C ? __ldg(x + (size_t)(r0 + j) * C + c) : 0.f;
+  }
+  __syncthreads();
+  int buf = 0;
+  dense_mma<EP_ROWS, EP_COLS / 64>(X, ldx, X, ldx, L, bias + c0, 2, false,
+                                   Ws, ldw, kc, buf, nullptr);
+  float* Pt = P + (size_t)r0 * H2 + c0;
+  if ((nc & 3) == 0 && (H2 & 3) == 0) {
+    const int n4 = nc >> 2;
+    for (int i = tid; i < nrow * n4; i += nt) {
+      const int j = i / n4, c = (i - j * n4) * 4;
+      *reinterpret_cast<float4*>(Pt + (size_t)j * H2 + c) =
+          *reinterpret_cast<const float4*>(X + j * ldx + c);
+    }
+  } else {
+    for (int i = tid; i < nrow * nc; i += nt) {
+      const int j = i / nc, c = i - j * nc;
+      Pt[(size_t)j * H2 + c] = X[j * ldx + c];
+    }
+  }
+}
+
+// K9's rows: layer 0 of edge (i = query m, j = nbr[m, k]) is U[j] + V[i]
+// from P (B, M, 2 c1) = [U | V], then the activation (relu; the identity
+// when layer 0 is the last).
+struct EdgeSrc {
+  const float* P;
+  const int* nbr;  // (B, M, K), -1 padding
+  int c1, K, M, act;
+
+  __device__ __forceinline__ int nb(int b, int m, int k) const {
+    return __ldg(nbr + ((size_t)b * M + m) * K + k);
+  }
+
+  __device__ __forceinline__ bool live(int b, int m, int k) const {
+    return nb(b, m, k) >= 0;
+  }
+
+  __device__ bool same_planes(int, int, int, int) const { return false; }
+
+  __device__ void load(float* dst, int ld, const unsigned short* list,
+                       int r0, int nrow, int rows, int b, int m0,
+                       int ms) const {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const float* Pb = P + (size_t)b * M * 2 * c1;
+    if ((c1 & 3) == 0) {
+      const int c4 = c1 >> 2;
+      for (int i = tid; i < rows * c4; i += nt) {
+        const int j = i / c4, c = (i - j * c4) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j < nrow) {
+          const int e = list[r0 + j];
+          const int q = e >> GR_QBITS, k = e & ((1 << GR_QBITS) - 1);
+          const int m = m0 + q * ms;
+          const float4 u = __ldg(reinterpret_cast<const float4*>(
+              Pb + (size_t)nb(b, m, k) * 2 * c1 + c));
+          const float4 w = __ldg(reinterpret_cast<const float4*>(
+              Pb + (size_t)m * 2 * c1 + c1 + c));
+          v = make_float4(act_fn(u.x + w.x, act), act_fn(u.y + w.y, act),
+                          act_fn(u.z + w.z, act), act_fn(u.w + w.w, act));
+        }
+        *reinterpret_cast<float4*>(dst + j * ld + c) = v;
+      }
+    } else {
+      for (int i = tid; i < rows * c1; i += nt) {
+        const int j = i / c1, c = i - j * c1;
+        float v = 0.f;
+        if (j < nrow) {
+          const int e = list[r0 + j];
+          const int q = e >> GR_QBITS, k = e & ((1 << GR_QBITS) - 1);
+          const int m = m0 + q * ms;
+          v = act_fn(__ldg(Pb + (size_t)nb(b, m, k) * 2 * c1 + c) +
+                         __ldg(Pb + (size_t)m * 2 * c1 + c1 + c),
+                     act);
+        }
+        dst[j * ld + c] = v;
+      }
+    }
+  }
 };
 
-// one dense over the block's rows: in (stride ld) -> out (stride ld).
-// FIRST: the input is [x_j, x_i - x_j] from in (x_j, cin = C wide) and xi
-// (one C-wide row per query, k rows per query); W is then (2C, cout).
-template <int OT, bool FIRST>
-__device__ void dense(const float* in, const float* xi, int k, int ld,
-                      int rows, int cin, int cout,
-                      const float* __restrict__ W,
-                      const float* __restrict__ bias, bool relu, float* out) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int r0 = 0; r0 < rows; r0 += 8 * EM_RT) {
-    int rr[EM_RT];
-    for (int i = 0; i < EM_RT; ++i) {
-      const int r = r0 + ty + 8 * i;
-      rr[i] = r < rows ? r : rows - 1;
-    }
-    for (int o0 = 0; o0 < cout; o0 += 32 * OT) {
-      float acc[EM_RT][OT];
-      for (int i = 0; i < EM_RT; ++i)
-        for (int j = 0; j < OT; ++j) acc[i][j] = 0.f;
-      for (int c = 0; c < cin; ++c) {
-        float w0[OT], w1[OT];
-        for (int j = 0; j < OT; ++j) {
-          const int o = o0 + tx + 32 * j;
-          w0[j] = o < cout ? __ldg(W + (size_t)c * cout + o) : 0.f;
-          if (FIRST)
-            w1[j] = o < cout ? __ldg(W + (size_t)(cin + c) * cout + o) : 0.f;
-        }
-        for (int i = 0; i < EM_RT; ++i) {
-          const float a = in[(size_t)rr[i] * ld + c];
-          if (FIRST) {
-            const float d = xi[(size_t)(rr[i] / k) * cin + c] - a;
-            for (int j = 0; j < OT; ++j)
-              acc[i][j] = fmaf(d, w1[j], fmaf(a, w0[j], acc[i][j]));
-          } else {
-            for (int j = 0; j < OT; ++j) acc[i][j] = fmaf(a, w0[j], acc[i][j]);
-          }
-        }
-      }
-      for (int i = 0; i < EM_RT; ++i) {
-        if (r0 + ty + 8 * i >= rows) continue;
-        for (int j = 0; j < OT; ++j) {
-          const int o = o0 + tx + 32 * j;
-          if (o >= cout) continue;
-          const float v = acc[i][j] + bias[o];
-          out[(size_t)rr[i] * ld + o] = relu ? fmaxf(v, 0.f) : v;
-        }
-      }
-    }
-  }
-}
-
-template <bool FIRST>
-__device__ void dense_any(const float* in, const float* xi, int k, int ld,
-                          int rows, int cin, int cout, const float* W,
-                          const float* bias, bool relu, float* out) {
-  if (cout <= 64)
-    dense<2, FIRST>(in, xi, k, ld, rows, cin, cout, W, bias, relu, out);
-  else
-    dense<4, FIRST>(in, xi, k, ld, rows, cin, cout, W, bias, relu, out);
-}
-
-__global__ void __launch_bounds__(EM_THREADS)
-    edge_mlp_kernel(const float* __restrict__ x, const int* __restrict__ nbr,
-                    const float* __restrict__ wp, float* __restrict__ out,
-                    int n, int k, int c, int tq, int wmax, EdgeMeta m) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y, q0 = blockIdx.x * tq;
-  const int nq = min(tq, n - q0), rows = nq * k;
-  float* bufa = smem;
-  float* bufb = bufa + (size_t)tq * k * wmax;
-  float* xi = bufb + (size_t)tq * k * wmax;
-  int* idx = (int*)(xi + (size_t)tq * c);
-  const float* xb = x + (size_t)b * n * c;
-  const int o_w = m.dims[m.n_layers];
-  float* ob = out + ((size_t)b * n + q0) * o_w;
-
-  int live = 0;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const int j = nbr[((size_t)b * n + q0) * k + i];
-    idx[i] = j;
-    live |= j >= 0;
-  }
-  if (!__syncthreads_or(live)) {
-    for (int i = threadIdx.x; i < nq * o_w; i += blockDim.x)
-      ob[i] = EM_MAX_FILL;
-    return;
-  }
-  for (int i = threadIdx.x; i < rows * c; i += blockDim.x) {
-    const int r = i / c, cc = i - r * c;
-    const int j = idx[r];
-    bufa[(size_t)r * wmax + cc] = j >= 0 ? xb[(size_t)j * c + cc] : 0.f;
-  }
-  for (int i = threadIdx.x; i < nq * c; i += blockDim.x)
-    xi[i] = xb[(size_t)q0 * c + i];
-  __syncthreads();
-
-  float* in = bufa;
-  float* nxt = bufb;
-  for (int l = 0; l < m.n_layers; ++l) {
-    const int cout = m.dims[l + 1];
-    const float* W = wp + m.woff[l];
-    const float* bias = wp + m.boff[l];
-    const bool relu = l < m.n_layers - 1;
-    if (l == 0)
-      dense_any<true>(in, xi, k, wmax, rows, c, cout, W, bias, relu, nxt);
-    else
-      dense_any<false>(in, xi, k, wmax, rows, m.dims[l], cout, W, bias, relu,
-                       nxt);
-    __syncthreads();
-    float* t = in;
-    in = nxt;
-    nxt = t;
-  }
-  for (int i = threadIdx.x; i < nq * o_w; i += blockDim.x) {
-    const int q = i / o_w, o = i - q * o_w;
-    float mx = -__int_as_float(0x7f800000);  // -inf
-    for (int s = 0; s < k; ++s) {
-      const int r = q * k + s;
-      mx = fmaxf(mx, idx[r] >= 0 ? in[(size_t)r * wmax + o] : EM_MAX_FILL);
-    }
-    ob[i] = mx;
-  }
-}
-
-// x (B, N, C) f32; nbr (B, N, K) int32 with -1 padding; wp packed weights:
-// layer l's W (dims[l], dims[l+1]) row-major at woff[l], its bias at
-// boff[l], dims[0] = 2C; out (B, N, dims[n_layers]) f32.  dims/woff/boff
-// are host arrays; tq queries per block.
-extern "C" int ccn_edge_mlp(const float* x, const int* nbr, const float* wp,
+// x (B, N, C) f32; nbr (B, N, K) int32 with -1 padding; wproj (C, 2 H0) =
+// [Wt - Wb | Wb] and bproj (2 H0,) = [0 | b_0], layer 0's projection; P
+// (B, N, 2 H0) f32 scratch for [U | V]; the later layers as run_chain
+// (group_chain.cuh) takes them: n_rest of them, dims[0] = H0, packed in wp
+// at woff / boff (host arrays); out (B, N, dims[n_rest]) f32.  rows / tq /
+// kc / per_sm: the chain's launch shape; p_kc: the projection's weight
+// rows a stage, refused unless EP_BLOCKS blocks of its buffers fit an SM.
+extern "C" int ccn_edge_mlp(const float* x, const int* nbr, const float* wproj,
+                            const float* bproj, const float* wp, float* P,
                             float* out, int B, int N, int K, int C,
-                            int n_layers, const int* dims,
+                            int n_rest, const int* dims,
                             const long long* woff, const long long* boff,
-                            int tq, void* stream) {
-  if (n_layers < 1 || n_layers > EM_MAXL || B < 1 || N < 1 || K < 1 ||
-      C < 1 || tq < 1 || dims[0] != 2 * C)
+                            int rows, int tq, int kc, int per_sm, int p_kc,
+                            void* stream) {
+  const int H0 = dims[0], H2 = 2 * H0;
+  if (B < 1 || N < 1 || C < 1 || H0 < 1 || p_kc < 8 || p_kc % 8)
     return (int)cudaErrorInvalidValue;
-  EdgeMeta m;
-  m.n_layers = n_layers;
-  int wmax = C;
-  for (int l = 0; l <= n_layers; ++l) {
-    m.dims[l] = dims[l];
-    if (l >= 1 && dims[l] > wmax) wmax = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    m.woff[l] = woff[l];
-    m.boff[l] = boff[l];
-  }
-  const size_t smem = (2 * (size_t)tq * K * wmax + (size_t)tq * C) *
-                          sizeof(float) +
-                      (size_t)tq * K * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ldx = row_stride(C > EP_COLS ? C : EP_COLS);
+  const int ldw = EP_COLS + 8;
+  const size_t smem = (2 * (size_t)p_kc * ldw + (size_t)EP_ROWS * ldx) * 4;
+  int dev, sm_smem, reserved;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (EP_BLOCKS * (smem + reserved) > (size_t)sm_smem)
+    return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(
+      edge_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + tq - 1) / tq, B);
-  edge_mlp_kernel<<<grid, EM_THREADS, smem, (cudaStream_t)stream>>>(
-      x, nbr, wp, out, N, K, C, tq, wmax, m);
-  return (int)cudaGetLastError();
+  const dim3 grid((B * N + EP_ROWS - 1) / EP_ROWS,
+                  (H2 + EP_COLS - 1) / EP_COLS);
+  edge_project_kernel<<<grid, GR_THREADS, smem, st>>>(
+      x, wproj, bproj, P, B * N, C, H2, ldx, ldw, p_kc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const EdgeSrc src = {P, nbr, H0, K, N, n_rest > 0 ? 0 : 2};
+  return run_chain(src, wp, n_rest, 0, dims, woff, boff, 0, 0, 0, B, K, N,
+                   rows, tq, kc, per_sm, out, st);
 }

@@ -16,15 +16,22 @@
 // round-to-nearest intrinsics in the order (dx*dx + dy*dy) + dz*dz of
 // query - point, so kernel and plain version agree bit for bit.
 //
-// Bound on the H100: the live candidates (a few hundred a query) are read
-// from a table of 30-50 MB that mostly stays in L2, so the bytes each
-// input must move are far below what the candidate loop takes; the loop is
-// latency-bound (dependent loads, per-thread top-k upkeep).  Design: one
-// thread per query, K3's fully unrolled register top-k (the first MAXK-k
-// slots hold -inf so the list has exactly k live slots) behind a
-// k-th-distance reject; records come as one 16-byte load each.
-// Consecutive queries are in curve order, hence spatial neighbours that
-// read mostly the same rows, so the warp's loads hit L1/L2.
+// Bound on the H100: the bytes of the live records (each read once),
+// ~0.013 ms a KITTI forward.  What a query costs instead: it reads all
+// the live records of its S rows (~700 at the 73728-query table, so ~0.8
+// GB a call, from L2: the live records take ~1 MB) and keeps its list.
+// Design: a warp a query.  The lanes first read the query's S row ids and
+// live counts (a lane a column); then, row by row, the lanes read 32
+// consecutive records of the row, one coalesced 512-byte read, each lane
+// a candidate: d2, the r2 test and the k-th reject (the k-th d2 is re-read
+// only when the list changes); a ballot picks the survivors, which enter
+// K3's warp-distributed list (warp_list.cuh) one by one, or, past 4 of
+// them, by a bitonic merge.  The list orders (d2, candidate position), the
+// position being column x cap + slot, so ties go to the earlier candidate
+// whatever the order of the merges; the k-th reject is strict on that
+// order (a later candidate at the k-th d2 never enters), and the positions
+// are mapped back to point indices (one record read an output slot) at
+// the end.
 //
 // K10 replaces curvecloudnet_tpu/ops/pallas_topk.py topk_smallest (the
 // Pallas kernel _topk_kernel): per row of d (Q, W), the k smallest
@@ -34,12 +41,14 @@
 // Design: a block of TOPK_ROWS threads owns TOPK_ROWS rows; it stages
 // TOPK_COLS-column tiles of d and idx in shared memory with coalesced
 // loads (one thread a column), then each thread scans its own row of the
-// tile into a register top-k as K5 does.
+// tile into a register top-k (topk_insert).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define GRID_THREADS 64
+#include "warp_list.cuh"
+
+#define GRID_WARPS 8
 #define TOPK_ROWS 64
 #define TOPK_COLS 64
 
@@ -88,44 +97,81 @@ __device__ __forceinline__ void topk_store(const float (&bd)[MAXK],
   }
 }
 
-template <int MAXK>
-__global__ void grid_topk_kernel(const float4* __restrict__ table,
-                                 const int* __restrict__ counts,
-                                 const int* __restrict__ nbr,
-                                 const float* __restrict__ query,
-                                 const unsigned char* __restrict__ q_valid,
-                                 int Q, int S, int cap, int k, float r2,
-                                 float* __restrict__ out_d2,
-                                 int* __restrict__ out_idx) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(GRID_WARPS * 32)
+    grid_topk_kernel(const float4* __restrict__ table,
+                     const int* __restrict__ counts,
+                     const int* __restrict__ nbr,
+                     const float* __restrict__ query,
+                     const unsigned char* __restrict__ q_valid, int Q, int S,
+                     int cap, int k, float r2, float* __restrict__ out_d2,
+                     int* __restrict__ out_idx) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * GRID_WARPS + (threadIdx.x >> 5);
   if (qi >= Q) return;
-  float bd[MAXK];
-  int bi[MAXK];
-  topk_init<MAXK>(bd, bi, k);
+  const int* rows = nbr + (size_t)qi * S;
+  List l = {CUDART_INF_F, -1};
+  float kd = CUDART_INF_F;  // the list's k-th d2, on every lane
   if (q_valid[qi]) {
     const float qx = query[3 * (size_t)qi];
     const float qy = query[3 * (size_t)qi + 1];
     const float qz = query[3 * (size_t)qi + 2];
-    const int* rows = nbr + (size_t)qi * S;
-    for (int c = 0; c < S; ++c) {
-      const int row = rows[c];
-      const int live = counts[row];
-      const float4* rec = table + (size_t)row * cap;
-      for (int j = 0; j < live; ++j) {
-        const float4 p = rec[j];
-        const int pid = __float_as_int(p.w);
-        const float dx = __fsub_rn(qx, p.x);
-        const float dy = __fsub_rn(qy, p.y);
-        const float dz = __fsub_rn(qz, p.z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        if (pid >= 0 && d2 <= r2 && d2 < bd[MAXK - 1])
-          topk_insert<MAXK>(bd, bi, d2, pid);
+    for (int c0 = 0; c0 < S; c0 += 32) {
+      // lane c: the row id and live count of column c0 + c
+      const bool has = c0 + lane < S;
+      const int my_row = has ? __ldg(rows + c0 + lane) : 0;
+      const int my_live = has ? __ldg(counts + my_row) : 0;
+      for (int cc = 0; cc < min(32, S - c0); ++cc) {
+        const int live = __shfl_sync(full, my_live, cc);
+        const float4* rec =
+            table + (size_t)__shfl_sync(full, my_row, cc) * cap;
+        const int base = (c0 + cc) * cap;
+        for (int j0 = 0; j0 < live; j0 += 32) {
+          const int j = j0 + lane;
+          float d2 = CUDART_INF_F;
+          bool acc = false;
+          if (j < live) {
+            const float4 p = __ldg(rec + j);
+            const float dx = __fsub_rn(qx, p.x);
+            const float dy = __fsub_rn(qy, p.y);
+            const float dz = __fsub_rn(qz, p.z);
+            d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                           __fmul_rn(dz, dz));
+            acc = __float_as_int(p.w) >= 0 && d2 <= r2;
+          }
+          // candidates come in position order, after every list entry, so
+          // (d2, position) precedes the k-th entry iff d2 < its d2
+          unsigned mask = __ballot_sync(full, acc && d2 < kd);
+          if (!mask) continue;
+          if (__popc(mask) > 4) {
+            const bool in = (mask >> lane) & 1;
+            merge_all(l, in ? d2 : CUDART_INF_F, in ? base + j : -1, lane,
+                      k);
+          } else {
+            do {
+              const int src = __ffs(mask) - 1;
+              mask &= mask - 1;
+              insert_one(l, __shfl_sync(full, d2, src), base + j0 + src,
+                         lane, k);
+            } while (mask);
+          }
+          kd = __shfl_sync(full, l.d, k - 1);
+        }
       }
     }
   }
-  topk_store<MAXK>(bd, bi, k, CUDART_INF_F, out_d2 + (size_t)qi * k,
-                   out_idx + (size_t)qi * k);
+  if (lane < k) {
+    float d = 1e30f;
+    int id = -1;
+    if (l.i >= 0) {
+      const int col = l.i / cap;
+      d = l.d;
+      id = __float_as_int(
+          table[(size_t)__ldg(rows + col) * cap + l.i - col * cap].w);
+    }
+    out_d2[(size_t)qi * k + lane] = d;
+    out_idx[(size_t)qi * k + lane] = id;
+  }
 }
 
 template <int MAXK>
@@ -166,16 +212,6 @@ __global__ void topk_smallest_kernel(const float* __restrict__ d,
 }
 
 template <int MAXK>
-static void launch_grid(const float* table, const int* counts, const int* nbr,
-                        const float* query, const unsigned char* qv, int Q,
-                        int S, int cap, int k, float r2, float* d2, int* idx,
-                        cudaStream_t st) {
-  const int blocks = (Q + GRID_THREADS - 1) / GRID_THREADS;
-  grid_topk_kernel<MAXK><<<blocks, GRID_THREADS, 0, st>>>(
-      (const float4*)table, counts, nbr, query, qv, Q, S, cap, k, r2, d2, idx);
-}
-
-template <int MAXK>
 static void launch_topk(const float* d, const int* idx, int Q, int W, int k,
                         float* out_d, int* out_i, cudaStream_t st) {
   const int blocks = (Q + TOPK_ROWS - 1) / TOPK_ROWS;
@@ -194,15 +230,9 @@ extern "C" int ccn_grid_topk(const float* table, const int* counts,
   cudaStream_t st = (cudaStream_t)stream;
   if (k < 1 || k > 32 || Q < 1 || S < 1 || cap < 1)
     return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    launch_grid<8>(table, counts, nbr, query, q_valid, Q, S, cap, k, r2, d2,
-                   idx, st);
-  else if (k <= 16)
-    launch_grid<16>(table, counts, nbr, query, q_valid, Q, S, cap, k, r2, d2,
-                    idx, st);
-  else
-    launch_grid<32>(table, counts, nbr, query, q_valid, Q, S, cap, k, r2, d2,
-                    idx, st);
+  grid_topk_kernel<<<(Q + GRID_WARPS - 1) / GRID_WARPS, GRID_WARPS * 32, 0,
+                     st>>>((const float4*)table, counts, nbr, query, q_valid,
+                           Q, S, cap, k, r2, d2, idx);
   return (int)cudaGetLastError();
 }
 

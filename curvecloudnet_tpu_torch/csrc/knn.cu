@@ -19,20 +19,20 @@
 //
 // Design.  A pre-pass writes, for each tile of 32 consecutive points, the
 // points packed as float4 (x, y, z, valid) and the f32 bounding box of its
-// valid points (an empty tile: lo = +inf, hi = -inf, never visited), and
-// the box of each super-tile of 32 tiles.  The search runs one warp a
-// query.  The list is spread over the warp, lane s holding the s-th entry
-// (d2, index).  Each lane holds the box d2 of super-tiles lane, lane + 32,
-// ...; the warp visits the nearest super-tile left whose box d2 is within
-// min(k-th best, r2), and in it, the nearest tile left within the same
-// test, each found by two redux.sync; so the first tiles visited are the
-// query's own and the k-th best falls at once.  A visited tile is read as
-// one coalesced float4 a lane; the lanes whose point beats the k-th entry
-// are inserted one by one (a ballot finds the slot, shfl_up shifts the
-// rest), or, past 4 of them, merged at once (bitonic sort of the 32
-// candidates across lanes, then a bitonic merge with the list).  Lane-per-
-// query warps were tried first: their lanes' insertions serialise the warp
-// and the small tables' few warps left most SMs idle.
+// valid points (an empty tile: lo = +inf, hi = -inf, never visited), and the
+// box of each super-tile of 32 tiles.  The search runs one warp a query.
+// The list is spread over the warp, lane s holding the s-th entry (d2,
+// index) (warp_list.cuh, which K5 shares).  Each lane holds the box d2 of
+// super-tiles lane, lane + 32, ...; the warp visits the nearest super-tile
+// left whose box d2 is within min(k-th best, r2), and in it, the nearest
+// tile left within the same test, each found by two redux.sync; so the first
+// tiles visited are the query's own and the k-th best falls at once.  A
+// visited tile is read as one coalesced float4 a lane; the lanes whose point
+// beats the k-th entry are inserted one by one (a ballot finds the slot,
+// shfl_up shifts the rest), or, past 4 of them, merged at once (bitonic sort
+// of the 32 candidates across lanes, then a bitonic merge with the list).
+// Lane-per-query warps were tried first: their lanes' insertions serialise
+// the warp and the small tables' few warps left most SMs idle.
 //
 // Rows without scan-order locality.  Their tile boxes each span most of
 // the row, so every tile is opened, and a warp a query costs ~2x a thread
@@ -59,6 +59,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "warp_list.cuh"
 
 #define KNN_TILE 32
 #define KNN_WARPS 8
@@ -184,75 +186,6 @@ __device__ __forceinline__ float box_d2(float4 lo, float4 hi, float qx,
                                         float qy, float qz) {
   return norm2(gap(lo.x, hi.x, qx), gap(lo.y, hi.y, qy),
                gap(lo.z, hi.z, qz));
-}
-
-// (d, i) before (bd, bi) in the list's order
-__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
-  return d < bd || (d == bd && i < bi);
-}
-
-// the warp's list: lane s < k holds the s-th entry (d, i), (+inf, -1) when
-// empty; lanes >= k hold (+inf, -1)
-struct List {
-  float d;
-  int i;
-};
-
-// insert (cd, ci) (the same on every lane) if it is among the k first
-__device__ __forceinline__ void insert_one(List& l, float cd, int ci, int lane,
-                                           int k) {
-  const unsigned after =
-      __ballot_sync(0xffffffffu, lane < k && before(cd, ci, l.d, l.i));
-  const float ud = __shfl_up_sync(0xffffffffu, l.d, 1);
-  const int ui = __shfl_up_sync(0xffffffffu, l.i, 1);
-  if (!after) return;
-  const int pos = __ffs(after) - 1;
-  if (lane == pos) {
-    l.d = cd;
-    l.i = ci;
-  } else if (lane > pos && lane < k) {
-    l.d = ud;
-    l.i = ui;
-  }
-}
-
-// one compare-exchange of a bitonic network across lanes: the lane keeps
-// the first of the pair if `first`, else the second
-__device__ __forceinline__ void exchange(float& d, int& i, int stride,
-                                         bool first) {
-  const float od = __shfl_xor_sync(0xffffffffu, d, stride);
-  const int oi = __shfl_xor_sync(0xffffffffu, i, stride);
-  if (before(od, oi, d, i) == first) {
-    d = od;
-    i = oi;
-  }
-}
-
-// merge 32 candidates (one a lane, (+inf, -1) where none) into the list:
-// bitonic sort of the candidates, the elementwise first of the list and
-// the reversed candidates (the 32 first of both, bitonic), bitonic merge
-__device__ __forceinline__ void merge_all(List& l, float cd, int ci, int lane,
-                                          int k) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1)
-      exchange(cd, ci, stride,
-               ((lane & stride) == 0) == ((lane & size) == 0 || size == 32));
-  }
-  const float rd = __shfl_sync(0xffffffffu, cd, 31 - lane);
-  const int ri = __shfl_sync(0xffffffffu, ci, 31 - lane);
-  if (before(rd, ri, l.d, l.i)) {
-    l.d = rd;
-    l.i = ri;
-  }
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1)
-    exchange(l.d, l.i, stride, (lane & stride) == 0);
-  if (lane >= k) {
-    l.d = CUDART_INF_F;
-    l.i = -1;
-  }
 }
 
 // tile t's 32 points, one a lane, into the list

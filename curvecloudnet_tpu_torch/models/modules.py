@@ -274,9 +274,13 @@ class EdgeConvStep(nn.Module):
     """sgcnn edge convolution, fast message order [x_j, x_i - x_j]
     (reference dgcnn.py:158-207).  Layer 0 re-associates as
     gather(x @ (Wt - Wb)) + x_i @ Wb (+ b), so the (B, N, K, 2C) message
-    concat never materializes.  With ``edge_kernel="fused"``, eval runs the
-    whole MLP and the masked max in kernel K9 (``ops/edge_mlp.py``) where
-    :func:`fused_edge_admits` the widths; train always takes K4/K4b + K7."""
+    concat never materializes.  The ``group`` route computes the two
+    products with ``torch.matmul``, gathers the first with K4 and runs the
+    rest in K2.  With ``edge_kernel="fused"``, eval runs the whole step in
+    kernel K9 (``ops/edge_mlp.py``) where :func:`fused_edge_admits` the
+    widths: the same two products once a point in its own projection, then
+    the later layers and the masked max on K2's live-row chain, the layer-0
+    rows built in shared memory; train always takes K4/K4b + K7."""
 
     def __init__(self, spec, step, dims, c_in, table_bound, grid_bound=None,
                  grid_cap=None, edge_kernel: str = "group"):
@@ -296,6 +300,14 @@ class EdgeConvStep(nn.Module):
         self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
         self.fused = edge_kernel == "fused" and fused_edge_admits(self.nn.dims)
 
+    def layer0(self, x):
+        """The group route's layer 0, two products a point: (x (Wt - Wb),
+        x Wb + b_0) (``edge_mlp.layer0_split``)."""
+        lin0 = self.nn.lins[0]
+        w_u, w_v = edge_mlp.layer0_split(lin0.weight.t())
+        v = x @ w_v
+        return x @ w_u, v + lin0.bias if lin0.bias is not None else v
+
     def forward(self, cloud: Cloud, tables, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
         step = self.step
@@ -311,13 +323,7 @@ class EdgeConvStep(nn.Module):
             out = edge_mlp.fused_edge_mlp_max(
                 x, nbr_idx, *edge_mlp.fold_edge_mlp_eval(self.nn))
             return cloud.with_features(out * valid.to(out.dtype))
-        lin0 = self.nn.lins[0]
-        c = x.shape[-1]
-        w_top, w_bot = lin0.weight[:, :c], lin0.weight[:, c:]
-        u = x @ (w_top - w_bot).t()
-        v = x @ w_bot.t()
-        if lin0.bias is not None:
-            v = v + lin0.bias
+        u, v = self.layer0(x)
         # the k-major self-row gather: kernels K4 / K4b
         first = (neighbors.gather_neighbors(
             u, nbr_idx.transpose(1, 2).contiguous(), fill=train, layout="kq")

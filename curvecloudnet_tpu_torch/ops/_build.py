@@ -25,8 +25,11 @@ BUILD_DIR = PKG_DIR.parent / "build"
 LIB_NAME = "libccn_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# dynamic shared memory a block may use on Hopper (227 KB)
-MAX_SMEM = 232448
+# shared memory of a Hopper SM (228 KB), what the card reserves of it a
+# block, and the dynamic shared memory one block may use (227 KB)
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+MAX_SMEM = SM_SMEM - BLOCK_RESERVED
 
 
 def _nvcc() -> str:
@@ -116,7 +119,7 @@ _SIGNATURES = {
     "ccn_conv1d_train_fwd": [_P] * 12 + [_I] * 6 + [_P],
     "ccn_conv1d_train_reduce": [_P] * 6 + [_I] * 4 + [_P],
     "ccn_conv1d_train_t": [_P] * 19 + [_I] * 7 + [_P],
-    "ccn_edge_mlp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "ccn_edge_mlp": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

@@ -150,6 +150,20 @@ def _launch_shape(dims, c_out: int, attend: bool, k: int, queries: int,
                      "memory")
 
 
+def pack_layers(layers, device):
+    """((W, b), ...) -> (one f32 tensor, W offsets, bias offsets) as the
+    chain kernel (``csrc/group_chain.cuh``) takes them: every layer's W
+    row-major from a 16-byte boundary, then the biases."""
+    parts = [torch.nn.functional.pad(w.detach().float().reshape(-1),
+                                     (0, -w.numel() % 4)) for w, _ in layers]
+    parts += [bias.detach().float().reshape(-1) for _, bias in layers]
+    offsets = [0]
+    for t in parts:
+        offsets.append(offsets[-1] + t.numel())
+    wp = torch.cat(parts) if layers else torch.zeros(1, device=device)
+    return wp, offsets[:len(layers)], offsets[len(layers):-1]
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -174,15 +188,7 @@ def group_reduce(h1, mask, affine0, local, attend=None, aggr="max",
     c_out = dims[len(local)]
     if attend and dims[-1] != c_out:
         raise ValueError("group kernel: attention MLP must end at C_out")
-    # every layer's W, each from a 16-byte boundary, then the biases
-    parts = [torch.nn.functional.pad(w.float().reshape(-1),
-                                     (0, -w.numel() % 4)) for w, _ in layers]
-    parts += [bias.float().reshape(-1) for _, bias in layers]
-    offsets = [0]
-    for t in parts:
-        offsets.append(offsets[-1] + t.numel())
-    woff, boff = offsets[:len(layers)], offsets[len(layers):-1]
-    wp = torch.cat(parts) if layers else torch.zeros(1, device=h1.device)
+    wp, woff, boff = pack_layers(layers, h1.device)
     s0 = affine0[0].float().contiguous()
     t0 = affine0[1].float().contiguous()
     rows, tq, kc = _launch_shape(dims, c_out, aggr == "attend", k, b * m,

@@ -10,8 +10,9 @@ Run::
 
     python -m curvecloudnet_tpu_torch.tools.profile_scan
     python -m curvecloudnet_tpu_torch.tools.profile_scan --config configs/kitti.yaml
+    python -m curvecloudnet_tpu_torch.tools.profile_scan --edge-kernel fused
 
-Prints the busy time by group (K1-K6, cuBLAS gemm, other), the
+Prints the busy time by group (K1-K6, K9, cuBLAS gemm, other), the
 profiled wall and its idle share (measured, profiler on), the unprofiled
 wall and the idle share it implies (an estimate: busy time comes from the
 profiled scan), then the top device kernels and host ops.
@@ -30,9 +31,11 @@ from torch.profiler import ProfilerActivity, profile
 from .. import predict as P
 from ..config import load_config
 
-GROUPS = (("K2", "group_"), ("K3", "knn_kernel"), ("K1", "conv1d_chain"),
-          ("K6", "fps_kernel"), ("K4", "gather_km"), ("K5", "grid_topk"),
-          ("gemm", "gemm"))
+# K2 and K9 share the chain kernel (csrc/group_chain.cuh), told apart by
+# its row source
+GROUPS = (("K2", "H1Src"), ("K9", "EdgeSrc"), ("K9", "edge_project"),
+          ("K3", "knn_"), ("K1", "conv1d_chain"), ("K6", "fps_kernel"),
+          ("K4", "gather_km"), ("K5", "grid_topk"), ("gemm", "gemm"))
 
 
 def scan_ms(model, scan) -> float:
@@ -46,13 +49,16 @@ def scan_ms(model, scan) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="configs/nuscenes.yaml")
+    ap.add_argument("--edge-kernel", default="group", choices=("group", "fused"),
+                    help="the sgcnn steps' edge route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_scan: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     n_pad = int(load_config(args.config)["n_pad"])
-    model = P.build_model(args.config, n_pad, dev)
+    model = P.build_model(args.config, n_pad, dev,
+                          edge_kernel=args.edge_kernel)
     scan = P.synthetic_scan(0, n_pad, dev,
                             P.N_BEAMS[P.dataset_of(args.config)])
     for _ in range(2):
@@ -69,7 +75,7 @@ def main(argv=None) -> None:
         g = next((g for g, s in GROUPS if s in e.key), "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     print(json.dumps({
-        "config": args.config, "n_pad": n_pad,
+        "config": args.config, "n_pad": n_pad, "edge_kernel": args.edge_kernel,
         "device": torch.cuda.get_device_name(0), "busy_ms": busy,
         "by_group_ms": groups, "launches": sum(e.count for e in kern),
         "profiled_wall_ms": wall, "idle_share_profiled": 1 - busy / wall,

@@ -27,11 +27,15 @@ outputs within rounding of leaky's kink moves every gradient by ~1e-3);
 its t pass sums dW and db in a fixed order, so two runs agree bit for
 bit.  The K1 and K8 cases put the live count inside the row, at 0 and a
 block's tile edge, inside a halo and at n_exp, and one at the nuScenes
-sweep's size.  K9 sums products in another order than the
-plain MLP: 1e-4 relative to the largest value other than the -100 fill.
+sweep's size.  K9 projects layer 0 once a point (x_j (Wt - Wb) + x_i Wb,
+rounded otherwise than [x_j, x_i - x_j] W_0) and multiplies in 3xTF32:
+1e-4 relative to the largest value other than the -100 fill, -100 exactly
+at queries with no live slot, a repeat run bit-equal.
 K4 copies rows (exact);
 K4b adds with atomics (1e-5).  K5 and K10 compute squared distances in the
-plain versions' order and break ties alike (the earlier column): equal.  The whole train step is held to the CPU
+plain versions' order and break ties alike (the earlier column): equal,
+also on a tie-heavy table, and K5 bit-equal from run to run.  The whole
+train step is held to the CPU
 plain path against a yardstick: the plain path's own change under a 1e-5
 relative weight perturbation (train-mode BatchNorm over 33 steps amplifies
 rounding-sized differences).
@@ -526,11 +530,40 @@ def test_grid_kernels_at_kitti_tables(dev, n, radius, cap, bits):
     got = grid_topk.grid_topk_records(*args)
     want = grid_topk.grid_topk_records_ref(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = grid_topk.grid_topk_records(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
     planes = grid_topk.planes(args[0], *args[2:5], args[6])
     k10 = grid_topk.topk_smallest(*planes, 32)
     k10_ref = grid_topk.topk_smallest_ref(*planes, 32)
     for a, b, c in zip(k10, k10_ref, got):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("k", [32, 7])
+def test_grid_topk_kernel_on_ties(dev, k):
+    """K5 on a tie-heavy table: lattice points 0.125 apart (exact
+    distances, many equal), coincident points, records at r2 = 0.0625
+    exactly, a stencil row read twice (its points in two columns): equal
+    to the plain version, and a repeat run bit-equal."""
+    g = torch.Generator().manual_seed(4)
+    pts = (torch.randint(-12, 13, (1, 6000, 3), generator=g) * 0.125).float()
+    valid = torch.rand(1, 6000, generator=g) > 0.05
+    radius, cap, bits = 0.25, 64, 10
+    table, counts, _, _, _ = grid_knn.build_table(pts, valid, radius, cap,
+                                                  bits, 2)
+    nbr = grid_knn.stencil_rows(pts, radius, radius, 27, bits, 2)[0]
+    nbr[:, 5] = nbr[:, 0]
+    r2 = float(np.float32(radius * radius))
+    args = (table.to(dev), counts.to(dev), nbr.int().contiguous().to(dev),
+            pts[0].to(dev), valid[0].to(dev), k, r2)
+    got = grid_topk.grid_topk_records(*args)
+    want = grid_topk.grid_topk_records_ref(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((want[0] == r2).any())
+    assert bool(((want[0][:, 1:] == want[0][:, :-1])
+                 & (want[1][:, 1:] >= 0)).any())
+    again = grid_topk.grid_topk_records(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
 @pytest.mark.parametrize("cap,stencil,planes,k", [(8, 27, 2, 32),
@@ -682,3 +715,39 @@ def test_edge_mlp_kernel(dev, c, widths):
     rest = want[want != -100.0]
     err = float((got - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(rest.abs().max()))
+
+
+# (rows, C, widths): the flagship's five admitted sgcnn steps (3 and 28,
+# 6, 22, 25), K 21 with the self loop
+EDGE_STEPS = [(23040, 67, (64, 64, 64)), (11520, 131, (128, 128)),
+              (5760, 256, (256, 256)), (11520, 128, (128, 128))]
+
+
+@pytest.mark.parametrize("n,c,widths", EDGE_STEPS)
+def test_edge_mlp_kernel_at_flagship_steps(dev, n, c, widths):
+    """K9 at the admitted steps' shapes: a self loop and 20 neighbours
+    from a window of the row (10% dead), the row's last 15% padding
+    queries with no live slot; within 1e-4 of the plain version, -100 at
+    the padding queries, and a repeat run bit-equal."""
+    g = torch.Generator().manual_seed(n + c)
+    k, pad = 21, n - n * 85 // 100
+    x = torch.randn(1, n, c, generator=g)
+    base = torch.arange(n, dtype=torch.int32)[None, :, None]
+    idx = (base + torch.randint(-200, 201, (1, n, k), generator=g,
+                                dtype=torch.int32)).clamp(0, n - pad - 1)
+    idx[..., 0] = base[..., 0]
+    idx[torch.rand(1, n, k, generator=g) < 0.1] = -1
+    idx[:, n - pad:] = -1
+    dims = (2 * c,) + widths
+    weights = tuple(torch.randn(a, b, generator=g) / a ** 0.5
+                    for a, b in zip(dims[:-1], dims[1:]))
+    biases = tuple(0.1 * torch.randn(b, generator=g) for b in widths)
+    args = (x.to(dev), idx.to(dev), tuple(w.to(dev) for w in weights),
+            tuple(b.to(dev) for b in biases))
+    got = edge_mlp.fused_edge_mlp_max(*args)
+    want = edge_mlp.fused_edge_mlp_max_ref(*args)
+    assert bool((got[:, n - pad:] == -100.0).all())
+    rest = want[want != -100.0]
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(rest.abs().max()))
+    assert torch.equal(edge_mlp.fused_edge_mlp_max(*args), got)
