@@ -28,7 +28,11 @@ Phases (any failure raises and exits non-zero before the result line):
      within 2e-3;
   6. one capture train step (n_pad 36864, B=1, synthetic sweep 0 and its
      labels, NLL + Lovász) recording K8's three passes (forward, reduce,
-     t), K7's forward and backward and K4/K4b; each recorded call re-run
+     t: a chain's inner layers take their reduce sums from the next
+     layer's t pass, held against the plain reduce on that pass's own
+     d_u_prev at the reduce's 1e-3 of max(1, |plain|), a line each, and
+     that t pass timed again without them), K7's forward and backward and
+     K4/K4b; each recorded call re-run
      through the kernel and its plain version, compared and timed (the
      backward under the call's own cotangents; K7's plain backward takes
      the plain forward's residuals; backward outputs compared in relative
@@ -58,7 +62,8 @@ Phases (any failure raises and exits non-zero before the result line):
      compared with its plain version and timed (K5: indices and distances
      equal), a line per K2, K3 and K6 call as in phase 3; K10 held
      against its plain version (equal) on each K5 call's
-     candidate planes, and against K5's answer, timed beside torch.topk;
+     candidate planes, and against K5's answer, timed beside torch.topk,
+     its bound all of d and idx at the k chosen columns;
  10. launch counters set to 0, three KITTI scans (seeds 0, 1, 2) through
      ``predict``: logits finite of shape (1, 131072, 20), launches equal to
      the spec-derived counts (two K5 launches a scan), latency and peak
@@ -82,7 +87,10 @@ Phases (any failure raises and exits non-zero before the result line):
      same step: K4 + K2 from phase 3 and the layer-0 matmuls (the group
      route's own ``EdgeConvStep.layer0`` on the call's x),
      and each of the route's ten K2 calls against its plain version (as in
-     phase 3).
+     phase 3); then KITTI scan 0 (n_pad 131072, grid rows included) on the
+     fused route: launch counters set to 0, launches equal to the spec's,
+     logits within 2e-3 of phase 10's group-route logits, each K9 call
+     held against its plain version at 1e-4 (the largest error printed).
 
 Prints per-phase lines, then a JSON line of the kernels, the card's name
 and power limit, and as the last line
@@ -316,8 +324,9 @@ def _yardstick(name, outs, tol, what):
     return err
 
 
-def compare_train(name, args, kern_out, ref_fn, tol):
-    """Kernel outputs of a recorded train call against its plain version.
+def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
+    """Kernel outputs of a recorded train call against its plain version
+    (a K8 t pass's fused reduce sums are held by :func:`k8_sums`).
     Returns (max abs err, plain callable for timing)."""
     from curvecloudnet_tpu_torch.ops import group_train as G
 
@@ -334,7 +343,7 @@ def compare_train(name, args, kern_out, ref_fn, tol):
         shaken = ref_fn(args[0], _shaken(args[1]), *args[2:])
         err = _yardstick(name, list(zip(kern_out, ref_fn(*args), shaken)),
                          tol, "in the pass's output order")
-        return err, lambda: ref_fn(*args)
+        return err, lambda: ref_fn(*args, **kwargs)
     if name == "group_train_fwd":
         h1, mask, cfg, params = args
         ref = ref_fn(*args)
@@ -416,8 +425,11 @@ def work(name, args, out):
         return (records + nbytes(counts, nbr, query, q_valid, out),
                 8 * live)
     if name == "topk_smallest":
-        d, idx = args[:2]
-        return nbytes(d, idx, out), d.numel()    # one compare per value
+        # all of d; idx only at the k chosen columns a row (no other idx
+        # is needed); one compare per value
+        d, idx, k = args[:3]
+        return (nbytes(d, out) + d.shape[0] * k * idx.element_size(),
+                d.numel())
     if name == "conv1d_train_fwd":
         # the window product at every slot (z is written past ``used`` too)
         z_prev, w = args[0], args[2]
@@ -427,10 +439,14 @@ def work(name, args, out):
         # ~10 FP32 operations per element (affine, kink, four sums)
         return nbytes(args[:4], out), 10 * args[1].numel()
     if name == "conv1d_train_t":
-        # the transposed window product and the weight gradient
+        # the transposed window product and the weight gradient (and, with
+        # the previous layer's reduce sums as a fourth output, ~10 FP32
+        # operations per element of d_u_prev)
         z_prev, w = args[2], args[5]
         rows = z_prev.shape[0] * z_prev.shape[1]
-        return nbytes(args[:9], out), 4 * rows * w.shape[0] * w.shape[1]
+        sums = 10 * z_prev.numel() if len(out) == 4 else 0
+        return (nbytes(args[:9], out),
+                4 * rows * w.shape[0] * w.shape[1] + sums)
     if name == "edge_mlp":
         # layer 0 is linear in [x_j, x_i - x_j] = x_j (W_top - W_bot) +
         # x_i W_bot: one C-wide product a point for each of the two (valid
@@ -599,7 +615,8 @@ def measure(kernels, mods, calls, train, per_call=None, labels=None):
         for i, (args, kwargs, out) in enumerate(calls[name]):
             with torch.no_grad():
                 if train:
-                    e, plain = compare_train(name, args, out, ref, tol)
+                    e, plain = compare_train(name, args, kwargs, out, ref,
+                                             tol)
                 else:
                     e = compare(name, kern(*args, **kwargs),
                                 ref(*args, **kwargs), tol)
@@ -740,6 +757,52 @@ def k6_calls(label, calls, per_call, fps):
         f"{sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, bound "
         f"{sums['bound_ms']:.4f} ms, serial floor (rounds x fixed cost) "
         f"{sums['fixed_ms']:.3f} ms")
+
+
+def k8_sums(calls, per_call, labels, T, tol):
+    """Phase 6: the K8 t passes that take the previous layer's reduce sums:
+    the sums against the plain reduce on the pass's own d_u_prev (within
+    ``tol`` of max(1, |plain|)), a line each; each pass timed with and
+    without them in turns (with, without, without, with; each the median
+    of 21), beside the standalone reduce calls: what the fused sums cost
+    the t pass, and what the standalone reduce still costs.  Returns the
+    sums' max abs err."""
+    import torch
+
+    with_ms = without_ms = worst = 0.0
+    fused = 0
+    for (args, kwargs, out), label in zip(calls["conv1d_train_t"],
+                                          labels["conv1d_train_t"]):
+        if not kwargs.get("prev_sums"):
+            continue
+        d_u_prev, z_prev, bn_prev, used = out[0], args[2], args[4], args[8]
+        with torch.no_grad():
+            want = T.conv1d_train_bwd_reduce_ref(d_u_prev, z_prev, bn_prev,
+                                                 used)
+        err = max(_err("conv1d_train_reduce (fused)", got, ref, tol)
+                  for got, ref in zip(out[3], want))
+        scale = max(max(1.0, float(t.abs().max())) for t in want)
+        log(f"  conv1d_train_reduce fused into the t pass of {label}: "
+            f"{z_prev.shape[-1]} channels, max abs err {err:.3g} (scale "
+            f"{scale:.3g}, tolerance {tol:g} of it)")
+        worst = max(worst, err)
+        runs = {True: [], False: []}
+        with torch.no_grad():
+            for sums in (True, False, False, True):
+                runs[sums].append(cuda_ms(functools.partial(
+                    T.conv1d_train_bwd_t, *args, prev_sums=sums), 21))
+        w, wo = (sum(runs[x]) / 2 for x in (True, False))
+        log(f"  conv1d_train_t {label}: kernel {w:.3f} ms with the "
+            f"previous layer's reduce sums, {wo:.3f} ms without")
+        with_ms, without_ms = with_ms + w, without_ms + wo
+        fused += 1
+    red = per_call["conv1d_train_reduce"]
+    log(f"K8 reduce: {len(red)} standalone calls, kernel "
+        f"{sum(t['ms'] for t in red):.3f} ms, bound "
+        f"{sum(t['bound_ms'] for t in red):.4f} ms; {fused} fused into t "
+        f"passes: those t passes {with_ms:.3f} ms with the sums, "
+        f"{without_ms:.3f} ms without")
+    return worst
 
 
 def pass_times(G, fn):
@@ -979,7 +1042,7 @@ def run_kitti(P, mods, dev, kernel_launches):
         "records tail's")
     by_path = {"kitti": launched, "kitti_planes": {
         "topk_smallest": planes_launched["topk_smallest"]}}
-    return report, by_path
+    return report, by_path, (scan0, logits0, valid0)
 
 
 def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
@@ -1046,6 +1109,52 @@ def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
         f"{total['k2']:.3f} + layer-0 matmuls {total['mm']:.3f} = "
         f"{total['k4'] + total['k2'] + total['mm']:.3f} ms")
     return report, launched, k2_err
+
+
+def run_kitti_fused(P, mods, dev, kernel_launches, scan0, group_logits,
+                    valid0):
+    """Phase 13, KITTI: scan 0 of phases 9-12 on the fused edge route ->
+    (launches of the scan, the worst error of its K9 calls)."""
+    import torch
+
+    model = P.build_model(KITTI_CONFIG, KITTI_N_PAD, dev, edge_kernel="fused")
+    want = kernel_launches(model.spec, KITTI_N_PAD, edge_kernel="fused")
+    kernels = KITTI_KERNELS + EDGE_KERNELS
+    for name, mod, wrapper, *_ in kernels:
+        getattr(mods[mod], wrapper).launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, valid, _ = P.predict(model, *scan0)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in kernels}
+    log("KITTI fused edge route launches:", launched, "spec per scan:", want)
+    for name, got in launched.items():
+        if got != want.get(name, 0) or not got:
+            raise AssertionError(f"{name}: {got} launches on the KITTI fused "
+                                 f"edge route, want {want.get(name, 0)}")
+    err = float((logits - group_logits)[valid0].abs().max())
+    log(f"KITTI fused edge route: scan 0 {scan_ms:.1f} ms, "
+        f"{sum(getattr(m, 'fused', False) for m in model.steps)} steps on "
+        f"K9; logits vs the group route (phase 10): max abs err {err:.3g}")
+    if not (torch.equal(valid, valid0) and err <= LOGIT_TOL):
+        raise AssertionError(f"KITTI fused edge route logits differ by {err}")
+    # each K9 call against its plain version at phase 13's tolerance
+    name, mod, wrapper, ref_name, _, _, tol = EDGE_KERNELS[0]
+    calls, _ = capture(EDGE_KERNELS, mods, lambda: P.predict(model, *scan0))
+    worst = 0.0
+    with torch.no_grad():
+        for args, kwargs, out in calls[name]:
+            e = compare(name, out, getattr(mods[mod], ref_name)(*args,
+                                                                 **kwargs),
+                        tol)
+            log(f"  {name} KITTI x {tuple(args[0].shape)}, live edges "
+                f"{int((args[1] >= 0).sum())}: err {e:.3g}")
+            worst = max(worst, e)
+    log(f"K9 on the KITTI fused route, {len(calls[name])} calls: max abs err "
+        f"{worst:.3g} (tolerance {tol:g} of max(1, |plain|))")
+    return launched, worst
 
 
 def grads_and_stats(model):
@@ -1187,6 +1296,10 @@ def main():
                            per_call=train_call_ms,
                            labels=conv_labels(init.spec, calls))
     k7_sites(init.spec, calls, train_call_ms, group_train)
+    reduce_row = train_report["conv1d_train_reduce"]
+    reduce_row["max_abs_err"] = max(reduce_row["max_abs_err"], k8_sums(
+        calls, train_call_ms, conv_labels(init.spec, calls), conv1d_train,
+        next(k[-1] for k in TRAIN_KERNELS if k[0] == "conv1d_train_reduce")))
     held_report = measure(TRAIN_HELD, mods, calls, train=False,
                           per_call=train_call_ms)
     k3_calls("train", calls["knn"], train_call_ms["knn"], knn)
@@ -1284,9 +1397,14 @@ def main():
         f"{results['plain'][2] / 2**30:.2f} GiB; losses {losses}")
 
     del init, opt, batch
-    kitti_report, kitti_launched = run_kitti(P, mods, dev, kernel_launches)
+    kitti_report, kitti_launched, kitti_scan = run_kitti(P, mods, dev,
+                                                         kernel_launches)
     fused_report, fused_launched, fused_k2_err = run_fused(
         P, mods, dev, kernel_launches, scan0, logits0, valid0, group_call_ms)
+    kitti_launched["kitti_fused"], kitti_k9_err = run_kitti_fused(
+        P, mods, dev, kernel_launches, *kitti_scan)
+    fused_report["edge_mlp"]["max_abs_err"] = max(
+        fused_report["edge_mlp"]["max_abs_err"], kitti_k9_err)
 
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]

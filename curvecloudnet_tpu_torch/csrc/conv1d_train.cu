@@ -43,7 +43,12 @@
 // round each operation once (explicit _rn intrinsics), as the plain
 // version's elementwise ops do, so the kink decisions y >= 0 of the forward
 // and of both backward passes agree with each other and with it (all three
-// read the stored z).  The reduce pass is a plain FP32 sweep (bytes-bound).
+// read the stored z).  The reduce pass is bytes-bound: where the next
+// layer's input is at most TDF_MAX wide (the flagship chains' inner layers)
+// its sums are taken in that layer's t pass, from the d_u_prev it holds in
+// registers and the z_prev it already loads (prev_sums), so they cost no
+// pass over device memory and no launch; the standalone reduce kernel runs
+// for the chain's last layer and behind wider inputs.
 //
 // Bound on the H100: the multiply-adds of the window products (the
 // flagship's step_31 first layer: 49164 slots x 786 x 32, ~2.5 GFLOP
@@ -82,16 +87,23 @@ struct Vecs {
   const float* v[6];
 };
 
-// the layer input u at slot g, channel c of one sample's rows src (C wide):
-// src itself when bn has no vectors (xe), else leaky(BN(src)) * m(g)
-__device__ __forceinline__ float u_at(const float* src, const Vecs& bn, int g,
-                                      int c, int C, int n_exp, int live_end) {
-  if (g < 0 || g >= n_exp) return 0.f;
-  const float v = src[(size_t)g * C + c];
+// the layer input u at slot g (in [0, n_exp)), channel c, from the value v
+// of the previous layer's z there: v itself when bn has no vectors (xe),
+// else leaky(BN(v)) * m(g)
+__device__ __forceinline__ float u_of(float v, const Vecs& bn, int g, int c,
+                                      int live_end) {
   if (bn.v[0] == nullptr) return v;
   const float xh = __fmul_rn(__fsub_rn(v, bn.v[0][c]), bn.v[1][c]);
   const float y = __fadd_rn(__fmul_rn(xh, bn.v[2][c]), bn.v[3][c]);
   return g < live_end ? leaky(y) : 0.f;
+}
+
+// u at slot g, channel c of one sample's rows src (C wide); 0 outside
+// [0, n_exp)
+__device__ __forceinline__ float u_at(const float* src, const Vecs& bn, int g,
+                                      int c, int C, int n_exp, int live_end) {
+  if (g < 0 || g >= n_exp) return 0.f;
+  return u_of(src[(size_t)g * C + c], bn, g, c, live_end);
 }
 
 // dz of a live slot's (du, z) at channel c; coef holds (mean, inv, gamma,
@@ -233,7 +245,10 @@ __global__ void conv1d_train_moments_kernel(const float* __restrict__ parts,
 }
 
 // reduce: the tile's live-slot sums of dxh, dxh * xhat, da, da * xhat
-// (block 32 x 8: channel lanes x row lanes)
+// (block 32 x 8: channel lanes x row lanes).  The chain runs it for its
+// last layer (whose d_u comes from outside) and for a layer whose
+// successor is wider than TDF_MAX; every other layer's sums come from its
+// successor's t pass (conv1d_train_tdup_kernel, prev_sums).
 __global__ void conv1d_train_reduce_kernel(
     const float* __restrict__ du, const float* __restrict__ z,
     const float* __restrict__ bn, const int* __restrict__ used,
@@ -302,6 +317,21 @@ __global__ void conv1d_train_colsum_kernel(const float* __restrict__ parts,
 // 8 NW columns from 8 NW (w >> 1)); db by 8 row lanes added in order; one
 // partial row a tile, summed by colsum.  Without it the dW kernel reads the
 // dz this kernel writes.
+//
+// With prev_sums (fused dW only) the block also takes the previous layer's
+// reduce sums over its tile: at each live slot q and input channel c,
+// da = d_u_prev(q, c) leaky'(y_prev), dxh = da gamma_prev, and the four
+// terms dxh, dxh xhat_prev, da, da xhat_prev, with xhat_prev and y_prev
+// rebuilt from z_prev and the previous BN.  The block loads its tile of
+// z_prev (to build u) in the accumulators' fragment layout, so a thread
+// keeps the raw z_prev of its 16 fragment positions in registers (zq)
+// until d_u_prev lies at the same positions in the accumulators (C_in <=
+// 32: one column chunk): a thread adds its two rows, the warp's 8 row
+// lanes are added by a butterfly (xor 4, 8, 16), the 8 warps in order; the
+// 4 C_in sums go to the end of the tile's partial row, so colsum adds them
+// with dW and db.  Nothing more is read from device memory, no shared
+// memory is added, nothing is launched, and the order is fixed (no
+// atomics): the sums repeat bit for bit.
 #define TDF_MAX 32   // widest input of the fused dW
 #define TDF_LDU 40   // [slot][channel] stride of its u (8 mod 32)
 
@@ -312,7 +342,7 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdup_kernel(
     const float* __restrict__ wt, const int* __restrict__ used,
     float* __restrict__ dup, float* __restrict__ dzbuf,
     float* __restrict__ parts, int n_exp, int cin, int cout, int h,
-    int lda_w) {
+    int lda_w, int prev_sums) {
   constexpr int NP = CvDims<NT>::NP, LDB = CvDims<NT>::LDB;
   constexpr int BSTAGE = CvDims<NT>::BSTAGE;
   extern __shared__ float smem[];
@@ -324,6 +354,7 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdup_kernel(
   const int KB = NW ? 32 * NW : KP;  // window columns built (0 past K)
   const int nkc = (K + CV_KC - 1) / CV_KC, nnc = (cin + NP - 1) / NP;
   const int live_end = min(used[b], n_exp);
+  const bool sums = NW > 0 && prev_sums;
   float* Aw = smem;                            // CV_ROWS x lda_w
   float* U = Aw + CV_ROWS * lda_w;             // NW: CV_ROWS x TDF_LDU
   float* reg = U + (NW ? CV_ROWS * TDF_LDU : 0);
@@ -349,15 +380,21 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdup_kernel(
     wtab[k] = window_offsets(k, cout, h);
   for (int i = threadIdx.x; i < 6 * cout; i += CV_THREADS)
     cf[i] = coef.v[i / cout][i % cout];
+  // NW: the tile's z_prev, a thread its accumulator fragment's positions
+  // (rows r0 + g, + 8; channels 8 j + 2 t, + 1), kept for the sums
+  float zq[NT][4];
   if constexpr (NW > 0) {
     const float* src = zp + (size_t)b * n_exp * cin;
-    const int c = threadIdx.x & 31;  // the same in every row loaded
 #pragma unroll
-    for (int j = 0; j < CV_ROWS * 32 / CV_THREADS; ++j) {
-      const int row = (threadIdx.x + CV_THREADS * j) >> 5;
-      U[row * TDF_LDU + c] =
-          c < cin ? u_at(src, bnp, t0 + row, c, cin, n_exp, live_end) : 0.f;
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+        const int q = t0 + row;
+        const bool in = c < cin && q < n_exp;
+        zq[j][e] = in ? __ldg(src + (size_t)q * cin + c) : 0.f;
+        U[row * TDF_LDU + c] = in ? u_of(zq[j][e], bnp, q, c, live_end) : 0.f;
+      }
   }
   __syncthreads();
   // dz over the tile and its halo, DZ_BATCH rows' loads in flight a
@@ -405,7 +442,7 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdup_kernel(
     warp_mma<NW, true, true>(
         aw, U, TDF_LDU, mt * 16, reinterpret_cast<const uint32_t*>(Aw) + n0,
         nullptr, lda_w, CV_ROWS / 8);
-    const size_t wpart = (size_t)K * cin + cout;
+    const size_t wpart = (size_t)K * cin + cout + (sums ? 4 * cin : 0);
     float* part = parts + ((size_t)b * gridDim.x + blockIdx.x) * wpart;
 #pragma unroll
     for (int j = 0; j < NW; ++j)
@@ -447,10 +484,57 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdup_kernel(
           const int n = nc * NP + 8 * j + 2 * t + (e & 1);
           if (q < n_exp && n < cin)
             dup[((size_t)b * n_exp + q) * cin + n] = acc[j][e];
-          acc[j][e] = 0.f;
+          if (more) acc[j][e] = 0.f;  // the last chunk's feed the sums
         }
     }
     __syncthreads();
+  }
+  if (!sums) return;
+  // the previous layer's reduce sums over the tile's live slots (the one
+  // column chunk of d_u_prev is in acc; the B stages are free)
+  float* red = reinterpret_cast<float*>(Bs);  // 8 warps x 4 x 32 channels
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = 8 * j + 2 * t + c;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if (n < cin) {
+        const float mu = __ldg(bnp.v[0] + n), inv = __ldg(bnp.v[1] + n);
+        const float gam = __ldg(bnp.v[2] + n), bet = __ldg(bnp.v[3] + n);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + g + 8 * hh;
+          if (t0 + row < live_end) {
+            const float xh = __fmul_rn(__fsub_rn(zq[j][2 * hh + c], mu), inv);
+            const float y = __fadd_rn(__fmul_rn(xh, gam), bet);
+            const float da = __fmul_rn(acc[j][2 * hh + c], dleaky(y));
+            const float dxh = __fmul_rn(da, gam);
+            s[0] = __fadd_rn(s[0], dxh);
+            s[1] = __fadd_rn(s[1], __fmul_rn(dxh, xh));
+            s[2] = __fadd_rn(s[2], da);
+            s[3] = __fadd_rn(s[3], __fmul_rn(da, xh));
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1)
+          s[k] = __fadd_rn(s[k], __shfl_xor_sync(0xffffffffu, s[k], m));
+        if (g == 0) red[(warp * 4 + k) * 32 + n] = s[k];
+      }
+    }
+  __syncthreads();
+  const size_t wpart = (size_t)K * cin + cout + 4 * cin;
+  float* part = parts + ((size_t)b * gridDim.x + blockIdx.x) * wpart +
+                (size_t)K * cin + cout;
+  for (int i = threadIdx.x; i < 4 * cin; i += CV_THREADS) {
+    const int k = i / cin, n = i - k * cin;
+    float v = 0.f;
+    for (int w = 0; w < CV_THREADS / 32; ++w)
+      v = __fadd_rn(v, red[(w * 4 + k) * 32 + n]);
+    part[i] = v;
   }
 }
 
@@ -670,7 +754,8 @@ static int launch_tdup(const float* du, const float* z, const float* zp,
                        const Vecs& coef, const Vecs& bnp, const float* wt,
                        const int* used, float* dup, float* dzbuf, float* parts,
                        int B, int n_exp, int cin, int cout, int h,
-                       cudaStream_t s) {
+                       int prev_sums, cudaStream_t s) {
+  static_assert(NW == 0 || NT == 4, "the fused dW takes one 32-wide chunk");
   const int K = (h + 1) * cout, KP = (K + 7) & ~7;
   const int KB = NW ? 32 * NW : KP;
   const int lda_w = ((KP + 31) & ~31) + 4;
@@ -686,7 +771,7 @@ static int launch_tdup(const float* du, const float* z, const float* zp,
   dim3 grid((n_exp + CV_ROWS - 1) / CV_ROWS, B);
   conv1d_train_tdup_kernel<NT, NW><<<grid, CV_THREADS, smem, s>>>(
       du, z, zp, coef, bnp, wt, used, dup, dzbuf, parts, n_exp, cin, cout, h,
-      lda_w);
+      lda_w, prev_sums);
   return (int)cudaGetLastError();
 }
 
@@ -717,7 +802,10 @@ static int launch_tdw(const float* dzbuf, const float* zp, const Vecs& bnp,
 // then db.  dW and db are summed over `splits` row ranges of `rps` slots
 // (a multiple of 32; ops/conv1d_train.py dw_splits) a sample; dzbuf is
 // scratch of B n_exp cout floats (dz), parts of B * splits rows of the
-// sums' width; (h+1) cout <= 96.
+// sums' width; (h+1) cout <= 96.  With prev_sums (cin <= TDF_MAX and a
+// previous BN) sums also holds, after db, the previous layer's reduce sums
+// over d_u_prev (4 cin: dxh, dxh * xhat, da, da * xhat), as
+// ccn_conv1d_train_reduce would give them.
 extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
                                   const float* zp, const float* m,
                                   const float* i, const float* g,
@@ -728,11 +816,12 @@ extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
                                   const int* used, float* dup, float* dzbuf,
                                   float* parts, float* sums, int B, int n_exp,
                                   int cin, int cout, int h, int splits,
-                                  int rps, void* stream) {
+                                  int rps, int prev_sums, void* stream) {
   const int nt = nt_of((h + 1) * cout);
   if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 || nt == 0 ||
       splits < 1 || rps < 1 || rps % TDW_ROWS != 0 ||
-      (long long)splits * rps < n_exp)
+      (long long)splits * rps < n_exp ||
+      (prev_sums && (cin > TDF_MAX || pm == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Vecs coef = {{m, i, g, b, c1, c2}};
@@ -744,16 +833,16 @@ extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
     const int K = (h + 1) * cout;
     rc = K <= 32 ? launch_tdup<4, 1>(du, z, zp, coef, bnp, wt, used, dup,
                                      nullptr, parts, B, n_exp, cin, cout, h,
-                                     s)
+                                     prev_sums, s)
        : K <= 64 ? launch_tdup<4, 2>(du, z, zp, coef, bnp, wt, used, dup,
                                      nullptr, parts, B, n_exp, cin, cout, h,
-                                     s)
+                                     prev_sums, s)
                  : launch_tdup<4, 3>(du, z, zp, coef, bnp, wt, used, dup,
                                      nullptr, parts, B, n_exp, cin, cout, h,
-                                     s);
+                                     prev_sums, s);
   } else {
     rc = launch_tdup<12, 0>(du, z, zp, coef, bnp, wt, used, dup, dzbuf,
-                            nullptr, B, n_exp, cin, cout, h, s);
+                            nullptr, B, n_exp, cin, cout, h, 0, s);
     if (rc != 0) return rc;
     rc = nt == 4 ? launch_tdw<4>(dzbuf, zp, bnp, used, parts, B, n_exp, cin,
                                  cout, h, splits, rps, s)
@@ -763,5 +852,7 @@ extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
                                   cout, h, splits, rps, s);
   }
   if (rc != 0) return rc;
-  return colsum(parts, B * splits, (h + 1) * cin * cout + cout, sums, s);
+  return colsum(parts, B * splits,
+                (h + 1) * cin * cout + cout + (prev_sums ? 4 * cin : 0), sums,
+                s);
 }

@@ -37,65 +37,34 @@
 // Pallas kernel _topk_kernel): per row of d (Q, W), the k smallest
 // entries with their idx, ascending, ties to the lower column; entries
 // not below 0.98e30 come out as 1e30 / -1.  Values are exact (the Pallas
-// kernel quantizes them).  Bound: the bytes of d and idx, each read once.
-// Design: a block of TOPK_ROWS threads owns TOPK_ROWS rows; it stages
-// TOPK_COLS-column tiles of d and idx in shared memory with coalesced
-// loads (one thread a column), then each thread scans its own row of the
-// tile into a register top-k (topk_insert).
+// kernel quantizes them).  Bound: the bytes of d (each read once), and of
+// idx and the outputs at the k chosen columns a row -- the function needs
+// no other idx (the KITTI planes: ~1.9 GB of d over the forward's two
+// calls, ~0.57 ms at 3.35 TB/s).
+// Design: a warp a row, as K5.  Each read is 128 consecutive values of the
+// row, a float4 a lane (W % 4 == 0 and d 16-byte aligned; else 32
+// values, one a lane), TOPK_BATCH reads in flight a lane, streamed past
+// L1 (__ldcs).  Reads go in column order, so every candidate lies after
+// every list entry: the strict reject v < k-th value (taken before the
+// read) keeps ties on the lower column, and fills (>= 0.98e30) never
+// enter.  A ballot per component of the float4 collects the survivors;
+// they enter K3's warp list (warp_list.cuh) keyed (value, column), one at
+// a time, or, when a read has more than 4, compacted through the warp's
+// 128-entry shared-memory buffer and merged 32 at a time by the bitonic
+// merge (one merge for up to 32 survivors, not one a component).  idx is
+// read only at the k chosen columns, at the end.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
+
 #include "warp_list.cuh"
 
 #define GRID_WARPS 8
-#define TOPK_ROWS 64
-#define TOPK_COLS 64
-
-// Insert (cd, ci) into the ascending register list if cd < its last
-// entry; strict comparisons keep the earlier of equal candidates.
-template <int MAXK>
-__device__ __forceinline__ void topk_insert(float (&bd)[MAXK], int (&bi)[MAXK],
-                                            float cd, int ci) {
-#pragma unroll
-  for (int s = 0; s < MAXK; ++s) {
-    if (cd < bd[s]) {
-      const float td = bd[s];
-      const int ti = bi[s];
-      bd[s] = cd;
-      bi[s] = ci;
-      cd = td;
-      ci = ti;
-    }
-  }
-}
-
-template <int MAXK>
-__device__ __forceinline__ void topk_init(float (&bd)[MAXK], int (&bi)[MAXK],
-                                          int k) {
-#pragma unroll
-  for (int s = 0; s < MAXK; ++s) {
-    bd[s] = (s < MAXK - k) ? -CUDART_INF_F : CUDART_INF_F;
-    bi[s] = -1;
-  }
-}
-
-// The k live slots of the list; entries not below `limit` (and slots
-// never filled) become the 1e30 / -1 fill.
-template <int MAXK>
-__device__ __forceinline__ void topk_store(const float (&bd)[MAXK],
-                                           const int (&bi)[MAXK], int k,
-                                           float limit, float* out_d,
-                                           int* out_i) {
-#pragma unroll
-  for (int s = 0; s < MAXK; ++s) {
-    if (s >= MAXK - k) {
-      const bool good = bd[s] < limit;
-      out_d[s - (MAXK - k)] = good ? bd[s] : 1e30f;
-      out_i[s - (MAXK - k)] = good ? bi[s] : -1;
-    }
-  }
-}
+#define TOPK_WARPS 8
+#define TOPK_BATCH 4  // reads of a row a lane keeps in flight
+#define TOPK_LIMIT 0.98e30f
 
 __global__ void __launch_bounds__(GRID_WARPS * 32)
     grid_topk_kernel(const float4* __restrict__ table,
@@ -174,49 +143,92 @@ __global__ void __launch_bounds__(GRID_WARPS * 32)
   }
 }
 
-template <int MAXK>
-__global__ void topk_smallest_kernel(const float* __restrict__ d,
-                                     const int* __restrict__ idx, int Q,
-                                     int W, int k, float* __restrict__ out_d,
-                                     int* __restrict__ out_i) {
-  // +1 column of padding: thread t reads row t, so rows must fall in
-  // different banks
-  __shared__ float sd[TOPK_ROWS][TOPK_COLS + 1];
-  __shared__ int si[TOPK_ROWS][TOPK_COLS + 1];
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * TOPK_ROWS;
-  const int nrows = min(TOPK_ROWS, Q - r0);
-  float bd[MAXK];
-  int bi[MAXK];
-  topk_init<MAXK>(bd, bi, k);
-  for (int base = 0; base < W; base += TOPK_COLS) {
-    const int len = min(TOPK_COLS, W - base);
-    __syncthreads();
-    if (t < len) {
-      for (int r = 0; r < nrows; ++r) {
-        const size_t g = (size_t)(r0 + r) * W + base + t;
-        sd[r][t] = d[g];
-        si[r][t] = idx[g];
+// K10: a warp a row; PER values a lane a read (4: float4 reads)
+template <int PER>
+__global__ void __launch_bounds__(TOPK_WARPS * 32)
+    topk_smallest_kernel(const float* __restrict__ d,
+                         const int* __restrict__ idx, int Q, int W, int k,
+                         float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int SPAN = 32 * PER;  // columns a read
+  __shared__ float buf_v[TOPK_WARPS][SPAN];  // a read's survivors, compacted
+  __shared__ int buf_c[TOPK_WARPS][SPAN];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * TOPK_WARPS + warp;
+  if (row >= Q) return;
+  const float* dr = d + (size_t)row * W;
+  List l = {CUDART_INF_F, -1};
+  float kd = CUDART_INF_F;  // the list's k-th value, on every lane
+  for (int c0 = 0; c0 < W; c0 += TOPK_BATCH * SPAN) {
+    float v[TOPK_BATCH][PER];
+#pragma unroll
+    for (int u = 0; u < TOPK_BATCH; ++u) {
+      const int c = c0 + u * SPAN + lane * PER;
+      if constexpr (PER == 4) {
+        const float4 x = c < W ? __ldcs(reinterpret_cast<const float4*>(dr + c))
+                               : make_float4(CUDART_INF_F, CUDART_INF_F,
+                                             CUDART_INF_F, CUDART_INF_F);
+        v[u][0] = x.x;
+        v[u][1] = x.y;
+        v[u][2] = x.z;
+        v[u][3] = x.w;
+      } else {
+        v[u][0] = c < W ? __ldcs(dr + c) : CUDART_INF_F;
       }
     }
-    __syncthreads();
-    if (t >= nrows) continue;
-    for (int j = 0; j < len; ++j) {
-      const float v = sd[t][j];
-      if (v < bd[MAXK - 1]) topk_insert<MAXK>(bd, bi, v, si[t][j]);
+#pragma unroll
+    for (int u = 0; u < TOPK_BATCH; ++u) {
+      const int base = c0 + u * SPAN;
+      // the read's columns all follow the list's: v < kd is the exact
+      // (value, column) reject against the k-th entry
+      unsigned m[PER];
+      int n = 0;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        m[e] = __ballot_sync(full, v[u][e] < kd && v[u][e] < TOPK_LIMIT);
+        n += __popc(m[e]);
+      }
+      if (n == 0) continue;
+      if (n <= 4) {
+#pragma unroll
+        for (int e = 0; e < PER; ++e)
+          while (m[e]) {
+            const int src = __ffs(m[e]) - 1;
+            m[e] &= m[e] - 1;
+            insert_one(l, __shfl_sync(full, v[u][e], src),
+                       base + src * PER + e, lane, k);
+          }
+      } else {
+        // the survivors in the warp's buffer, in (component, lane) order
+        // (the merges order by (value, column) whatever the order)
+        const unsigned below = (1u << lane) - 1;
+        int at = 0;
+#pragma unroll
+        for (int e = 0; e < PER; ++e) {
+          if ((m[e] >> lane) & 1) {
+            const int slot = at + __popc(m[e] & below);
+            buf_v[warp][slot] = v[u][e];
+            buf_c[warp][slot] = base + lane * PER + e;
+          }
+          at += __popc(m[e]);
+        }
+        __syncwarp();
+        for (int r = 0; r < n; r += 32) {
+          const bool in = r + lane < n;
+          merge_all(l, in ? buf_v[warp][r + lane] : CUDART_INF_F,
+                    in ? buf_c[warp][r + lane] : -1, lane, k);
+        }
+        __syncwarp();
+      }
+      kd = __shfl_sync(full, l.d, k - 1);
     }
   }
-  if (t >= nrows) return;
-  topk_store<MAXK>(bd, bi, k, 0.98e30f, out_d + (size_t)(r0 + t) * k,
-                   out_i + (size_t)(r0 + t) * k);
-}
-
-template <int MAXK>
-static void launch_topk(const float* d, const int* idx, int Q, int W, int k,
-                        float* out_d, int* out_i, cudaStream_t st) {
-  const int blocks = (Q + TOPK_ROWS - 1) / TOPK_ROWS;
-  topk_smallest_kernel<MAXK><<<blocks, TOPK_ROWS, 0, st>>>(d, idx, Q, W, k,
-                                                          out_d, out_i);
+  if (lane < k) {
+    const bool found = l.i >= 0;
+    out_d[(size_t)row * k + lane] = found ? l.d : 1e30f;
+    out_i[(size_t)row * k + lane] =
+        found ? __ldg(idx + (size_t)row * W + l.i) : -1;
+  }
 }
 
 // table (R, cap, 4) f32 (16-byte aligned), counts (R,) int32, nbr (Q, S)
@@ -242,11 +254,12 @@ extern "C" int ccn_topk_smallest(const float* d, const int* idx, int Q, int W,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (k < 1 || k > 32 || Q < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    launch_topk<8>(d, idx, Q, W, k, out_d, out_i, st);
-  else if (k <= 16)
-    launch_topk<16>(d, idx, Q, W, k, out_d, out_i, st);
+  const int blocks = (Q + TOPK_WARPS - 1) / TOPK_WARPS;
+  if (W % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0)
+    topk_smallest_kernel<4><<<blocks, TOPK_WARPS * 32, 0, st>>>(
+        d, idx, Q, W, k, out_d, out_i);
   else
-    launch_topk<32>(d, idx, Q, W, k, out_d, out_i, st);
+    topk_smallest_kernel<1><<<blocks, TOPK_WARPS * 32, 0, st>>>(
+        d, idx, Q, W, k, out_d, out_i);
   return (int)cudaGetLastError();
 }

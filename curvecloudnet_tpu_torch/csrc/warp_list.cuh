@@ -1,7 +1,8 @@
-// The warp-distributed sorted list of K3 (knn.cu) and K5 (grid_topk.cu):
-// the k <= 32 best (d, i) pairs of a query spread over a warp, lane s
-// holding the s-th, in the order of `before` (d, then i: K3's i is the
-// point index, K5's the candidate's position in its stencil rows).  One
+// The warp-distributed sorted list of K3 (knn.cu), K5 and K10
+// (grid_topk.cu): the k <= 32 best (d, i) pairs of a query (or row) spread
+// over a warp, lane s holding the s-th, in the order of `before` (d, then
+// i: K3's i is the point index, K5's the candidate's position in its
+// stencil rows, K10's the column).  One
 // candidate goes in by a ballot and a shift (insert_one), 32 at once by a
 // bitonic sort and merge across the lanes (merge_all).
 #pragma once

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import neighbors
+from ..ops.conv1d_train import fused_reduce
 from ..ops.neighbors import TABLE_K, TableCache
 from .cloud import Cloud
 from .layers import MLP
@@ -113,7 +114,10 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
     step (forward + backward), any batch size, derived from the spec.
 
     Eval: K1 once per conv step, K2 once per grouping step.  Train: per
-    conv step with L layers, K8 runs L forward, L reduce and L t passes;
+    conv step with L layers, K8 runs L forward and L t passes, and a
+    standalone reduce for the last layer and for each layer whose successor
+    takes an input wider than ``conv1d_train.DW_FUSED`` (the others' sums
+    come from their successor's t pass);
     per grouping step with L kernel-side denses (``ops/group_train``), the
     K7 forward runs 2L + 2 launches (the first BN's row statistics, L
     denses, a finalize per BN, the aggregation) and 3 more under attend
@@ -142,8 +146,11 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
         n = sizes[row]
         if step.name == "conv1d-fast-v2":
             if train:
-                for name in ("fwd", "reduce", "t"):
-                    counts["conv1d_train_" + name] += len(step.feat_dims)
+                dims = list(step.feat_dims)
+                counts["conv1d_train_fwd"] += len(dims)
+                counts["conv1d_train_t"] += len(dims)
+                counts["conv1d_train_reduce"] += 1 + sum(
+                    not fused_reduce(c) for c in dims[:-1])
             else:
                 counts["conv1d_chain"] += 1
         fused = (step.name == "sgcnn" and not train and edge_kernel == "fused"

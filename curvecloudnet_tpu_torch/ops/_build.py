@@ -118,7 +118,7 @@ _SIGNATURES = {
     "ccn_topk_smallest": [_P, _P, _I, _I, _I, _P, _P, _P],
     "ccn_conv1d_train_fwd": [_P] * 12 + [_I] * 6 + [_P],
     "ccn_conv1d_train_reduce": [_P] * 6 + [_I] * 4 + [_P],
-    "ccn_conv1d_train_t": [_P] * 19 + [_I] * 7 + [_P],
+    "ccn_conv1d_train_t": [_P] * 19 + [_I] * 8 + [_P],
     "ccn_edge_mlp": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I] * 5 + [_P],
 }
 

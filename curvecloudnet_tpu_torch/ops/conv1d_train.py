@@ -20,7 +20,11 @@ Pass plan, as in the JAX package: the forward runs one pass per layer
 loads z_{l-1}); the backward runs, per layer in reverse, a reduce pass (the
 live-slot sums of dxh, dxh * xhat, da and da * xhat, where da = du * m *
 leaky'(y), dxh = da * gamma) and a t pass (dz, the transposed window
-product d_u_{l-1}, dW and db).  leaky'(0) = 1, as in the JAX kernel.
+product d_u_{l-1}, dW and db).  leaky'(0) = 1, as in the JAX kernel.  The
+CUDA path takes layer l-1's reduce sums from layer l's t pass
+(``prev_sums``) wherever layer l's input is at most DW_FUSED wide, so the
+standalone reduce runs for the last layer and behind wider inputs only
+(:func:`fused_reduce`).
 
 The CUDA kernels are ``csrc/conv1d_train.cu``: the window products of the
 forward and the t pass are 3xTF32 tensor-core products with the shifts on
@@ -124,9 +128,11 @@ def conv1d_train_bwd_reduce_ref(d_u, z, bn, used):
 
 
 def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
-                           half_k: int):
+                           half_k: int, prev_sums: bool = False):
     """The t pass: dz = inv (dxh - m (c1 + xhat c2)) -> (d_u_prev
-    (B, n_exp, C_in), dW ((h+1) C_in, C_out), db (C_out,))."""
+    (B, n_exp, C_in), dW ((h+1) C_in, C_out), db (C_out,)); with
+    ``prev_sums`` also the previous layer's reduce sums over d_u_prev
+    (:func:`conv1d_train_bwd_reduce_ref` of d_u_prev, z_prev, bn_prev)."""
     h = half_k
     live = _live(used, z.shape[1], z.device)
     _, inv, gam, _ = bn
@@ -138,6 +144,9 @@ def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
     d_u_prev = window_concat_nomask(dz, h) @ w_t
     win = window_concat_nomask(_u_of(z_prev, bn_prev, live), h)
     dw = torch.einsum("bqi,bqo->io", win, dz)
+    if prev_sums:
+        return (d_u_prev, dw, dz.sum(dim=(0, 1)),
+                conv1d_train_bwd_reduce_ref(d_u_prev, z_prev, bn_prev, used))
     return d_u_prev, dw, dz.sum(dim=(0, 1))
 
 
@@ -155,6 +164,14 @@ DW_FUSED = 32
 DW_BLOCKS = 256
 DW_M = 64
 DW_STAGE = 32
+
+
+def fused_reduce(c_in: int) -> bool:
+    """Whether the t pass of a layer whose input is ``c_in`` wide takes the
+    previous layer's reduce sums (its dW is fused into the d_u_prev kernel,
+    which holds d_u_prev and z_prev on chip); a rule of the shapes, which
+    ``models.kernel_launches`` mirrors."""
+    return c_in <= DW_FUSED
 
 
 def fwd_tile(h: int) -> int:
@@ -271,16 +288,21 @@ def conv1d_train_bwd_reduce(d_u, z, bn, used):
 
 
 def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
-                       half_k: int):
+                       half_k: int, prev_sums: bool = False):
     """K8's t pass for CUDA tensors, its plain version for CPU tensors.
-    Returns what :func:`conv1d_train_bwd_t_ref` returns."""
+    Returns what :func:`conv1d_train_bwd_t_ref` returns; ``prev_sums``
+    needs a previous BN and an input :func:`fused_reduce` admits."""
     if z.device.type == "cpu":
         return conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2,
-                                      used, half_k)
+                                      used, half_k, prev_sums)
     _check(z_prev, w, half_k)
     h = half_k
     bsz, n_exp, c_out = z.shape
     c_in = z_prev.shape[-1]
+    if prev_sums and (bn_prev is None or not fused_reduce(c_in)):
+        raise ValueError(f"conv1d train kernel: prev_sums needs a previous "
+                         f"BN and an input at most {DW_FUSED} wide, got "
+                         f"{c_in}")
     dev = z.device
     splits, rps = dw_splits(n_exp, c_in, bsz)
     d_u = d_u.float().contiguous()
@@ -294,8 +316,9 @@ def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
     # dz for the dW kernel of wide inputs
     dz = (torch.empty((bsz, n_exp, c_out), device=dev)
           if c_in > DW_FUSED else None)
-    parts = torch.empty((bsz * splits, n_dw + c_out), device=dev)
-    sums = torch.empty(n_dw + c_out, device=dev)
+    width = n_dw + c_out + (4 * c_in if prev_sums else 0)
+    parts = torch.empty((bsz * splits, width), device=dev)
+    sums = torch.empty(width, device=dev)
     rc = _build.library().ccn_conv1d_train_t(
         _build.ptr(d_u, torch.float32, "d_u", 3),
         _build.ptr(z, torch.float32, "z", 3),
@@ -307,10 +330,13 @@ def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
         d_u_prev.data_ptr(), None if dz is None else dz.data_ptr(),
         parts.data_ptr(),
         sums.data_ptr(), bsz, n_exp, c_in, c_out, h, splits, rps,
-        _build.stream_ptr(dev))
+        int(prev_sums), _build.stream_ptr(dev))
     _build.check(rc, "ccn_conv1d_train_t")
     conv1d_train_bwd_t.launches += 1
-    return d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:]
+    out = (d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:n_dw + c_out])
+    if prev_sums:
+        return (*out, tuple(sums[n_dw + c_out:].view(4, c_in).unbind(0)))
+    return out
 
 
 conv1d_train_fwd_layer.launches = 0
@@ -354,15 +380,19 @@ class _Conv1dChainTrain(torch.autograd.Function):
         params = [flat[i:i + 4] for i in range(0, 4 * L, 4)]
         d_u = d_out.contiguous()
         grads = [None] * (4 * L)
+        sums = None  # layer li's reduce sums, when layer li + 1 took them
         for li in range(L - 1, -1, -1):
             bn = _bn_of(stats, params, li)
             z_prev, bn_prev = ((zs[li - 1], _bn_of(stats, params, li - 1))
                                if li > 0 else (xe, None))
-            s_dxh, s_dxh_xh, s_da, s_da_xh = conv1d_train_bwd_reduce(
-                d_u, zs[li], bn, used)
-            d_u, dw, db = conv1d_train_bwd_t(
+            if sums is None:
+                sums = conv1d_train_bwd_reduce(d_u, zs[li], bn, used)
+            s_dxh, s_dxh_xh, s_da, s_da_xh = sums
+            fuse = li > 0 and fused_reduce(z_prev.shape[-1])
+            d_u, dw, db, *rest = conv1d_train_bwd_t(
                 d_u, zs[li], z_prev, bn, bn_prev, params[li][0], s_dxh / n,
-                s_dxh_xh / n, used, h)
+                s_dxh_xh / n, used, h, prev_sums=fuse)
+            sums = rest[0] if fuse else None
             grads[4 * li:4 * li + 4] = [dw, db, s_da_xh, s_da]
         return (None, d_u, None, *grads)
 

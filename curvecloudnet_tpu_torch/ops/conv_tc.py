@@ -10,7 +10,8 @@ windows of dz (:func:`windows`) instead.  Rows go by the tiles the wrappers
 pick (``conv1d_chain.tile_rows``, ``conv1d_train.fwd_tile``, ``ROWS`` slots a
 d_u_prev block, ``conv1d_train.dw_splits`` for the weight gradient), each
 with its halo, zero outside [0, n_exp); the cross-block sums follow the
-kernels' fixed orders (:func:`chan_combine`, :func:`colsum`).
+kernels' fixed orders (:func:`chan_combine`, :func:`colsum`,
+:func:`prev_sums_model` for the reduce sums the t pass takes).
 """
 
 from __future__ import annotations
@@ -181,6 +182,33 @@ def colsum(parts):
     for s in lanes[1:]:
         out = out + s
     return out
+
+
+def prev_sums_model(d_u_prev, z_prev, bn_prev, used):
+    """The t pass's epilogue for the previous layer's reduce sums: per
+    ROWS-slot tile, warp w (rows 16 w ..) and row lane g, a thread adds the
+    terms of rows 16 w + g and 16 w + g + 8 (0 at dead slots); the 8 lanes
+    by a butterfly ((0+1) + (2+3)) + ((4+5) + (6+7)); the 8 warps in order;
+    the tiles' rows by :func:`colsum` -> (dxh, dxh xhat, da, da xhat), each
+    (C,).  Terms: da = d_u_prev leaky'(y), dxh = da gamma, each product
+    rounded once."""
+    bsz, n_exp, c = d_u_prev.shape
+    live = _live(used, n_exp, d_u_prev.device)
+    xhat, y = _affine(z_prev, bn_prev)
+    da = d_u_prev * _dleaky(y) * live
+    dxh = da * bn_prev[2]
+    terms = torch.cat([dxh, dxh * xhat, da, da * xhat], dim=-1)
+    n_tiles = -(-n_exp // ROWS)
+    terms = F.pad(terms, (0, 0, 0, n_tiles * ROWS - n_exp))
+    t = terms.view(bsz, n_tiles, 8, 2, 8, 4 * c)  # warp, half, lane g
+    a = t[:, :, :, 0] + t[:, :, :, 1]
+    a = a[..., 0::2, :] + a[..., 1::2, :]
+    a = a[..., 0::2, :] + a[..., 1::2, :]
+    a = a[..., 0, :] + a[..., 1, :]                # (B, tiles, warps, 4C)
+    tile = torch.zeros_like(a[:, :, 0])
+    for w in range(8):
+        tile = tile + a[:, :, w]
+    return tuple(colsum(tile.reshape(-1, 4 * c)).view(4, c).unbind(0))
 
 
 def t_model(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used, h: int):

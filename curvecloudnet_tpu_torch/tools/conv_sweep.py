@@ -3,7 +3,9 @@
 The nuScenes sweep's rows (n_exp 49164; KITTI's 143372 for K1) with random
 inputs: K1 on the step_0 (C0 8) and step_31 (C0 262) chains of three
 32-wide layers, h 2; K8's forward and t pass on the 8-, 32- (with the
-previous layer's BN) and 262-wide layers.  Each call is timed with CUDA
+previous layer's BN) and 262-wide layers, the 32-wide layer's t pass also
+with the previous layer's reduce sums (``prev_sums``), and the standalone
+reduce pass on a 32-wide layer.  Each call is timed with CUDA
 events (median of 21, host enqueue included) beside its plain version,
 then profiled over 10 calls (``torch.profiler``): device microseconds a
 call of each CUDA kernel it launches.  Run::
@@ -43,15 +45,20 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 
 def device_us(fn, calls: int = 10) -> dict:
-    """Device microseconds a call of each CUDA kernel ``fn`` launches."""
+    """Device microseconds a call of each CUDA kernel ``fn`` launches, and
+    under ``"launches"`` the launches the profiler recorded of each (a
+    count short of the calls' marks an incomplete trace)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0][:48]: round(e.device_time_total / calls, 2)
-            for e in prof.key_averages() if e.device_time_total > 0}
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    out = {e.key.split("(")[0][:48]: round(e.device_time_total / calls, 2)
+           for e in events}
+    out["launches"] = {e.key.split("(")[0][:48]: e.count for e in events}
+    return out
 
 
 def main() -> None:
@@ -102,6 +109,15 @@ def main() -> None:
              rn(32, scale=0.01), rn(32, scale=0.01), used, H)
         line("K8 t", lambda: T.conv1d_train_bwd_t(*t),
              lambda: T.conv1d_train_bwd_t_ref(*t), n_exp=n_exp, c_in=cin)
+        if with_bn:
+            line("K8 t + reduce sums",
+                 lambda: T.conv1d_train_bwd_t(*t, prev_sums=True),
+                 lambda: T.conv1d_train_bwd_t_ref(*t, prev_sums=True),
+                 n_exp=n_exp, c_in=cin)
+            red = (t[0], z, bn, used)
+            line("K8 reduce", lambda: T.conv1d_train_bwd_reduce(*red),
+                 lambda: T.conv1d_train_bwd_reduce_ref(*red), n_exp=n_exp,
+                 c=32)
 
 
 if __name__ == "__main__":

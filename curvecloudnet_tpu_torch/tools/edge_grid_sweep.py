@@ -1,12 +1,15 @@
-"""K9 and K5 at the main path's shapes, each kernel's device time (GPU).
+"""K9, K5 and K10 at the main path's shapes, each kernel's device time
+(GPU).
 
 K9: the five calls of one nuScenes forward on the ``fused`` edge route
 (``configs/nuscenes.yaml``, n_pad 36864, synthetic sweep 0, random
 weights from seed 0), recorded and re-run with their own inputs.  K5: the
 two KITTI grid tables' shapes (a 64-beam sweep of 73728 and of 36864
 points, every point a query, k 32, radii 0.04 / 0.1, caps 192 / 64, two
-overflow rows), as ``tests/test_torch_port_cuda.py`` builds them.  Each
-call is timed with CUDA events (median of 11, host enqueue included)
+overflow rows), as ``tests/test_torch_port_cuda.py`` builds them; K10 on
+the same tables' candidate planes (the grid's ``planes`` tail, W = S x
+cap columns a query).  Each call is timed with CUDA events (median of 11,
+host enqueue included)
 beside its plain version, then profiled over 10 calls
 (``torch.profiler``): device microseconds a call of each CUDA kernel it
 launches.  Run::
@@ -83,6 +86,12 @@ def main() -> None:
         line("K5", lambda: grid_topk.grid_topk_records(*args),
              lambda: grid_topk.grid_topk_records_ref(*args), q=n, cap=cap,
              s=nbr.shape[1], live=int(counts[nbr.long()].sum()))
+        planes = grid_topk.planes(table, *args[2:5], args[6])
+        line("K10", lambda: grid_topk.topk_smallest(*planes, 32),
+             lambda: grid_topk.topk_smallest_ref(*planes, 32), q=n,
+             w=planes[0].shape[1],
+             candidates=int((planes[0] < grid_topk.INF * 0.98).sum()))
+        del planes
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ CUDA activities.  Run::
     python -m curvecloudnet_tpu_torch.tools.profile_train
 
 Prints one JSON line (step wall, device busy time by group, idle share,
-peak memory, K7 time by pass and by site), then the top device kernels.
+peak memory, K7 time by pass and by site, and the device time and
+launches of each kernel of K4, K4b and K8 apart), then the top device
+kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ GROUPS = (("K7", "gt_gemm"), ("K7", "gt_finalize"), ("K7", "gt_aggregate"),
           ("K7", "gt_rowstats"), ("K8", "conv1d_train"), ("K4", "gather_km"),
           ("K4b", "scatter_km"), ("K3", "knn_kernel"), ("K6", "fps_kernel"),
           ("gemm", "gemm"))
+# kernels whose device time is printed one by one: K4, K4b, K8's passes
+APART = ("gather_km", "scatter_km", "conv1d_train")
 
 
 def main() -> None:
@@ -71,6 +75,9 @@ def main() -> None:
     for e in kern:
         g = next((g for g, s in GROUPS if s in e.key), "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    apart = {e.key.split("(")[0]: {
+        "device_ms": e.self_device_time_total / 1e3, "launches": e.count}
+        for e in kern if any(n in e.key for n in APART)}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "step_wall_ms": wall,
         "peak_memory_gib": peak / 2 ** 30, "busy_ms": busy,
@@ -78,7 +85,8 @@ def main() -> None:
         "profiled_wall_ms": prof_wall,
         "idle_share_profiled": 1 - busy / prof_wall,
         "idle_share_estimate": 1 - busy / wall,
-        "k7_ms_by_pass": by_pass, "k7_ms_by_site": by_site}))
+        "k7_ms_by_pass": by_pass, "k7_ms_by_site": by_site,
+        "kernels_apart": apart}))
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
               f"{e.key[:110]}")

@@ -11,10 +11,16 @@ n_exp 640, C0 10, three layers of 16, h 2, used 600 / 512):
   ``_run_bwd_reduce`` and ``_run_bwd_t`` in interpret mode, summed over
   the batch as the JAX VJP sums them (the JAX forward's one-pass
   statistics against the port's two-pass ones: 1e-5);
+* the t pass's fused reduce sums of the previous layer (``prev_sums``)
+  against ``_run_bwd_reduce`` in interpret mode on the JAX t pass's own
+  d_u_prev (2e-4), and the kernel epilogue's summation order
+  (``conv_tc.prev_sums_model``) against the plain sums within 1e-6 of the
+  sum of the absolute terms;
 * the train forward and backward of the flagship's conv steps (0 and 31,
   narrow widths) against the JAX module: outputs 1e-4, gradients 2e-3 of
   each parameter's largest, running statistics 1e-5;
-* the train launch counts of K8 per step.
+* the train launch counts of K8 per step (a standalone reduce only for a
+  chain's last layer: the inner layers' sums come from the t pass).
 """
 
 import functools
@@ -38,6 +44,7 @@ from curvecloudnet_tpu_torch.models import cloud_from_arrays as tcloud
 from curvecloudnet_tpu_torch.models import kernel_launches
 from curvecloudnet_tpu_torch.models import parse_model_config as tparse
 from curvecloudnet_tpu_torch.ops import conv1d_train
+from curvecloudnet_tpu_torch.ops import conv_tc
 from test_pallas_conv1d import _exact_chain_train
 from torch_port_utils import jax_init, lidar, load_step, to_torch
 
@@ -206,6 +213,69 @@ def test_pass_plain_versions_match_pallas_interpret(pass_, layer):
         np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("layer", [1, 2])
+def test_t_pass_prev_sums_match_pallas_reduce(layer):
+    """The plain t pass's fused sums (the previous layer's reduce over its
+    d_u_prev) against ``_run_bwd_reduce`` in interpret mode applied to
+    ``_run_bwd_t``'s d_u_prev, summed over the batch."""
+    s = _layer_inputs(layer)
+    bsz = s["used"].shape[0]
+    red = [pallas_conv1d._run_bwd_reduce(
+        jnp.asarray(s["d_u"][bi]), jnp.asarray(s["z"][bi]), _j(s["bn"]),
+        int(s["used"][bi]), TILE, True) for bi in range(bsz)]
+    c1 = sum(r[0] for r in red) / s["n"]
+    c2 = sum(r[1] for r in red) / s["n"]
+    j_sums = [0.0] * 4
+    for bi in range(bsz):
+        d_u_prev = pallas_conv1d._run_bwd_t(
+            jnp.asarray(s["d_u"][bi]), jnp.asarray(s["z"][bi]),
+            jnp.asarray(s["z_prev"][bi]), _j(s["bn"]), _j(s["bn_prev"]),
+            jnp.asarray(s["w"]), c1, c2, int(s["used"][bi]), TILE, H, True,
+            jnp.float32)[0]
+        r = pallas_conv1d._run_bwd_reduce(
+            d_u_prev, jnp.asarray(s["z_prev"][bi]), _j(s["bn_prev"]),
+            int(s["used"][bi]), TILE, True)
+        j_sums = [a + np.asarray(b) for a, b in zip(j_sums, r)]
+    out = conv1d_train.conv1d_train_bwd_t(
+        _t(s["d_u"]), _t(s["z"]), _t(s["z_prev"]), _t(s["bn"]),
+        _t(s["bn_prev"]), _t(s["w"]), _t(c1), _t(c2), _t(s["used"]), H,
+        prev_sums=True)
+    assert len(out) == 4
+    for g, w in zip(out[3], j_sums):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("used", [(600, 512), (0, 128), (129, 640), (1, 3)])
+def test_prev_sums_model_matches_plain(used):
+    """The t pass epilogue's order for the fused sums (per thread two rows,
+    a butterfly over the warp's row lanes, the warps in order, the tiles
+    by colsum) against the plain sums, within 1e-6 of the sum of the
+    absolute terms; live counts inside the row, at 0 and a tile edge, one
+    past a tile edge and at n_exp, and a few slots."""
+    rng = np.random.default_rng(sum(used))
+    b, n_exp, c = 2, 640, 16
+    f = lambda *sh, sc=1.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=sh) * sc).astype(np.float32))
+    d_u_prev, z_prev = f(b, n_exp, c), f(b, n_exp, c)
+    bn_prev = (f(c, sc=0.2), 1 + torch.rand(c) * 0.2, 1 + f(c, sc=0.2),
+               f(c, sc=0.1))
+    used_t = torch.tensor(used, dtype=torch.int32)
+    got = conv_tc.prev_sums_model(d_u_prev, z_prev, bn_prev, used_t)
+    want = conv1d_train.conv1d_train_bwd_reduce_ref(d_u_prev, z_prev,
+                                                    bn_prev, used_t)
+    live = conv1d_train._live(used_t, n_exp, "cpu").double()
+    xhat, y = conv1d_train._affine(z_prev.double(), tuple(
+        t.double() for t in bn_prev))
+    da = (d_u_prev.double() * conv1d_train._dleaky(y) * live).abs()
+    dxh = da * bn_prev[2].double().abs()
+    for g, w, sc in zip(got, want, (dxh, dxh * xhat.abs(), da,
+                                    da * xhat.abs())):
+        scale = sc.sum((0, 1))
+        assert bool(((g.double() - w.double()).abs() <= 1e-6 * scale).all())
+    if used == (0, 128):  # only the first tile of sample 1 is live
+        assert bool((got[2] != 0).any())
+
+
 @pytest.fixture(scope="module")
 def narrow():
     cfg = load_config(os.path.join(REPO, "configs", "nuscenes.yaml"))
@@ -276,14 +346,52 @@ def test_conv_step_train_matches_jax(narrow, i, port, monkeypatch):
 
 
 def test_train_launch_counts_count_k8(narrow):
-    """Each conv1d-fast-v2 step with L layers launches L forward, L reduce
-    and L t passes a train step: 2 steps x 3 layers on the flagship."""
+    """Each conv1d-fast-v2 step with L layers launches L forward and L t
+    passes a train step, and one standalone reduce (its last layer's; the
+    inner layers, at most DW_FUSED wide, get theirs from the t pass): 2
+    steps x 3 layers on the flagship, 2 reduces."""
     _, tspec = narrow
     want = kernel_launches(tspec, 36864, train=True)
     assert {k: want[k] for k in ("conv1d_train_fwd", "conv1d_train_reduce",
                                  "conv1d_train_t")} == {
-        "conv1d_train_fwd": 6, "conv1d_train_reduce": 6, "conv1d_train_t": 6}
+        "conv1d_train_fwd": 6, "conv1d_train_reduce": 2, "conv1d_train_t": 6}
     assert "conv1d_chain" not in want
+
+
+def test_train_function_runs_the_counted_passes(monkeypatch):
+    """The autograd Function runs as many reduce and t passes as
+    ``kernel_launches`` counts: a standalone reduce for the last layer and
+    for a layer whose successor is wider than DW_FUSED, and the t pass
+    asked for the previous layer's sums everywhere else."""
+    seen = {"reduce": 0, "t": 0, "fused": 0}
+    red, tpass = (conv1d_train.conv1d_train_bwd_reduce,
+                  conv1d_train.conv1d_train_bwd_t)
+
+    def count_red(*a, **kw):
+        seen["reduce"] += 1
+        return red(*a, **kw)
+
+    def count_t(*a, prev_sums=False, **kw):
+        seen["t"] += 1
+        seen["fused"] += prev_sums
+        return tpass(*a, prev_sums=prev_sums, **kw)
+
+    monkeypatch.setattr(conv1d_train, "conv1d_train_bwd_reduce", count_red)
+    monkeypatch.setattr(conv1d_train, "conv1d_train_bwd_t", count_t)
+    g = torch.Generator().manual_seed(1)
+    # inputs 4, then 40 (wider than DW_FUSED: a standalone reduce behind
+    # it), 8, 6
+    dims, cin, params = (40, 8, 6), 4, []
+    for cout in dims:
+        params.append([torch.randn((H + 1) * cin, cout, generator=g) * 0.3,
+                       torch.zeros(cout), torch.ones(cout),
+                       torch.zeros(cout)])
+        cin = cout
+    xe = torch.randn(1, 96, 4, generator=g, requires_grad=True)
+    out, _ = conv1d_train.conv1d_chain_passes(
+        xe, params, torch.tensor([90], dtype=torch.int32), H)
+    out.sum().backward()
+    assert seen == {"reduce": 2, "t": 3, "fused": 1}
 
 
 def test_train_launch_counts_count_k7(narrow, monkeypatch):

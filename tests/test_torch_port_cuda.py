@@ -34,7 +34,10 @@ at queries with no live slot, a repeat run bit-equal.
 K4 copies rows (exact);
 K4b adds with atomics (1e-5).  K5 and K10 compute squared distances in the
 plain versions' order and break ties alike (the earlier column): equal,
-also on a tie-heavy table, and K5 bit-equal from run to run.  The whole
+also on tie-heavy tables (K10 also on unaligned and W % 4 != 0 rows), and
+bit-equal from run to run.  K8's t pass, where it takes the previous
+layer's reduce sums, holds them against the plain reduce on its own
+d_u_prev at 1e-3 of max(1, |plain|), bit-equal from run to run.  The whole
 train step is held to the CPU
 plain path against a yardstick: the plain path's own change under a 1e-5
 relative weight perturbation (train-mode BatchNorm over 33 steps amplifies
@@ -539,6 +542,41 @@ def test_grid_kernels_at_kitti_tables(dev, n, radius, cap, bits):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+def _k10_table(q, w, seed):
+    """Tie-heavy rows (multiples of 1/8, 60% 1e30 fills, rows of fills
+    only, a row of one repeated value, ties at every 7th column) and
+    values at the fill limit."""
+    g = torch.Generator().manual_seed(seed)
+    d = torch.randint(0, 32, (q, w), generator=g).float() / 8
+    spots = torch.rand(q, w, generator=g)
+    d[spots < 0.6] = 1e30
+    d[(spots >= 0.6) & (spots < 0.62)] = 0.98e30
+    d[(spots >= 0.62) & (spots < 0.64)] = 0.97e30
+    d[:3] = 1e30
+    d[3] = 0.5
+    d[4] = 1e30
+    d[4, ::7] = 0.25
+    return d, torch.randint(0, 100000, (q, w), generator=g, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("w,offset", [(928, 0), (928, 1), (301, 0)])
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+def test_topk_smallest_kernel_on_ties(dev, k, w, offset):
+    """K10 on tie-heavy rows: float4 reads (W % 4 == 0, aligned), the
+    scalar reads (d 4 bytes off a 16-byte boundary; W % 4 != 0): equal to
+    the plain version, and a repeat run bit-equal."""
+    d, idx = _k10_table(700, w, seed=k + w + offset)
+    flat = torch.empty(700 * w + offset, device=dev)
+    flat[offset:] = d.to(dev).reshape(-1)
+    d_dev = flat[offset:].view(700, w)      # contiguous, maybe unaligned
+    args = (d_dev, idx.to(dev), k)
+    got = grid_topk.topk_smallest(*args)
+    want = grid_topk.topk_smallest_ref(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = grid_topk.topk_smallest(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
 @pytest.mark.parametrize("k", [32, 7])
 def test_grid_topk_kernel_on_ties(dev, k):
     """K5 on a tie-heavy table: lattice points 0.125 apart (exact
@@ -636,10 +674,17 @@ def test_conv1d_train_kernels(dev, c0, dims, h, n_exp, case):
         _yardstick_ok(red, r_red, s_red)
         c1, c2 = r_red[0] / used.sum(), r_red[1] / used.sum()
         t_args = (d_u, r_z, z_prev, bn, bn_prev, w, c1, c2, used, h)
-        _yardstick_ok(conv1d_train.conv1d_train_bwd_t(*t_args),
-                      conv1d_train.conv1d_train_bwd_t_ref(*t_args),
+        fuse = (bn_prev is not None
+                and conv1d_train.fused_reduce(z_prev.shape[-1]))
+        got = conv1d_train.conv1d_train_bwd_t(*t_args, prev_sums=fuse)
+        _yardstick_ok(got[:3], conv1d_train.conv1d_train_bwd_t_ref(*t_args),
                       conv1d_train.conv1d_train_bwd_t_ref(
                           d_u, z_s, *t_args[2:]))
+        if fuse:  # the previous layer's sums over the kernel's d_u_prev
+            want = conv1d_train.conv1d_train_bwd_reduce_ref(
+                got[0], z_prev, bn_prev, used)
+            for a, b_ in zip(got[3], want):
+                assert _rel_err(a, b_) <= 1e-3
         z_prev, bn_prev = r_z, bn
     # the chain through the autograd Function against torch autograd; at
     # the sweep's size (~10^7 BN outputs a layer) a few outputs lie within
@@ -675,22 +720,34 @@ def test_conv1d_train_kernels(dev, c0, dims, h, n_exp, case):
 
 @pytest.mark.parametrize("c0,h", [(262, 2), (32, 2), (5, 1)])
 def test_conv1d_train_t_repeats_bitwise(dev, c0, h):
-    """K8's t pass sums dW and db across blocks in a fixed order: two runs
-    on the same inputs agree bit for bit."""
+    """K8's t pass sums dW and db across blocks in a fixed order, and with
+    an input at most DW_FUSED wide the previous layer's reduce sums too:
+    two runs on the same inputs agree bit for bit (the layer input comes
+    through a previous BN)."""
     dims = (32,) if h == 2 else (24,)
     g, xe, used, params = _train_inputs(c0, dims, h, 49164, "halo_end")
     w, b, gam, bet = (t.to(dev) for t in params[0])
     xe, used = xe.to(dev), used.to(dev)
-    z, mean, var = conv1d_train.conv1d_train_fwd_layer(xe, None, w, b, used, h)
+    bn_prev = tuple(t.to(dev) for t in (
+        0.1 * torch.randn(c0, generator=g), 1 + 0.1 * torch.rand(
+            c0, generator=g), 0.5 + torch.rand(c0, generator=g),
+        0.1 * torch.randn(c0, generator=g)))
+    z, mean, var = conv1d_train.conv1d_train_fwd_layer(xe, bn_prev, w, b,
+                                                       used, h)
     bn = (mean, torch.rsqrt(var + 1e-5), gam, bet)
     d_u = torch.randn(z.shape, generator=g).to(dev)
     c1 = 0.01 * torch.randn(z.shape[-1], generator=g).to(dev)
     c2 = 0.01 * torch.randn(z.shape[-1], generator=g).to(dev)
-    args = (d_u, z, xe, bn, None, w, c1, c2, used, h)
-    first = conv1d_train.conv1d_train_bwd_t(*args)
-    second = conv1d_train.conv1d_train_bwd_t(*args)
-    for a, b_ in zip(first, second):
+    args = (d_u, z, xe, bn, bn_prev, w, c1, c2, used, h)
+    fuse = conv1d_train.fused_reduce(c0)
+    first = conv1d_train.conv1d_train_bwd_t(*args, prev_sums=fuse)
+    second = conv1d_train.conv1d_train_bwd_t(*args, prev_sums=fuse)
+    assert len(first) == (4 if fuse else 3)
+    for a, b_ in zip(first[:3], second[:3]):
         assert torch.equal(a, b_)
+    if fuse:
+        for a, b_ in zip(first[3], second[3]):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("c,widths", [(67, (64, 64, 64)), (131, (128, 128)),

@@ -14,7 +14,12 @@ same numpy inputs:
   routes;
 * the narrow flagship (widths / 8, n_pad 2048, B=2) on the fused route:
   logits within 2e-3 of JAX, each wrapper called as often as
-  ``kernel_launches`` derives.
+  ``kernel_launches`` derives;
+* the narrow KITTI model on the fused route, with the exact-table limit
+  lowered so that two rows take grid tables (as
+  tests/test_torch_port_kitti.py lowers it): logits within 2e-3 of JAX
+  (that file's bar) and within 1e-5 of the port's group route, each
+  wrapper called as often as ``kernel_launches`` derives.
 """
 
 import os
@@ -40,6 +45,9 @@ from curvecloudnet_tpu_torch.models import parse_model_config as tparse
 from curvecloudnet_tpu_torch.models.layers import MLP
 from curvecloudnet_tpu_torch.ops import (conv1d_chain, edge_mlp, fps, gather,
                                          group_reduce, knn)
+from curvecloudnet_tpu_torch.ops import grid_topk
+from test_torch_port_kitti import N_PAD as KITTI_N_PAD
+from test_torch_port_kitti import lower_limits, narrow_kitti
 from torch_port_utils import jax_init, lidar, load_step, to_torch
 
 torch.set_num_threads(1)
@@ -194,23 +202,81 @@ def test_slice_fused_logits_match_jax(fused_slice):
     assert err.max() <= 2e-3, err.max()
 
 
-def test_slice_fused_launch_counts_follow_spec(fused_slice, narrow,
-                                               monkeypatch):
-    tm, tc, _ = fused_slice
-    assert sum(getattr(m, "fused", False) for m in tm.steps) == 10
+WRAPPERS = [(conv1d_chain, "conv1d_chain_eval", "conv1d_chain"),
+            (group_reduce, "group_reduce", "group_reduce"),
+            (knn, "knn_search", "knn"), (fps, "fps_picks", "fps"),
+            (gather, "gather_km", "gather"),
+            (edge_mlp, "fused_edge_mlp_max", "edge_mlp"),
+            (grid_topk, "grid_topk_records", "grid_topk")]
+
+
+def _counted_forward(mp, tm, tc):
+    """The logits of one forward and each wrapper's calls in it."""
     seen = {}
-    for mod, name, key in [(conv1d_chain, "conv1d_chain_eval", "conv1d_chain"),
-                           (group_reduce, "group_reduce", "group_reduce"),
-                           (knn, "knn_search", "knn"), (fps, "fps_picks", "fps"),
-                           (gather, "gather_km", "gather"),
-                           (edge_mlp, "fused_edge_mlp_max", "edge_mlp")]:
+    for mod, name, key in WRAPPERS:
         orig = getattr(mod, name)
 
         def counted(*a, _orig=orig, _key=key, **kw):
             seen[_key] = seen.get(_key, 0) + 1
             return _orig(*a, **kw)
-        monkeypatch.setattr(mod, name, counted)
+        mp.setattr(mod, name, counted)
     with torch.no_grad():
-        tm(tc)
+        logits = tm(tc)[0]
+    return logits, seen
+
+
+def test_slice_fused_launch_counts_follow_spec(fused_slice, narrow,
+                                               monkeypatch):
+    tm, tc, _ = fused_slice
+    assert sum(getattr(m, "fused", False) for m in tm.steps) == 10
+    _, seen = _counted_forward(monkeypatch, tm, tc)
     want = kernel_launches(narrow[1], N_SLICE, edge_kernel="fused")
     assert {k: v for k, v in want.items() if v} == seen
+
+
+@pytest.fixture(scope="module")
+def kitti_fused():
+    """The narrow KITTI model on the fused route (grid rows at the lowered
+    limit) and on the group route, same weights: logits, JAX's, the fused
+    forward's wrapper calls and the spec's counts, all taken while the
+    limit is lowered (it is restored before any other test runs)."""
+    mp = pytest.MonkeyPatch()
+    try:
+        lower_limits(mp)
+        tspec, fused, tc, want, jvalid = narrow_kitti("fused")
+        group = TNet(tspec, KITTI_N_PAD, feat_channels=1)
+        group.load_state_dict(fused.state_dict(), strict=True)
+        with torch.no_grad():
+            group_logits = group.eval()(tc)[0]
+        logits, seen = _counted_forward(mp, fused, tc)
+        spec_counts = kernel_launches(tspec, KITTI_N_PAD,
+                                      edge_kernel="fused")
+        admitted = sum(getattr(m, "fused", False) for m in fused.steps)
+    finally:
+        mp.undo()
+    return dict(logits=logits.numpy(), group=group_logits.numpy(),
+                want=want, valid=jvalid, seen=seen, spec=spec_counts,
+                admitted=admitted)
+
+
+def test_kitti_fused_logits_match_jax(kitti_fused):
+    r = kitti_fused
+    v = r["valid"]
+    assert np.isfinite(r["logits"][v]).all()
+    err = np.abs(r["logits"] - r["want"])[v]
+    assert err.max() <= 2e-3, err.max()
+
+
+def test_kitti_fused_logits_match_group_route(kitti_fused):
+    r = kitti_fused
+    err = np.abs(r["logits"] - r["group"])[r["valid"]]
+    assert err.max() <= 1e-5, err.max()
+
+
+def test_kitti_fused_launch_counts_follow_spec(kitti_fused):
+    """K9 on every sgcnn step the gate admits, grid rows included (K5 on
+    the two grid tables), the rest as the spec derives."""
+    r = kitti_fused
+    assert r["admitted"] > 0 and r["spec"]["edge_mlp"] == r["admitted"]
+    assert r["spec"]["grid_topk"] == 2
+    assert {k: v for k, v in r["spec"].items() if v} == r["seen"]

@@ -26,6 +26,16 @@ indices at the end.  It must equal ``grid_topk_records_ref`` bit for bit,
 on a tie-heavy table (lattice points at equal distances, the same point
 in two stencil rows, records exactly at r2, rows longer than 32 records)
 and on tables ``grid_knn`` builds.
+
+K10.  The model is the warp's scan of a row: reads of 128 columns (a
+float4 a lane, W % 4 == 0) or 32 (one value a lane) in column order, each
+value through the fill test (< 0.98e30) and the strict reject v < k-th
+value taken before the read, the survivors merged into the list on
+(value, column), idx gathered at the k chosen columns at the end.  It must
+equal ``topk_smallest_ref`` bit for bit (tie-heavy rows, rows of fills,
+values at the fill limit, W % 4 != 0, k 1, 8, 16 and 32), and
+``pallas_topk.topk_smallest(interpret=True)`` on values its quantization
+leaves unchanged.
 """
 
 import ctypes
@@ -36,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from curvecloudnet_tpu.ops import pallas_edge
+from curvecloudnet_tpu.ops import pallas_edge, pallas_topk
 from curvecloudnet_tpu_torch.models.layers import MLP
 from curvecloudnet_tpu_torch.ops import _build
 from curvecloudnet_tpu_torch.ops import edge_mlp as E
@@ -377,6 +387,86 @@ def test_k5_model_matches_plain_on_grid_tables(cap, stencil, planes):
     got = k5_model(*args)
     want = grid_topk.grid_topk_records_ref(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def k10_model(d, idx, k):
+    """K10's arithmetic -> (values (Q, k), idx (Q, k))."""
+    q, w = d.shape
+    span = 128 if w % 4 == 0 else 32
+    inf = torch.tensor(float("inf"))
+    ld = torch.full((q, k), float("inf"))
+    lc = torch.full((q, k), -1, dtype=torch.long)
+    for c0 in range(0, w, span):
+        v = d[:, c0:c0 + span]
+        col = torch.arange(c0, c0 + v.shape[1]).expand(q, -1)
+        # strict reject against the k-th value before the read; fills out
+        acc = (v < ld[:, k - 1:]) & (v < grid_topk.INF * 0.98)
+        cd = torch.cat([ld, torch.where(acc, v, inf)], 1)
+        cc = torch.cat([lc, torch.where(acc, col, -1)], 1)
+        order = torch.argsort(cc, dim=1, stable=True)     # then by value
+        cd, cc = cd.gather(1, order), cc.gather(1, order)
+        order = torch.argsort(cd, dim=1, stable=True)[:, :k]
+        ld, lc = cd.gather(1, order), cc.gather(1, order)
+    found = lc >= 0
+    got_i = idx.gather(1, lc.clamp(min=0))
+    return (torch.where(found, ld, torch.full_like(ld, grid_topk.INF)),
+            torch.where(found, got_i, torch.full_like(got_i, -1)))
+
+
+def _k10_rows(w, seed, awkward=False):
+    """(d, idx) of 48 rows: multiples of 1/8 below 4 (many ties, values
+    the Pallas kernel's quantization keeps), 60% 1e30 fills, rows of fills
+    only, a row of one repeated value, a row whose k-th value repeats
+    across reads; with ``awkward`` also values at and above the fill limit
+    (0.97e30, 0.98e30, 0.99e30, inf) and negative ones."""
+    rng = np.random.default_rng(seed)
+    q = 48
+    d = (rng.integers(0, 32, (q, w)) / 8).astype(np.float32)
+    d[rng.random((q, w)) < 0.6] = 1e30
+    d[:3] = 1e30                                      # rows with nothing
+    d[3] = 0.5                                        # one value throughout
+    d[4] = 1e30
+    d[4, ::7] = 0.25                                  # ties past every read
+    if awkward:
+        spots = rng.random((q, w))
+        d[spots < 0.05] = np.float32(0.98e30)
+        d[(spots >= 0.05) & (spots < 0.08)] = np.float32(0.97e30)
+        d[(spots >= 0.08) & (spots < 0.1)] = np.inf
+        d[(spots >= 0.1) & (spots < 0.12)] = np.float32(0.99e30)
+        d[5] = -d[5].clip(max=4.0)
+    idx = rng.integers(0, 10000, (q, w)).astype(np.int32)
+    return torch.from_numpy(d), torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("w", [928, 301])
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+def test_k10_model_matches_plain_and_pallas(k, w):
+    d, idx = _k10_rows(w, seed=k + w)
+    got = k10_model(d, idx, k)
+    want = grid_topk.topk_smallest_ref(d, idx, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    jd, ji = pallas_topk.topk_smallest(jnp.asarray(d.numpy()),
+                                       jnp.asarray(idx.numpy()), k,
+                                       interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ji))
+    assert bool((want[1][:3] == -1).all())            # rows of fills
+    assert want[1][3].tolist() == idx[3, :k].tolist()  # lower columns first
+
+
+@pytest.mark.parametrize("w", [1856, 30, 5])
+@pytest.mark.parametrize("k", [1, 32])
+def test_k10_model_matches_plain_at_the_fill_limit(k, w):
+    """Values at and above the fill limit, inf and negatives; rows
+    narrower than a read and than k (``topk_smallest`` takes k <= W, the
+    model any k)."""
+    d, idx = _k10_rows(w, seed=3 * k + w, awkward=True)
+    k = min(k, w)
+    got = k10_model(d, idx, k)
+    want = grid_topk.topk_smallest_ref(d, idx, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool((want[0] >= np.float32(0.98e30)).logical_and(
+        want[1] >= 0).any())
 
 
 def _c_signatures():

@@ -55,15 +55,19 @@ def _accelerator_rule(dim, radius, n):
     return "xla"
 
 
-@pytest.fixture(scope="module")
-def kitti():
-    """Both narrow models with the same weights, the sweep, and the JAX
-    logits, computed under the lowered limits."""
-    mp = pytest.MonkeyPatch()
+def lower_limits(mp):
+    """Both packages' exact-table limit at TABLE_MAX_N, the JAX package's
+    dispatch on its accelerator rule (``mp``: a ``pytest.MonkeyPatch``)."""
     mp.setattr(jnbrs, "BRUTE_MAX_N", TABLE_MAX_N)
     mp.setattr(jnbrs, "TABLE_MAX_N", TABLE_MAX_N)
     mp.setattr(jnbrs, "_pick_backend", _accelerator_rule)
     mp.setattr(tnbrs, "TABLE_MAX_N", TABLE_MAX_N)
+
+
+def narrow_kitti(edge_kernel: str = "group"):
+    """Both narrow models with the same weights (the port's on the given
+    edge route), the sweep, and the JAX logits; call it under
+    :func:`lower_limits`."""
     cfg = load_config(os.path.join(REPO, "configs", "kitti.yaml"))
     mc = _shrink_feat_dims(cfg["model"], 8)
     n_out = predict.N_OUT["kitti"]
@@ -77,11 +81,19 @@ def kitti():
     variables = jax_init(jm, jc)
     want, jvalid = jax.jit(lambda v, c: jm.apply(v, c, train=False))(
         variables, jc)
-    tm = TNet(tspec, N_PAD, feat_channels=1)
+    tm = TNet(tspec, N_PAD, feat_channels=1, edge_kernel=edge_kernel)
     tm.load_state_dict(tckpt.from_jax_variables(
         variables["params"], variables["batch_stats"], jspec), strict=True)
-    yield (tspec, tm.eval(), tcloud(*to_torch(pos, cid, valid, x)),
-           np.asarray(want), np.asarray(jvalid))
+    return (tspec, tm.eval(), tcloud(*to_torch(pos, cid, valid, x)),
+            np.asarray(want), np.asarray(jvalid))
+
+
+@pytest.fixture(scope="module")
+def kitti():
+    """:func:`narrow_kitti` on the group route, under the lowered limits."""
+    mp = pytest.MonkeyPatch()
+    lower_limits(mp)
+    yield narrow_kitti()
     mp.undo()
 
 
