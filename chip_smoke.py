@@ -90,10 +90,30 @@ Phases (any failure raises and exits non-zero before the result line):
      phase 3); then KITTI scan 0 (n_pad 131072, grid rows included) on the
      fused route: launch counters set to 0, launches equal to the spec's,
      logits within 2e-3 of phase 10's group-route logits, each K9 call
-     held against its plain version at 1e-4 (the largest error printed).
+     held against its plain version at 1e-4 (the largest error printed);
+ 14. the A2D2 model (configs/audi.yaml, version 1.0: conv1d-fast-v1 in
+     plain torch, ball-grouped sa steps, slow-order sgcnn with attention)
+     at n_pad 36864, B=1, on 80-beam synthetic sweeps: a capture forward of
+     scan 0 holding every K2, K3, K4 and K6 call against its plain version
+     as phase 3 does (K3's ball queries, k = 128, with indices and
+     distances equal; a line per K3 call gives its device ms and the
+     ``cdist`` + ``topk`` time of the same search), launch counters set to
+     0 and scans 0-2 through ``predict`` with launches equal to the
+     spec-derived counts, a line per scan (wall ms, device-busy ms from
+     ``torch.profiler``, peak memory), then scan 0 through the plain
+     versions: logits within 2e-3;
+ 15. the same for the object configs (shapenet-seg and kortx-testsplit
+     with each sample's category, shapenet-class with one logit row per
+     sample) at n_pad 2048, B=24, object-scan batches 0-2; then
+     shapenet-seg on the fused edge route (K9 with the slow message order
+     folded in on its max sgcnn steps): launch counters set to 0, batch 0
+     with launches equal to the spec's, logits within 1e-5 of the group
+     route's, each K9 call held against its plain version at 1e-4.
 
-Prints per-phase lines, then a JSON line of the kernels, the card's name
-and power limit, and as the last line
+Prints per-phase lines, then a JSON line of the kernels (each with its
+launches on every path: nuScenes eval and train, KITTI, the fused routes,
+A2D2 and the object configs), the card's name and power limit, and as the
+last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -113,6 +133,13 @@ SCANS = 3
 TRAIN_STEPS = 5
 KITTI_CONFIG = os.path.join(REPO, "configs", "kitti.yaml")
 KITTI_N_PAD = 131072
+# phases 14-15: the version-1.0 configs (their n_pad: 36864 for A2D2, the
+# JAX entry's 2048 for the object configs; object batches of their
+# batch_size, 24), under their names in launches_by_path
+V1_CONFIGS = [("a2d2", "audi"), ("shapenet_seg", "shapenet-seg"),
+              ("kortx", "kortx-testsplit"), ("shapenet_class", "shapenet-class")]
+V1_SCANS = 3
+FUSED_V1_TOL = 1e-5   # shapenet-seg's fused route against its group route
 RECALL_FLOOR = 0.95  # tests/test_grid_recall.py's floor on curve-sampled rows
 LR = 5e-4
 LOGIT_TOL = 2e-3  # the full-model bar of the JAX package's parity tests
@@ -200,6 +227,8 @@ TRAIN_COUNTED = [("conv1d_train_fwd", "conv1d_train", "conv1d_train_fwd_layer"),
                  ("gather", "gather", "gather_km"),
                  ("scatter", "gather", "scatter_km"),
                  ("knn", "knn", "knn_search"), ("fps", "fps", "fps_picks")]
+# phases 14-15: no K1 (conv1d-fast-v1 is plain torch in both packages)
+V1_KERNELS = [k for k in EVAL_KERNELS if k[0] != "conv1d_chain"]
 # phase 13: K9 on the fused edge route
 EDGE_KERNELS = [
     ("edge_mlp", "edge_mlp", "fused_edge_mlp_max", "fused_edge_mlp_max_ref",
@@ -262,6 +291,8 @@ def compare(name, out, ref, tol):
         (i_k, d_k), (i_r, d_r) = out, ref
         err = float((d_k - d_r).abs().max())
         swap = (i_k != i_r) & (d_k != d_r)
+        if i_k.shape[-1] > 32:   # ball queries: indices equal, ties too
+            swap = i_k != i_r
         if err > tol or bool(swap.any()):
             raise AssertionError(f"knn: dist err {err}, "
                                  f"{int(swap.sum())} index mismatches")
@@ -689,38 +720,89 @@ def k2_sites(label, spec, calls, per_call):
         f"3xTF32 floor {sums['floor_ms']:.3f} ms")
 
 
+def device_ms(fn, reps=3):
+    """Device busy milliseconds of one ``fn()`` (``torch.profiler``: the
+    self device time of its CUDA-side entries, over ``reps`` runs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def cdist_topk(query, points, q_valid, p_valid, k, radius):
+    """The same search in PyTorch calls (no single call computes it):
+    ``torch.cdist``, the invalid points and those past the radius masked,
+    ``torch.topk`` of the k smallest."""
+    import torch
+
+    d = torch.cdist(query, points).masked_fill(~p_valid[:, None, :],
+                                               float("inf"))
+    if radius is not None:
+        d = d.masked_fill(d > radius, float("inf"))
+    return torch.topk(d, k, dim=-1, largest=False)
+
+
 def k3_calls(label, calls, per_call, knn):
-    """Phases 3, 6 and 9: one line per K3 call (a row's shared table, or
-    a query set against a row: the fp sweeps), with the share of
-    (query, tile) pairs the kernel visited (``knn.tile_visits``), and
-    their sums."""
+    """Phases 3, 6, 9 and 14-15: one line per K3 call (a row's shared
+    table, a query set against a row: the fp sweeps, or a ball query, k >
+    32), with the share of (query, tile) pairs the kernel visited
+    (``knn.tile_visits``), and their sums; a ball query's line also gives
+    its device ms and the ``cdist`` + ``topk`` time (:func:`cdist_topk`)."""
     sums = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
     seen = tested = 0
+    balls = dict.fromkeys(("n", "ms", "device_ms", "bound_ms", "lib_ms"), 0)
     for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
         query, points, q_valid, p_valid, k, radius = args
-        site = "row table" if query is points else "query set"
+        site = ("ball query" if k > 32 else "row table" if query is points
+                else "query set")
         v, n = knn.tile_visits(*args, **kwargs)
         seen, tested = seen + v, tested + n
         share = f"{v / max(n, 1):.4f} ({v} of {n})"
+        extra = ""
+        if k > 32:
+            dev_ms = device_ms(lambda: knn.knn_search(*args, **kwargs))
+            lib = cuda_ms(lambda: cdist_topk(*args))
+            filled = (knn.knn_search_ref(*args)[0] >= 0).sum(-1)[q_valid]
+            extra = (f", device {dev_ms:.3f} ms, cdist + topk {lib:.3f} ms, "
+                     f"ball sizes median {int(filled.median())}, "
+                     f"{float((filled == k).float().mean()):.3f} full")
+            for key, val in zip(balls, (1, t["ms"], dev_ms, t["bound_ms"],
+                                        lib)):
+                balls[key] += val
         log(f"K3 call {label} {i} {site}: B {query.shape[0]}, Q "
             f"{query.shape[1]}, N {points.shape[1]}, k {k}, radius {radius}, "
             f"valid queries {int(q_valid.sum())}, valid points "
             f"{int(p_valid.sum())}, kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, tiles "
-            f"visited {share}")
+            f"visited {share}{extra}")
         for key in sums:
             sums[key] += t[key]
     log(f"K3 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
         f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms, tiles "
         f"visited {seen / max(tested, 1):.4f}")
+    if balls["n"]:
+        log(f"K3 {label}, {balls['n']} ball queries (k > 32): kernel "
+            f"{balls['ms']:.3f} ms, device {balls['device_ms']:.3f} ms, bound "
+            f"{balls['bound_ms']:.4f} ms, cdist + topk {balls['lib_ms']:.3f} "
+            f"ms")
 
 
 def k6_calls(label, calls, per_call, fps):
-    """Phases 3, 6 and 9: one line per K6 call: the row, its valid count,
-    the picks, kernel and plain ms, us a pick, and the per-pick fixed cost:
-    the same kernel (the same launch shape, ``fps.launch_config``) on a
-    1024-point row of random points, all valid, with the same number of
-    picks up to 1024 (past them every later pick would repeat one point,
+    """Phases 3, 6, 9 and 14-15: one line per K6 call: the row, its valid
+    count, the picks, kernel and plain ms, us a pick, and the per-pick
+    fixed cost: the same kernel (the same launch shape,
+    ``fps.launch_config``) on a row of 1024 (or the call's row size, if
+    smaller) random points, all valid, with the same number of picks up
+    to that size (past them every later pick would repeat one point,
     which the kernel does without a round); the serial floor is that cost
     x the rounds the call needs: its picks up to the last valid point of
     its fullest row."""
@@ -731,11 +813,12 @@ def k6_calls(label, calls, per_call, fps):
     for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
         pos, valid, start, budget = args
         n = pos.shape[1]
+        m = min(n, 1024)
         g = torch.Generator(device=pos.device).manual_seed(i)
-        small = (torch.randn((pos.shape[0], 1024, 3), generator=g,
+        small = (torch.randn((pos.shape[0], m, 3), generator=g,
                              device=pos.device),
-                 torch.ones_like(valid[:, :1024]), torch.zeros_like(start))
-        few = min(budget, 1024)
+                 torch.ones_like(valid[:, :m]), torch.zeros_like(start))
+        few = min(budget, m)
         cfg = fps.launch_config(n)
         shape = f"{cfg[0]} threads, {cfg[1]} points a thread"
         fixed = cuda_ms(lambda: fps.fps_picks_config(*small, few, cfg))
@@ -747,7 +830,7 @@ def k6_calls(label, calls, per_call, fps):
             f"{t['bound_ms']:.4f} ms, "
             f"{t['ms'] * 1e3 / budget:.3f} us a pick, fixed cost "
             f"{fixed * 1e3 / few:.3f} us a pick ({few} picks of a "
-            f"1024-point row: {fixed:.3f} ms), serial floor {floor:.3f} ms "
+            f"{m}-point row: {fixed:.3f} ms), serial floor {floor:.3f} ms "
             f"({rounds} rounds)")
         for key in ("ms", "plain_ms", "bound_ms"):
             sums[key] += t[key]
@@ -1157,6 +1240,110 @@ def run_kitti_fused(P, mods, dev, kernel_launches, scan0, group_logits,
     return launched, worst
 
 
+def run_v1(P, mods, dev, kernel_launches, label, config):
+    """Phase 14 (A2D2) or 15 (an object config) on the group route ->
+    (report rows, launches of its scans, (scan 0's inputs, logits, valid))."""
+    import torch
+
+    n_pad = P.n_pad_of(config)
+    model = P.build_model(config, n_pad, dev)
+    inputs0 = P.synthetic_inputs(config, 0, n_pad, dev)
+    calls, _ = capture(V1_KERNELS, mods, lambda: P.predict(model, *inputs0))
+    per_call = {}
+    report = measure(V1_KERNELS, mods, calls, train=False, per_call=per_call)
+    k2_sites(label, model.spec, calls["group_reduce"],
+             per_call["group_reduce"])
+    k3_calls(label, calls["knn"], per_call["knn"], mods["knn"])
+    k6_calls(label, calls["fps"], per_call["fps"], mods["fps"])
+    del calls
+
+    # scans through predict, launches counted; then each scan's device
+    # busy time under the profiler (its launches not counted)
+    want = kernel_launches(model.spec, n_pad)
+    for name, mod, wrapper, *_ in EVAL_KERNELS:
+        getattr(mods[mod], wrapper).launches = 0
+    scans, walls, peaks = [], [], []
+    for seed in range(V1_SCANS):
+        inputs = (inputs0 if seed == 0 else
+                  P.synthetic_inputs(config, seed, n_pad, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, valid, _ = P.predict(model, *inputs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        rows = 1 if P.dataset_of(config) == "shapenet-class" else n_pad
+        if logits.shape != (inputs[0].shape[0], rows, model.spec.n_out) or \
+                not bool(torch.isfinite(logits[valid]).all()):
+            raise AssertionError(f"{label} scan {seed}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        if seed == 0:
+            logits0, valid0 = logits, valid
+        scans.append(inputs)
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in EVAL_KERNELS}
+    log(f"{label} launches:", launched, "spec per scan:", want)
+    for name, got in launched.items():
+        if got != V1_SCANS * want.get(name, 0):
+            raise AssertionError(f"{name}: {got} {label} launches, want "
+                                 f"{V1_SCANS} x {want.get(name, 0)}")
+    for seed, inputs in enumerate(scans):
+        busy = device_ms(lambda: P.predict(model, *inputs), reps=1)
+        log(f"{label} scan {seed}: B {inputs[0].shape[0]}, n_pad {n_pad}, "
+            f"{int(inputs[3].sum())} valid points, {walls[seed]:.1f} ms "
+            f"wall, {busy:.2f} ms device busy, peak memory "
+            f"{peaks[seed]:.2f} GiB")
+    del scans
+
+    # scan 0 through the plain versions
+    with contextlib.ExitStack() as stack:
+        for name, mod, wrapper, ref_name, *_ in EVAL_KERNELS:
+            m = mods[mod]
+            stack.enter_context(replaced(m, wrapper, getattr(m, ref_name)))
+        plain = P.predict(model, *inputs0)[0]
+    err = float((logits0 - plain)[valid0].abs().max())
+    log(f"{label} logits kernel path vs plain path on the card: max abs err "
+        f"{err:.3g}")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"{label} logits differ from the plain path by "
+                             f"{err}")
+    return report, launched, (inputs0, logits0, valid0)
+
+
+def run_v1_fused(P, mods, dev, kernel_launches, label, config, scan0,
+                 group_logits, valid0):
+    """Phase 15, the fused route of an object config -> (launches of its
+    batch, K9's report row)."""
+    import torch
+
+    n_pad = P.n_pad_of(config)
+    model = P.build_model(config, n_pad, dev, edge_kernel="fused")
+    want = kernel_launches(model.spec, n_pad, edge_kernel="fused")
+    kernels = EVAL_KERNELS + EDGE_KERNELS
+    for name, mod, wrapper, *_ in kernels:
+        getattr(mods[mod], wrapper).launches = 0
+    logits, valid, _ = P.predict(model, *scan0)
+    torch.cuda.synchronize()
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in kernels}
+    log(f"{label} fused edge route launches:", launched, "spec:", want)
+    for name, got in launched.items():
+        if got != want.get(name, 0):
+            raise AssertionError(f"{name}: {got} launches on the {label} "
+                                 f"fused route, want {want.get(name, 0)}")
+    err = _err(f"{label} fused-route logits", logits[valid0],
+               group_logits[valid0], FUSED_V1_TOL)
+    log(f"{label} fused edge route, {want['edge_mlp']} steps on K9 (the slow "
+        f"order folded into W_0): logits vs the group route max abs err "
+        f"{err:.3g} (tolerance {FUSED_V1_TOL:g} of max(1, |group|))")
+    if not torch.equal(valid, valid0):
+        raise AssertionError(f"{label} fused route: valid rows differ")
+    calls, _ = capture(EDGE_KERNELS, mods, lambda: P.predict(model, *scan0))
+    report = measure(EDGE_KERNELS, mods, calls, train=False)
+    return launched, report["edge_mlp"]
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -1168,6 +1355,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     from curvecloudnet_tpu_torch import predict as P
     from curvecloudnet_tpu_torch.models import kernel_launches
@@ -1406,6 +1594,19 @@ def main():
     fused_report["edge_mlp"]["max_abs_err"] = max(
         fused_report["edge_mlp"]["max_abs_err"], kitti_k9_err)
 
+    # 14-15. the version-1.0 configs
+    v1_reports, v1_launched = [], {}
+    for label, name in V1_CONFIGS:
+        config = os.path.join(REPO, "configs", f"{name}.yaml")
+        rep_, v1_launched[label], scan = run_v1(P, mods, dev,
+                                                kernel_launches, label,
+                                                config)
+        v1_reports.append(rep_)
+        if label == "shapenet_seg":
+            v1_launched[label + "_fused"], k9_row = run_v1_fused(
+                P, mods, dev, kernel_launches, label, config, *scan)
+            v1_reports.append({"edge_mlp": k9_row})
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -1426,14 +1627,20 @@ def main():
     report.update(fused_report)  # K9
     report["group_reduce"]["max_abs_err"] = max(
         report["group_reduce"]["max_abs_err"], fused_k2_err)
+    for rows in v1_reports:      # the nuScenes capture's times; worst error
+        for name, row in rows.items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              row["max_abs_err"])
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0),
                    "eval_fused": fused_launched.get(name, 0)}
-        for path, counts in kitti_launched.items():
+        for path, counts in list(kitti_launched.items()) + list(
+                v1_launched.items()):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

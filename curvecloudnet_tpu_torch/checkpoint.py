@@ -13,11 +13,14 @@ gradient tree (the params' structure) to the port's parameter names:
   step_{i}_{name}/nn, attend_nn   -> steps.{i}.conv.local_nn / conv.attend_nn
                                      (sa, sa-geo)
   step_{i}_{name}/nn, attend_nn   -> steps.{i}.nn / steps.{i}.attend_nn
+                                     (sgcnn, fp, fp-geo, skip-connect,
+                                     sa-global)
   step_{i}_{name}/mlp             -> steps.{i}.mlp                (mlp step)
   step_{i}_{name}/conv_j/kernel ((h+1)*I, O) -> steps.{i}.conv_modules.j.weight
                                                 (O, I, h+1)
   step_{i}_{name}/norm_j          -> steps.{i}.norm_modules.j
   mlp                             -> mlp                          (head)
+  lin_categorical                 -> lin_categorical   (category embedding)
   MLP lin_N/kernel (I, O)  -> lins.N.weight (O, I);  lin_N/bias -> lins.N.bias
   norm_N scale, bias       -> norms.N.weight, norms.N.bias
   batch_stats norm_N mean, var -> norms.N.running_mean, norms.N.running_var
@@ -83,8 +86,9 @@ def from_jax_variables(params, batch_stats, spec) -> Dict[str, torch.Tensor]:
         prefixes = _step_prefixes(i, step.name)
         for mlp_name, sub in p.items():
             _mlp(out, prefixes[mlp_name], sub, s.get(mlp_name, {}))
-    if "mlp" in params:
-        _mlp(out, "mlp", params["mlp"], batch_stats.get("mlp", {}))
+    for head in ("mlp", "lin_categorical"):
+        if head in params:
+            _mlp(out, head, params[head], batch_stats.get(head, {}))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
 

@@ -39,6 +39,16 @@
 // nearest intrinsics in the order (dx*dx + dy*dy) + dz*dz, with no FMA
 // contraction, and the field is updated with fminf, so picks equal the
 // plain PyTorch version's bit for bit.
+//
+// Rows past ~19300 points (the A2D2 model's 23040-point fps row) do not
+// fit shared memory at 12 B a point.  The build of 48 points a thread
+// (BIG, 512 threads: 128 registers a thread, so the field and the
+// positions of a thread's first 12 points fit them without spilling; 96
+// points on 256 threads spilled and took 9.4 us a pick) keeps in shared
+// memory only the points past a thread's first 12, staged in two passes,
+// and takes the winner's coordinates from a per-warp slot that the warp's
+// winning lane fills beside its (key, ~rank) slot, instead of reading
+// them by rank.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +56,14 @@
 // points a thread whose positions sit in registers where P > 32 (the
 // field of all P takes registers too: 32 would spill at P = 76)
 #define REG_POINTS 24
+// the same for the 48-point build on 512 threads (BIG)
+#define BIG_REG_POINTS 12
+#define BIG_P 48
+
+// the most threads a CTA of the build for P points takes
+__host__ __device__ constexpr int max_threads(int P) {
+  return P == BIG_P ? 512 : (P > 16 ? 256 : (P > 8 ? 512 : 1024));
+}
 
 // A field value as an unsigned key that orders like the value for the
 // argmax: every negative value (-1e30 of an invalid point, -inf of a slot
@@ -91,20 +109,25 @@ __device__ __forceinline__ void sts_u64(unsigned a, unsigned long long v) {
 
 // 16 points a thread take ~90 registers (at most 512 threads), more up to
 // ~190 (at most 256)
-template <int P>
-__global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
+template <int P, bool BIG>
+__global__ void __launch_bounds__(max_threads(P))
     fps_kernel(const float* __restrict__ pos,
                const unsigned char* __restrict__ valid,
                const int* __restrict__ start, int* __restrict__ out, int N,
                int budget) {
-  constexpr int PR = P <= 32 ? P : REG_POINTS;
+  constexpr int PR = BIG ? BIG_REG_POINTS : (P <= 32 ? P : REG_POINTS);
   const int T = blockDim.x, NW = T >> 5;
+  // BIG: ranks from R0 on sit in shared memory (at index rank - R0)
+  const int R0 = BIG ? PR * T : 0;
+  const int NS = BIG ? max(R0, N - R0) : N;
   extern __shared__ uint4 smem[];
-  // [2][32] per-warp slots, then x, y and z of the N (at most) valid points
+  // [2][32] per-warp slots, BIG: [2][32] winner coordinates, then x, y and
+  // z of NS points
   unsigned long long* S = reinterpret_cast<unsigned long long*>(smem);
-  float* sx = reinterpret_cast<float*>(smem + 32);
-  float* sy = sx + N;
-  float* sz = sy + N;
+  float4* SC = reinterpret_cast<float4*>(smem + 32);
+  float* sx = reinterpret_cast<float*>(smem + 32 + (BIG ? 64 : 0));
+  float* sy = sx + NS;
+  float* sz = sy + NS;
   __shared__ unsigned warp_cnt[32];
 
   const int b = blockIdx.x;
@@ -139,11 +162,15 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
     for (int i = tid; i < budget; i += T) ob[i] = i == 0 ? start[b] : 0;
     return;
   }
+  // the valid points' positions by rank (BIG: those below R0 first, to
+  // load the registers from; those from R0 on after)
   for (int j = j0, r = (int)before; j < j1; ++j) {
     if (!vb[j]) continue;
-    sx[r] = pb[3 * j];
-    sy[r] = pb[3 * j + 1];
-    sz[r] = pb[3 * j + 2];
+    if (!BIG || r < R0) {
+      sx[r] = pb[3 * j];
+      sy[r] = pb[3 * j + 1];
+      sz[r] = pb[3 * j + 2];
+    }
     ++r;
   }
   // every slot, those of warps past NW too (a pair is read at a time)
@@ -165,6 +192,19 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
     }
     f[p] = real ? 1e30f : -__int_as_float(0x7f800000);
   }
+  if (BIG) {
+    __syncthreads();
+    for (int j = j0, r = (int)before; j < j1; ++j) {
+      if (!vb[j]) continue;
+      if (r >= R0) {
+        sx[r - R0] = pb[3 * j];
+        sy[r - R0] = pb[3 * j + 1];
+        sz[r - R0] = pb[3 * j + 2];
+      }
+      ++r;
+    }
+    __syncthreads();
+  }
   int last = start[b];    // an index; every later pick a rank
   float lx = pb[3 * last], ly = pb[3 * last + 1], lz = pb[3 * last + 2];
   const unsigned a_slots = smem_at(S), a_x = smem_at(sx), a_y = smem_at(sy),
@@ -183,7 +223,7 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
     for (int p = 0; p < P; ++p) {
       if (p >= pu) break;
       // (a thread past the last point reads the last: its field is -inf)
-      const int l = min(tid + p * T, (int)V - 1);
+      const int l = min(tid + p * T, (int)V - 1) - R0;
       const float px = p < PR ? x[p < PR ? p : 0] : sx[l];
       const float py = p < PR ? y[p < PR ? p : 0] : sy[l];
       const float pz = p < PR ? z[p < PR ? p : 0] : sz[l];
@@ -199,13 +239,33 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
       }
     }
     unsigned key = field_key(bv);
-    unsigned g = bp >= 0 ? (unsigned)(tid + bp * T) : NO_INDEX;
+    const unsigned own = bp >= 0 ? (unsigned)(tid + bp * T) : NO_INDEX;
+    unsigned g = own;
     // the warp's (key, ~rank) into its slot: the largest of the slots is
     // the largest key at the lowest rank (the lowest index)
     warp_argmax(key, g);
     const unsigned slots = a_slots + (i & 1) * 256;
     if (lane == 0)
       sts_u64(slots + 8 * warp, ((unsigned long long)key << 32) | ~g);
+    if (BIG && own == g && g != NO_INDEX) {
+      // the warp's winning lane: its point's coordinates into the warp's
+      // slot of this parity
+      float wx = 0.f, wy = 0.f, wz = 0.f;
+      if (bp < PR) {
+#pragma unroll
+        for (int p = 0; p < PR; ++p)
+          if (p == bp) {
+            wx = x[p];
+            wy = y[p];
+            wz = z[p];
+          }
+      } else {
+        wx = sx[g - R0];
+        wy = sy[g - R0];
+        wz = sz[g - R0];
+      }
+      SC[(i & 1) * 32 + warp] = make_float4(wx, wy, wz, 0.f);
+    }
     __syncthreads();
     unsigned long long w = 0ull;
     for (int s = 0; s < NW; s += 2) {
@@ -213,9 +273,16 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
       w = max(w, max(v.x, v.y));
     }
     const unsigned wg = ~(unsigned)w, wk = (unsigned)(w >> 32);
-    lx = lds_f32(a_x + 4 * wg);
-    ly = lds_f32(a_y + 4 * wg);
-    lz = lds_f32(a_z + 4 * wg);
+    if (BIG) {
+      const float4 c = SC[(i & 1) * 32 + ((wg % T) >> 5)];
+      lx = c.x;
+      ly = c.y;
+      lz = c.z;
+    } else {
+      lx = lds_f32(a_x + 4 * wg);
+      ly = lds_f32(a_y + 4 * wg);
+      lz = lds_f32(a_z + 4 * wg);
+    }
     last = (int)wg;
     // the largest field is 0: every valid point is picked, the field no
     // longer changes, and every later pick is `last`
@@ -234,30 +301,38 @@ __global__ void __launch_bounds__(P > 16 ? 256 : (P > 8 ? 512 : 1024))
   for (int i = 1 + tid; i < budget; i += T) ob[i] = index[__ldcg(ob + i)];
 }
 
-template <int P>
+template <int P, bool BIG = false>
 static int launch(const float* pos, const unsigned char* valid,
                   const int* start, int* out, int B, int N, int budget, int T,
                   cudaStream_t st) {
-  // slots, then x, y and z of N points
-  const size_t smem = 32 * sizeof(uint4) + (size_t)N * 12;
+  // slots, then x, y and z of N points; BIG: slots, the winner
+  // coordinates, then x, y and z of the points from rank 12 T on (or of
+  // the first 12 T while they are staged), at least the N-entry index table
+  const int r0 = BIG_REG_POINTS * T;
+  const size_t smem =
+      BIG ? 96 * sizeof(uint4) +
+                max((size_t)max(r0, N - r0) * 12, (size_t)N * 4)
+          : 32 * sizeof(uint4) + (size_t)N * 12;
   cudaError_t e = cudaFuncSetAttribute(
-      fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fps_kernel<P, BIG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fps_kernel<P><<<B, T, smem, st>>>(pos, valid, start, out, N, budget);
+  fps_kernel<P, BIG><<<B, T, smem, st>>>(pos, valid, start, out, N, budget);
   return (int)cudaGetLastError();
 }
 
 // pos (B, N, 3) f32; valid (B, N) bool; start (B,) int32; out (B, budget)
 // int32 pick order.  A row runs on one CTA of T threads (a multiple of 32;
-// at most 1024, 512 for P > 8, 256 for P > 16), P points a thread (1, 2,
-// 4, 8, 12, 16, 24, 32 or 76) with P * T >= N, 12 B of shared memory a
-// point beside 512 B of slots.
+// at most 1024, 512 for P > 8, 256 for P > 16, 512 for P = 48), P points a
+// thread (1, 2, 4, 8, 12, 16, 24, 32, 76 or 48) with P * T >= N, 12 B of
+// shared memory a point beside 512 B of slots (P = 48: 12 B a point past
+// the first 12 T, beside 1.5 KB of slots).
 extern "C" int ccn_fps(const float* pos, const unsigned char* valid,
                        const int* start, int* out, int B, int N, int budget,
                        int T, int P, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N < 1 || budget < 1 || B < 1 || T < 32 ||
-      T > (P > 16 ? 256 : (P > 8 ? 512 : 1024)) || T % 32 ||
+      T > max_threads(P) || T % 32 ||
       (long long)P * T < N)
     return (int)cudaErrorInvalidValue;
   switch (P) {
@@ -270,6 +345,9 @@ extern "C" int ccn_fps(const float* pos, const unsigned char* valid,
     case 24: return launch<24>(pos, valid, start, out, B, N, budget, T, st);
     case 32: return launch<32>(pos, valid, start, out, B, N, budget, T, st);
     case 76: return launch<76>(pos, valid, start, out, B, N, budget, T, st);
+    case BIG_P:
+      return launch<BIG_P, true>(pos, valid, start, out, B, N, budget, T,
+                                 st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

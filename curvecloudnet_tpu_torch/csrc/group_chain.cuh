@@ -28,7 +28,9 @@
 #define GR_MAX_LAYERS 8
 #define GR_THREADS 256
 #define GR_WARPS (GR_THREADS / 32)
-#define GR_QBITS 6  // a row-list entry: query << 6 | plane
+// a row-list entry: query << 7 | plane, so K <= 128 (the ball queries of
+// the version-1.0 sa steps) and at most 511 queries a block
+#define GR_QBITS 7
 
 struct GroupMeta {
   int n_local, n_attend;

@@ -1,4 +1,4 @@
-// K3: exact masked kNN, k <= 32, optional radius, that skips the point
+// K3: exact masked kNN, k <= 128, optional radius, that skips the point
 // tiles a bounding box proves too far.
 //
 // Replaces curvecloudnet_tpu/ops/pallas_knn.py knn_pallas_single (the
@@ -22,7 +22,11 @@
 // valid points (an empty tile: lo = +inf, hi = -inf, never visited), and the
 // box of each super-tile of 32 tiles.  The search runs one warp a query.
 // The list is spread over the warp, lane s holding the s-th entry (d2,
-// index) (warp_list.cuh, which K5 shares).  Each lane holds the box d2 of
+// index) (warp_list.cuh, which K5 shares); for k > 32 (the ball queries of
+// the version-1.0 models' sa steps, k = 128) a lane holds R = 2 or 4
+// entries, slot 32 r + lane in its register r (ListR<R>), and nothing else
+// changes, k <= 32 keeping the one-register list.  Each lane holds the box
+// d2 of
 // super-tiles lane, lane + 32, ...; the warp visits the nearest super-tile
 // left whose box d2 is within min(k-th best, r2), and in it, the nearest
 // tile left within the same test, each found by two redux.sync; so the first
@@ -64,6 +68,50 @@
 
 #define KNN_TILE 32
 #define KNN_WARPS 8
+
+// The R = 1 list (warp_list.cuh's List, as K5 and K10 use it) and the
+// R-register one behind one interface: entry s on every lane, the k-th
+// distance alone (the search's threshold), and the lane's own slot of
+// register r.
+__device__ __forceinline__ void list_init(List& l) {
+  l.d = CUDART_INF_F;
+  l.i = -1;
+}
+__device__ __forceinline__ void entry_at(const List& l, int s, float& d,
+                                         int& i) {
+  d = __shfl_sync(0xffffffffu, l.d, s);
+  i = __shfl_sync(0xffffffffu, l.i, s);
+}
+__device__ __forceinline__ float kth_d(const List& l, int k) {
+  return __shfl_sync(0xffffffffu, l.d, k - 1);
+}
+template <int R>
+__device__ __forceinline__ float kth_d(const ListR<R>& l, int k) {
+  float d = l.d[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r)
+    if (r == ((k - 1) >> 5)) d = l.d[r];
+  return __shfl_sync(0xffffffffu, d, (k - 1) & 31);
+}
+__device__ __forceinline__ void own_slot(const List& l, int, float& d,
+                                         int& i) {
+  d = l.d;
+  i = l.i;
+}
+template <int R>
+__device__ __forceinline__ void own_slot(const ListR<R>& l, int r, float& d,
+                                         int& i) {
+  d = l.d[r];
+  i = l.i[r];
+}
+template <class L>
+struct ListRegs {
+  static constexpr int value = 1;
+};
+template <int R>
+struct ListRegs<ListR<R>> {
+  static constexpr int value = R;
+};
 
 // warp-wide min of lo and max of hi, every lane gets them
 __device__ __forceinline__ void box_reduce(float4& lo, float4& hi) {
@@ -189,15 +237,17 @@ __device__ __forceinline__ float box_d2(float4 lo, float4 hi, float qx,
 }
 
 // tile t's 32 points, one a lane, into the list
-__device__ __forceinline__ void visit(List& l, const float4* pk, int t,
+template <class L>
+__device__ __forceinline__ void visit(L& l, const float4* pk, int t,
                                       int lane, int k, float qx, float qy,
                                       float qz, float r2) {
   const float4 c = pk[t * KNN_TILE + lane];
   const float d2 =
       norm2(__fsub_rn(qx, c.x), __fsub_rn(qy, c.y), __fsub_rn(qz, c.z));
   const int ci = t * KNN_TILE + lane;
-  const float kd = __shfl_sync(0xffffffffu, l.d, k - 1);
-  const int ki = __shfl_sync(0xffffffffu, l.i, k - 1);
+  float kd;
+  int ki;
+  entry_at(l, k - 1, kd, ki);
   const bool acc = c.w != 0.f && d2 <= r2 && before(d2, ci, kd, ki);
   unsigned mask = __ballot_sync(0xffffffffu, acc);
   if (__popc(mask) > 4) {
@@ -226,7 +276,7 @@ __device__ __forceinline__ unsigned near_key(float d2, float thr) {
   return d2 <= thr && d2 < CUDART_INF_F ? __float_as_uint(d2) : NONE;
 }
 
-template <int SR>
+template <int SR, class L>
 __global__ void __launch_bounds__(KNN_WARPS * 32)
     knn_kernel(const float* __restrict__ query,
                const unsigned char* __restrict__ q_valid,
@@ -241,7 +291,8 @@ __global__ void __launch_bounds__(KNN_WARPS * 32)
   const int q = blockIdx.x * KNN_WARPS + (threadIdx.x >> 5);
   if (q >= Q || (brute && brute_row(supers, NS, b, lane))) return;
   const bool active = q_valid[(size_t)b * Q + q] != 0;
-  List l = {CUDART_INF_F, -1};
+  L l;
+  list_init(l);
   unsigned n_visited = 0;
   if (active) {
     const float* qq = query + ((size_t)b * Q + q) * 3;
@@ -259,7 +310,7 @@ __global__ void __launch_bounds__(KNN_WARPS * 32)
     }
     for (;;) {
       // the nearest super-tile not yet visited within the threshold
-      float thr = fminf(__shfl_sync(0xffffffffu, l.d, k - 1), r2);
+      float thr = fminf(kth_d(l, k), r2);
       unsigned key = NONE, at = NONE;
 #pragma unroll
       for (int r = 0; r < SR; ++r) {
@@ -279,7 +330,7 @@ __global__ void __launch_bounds__(KNN_WARPS * 32)
       float td = CUDART_INF_F;
       if (t < NT) td = box_d2(bx[2 * t], bx[2 * t + 1], qx, qy, qz);
       for (;;) {
-        thr = fminf(__shfl_sync(0xffffffffu, l.d, k - 1), r2);
+        thr = fminf(kth_d(l, k), r2);
         const unsigned src = argmin(near_key(td, thr), lane);
         if (src == NONE) break;
         if (lane == (int)src) td = CUDART_INF_F;
@@ -292,11 +343,17 @@ __global__ void __launch_bounds__(KNN_WARPS * 32)
     atomicAdd(visits, (unsigned long long)n_visited);
     atomicAdd(visits + 1, (unsigned long long)NT);
   }
-  if (lane < k) {
-    const size_t o = ((size_t)b * Q + q) * k + lane;
-    const bool good = active && l.i >= 0;
-    out_idx[o] = good ? l.i : -1;
-    out_dist[o] = good ? sqrtf(l.d) : 1e30f;
+#pragma unroll
+  for (int r = 0; r < ListRegs<L>::value; ++r) {
+    const int s = r * 32 + lane;
+    if (s >= k) break;
+    float d;
+    int i;
+    own_slot(l, r, d, i);
+    const size_t o = ((size_t)b * Q + q) * k + s;
+    const bool good = active && i >= 0;
+    out_idx[o] = good ? i : -1;
+    out_dist[o] = good ? sqrtf(d) : 1e30f;
   }
 }
 
@@ -438,16 +495,35 @@ __global__ void __launch_bounds__(KNN_BRUTE_THREADS)
   }
 }
 
-template <int SR>
+template <int SR, class L>
 static void launch(const float* q, const unsigned char* qv,
                    const float4* packed, const float4* boxes,
                    const float4* supers, int B, int Q, int NT, int NS, int k,
                    float r2, int brute, int* idx, float* dist,
                    unsigned long long* visits, cudaStream_t st) {
   dim3 grid((Q + KNN_WARPS - 1) / KNN_WARPS, B);
-  knn_kernel<SR><<<grid, 32 * KNN_WARPS, 0, st>>>(
+  knn_kernel<SR, L><<<grid, 32 * KNN_WARPS, 0, st>>>(
       q, qv, packed, boxes, supers, Q, NT, NS, k, r2, brute, idx, dist,
       visits);
+}
+
+// the search with the list of k: one register a lane up to k = 32, two up
+// to 64, four up to 128
+template <int SR>
+static void launch_k(const float* q, const unsigned char* qv,
+                     const float4* packed, const float4* boxes,
+                     const float4* supers, int B, int Q, int NT, int NS,
+                     int k, float r2, int brute, int* idx, float* dist,
+                     unsigned long long* visits, cudaStream_t st) {
+  if (k <= 32)
+    launch<SR, List>(q, qv, packed, boxes, supers, B, Q, NT, NS, k, r2,
+                     brute, idx, dist, visits, st);
+  else if (k <= 64)
+    launch<SR, ListR<2>>(q, qv, packed, boxes, supers, B, Q, NT, NS, k, r2,
+                         brute, idx, dist, visits, st);
+  else
+    launch<SR, ListR<4>>(q, qv, packed, boxes, supers, B, Q, NT, NS, k, r2,
+                         brute, idx, dist, visits, st);
 }
 
 template <int MAXK, int QT>
@@ -478,7 +554,7 @@ extern "C" int ccn_knn(const float* query, const float* points,
   cudaStream_t st = (cudaStream_t)stream;
   const int NT = (N + KNN_TILE - 1) / KNN_TILE;
   const int NS = (NT + 31) / 32;
-  if (k < 1 || k > 32 || Q < 1 || N < 1 || B < 1 || NS > 256 ||
+  if (k < 1 || k > 128 || Q < 1 || N < 1 || B < 1 || NS > 256 ||
       (brute && k > 8))
     return (int)cudaErrorInvalidValue;
   float4* pk = (float4*)packed;
@@ -489,17 +565,17 @@ extern "C" int ccn_knn(const float* query, const float* points,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (NS <= 32)
-    launch<1>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute, idx,
-              dist, visits, st);
+    launch_k<1>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute,
+                idx, dist, visits, st);
   else if (NS <= 64)
-    launch<2>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute, idx,
-              dist, visits, st);
+    launch_k<2>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute,
+                idx, dist, visits, st);
   else if (NS <= 128)
-    launch<4>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute, idx,
-              dist, visits, st);
+    launch_k<4>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute,
+                idx, dist, visits, st);
   else
-    launch<8>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute, idx,
-              dist, visits, st);
+    launch_k<8>(query, q_valid, pk, bx, sp, B, Q, NT, NS, k, r2, brute,
+                idx, dist, visits, st);
   e = cudaGetLastError();
   if (e != cudaSuccess || !brute) return (int)e;
   if (k <= 4)

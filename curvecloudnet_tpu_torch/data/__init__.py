@@ -1,5 +1,5 @@
-"""Input data of the port: synthetic lidar sweeps."""
+"""Input data of the port: synthetic lidar sweeps and object scans."""
 
-from .synthetic import lidar_batch, lidar_sweep
+from .synthetic import lidar_batch, lidar_sweep, object_batch, object_scan
 
-__all__ = ["lidar_batch", "lidar_sweep"]
+__all__ = ["lidar_batch", "lidar_sweep", "object_batch", "object_scan"]

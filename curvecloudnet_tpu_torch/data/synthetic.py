@@ -1,6 +1,8 @@
-"""Synthetic rotating-lidar sweeps, the inputs of the serving slice.
+"""Synthetic rotating-lidar sweeps and object scans, the inputs of the
+serving slices.
 
-Counterpart of ``synthetic_lidar_sweep`` / ``synthetic_lidar_batch`` in
+Counterpart of ``synthetic_lidar_sweep`` / ``synthetic_lidar_batch`` and
+``synthetic_object_scan`` / ``synthetic_object_batch`` in
 ``curvecloudnet_tpu/data/synthetic.py``: the same numpy draws in the same
 order, so one seed gives both packages the same scan, value for value.
 Each beam of the sensor is one curve, its points in azimuth order; a ground
@@ -81,3 +83,66 @@ def lidar_batch(rng: np.random.Generator, batch: int, n_pad: int,
         pos[i, :m], feat[i, :m], curve_id[i, :m], labels[i, :m] = p, f, c, y
         valid[i, :m] = True
     return pos, feat, curve_id, valid, labels
+
+
+OBJECT_SHAPES = ("sphere", "cylinder", "box")
+
+
+def object_scan(rng: np.random.Generator, n_points: int, n_lines: int = 24,
+                n_parts: int = 4, shape: str | None = None):
+    """One scanned object, the counterpart of ``synthetic_object_scan``:
+    parallel scan lines (one curve each) over a half sphere, a half
+    cylinder or a box's front face and top, centred and scaled into the
+    unit sphere as the object datasets are.  -> (pos (N, 3) f32, curve_id
+    (N,) i32, part labels (N,) i32 by height, category: the shape's index
+    in ``OBJECT_SHAPES``), N = n_lines * (n_points // n_lines)."""
+    if shape is None:
+        shape = OBJECT_SHAPES[int(rng.integers(len(OBJECT_SHAPES)))]
+    category = OBJECT_SHAPES.index(shape)
+    per_line = n_points // n_lines
+    pos, curve_id, labels = [], [], []
+    for li, v in enumerate(np.linspace(-0.9, 0.9, n_lines)):
+        t = np.linspace(0, 1, per_line) + rng.normal(0, 0.002, per_line)
+        if shape == "sphere":
+            phi = np.arccos(np.clip(v, -1, 1))
+            theta = t * np.pi            # the visible half
+            p = np.stack([np.sin(phi) * np.cos(theta),
+                          np.sin(phi) * np.sin(theta),
+                          np.full_like(theta, np.cos(phi))], -1)
+        elif shape == "cylinder":
+            theta = t * np.pi
+            p = np.stack([np.cos(theta), np.sin(theta),
+                          np.full_like(theta, v)], -1)
+        else:                            # box front face + top
+            x = t * 2 - 1
+            p = np.stack([x, np.full_like(x, 0.5 * np.sign(v)),
+                          np.full_like(x, v)], -1)
+        pos.append(p)
+        curve_id.append(np.full(per_line, li, np.int32))
+        labels.append(np.digitize(p[:, 2],
+                                  np.linspace(-1, 1, n_parts + 1)[1:-1]))
+    pos = np.concatenate(pos).astype(np.float32)
+    pos = pos - pos.mean(0, keepdims=True)
+    pos = pos / max(np.linalg.norm(pos, axis=1).max(), 1e-6)
+    pos += rng.normal(0, 0.005, pos.shape).astype(np.float32)
+    return (pos.astype(np.float32), np.concatenate(curve_id),
+            np.concatenate(labels).astype(np.int32), category)
+
+
+def object_batch(rng: np.random.Generator, batch: int, n_pad: int,
+                 n_parts: int = 4):
+    """``batch`` object scans padded to ``n_pad`` rows, the counterpart of
+    ``synthetic_object_batch`` -> (pos, curve_id, valid, part labels,
+    categories (B,) i32)."""
+    pos = np.zeros((batch, n_pad, 3), np.float32)
+    curve_id = np.zeros((batch, n_pad), np.int32)
+    valid = np.zeros((batch, n_pad), bool)
+    part_labels = np.zeros((batch, n_pad), np.int32)
+    categories = np.zeros((batch,), np.int32)
+    for i in range(batch):
+        p, c, y, cat = object_scan(rng, n_pad, n_parts=n_parts)
+        m = len(p)
+        pos[i, :m], curve_id[i, :m], part_labels[i, :m] = p, c, y
+        valid[i, :m] = True
+        categories[i] = cat
+    return pos, curve_id, valid, part_labels, categories

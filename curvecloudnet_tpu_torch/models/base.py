@@ -3,8 +3,8 @@
 over a batch-padded Cloud with the reference's two skip stacks, then the
 head MLP.
 
-* downsampled skips: every ``sa``/``sa-geo`` step pushes its input cloud;
-  ``fp``/``fp-geo`` pop and upsample back to it;
+* downsampled skips: every ``sa``/``sa-geo``/``sa-global`` step pushes its
+  input cloud; ``fp``/``fp-geo`` pop and upsample back to it;
 * proportional skips: every step named in ``skip_connect_state_store``
   pushes its input features; ``skip-connect`` pops ``num_skips`` of them.
 """
@@ -22,8 +22,9 @@ from ..ops.neighbors import TABLE_K, TableCache
 from .cloud import Cloud
 from .layers import MLP
 from .modules import (EDGE_ROUTES, CurveFPStep, CurveSAStep, EdgeConvStep,
-                      FPStep, SAStep, SharedMLPStep, SkipConnectStep,
-                      SymmetricCurveConvStep, fused_edge_admits)
+                      FPStep, GlobalSAStep, SAStep, SharedMLPStep,
+                      SkipConnectStep, SymmetricCurveConvStep,
+                      fused_edge_admits)
 from .spec import ModelSpec
 
 
@@ -102,6 +103,8 @@ def row_radius_bounds(spec: ModelSpec):
 def _search_radius(step):
     """The radius of a step's 3D search (None: unbounded)."""
     if step.name == "sgcnn":
+        if step.use_sparse_feat_agg:
+            return None
         return step.radius if step.radius is not None else 1.0
     if step.use_fast_knn:
         return step.radius if step.radius is not None else 0.25
@@ -128,11 +131,16 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
     K6 once per FPS step, K3 once per exact shared row table and per fp
     sweep, K5 (``grid_topk``, listed only where it runs) once per distinct
     grid table of a row above ``neighbors.TABLE_MAX_N``; a search no table
-    serves launches its own.  With ``edge_kernel="fused"`` an eval sgcnn
-    step whose widths ``fused_edge_admits`` launches K9 (``edge_mlp``,
-    listed only where it runs) in place of K4 and K2."""
+    serves launches its own, a ball-grouped sa step (k = 128) one K3.
+    conv1d-fast-v1 and sa-global launch nothing.  With
+    ``edge_kernel="fused"`` an eval sgcnn step whose widths and aggregation
+    ``fused_edge_admits`` launches K9 (``edge_mlp``, listed only where it
+    runs) in place of K4 and K2."""
     if edge_kernel not in EDGE_ROUTES:
         raise ValueError(f"edge_kernel {edge_kernel!r}")
+    if train and spec.version != 2.0:
+        raise NotImplementedError("the train step of a version-1.0 model "
+                                  "is not ported")
     counts = ({"conv1d_train_fwd": 0, "conv1d_train_reduce": 0,
                "conv1d_train_t": 0, "group_train_fwd": 0,
                "group_train_bwd": 0, "gather": 0, "scatter": 0, "knn": 0,
@@ -154,7 +162,7 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
             else:
                 counts["conv1d_chain"] += 1
         fused = (step.name == "sgcnn" and not train and edge_kernel == "fused"
-                 and fused_edge_admits(spec.input_dim(i)))
+                 and fused_edge_admits(spec.input_dim(i), step.aggr_type))
         if fused:
             counts["edge_mlp"] = counts.get("edge_mlp", 0) + 1
         elif step.name in ("sa", "sa-geo", "sgcnn"):
@@ -171,7 +179,11 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
                 counts["scatter"] += 1
         if step.name == "sa" and step.downsample_type == "fps":
             counts["fps"] += 1
-        if step.name in ("sa", "sgcnn"):
+        ball = (step.name == "sa" and not step.use_fast_knn
+                and step.knn is None)
+        if ball:
+            counts["knn"] += 1
+        elif step.name in ("sa", "sgcnn"):
             radius = _search_radius(step)
             if step.knn <= TABLE_K and n <= neighbors.TABLE_MAX_N:
                 tables[(row, bounds[i])] = "knn"
@@ -184,7 +196,7 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
                 counts[name] = counts.get(name, 0) + 1
         if step.name == "fp":
             counts["knn"] += 1
-        if step.name in ("sa", "sa-geo"):
+        if step.name in ("sa", "sa-geo", "sa-global"):
             down_stack.append(row)
             sizes.append(step.out_budget(n))
             row = len(sizes) - 1
@@ -202,14 +214,18 @@ class CurveCloudNet(nn.Module):
     position-only inputs); ``n_points`` is the padded full-resolution row;
     ``edge_kernel`` is the eval route of the sgcnn steps: ``"group"`` (K4 +
     K2) or ``"fused"`` (K9 where the widths admit it, see
-    ``modules.fused_edge_admits``).
+    ``modules.fused_edge_admits``).  With ``spec.with_seg_category`` (the
+    ShapeNet part-segmentation head) each sample's category goes one-hot
+    through ``lin_categorical`` (16 -> 64 -> 64, its biases on even where
+    ``use_bias`` is off: reference base.py:60) and is concatenated to
+    every point's features before the head.
     """
+
+    CATEGORY_WIDTH = 64
 
     def __init__(self, spec: ModelSpec, n_points: int, feat_channels=None,
                  edge_kernel: str = "group"):
         super().__init__()
-        if spec.with_seg_category:
-            raise NotImplementedError("the lin_categorical head is not ported")
         if spec.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {spec.compute_dtype!r}: the port computes in "
@@ -244,20 +260,29 @@ class CurveCloudNet(nn.Module):
             elif name == "sgcnn":
                 mod = EdgeConvStep(spec, step, dims, w, bounds[i],
                                    grid_bounds[i], grid_caps[i], edge_kernel)
-            elif name == "conv1d-fast-v2":
+            elif name in ("conv1d-fast-v1", "conv1d-fast-v2"):
                 mod = SymmetricCurveConvStep(spec, step, w)
+            elif name == "sa-global":
+                n_now = 1
+                mod = GlobalSAStep(spec, step, dims, w)
             elif name == "mlp":
                 mod = SharedMLPStep(spec, step, dims, w)
             else:
                 raise NotImplementedError(f"step {name!r} is not ported")
             steps.append(mod)
-            if name in ("sa", "sa-geo"):
+            if name in ("sa", "sa-geo", "sa-global"):
                 down_skips.append(i)
             if name in spec.skip_connect_state_store:
                 prop_skips.append(i)
             w = step.feat_dims[-1]
         self.steps = nn.ModuleList(steps)
         self.in_widths = tuple(widths)   # x width of each step's input cloud
+        self.lin_categorical = None
+        if spec.with_seg_category:
+            self.lin_categorical = MLP(
+                (spec.n_categories, self.CATEGORY_WIDTH, self.CATEGORY_WIDTH),
+                use_bias=True)
+            w += self.CATEGORY_WIDTH
         self.mlp = None
         if not spec.identity_head:
             self.mlp = MLP((w,) + spec.out_mlp_dims + (spec.n_out,),
@@ -277,12 +302,18 @@ class CurveCloudNet(nn.Module):
         return torch.rand(shape, generator=generator,
                           device=generator.device).to(cloud.pos.device)
 
-    def forward(self, cloud: Cloud, train: bool = False, bn_momentum=0.1,
+    def forward(self, cloud: Cloud, categories: torch.Tensor | None = None,
+                train: bool = False, bn_momentum=0.1,
                 generator: torch.Generator | None = None):
-        """Returns (logits (B, N, n_out), valid (B, N)).  ``train`` runs
-        BatchNorm on masked batch statistics and updates the running ones
-        with ``bn_momentum``; the sampling steps draw from ``generator``
-        in step order."""
+        """Returns (logits (B, N, n_out), valid (B, N)); N is 1 after an
+        sa-global step.  ``categories`` (B,) int: each sample's object
+        category, required by a model with ``with_seg_category``.
+        ``train`` runs BatchNorm on masked batch statistics and updates
+        the running ones with ``bn_momentum``; the sampling steps draw
+        from ``generator`` in step order."""
+        if (categories is None) == (self.lin_categorical is not None):
+            raise ValueError("categories are given exactly when the spec "
+                             "has with_seg_category")
         tables = TableCache()
         kw = dict(train=train, bn_momentum=bn_momentum)
         input_clouds, down_skips, prop_skips = [], [], []
@@ -306,10 +337,19 @@ class CurveCloudNet(nn.Module):
                     else input_clouds[j].pos for j in take], **kw)
             else:
                 cloud = mod(cloud, **kw)
-            if name in ("sa", "sa-geo"):
+            if name in ("sa", "sa-geo", "sa-global"):
                 down_skips.append(i)
             if name in self.spec.skip_connect_state_store:
                 prop_skips.append(i)
-        x = cloud.x if self.mlp is None else self.mlp(
-            cloud.x, mask=cloud.valid, **kw)
+        x = cloud.x
+        if self.lin_categorical is not None:
+            if train:
+                raise NotImplementedError("the lin_categorical head in train "
+                                          "is not ported")
+            onehot = torch.nn.functional.one_hot(
+                categories.long(), self.spec.n_categories).to(x.dtype)
+            cats = self.lin_categorical(onehot[:, None, :])
+            x = torch.cat([x, cats.expand(-1, x.shape[1], -1)], dim=-1)
+        if self.mlp is not None:
+            x = self.mlp(x, mask=cloud.valid, **kw)
         return x, cloud.valid

@@ -26,7 +26,7 @@ from ..ops import (conv1d_chain, conv1d_train, curve1d, edge_mlp,
                    group_reduce, group_train, interpolate, neighbors,
                    sampling)
 from .cloud import Cloud
-from .layers import MLP, MaskedBatchNorm
+from .layers import MLP, MaskedBatchNorm, leaky_relu
 from .spec import ModelSpec, StepSpec
 
 
@@ -48,6 +48,13 @@ def _check_aggr(step: StepSpec):
     if step.aggr_type not in ("max", "attend"):
         raise NotImplementedError(
             f"{step.name}: aggr_type {step.aggr_type!r} is not ported")
+
+
+def _eval_only(train: bool, what: str):
+    """The version-1.0 branches run in eval only: their train forward is
+    not held against the JAX package yet."""
+    if train:
+        raise NotImplementedError(f"{what} in train is not ported")
 
 
 def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str,
@@ -100,30 +107,43 @@ def _flat_layer0(mlp: MLP, msg: torch.Tensor) -> torch.Tensor:
 
 
 class SymmetricCurveConvStep(nn.Module):
-    """conv1d-fast-v2: symmetric 1D convolution along curves over the
-    reference's zero-stuffed sequence (reference fast_conv1d.py:49-74).
+    """Symmetric 1D convolution along curves (reference fast_conv1d.py).
     Taps are stored as (O, I, h+1) weights (``conv_modules.j``) with
-    BatchNorm ``norm_modules.j``; the chain runs in kernel K1 in eval,
-    kernel K8 in train."""
+    BatchNorm ``norm_modules.j``.
+
+    conv1d-fast-v2 convolves one zero-stuffed sequence through all layers
+    (fast_conv1d.py:49-74): kernel K1 in eval, kernel K8 in train.
+    conv1d-fast-v1 re-stuffs the zeros and recomputes the feature diffs
+    before every layer (fast_conv1d.py:129-143), so each curve convolves
+    alone: same-curve windows (``curve1d.symmetric_window_concat``), one
+    ``torch.matmul``, masked BN and leaky ReLU a layer, eval only (the JAX
+    package runs it outside any Pallas kernel too).  With ``with_diff`` the
+    input width I of every v1 layer is twice its feature width."""
 
     def __init__(self, spec: ModelSpec, step: StepSpec, c_in: Optional[int]):
         super().__init__()
-        if step.name != "conv1d-fast-v2":
+        if step.name not in ("conv1d-fast-v1", "conv1d-fast-v2"):
             raise NotImplementedError(f"{step.name} is not ported")
         self.spec, self.step = spec, step
+        self.v1 = step.name == "conv1d-fast-v1"
         self.half_k = (step.kernel_size or 5) // 2
-        if self.half_k < 1:
+        if self.half_k < 1 and not self.v1:
             raise NotImplementedError("conv1d-fast-v2 with kernel_size < 3")
         cx = xyz_width(c_in, step.with_xyz)
-        widths = [2 * cx if step.with_diff else cx] + list(step.feat_dims)
+        outs = list(step.feat_dims)
+        ins = [cx] + outs[:-1]
+        if step.with_diff:     # v1 concatenates the diffs before each layer
+            ins = [2 * w if self.v1 or j == 0 else w
+                   for j, w in enumerate(ins)]
         self.conv_modules = nn.ModuleList(
-            _Taps(widths[j], widths[j + 1], self.half_k + 1)
-            for j in range(len(widths) - 1))
-        self.norm_modules = nn.ModuleList(
-            MaskedBatchNorm(w) for w in widths[1:])
+            _Taps(i, o, self.half_k + 1) for i, o in zip(ins, outs))
+        self.norm_modules = nn.ModuleList(MaskedBatchNorm(w) for w in outs)
 
     def forward(self, cloud: Cloud, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
+        if self.v1:
+            _eval_only(train, "conv1d-fast-v1")
+            return cloud.with_features(self._v1(cloud))
         step = self.step
         cid, valid = cloud.curve_id, cloud.valid
         x = cloud.xyz_concat(step.with_xyz)
@@ -141,6 +161,18 @@ class SymmetricCurveConvStep(nn.Module):
                                                  self.norm_modules)
         out = conv1d_chain.conv1d_chain_eval(xe, weights, used, self.half_k)
         return cloud.with_features(curve1d.gap_gather(out, exp_idx, valid))
+
+    def _v1(self, cloud: Cloud) -> torch.Tensor:
+        cid, valid = cloud.curve_id, cloud.valid
+        x = cloud.xyz_concat(self.step.with_xyz)
+        for conv, norm in zip(self.conv_modules, self.norm_modules):
+            if self.step.with_diff:
+                x = torch.cat([x, curve1d.feature_diffs(x, cid, valid)], -1)
+            o, i, taps = conv.weight.shape
+            w = conv.weight.permute(2, 1, 0).reshape(taps * i, o)
+            xw = curve1d.symmetric_window_concat(x, cid, valid, self.half_k)
+            x = leaky_relu(norm(xw @ w + conv.bias, mask=valid))
+        return x * valid[..., None].to(x.dtype)
 
     def _train_chain(self, xe, used, bn_momentum):
         """Kernel K8 over the gap layout: BN statistics over every live slot,
@@ -211,7 +243,12 @@ class SAStep(nn.Module):
     """PointNet++ set abstraction (reference pointnet2.py:33-78): voxel or
     FPS downsampling, kNN grouping from the row table (exact, or the grid
     table at ``grid_bound`` / ``grid_cap`` on a row above
-    ``neighbors.TABLE_MAX_N``), PointNetConv."""
+    ``neighbors.TABLE_MAX_N``), PointNetConv.  A step with no ``knn`` and
+    no fast kNN groups by ball query instead: the 128 nearest points
+    within ``radius`` (``neighbors.ball_query``, kernel K3 at k = 128),
+    eval only."""
+
+    BALL_K = 128   # the reference's ball-query cap (point_ops.py:81)
 
     def __init__(self, spec, step, dims, c_in, budget: int, table_bound,
                  grid_bound=None, grid_cap=None):
@@ -219,8 +256,11 @@ class SAStep(nn.Module):
         if step.downsample_type not in ("voxel", "fps"):
             raise NotImplementedError(
                 f"sa downsample_type {step.downsample_type!r} is not ported")
-        if not step.knn:
-            raise NotImplementedError("sa ball grouping is not ported")
+        self.ball = not step.use_fast_knn and step.knn is None
+        if not (self.ball or step.knn):
+            raise NotImplementedError("sa with fast kNN needs a knn")
+        if self.ball and step.radius is None:
+            raise ValueError("sa ball grouping needs a radius")
         self.step, self.budget = step, budget
         self.table_bound, self.grid_bound, self.grid_cap = (
             table_bound, grid_bound, grid_cap)
@@ -238,13 +278,20 @@ class SAStep(nn.Module):
             idx, idx_valid = sampling.fps(cloud.pos, cloud.valid, step.ratio,
                                           self.budget, u=draws)
         down = cloud.gather(idx, idx_valid)
-        radius = None
-        if step.use_fast_knn:
-            radius = step.radius if step.radius is not None else 0.25
-        nbr_idx, _ = neighbors.subset_knn(
-            cloud.pos, cloud.valid, idx, down.valid, step.knn, radius=radius,
-            table_bound=self.table_bound, grid_bound=self.grid_bound,
-            grid_cap=self.grid_cap, tables=tables)
+        if self.ball:
+            _eval_only(train, "sa ball grouping")
+            nbr_idx, _ = neighbors.ball_query(down.pos, cloud.pos, down.valid,
+                                              cloud.valid, step.radius,
+                                              self.BALL_K)
+        else:
+            radius = None
+            if step.use_fast_knn:
+                radius = step.radius if step.radius is not None else 0.25
+            nbr_idx, _ = neighbors.subset_knn(
+                cloud.pos, cloud.valid, idx, down.valid, step.knn,
+                radius=radius, table_bound=self.table_bound,
+                grid_bound=self.grid_bound, grid_cap=self.grid_cap,
+                tables=tables)
         idx_km = nbr_idx.transpose(1, 2)                         # (B, K, M)
         rel = (neighbors.gather_neighbors(cloud.pos, idx_km, fill=train)
                - down.pos[:, None])
@@ -262,49 +309,67 @@ class SAStep(nn.Module):
 EDGE_ROUTES = ("group", "fused")
 
 
-def fused_edge_admits(dims) -> bool:
-    """The JAX package's gate for its fused edge kernel (modules.py:715-721):
-    every width of the edge MLP ``dims`` (its input 2C included) at most
-    512; its other bound, x at most 300 wide, follows from 2C <= 512, and
-    its max aggregation is the port's only sgcnn aggregation."""
-    return max(dims) <= 512
+def fused_edge_admits(dims, aggr: str) -> bool:
+    """The JAX package's gate for its fused edge kernel (modules.py:
+    715-721): max aggregation, and every width of the edge MLP ``dims``
+    (its input 2C included) at most 512; its other bound, x at most 300
+    wide, follows from 2C <= 512."""
+    return aggr == "max" and max(dims) <= 512
 
 
 class EdgeConvStep(nn.Module):
-    """sgcnn edge convolution, fast message order [x_j, x_i - x_j]
-    (reference dgcnn.py:158-207).  Layer 0 re-associates as
-    gather(x @ (Wt - Wb)) + x_i @ Wb (+ b), so the (B, N, K, 2C) message
-    concat never materializes.  The ``group`` route computes the two
-    products with ``torch.matmul``, gathers the first with K4 and runs the
-    rest in K2.  With ``edge_kernel="fused"``, eval runs the whole step in
-    kernel K9 (``ops/edge_mlp.py``) where :func:`fused_edge_admits` the
-    widths: the same two products once a point in its own projection, then
-    the later layers and the masked max on K2's live-row chain, the layer-0
-    rows built in shared memory; train always takes K4/K4b + K7."""
+    """sgcnn edge convolution (reference dgcnn.py:158-266).
+
+    The fast message order [x_j, x_i - x_j] (dgcnn.py:158-207) takes the
+    row table at the step's radius plus a self loop.  With
+    ``use_sparse_feat_agg`` the slow order [x_i, x_j - x_i] (dgcnn.py:
+    209-266) takes an exact, unbounded kNN table with no self loop, eval
+    only, and may aggregate by attention (``attend_nn``).  Layer 0
+    re-associates as gather(x @ (Wt - Wb)) + x_i @ Wb (+ b) in the fast
+    order and as gather(x @ Wb) + x_i @ (Wt - Wb) (+ b) in the slow one, so
+    the (B, N, K, 2C) message concat never materializes.  The ``group``
+    route computes the two products with ``torch.matmul``, gathers the
+    first with K4 and runs the rest in K2.  With ``edge_kernel="fused"``,
+    eval runs the whole step in kernel K9 (``ops/edge_mlp.py``, the slow
+    order folded into W_0) where :func:`fused_edge_admits` the widths and
+    the aggregation: the same two products once a point in its own
+    projection, then the later layers and the masked max on K2's live-row
+    chain, the layer-0 rows built in shared memory; train always takes
+    K4/K4b + K7."""
 
     def __init__(self, spec, step, dims, c_in, table_bound, grid_bound=None,
                  grid_cap=None, edge_kernel: str = "group"):
         super().__init__()
-        if step.name != "sgcnn" or step.use_sparse_feat_agg:
-            raise NotImplementedError(
-                f"{step.name} (sparse={step.use_sparse_feat_agg}) is not ported")
-        if step.aggr_type != "max":
-            raise NotImplementedError(f"sgcnn aggr_type {step.aggr_type!r}")
+        if step.name != "sgcnn":
+            raise NotImplementedError(f"{step.name} is not ported")
+        _check_aggr(step)
+        if step.aggr_type == "attend" and not step.use_sparse_feat_agg:
+            raise NotImplementedError("sgcnn attend in the fast message "
+                                      "order is not ported")
         if edge_kernel not in EDGE_ROUTES:
             raise ValueError(f"edge_kernel {edge_kernel!r}: one of "
                              f"{EDGE_ROUTES}")
         self.step = step
+        self.slow = step.use_sparse_feat_agg
         self.table_bound, self.grid_bound, self.grid_cap = (
             table_bound, grid_bound, grid_cap)
         cx = xyz_width(c_in, step.with_xyz)
         self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
-        self.fused = edge_kernel == "fused" and fused_edge_admits(self.nn.dims)
+        self.attend_nn = (MLP(attend_dims(spec, step, dims[-1]),
+                              act="leaky_relu", use_bias=spec.use_bias)
+                          if step.aggr_type == "attend" else None)
+        self.fused = edge_kernel == "fused" and fused_edge_admits(
+            self.nn.dims, step.aggr_type)
 
     def layer0(self, x):
-        """The group route's layer 0, two products a point: (x (Wt - Wb),
-        x Wb + b_0) (``edge_mlp.layer0_split``)."""
+        """The group route's layer 0, two products a point: (the gathered
+        one, the query's one + b_0): (x (Wt - Wb), x Wb + b_0) in the fast
+        order, (x Wb, x (Wt - Wb) + b_0) in the slow one
+        (``edge_mlp.layer0_split``)."""
         lin0 = self.nn.lins[0]
         w_u, w_v = edge_mlp.layer0_split(lin0.weight.t())
+        if self.slow:
+            w_u, w_v = w_v, w_u
         v = x @ w_v
         return x @ w_u, v + lin0.bias if lin0.bias is not None else v
 
@@ -312,16 +377,22 @@ class EdgeConvStep(nn.Module):
                 bn_momentum=0.1) -> Cloud:
         step = self.step
         x = cloud.xyz_concat(step.with_xyz)
-        r = step.radius if step.radius is not None else 1.0
-        nbr_idx, _ = neighbors.same_set_knn(
-            cloud.pos, cloud.valid, step.knn, radius=r,
-            table_bound=self.table_bound, grid_bound=self.grid_bound,
-            grid_cap=self.grid_cap, tables=tables)
-        nbr_idx = neighbors.add_self_loops(nbr_idx, cloud.valid)
+        if self.slow:
+            _eval_only(train, "sgcnn with use_sparse_feat_agg")
+            nbr_idx, _ = neighbors.same_set_knn(
+                cloud.pos, cloud.valid, step.knn,
+                table_bound=self.table_bound, tables=tables)
+        else:
+            r = step.radius if step.radius is not None else 1.0
+            nbr_idx, _ = neighbors.same_set_knn(
+                cloud.pos, cloud.valid, step.knn, radius=r,
+                table_bound=self.table_bound, grid_bound=self.grid_bound,
+                grid_cap=self.grid_cap, tables=tables)
+            nbr_idx = neighbors.add_self_loops(nbr_idx, cloud.valid)
         valid = cloud.valid[..., None]
         if self.fused and not train:
             out = edge_mlp.fused_edge_mlp_max(
-                x, nbr_idx, *edge_mlp.fold_edge_mlp_eval(self.nn))
+                x, nbr_idx, *edge_mlp.fold_edge_mlp_eval(self.nn, self.slow))
             return cloud.with_features(out * valid.to(out.dtype))
         u, v = self.layer0(x)
         # the k-major self-row gather: kernels K4 / K4b
@@ -329,8 +400,39 @@ class EdgeConvStep(nn.Module):
             u, nbr_idx.transpose(1, 2).contiguous(), fill=train, layout="kq")
             + v[:, None])
         out = _grouped(first.contiguous(), (nbr_idx >= 0).contiguous(),
-                       self.nn, None, "max", train, bn_momentum)
+                       self.nn, self.attend_nn, step.aggr_type, train,
+                       bn_momentum)
         return cloud.with_features(out * valid.to(out.dtype))
+
+
+class GlobalSAStep(nn.Module):
+    """sa-global: an MLP over [x, pos], then a masked max or mean over
+    each sample's points, giving a one-point cloud (reference
+    pointnet2.py:81-116); plain torch, eval only, as the JAX package runs
+    no kernel here."""
+
+    def __init__(self, spec, step, dims, c_in: int):
+        super().__init__()
+        self.step = step
+        self.nn = MLP((c_in + 3,) + tuple(dims[1:]), use_bias=spec.use_bias)
+
+    def forward(self, cloud: Cloud, train: bool = False,
+                bn_momentum=0.1) -> Cloud:
+        _eval_only(train, "sa-global")
+        valid = cloud.valid
+        x = self.nn(torch.cat([cloud.x, cloud.pos.to(cloud.x.dtype)], -1),
+                    mask=valid)
+        mask = valid[..., None]
+        if self.step.pooling == "mean":
+            pooled = (torch.where(mask, x, torch.zeros_like(x)).sum(1)
+                      / torch.clamp(mask.sum(1), min=1).to(x.dtype))
+        else:
+            pooled = torch.where(mask, x, torch.full_like(x, -1e30)).amax(1)
+        b = valid.shape[0]
+        return Cloud(pos=cloud.pos[:, :1], valid=valid.any(1, keepdim=True),
+                     curve_id=cloud.curve_id[:, :1], x=pooled[:, None],
+                     parent_idx=torch.zeros((b, 1), dtype=torch.int32,
+                                            device=valid.device))
 
 
 class SharedMLPStep(nn.Module):

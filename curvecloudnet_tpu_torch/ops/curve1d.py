@@ -58,6 +58,20 @@ def feature_diffs(x, curve_id, valid) -> torch.Tensor:
     return torch.abs((fwd + bwd) / denom[..., None])
 
 
+def symmetric_window_concat(x, curve_id, valid, half_k: int) -> torch.Tensor:
+    """[x_0, x_{-1}+x_{+1}, ..., x_{-h}+x_{+h}] along the feature axis, a
+    tap counting only where both points exist and share the curve: one
+    dense layer on it is conv1d-fast-v1's symmetric curve conv over the
+    reference's zero-stuffed sequence (one curve at a time)."""
+    parts = [x * valid[..., None].to(x.dtype)]
+    for d in range(1, half_k + 1):
+        m_plus = same_curve_shift_mask(curve_id, valid, d)[..., None]
+        m_minus = same_curve_shift_mask(curve_id, valid, -d)[..., None]
+        parts.append(shift_fill(x, d) * m_plus.to(x.dtype)
+                     + shift_fill(x, -d) * m_minus.to(x.dtype))
+    return torch.cat(parts, dim=-1)
+
+
 def window_concat_nomask(x: torch.Tensor, half_k: int) -> torch.Tensor:
     """[x_0, x_{-1}+x_{+1}, ..., x_{-h}+x_{+h}] along the feature axis with
     plain zero-fill shifts (the gap layout already isolates curves)."""

@@ -22,7 +22,21 @@ _POINTS = {1: 1024, 2: 1024, 4: 1024, 8: 1024, 12: 512, 16: 512, 24: 256,
            32: 256, 76: 256}
 _THREADS = 256
 # a row's points in shared memory at 12 B, beside the kernel's 640 B
-MAX_N = (_build.MAX_SMEM - 1024) // 12
+SMEM_N = (_build.MAX_SMEM - 1024) // 12
+# larger rows take the 48-point build on 512 threads, which holds in
+# shared memory only the points past a thread's first 12 (A2D2's
+# 23040-point fps row)
+_BIG_P, _BIG_T = 48, 512
+MAX_N = _BIG_P * _BIG_T
+
+
+def smem_bytes(n: int, t: int, p: int) -> int:
+    """Shared memory of a launch, as ``csrc/fps.cu`` sizes it (its 128 B of
+    static warp counts included)."""
+    if p == _BIG_P:
+        r0 = 12 * t
+        return 1536 + max(12 * max(r0, n - r0), 4 * n) + 128
+    return 512 + 12 * n + 128
 
 
 def fps_picks_ref(pos, valid, start, budget: int):
@@ -44,13 +58,16 @@ def fps_picks_ref(pos, valid, start, budget: int):
 
 def launch_config(n: int):
     """(T threads, P points a thread) of a row of ``n`` points: one CTA of
-    ``_THREADS``, the fewest points a thread that cover the row."""
+    ``_THREADS``, the fewest points a thread that cover the row and whose
+    shared memory fits; past those, the 48-point build on 512 threads."""
     if n > MAX_N:
         raise ValueError(f"fps kernel: a row of {n} points exceeds its "
-                         f"shared memory (at most {MAX_N})")
+                         f"registers and shared memory (at most {MAX_N})")
     t = _THREADS
-    return t, next(p for p, most in _POINTS.items()
-                   if t <= most and p * t >= n)
+    return next(((t, p) for p, most in _POINTS.items()
+                 if t <= most and p * t >= n
+                 and smem_bytes(n, t, p) <= _build.MAX_SMEM),
+                (_BIG_T, _BIG_P))
 
 
 def fps_picks_config(pos, valid, start, budget: int, config):

@@ -1,4 +1,4 @@
-"""K3: exact masked brute-force kNN (k <= 32) with an optional radius.
+"""K3: exact masked kNN (k <= 128) with an optional radius.
 
 Counterpart of ``curvecloudnet_tpu/ops/pallas_knn.py`` (``knn_pallas``) and
 of the exact search the JAX package runs on CPU (``ops/neighbors.knn``).
@@ -11,7 +11,9 @@ distance <= radius^2, ascending, ties to the lower index; idx (B, Q, k)
 int32 with -1 fill, dist (B, Q, k) f32 Euclidean with 1e30 fill.
 Squared distances are (dx*dx + dy*dy) + dz*dz of direct differences (the
 JAX CPU path expands |q|^2 + |p|^2 - 2 q.p, so near-ties can order
-differently there).
+differently there).  Up to k = 32 the kernel keeps a query's list in one
+register a lane; past it (the ball queries, k = 128) in ceil(k / 32)
+rounded up to 2 or 4.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from . import _build
 from .segments import sq_norm3, sqrt32
 
 INF = 1e30
-MAX_K = 32
+MAX_K = 128
 TILE = 32    # points a tile of csrc/knn.cu (one a lane of a warp)
 MAX_N = 256 * 32 * TILE   # 256 super-tiles of 32 tiles
 # csrc/knn.cu's brute-force route is launched beside the tiled search for

@@ -178,6 +178,17 @@ def subset_knn(pos, valid, sub_idx, sub_valid, k: int, radius=None,
     return knn(take_rows(pos, sub_idx), pos, sub_valid, valid, k, radius=radius)
 
 
+def ball_query(query, points, q_valid, p_valid, radius: float, k: int = 128):
+    """The k nearest valid points within ``radius`` of each query (the JAX
+    package's ``ball_query``: the nearest, not pytorch3d's first in index
+    order, ``docs/DEVIATIONS.md`` #3), k capped at the row's size.  Always
+    exact, on K3: the version-1.0 sa steps ball-group rows of at most
+    ``TABLE_MAX_N`` points, where the JAX package runs its exact search
+    too; a larger row stays exact here rather than take a capped grid."""
+    k = min(k, points.shape[1])
+    return _k3.knn_search(query, points, q_valid, p_valid, k, float(radius))
+
+
 def add_self_loops(idx, q_valid):
     """Prepend each query's own index as neighbor 0 (query set == row)."""
     b, q, _ = idx.shape

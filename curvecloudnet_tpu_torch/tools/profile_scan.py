@@ -2,7 +2,8 @@
 (GPU, ``torch.profiler``).
 
 Builds a config's model (default the nuScenes flagship) at its ``n_pad``,
-B=1, on a synthetic sweep of its dataset's sensor, serves two warm-up
+on a synthetic sweep of its dataset's sensor (B=1), or a batch of object
+scans of its ``batch_size`` for an object config, serves two warm-up
 scans, times one unprofiled scan on the host clock, then profiles one more
 with CPU and CUDA activities.  Device busy time is the sum of
 ``self_device_time_total`` over the CUDA-side ``key_averages()`` entries.
@@ -10,6 +11,7 @@ Run::
 
     python -m curvecloudnet_tpu_torch.tools.profile_scan
     python -m curvecloudnet_tpu_torch.tools.profile_scan --config configs/kitti.yaml
+    python -m curvecloudnet_tpu_torch.tools.profile_scan --config configs/audi.yaml
     python -m curvecloudnet_tpu_torch.tools.profile_scan --edge-kernel fused
 
 Prints the busy time by group (K1-K6, K9, cuBLAS gemm, other), the
@@ -29,7 +31,6 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import predict as P
-from ..config import load_config
 
 # K2 and K9 share the chain kernel (csrc/group_chain.cuh), told apart by
 # its row source
@@ -56,11 +57,10 @@ def main(argv=None) -> None:
         raise SystemExit("profile_scan: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    n_pad = int(load_config(args.config)["n_pad"])
+    n_pad = P.n_pad_of(args.config)
     model = P.build_model(args.config, n_pad, dev,
                           edge_kernel=args.edge_kernel)
-    scan = P.synthetic_scan(0, n_pad, dev,
-                            P.N_BEAMS[P.dataset_of(args.config)])
+    scan = P.synthetic_inputs(args.config, 0, n_pad, dev)
     for _ in range(2):
         scan_ms(model, scan)
     plain_wall = scan_ms(model, scan)
@@ -75,7 +75,8 @@ def main(argv=None) -> None:
         g = next((g for g, s in GROUPS if s in e.key), "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     print(json.dumps({
-        "config": args.config, "n_pad": n_pad, "edge_kernel": args.edge_kernel,
+        "config": args.config, "n_pad": n_pad, "batch": scan[0].shape[0],
+        "edge_kernel": args.edge_kernel,
         "device": torch.cuda.get_device_name(0), "busy_ms": busy,
         "by_group_ms": groups, "launches": sum(e.count for e in kern),
         "profiled_wall_ms": wall, "idle_share_profiled": 1 - busy / wall,

@@ -9,7 +9,9 @@ Tolerances: K1 and K2 multiply in 3xTF32 on the tensor cores (f32
 accuracy; K1 projects the input on the stacked taps and shifts the
 products), 1e-4 relative to the output scale; K3 distances and K6 picks use
 round-to-nearest arithmetic in the plain versions' order, so they match
-exactly (indices may differ only between slots of equal distance).  K7:
+exactly (indices may differ only between slots of equal distance; at
+k > 32, the version-1.0 ball queries, indices and distances are held
+bit-equal, ties included, as the list orders (d2, index)).  K7:
 forward outputs and batch statistics 1e-4 relative to their scale;
 gradients in relative L2 norm within 1e-3 plus 3x the plain version's own
 change when h1 is perturbed by 1e-5 relative (norms floored at 1e-3 of
@@ -127,6 +129,12 @@ GROUP_CASES = [
     ("max", 21, (36, 20, 44), None, 0.7, 517),
     ("max", 21, (128,), None, 0.7, 517),
     ("attend", 25, (128,), (128, 64, 128), 0.3, 517),
+    # the A2D2 ball-grouped sa steps: K = 128 planes, 15-50% live
+    ("attend", 128, (128, 128, 128), (128, 128, 128), 0.3, 2017),
+    ("attend", 128, (256, 256, 256), (256, 256, 256), 0.2, 505),
+    ("attend", 128, (512, 512, 512), (512, 512, 512), 0.15, 127),
+    # the object configs' last sa row: K = 64 (the ball capped at the row)
+    ("attend", 64, (512, 512, 512), (512, 512, 512), 0.5, 33),
 ]
 
 
@@ -309,6 +317,56 @@ def test_knn_kernel_brute_route(dev, kind, k, radius, dup):
         assert seen == total
 
 
+def _tie_row(seed, n):
+    """Points on a 0.01 lattice, a fifth of them repeated: exact distance
+    ties everywhere, across the list's registers at k > 32."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 12, size=(n, 3)).astype(np.float32) * 0.01
+    pts[rng.permutation(n)[:n // 5]] = pts[rng.permutation(n)[:n // 5]]
+    return torch.from_numpy(pts), torch.from_numpy(rng.random(n) > 0.05)
+
+
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("radius", [None, 0.05])
+@pytest.mark.parametrize("kind", ["scan", "shuffled", "ties"])
+def test_knn_kernel_above_32(dev, k, radius, kind):
+    """K3 at k > 32 (ball queries, k = 128 in the version-1.0 sa steps):
+    FPS-style query sets (every third point) against a scan-order A2D2-like
+    row (80 beams), the same row shuffled, and a lattice of ties; with a
+    radius most balls hold fewer than k points (-1 / 1e30 past them).
+    Indices and distances bit-equal to the plain version's."""
+    if kind == "ties":
+        p, pv = _tie_row(k, 6000)
+    else:
+        p, pv = _sweep_row(k, 8064, 80, 7500)
+        if kind == "shuffled":
+            perm = torch.from_numpy(np.random.default_rng(1).permutation(
+                p.shape[0]))
+            p, pv = p[perm], pv[perm]
+    q, qv = p[::3].contiguous(), pv[::3].contiguous()
+    # on the lattice, a ball of 19 sites (~66 points)
+    r = radius if kind != "ties" or radius is None else 0.015
+    args = tuple(t[None].to(dev) for t in (q, p, qv, pv))
+    i_k, d_k = knn.knn_search(*args, k, r)
+    i_r, d_r = knn.knn_search_ref(*args, k, r)
+    assert torch.equal(d_k, d_r) and torch.equal(i_k, i_r)
+    if r is not None and kind != "ties":
+        filled = (i_r >= 0).sum(-1)[qv[None].to(dev)]
+        assert int(filled.min()) < k
+    assert torch.equal(knn.knn_search(*args, k, r)[0], i_k)
+
+
+def test_knn_kernel_k_up_to_32_unchanged(dev):
+    """k <= 32 keeps the one-register list: the flagship's k = 32 table of
+    a 23040-point row and k = 16 with a radius, bit-equal to plain."""
+    p, pv = _sweep_row(5, 23040, 32)
+    args = tuple(t[None].to(dev) for t in (p, p, pv, pv))
+    for k, r in ((32, 0.04), (16, None)):
+        i_k, d_k = knn.knn_search(*args, k, r)
+        i_r, d_r = knn.knn_search_ref(*args, k, r)
+        assert torch.equal(d_k, d_r) and torch.equal(i_k, i_r)
+
+
 def test_knn_kernel_all_queries_invalid(dev):
     p, pv = _sweep_row(3, 2000, 32)
     args = tuple(t.to(dev) for t in (p[None], p[None],
@@ -322,13 +380,18 @@ def test_knn_kernel_all_queries_invalid(dev):
 
 # (row size, valid counts, budget, duplicated points): ties across warps,
 # B = 2 with different valid counts, budget equal to and above the valid
-# count, the nuScenes 5760-point row, the largest row the wrapper takes
+# count, the nuScenes 5760-point row, the largest row whose points all sit
+# in shared memory, A2D2's 23040-point row (the 96-point build: points past
+# a thread's first 24 in shared memory) and the largest row the wrapper
+# takes, with ties and a row with fewer valid points than its registers hold
 FPS_ROWS = [
     (5760, (3019,), 1728, 0),
     (5760, (3019, 2700), 1728, 300),
     (2000, (1500,), 1500, 0),
     (1728, (906, 700), 1000, 50),
-    (fps.MAX_N, (19000,), 600, 0),
+    (fps.SMEM_N, (19000,), 600, 0),
+    (23040, (21800,), 8064, 0),
+    (fps.MAX_N, (24000, 5000), 3000, 300),
 ]
 
 
@@ -752,7 +815,8 @@ def test_conv1d_train_t_repeats_bitwise(dev, c0, h):
 
 @pytest.mark.parametrize("c,widths", [(67, (64, 64, 64)), (131, (128, 128)),
                                       (256, (256, 256)), (5, (7,))])
-def test_edge_mlp_kernel(dev, c, widths):
+@pytest.mark.parametrize("slow", [False, True])
+def test_edge_mlp_kernel(dev, c, widths, slow):
     g = torch.Generator().manual_seed(9)
     n, k = 700, 21
     x = torch.randn(2, n, c, generator=g)
@@ -764,6 +828,9 @@ def test_edge_mlp_kernel(dev, c, widths):
     weights = tuple(torch.randn(a, b, generator=g) / a ** 0.5
                     for a, b in zip(dims[:-1], dims[1:]))
     biases = tuple(0.1 * torch.randn(b, generator=g) for b in widths)
+    if slow:     # the slow message order folded into W_0 (sparse sgcnn)
+        weights = (edge_mlp.slow_order_transform(c) @ weights[0],) + \
+            weights[1:]
     args = (x.to(dev), idx.to(dev), tuple(w.to(dev) for w in weights),
             tuple(b.to(dev) for b in biases))
     got = edge_mlp.fused_edge_mlp_max(*args)

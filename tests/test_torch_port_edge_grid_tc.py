@@ -196,7 +196,9 @@ def test_layer0_projection_is_the_message_product():
 def test_group_route_layer0_uses_the_same_split(bias):
     """``EdgeConvStep.layer0`` (the group route's two products) and K9's
     projection take W_0 apart the same way: x (Wt - Wb) and x Wb + b_0
-    are the two halves of x [Wt - Wb | Wb] + [0 | b_0]."""
+    are the two halves of x [Wt - Wb | Wb] + [0 | b_0]; in the slow
+    message order the gathered product is x Wb and the query's x (Wt - Wb)
+    + b_0, whose sum is [x_i, x_j - x_i] W_0 + b_0."""
     from types import SimpleNamespace
 
     from curvecloudnet_tpu_torch.models.modules import EdgeConvStep
@@ -208,11 +210,17 @@ def test_group_route_layer0_uses_the_same_split(bias):
     lin0 = mlp.lins[0]
     b0 = lin0.bias if bias else torch.zeros(h)
     with torch.no_grad():
-        u, v = EdgeConvStep.layer0(SimpleNamespace(nn=mlp), x)
+        u, v = EdgeConvStep.layer0(SimpleNamespace(nn=mlp, slow=False), x)
         wproj, bproj = E.layer0_projection((lin0.weight.t(),), (b0,))
         want = x @ wproj + bproj
+        su, sv = EdgeConvStep.layer0(SimpleNamespace(nn=mlp, slow=True), x)
+        xi, xj = x[:, :, None], x[:, None]
+        slow = torch.cat([xi.expand(-1, -1, 9, -1), xj - xi], -1) @ \
+            lin0.weight.t() + b0
     torch.testing.assert_close(u, want[..., :h], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(v, want[..., h:], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(su[:, None] + sv[:, :, None], slow,
+                               rtol=1e-5, atol=1e-5)
 
 
 # (C, weight rows a stage): the flagship's admitted steps (3 and 28, 6,

@@ -194,6 +194,145 @@ def test_knn_model_edge_cases(radius, k):
     assert pos.shape[0] % TILE
 
 
+# --- K3's list for k > 32 (csrc/warp_list.cuh ListR<R>), lane by lane ----
+
+def _before(d, i, bd, bi):
+    return (d < bd) | ((d == bd) & (i < bi))
+
+
+def _exchange(d, i, stride, first):
+    """One compare-exchange of a bitonic network across the 32 lanes."""
+    lane = np.arange(32)
+    od, oi = d[lane ^ stride], i[lane ^ stride]
+    take = _before(od, oi, d, i) == first
+    return np.where(take, od, d), np.where(take, oi, i)
+
+
+class WarpList:
+    """The warp's list of the k <= 32 R best (d, i): slot 32 r + lane in
+    register r of that lane, as ``insert_one`` and ``merge_all`` of
+    ``ListR<R>`` keep it (ballots, shuffles and exchanges as numpy ops on
+    the 32 lanes)."""
+
+    def __init__(self, regs, k):
+        self.regs, self.k = regs, k
+        self.d = np.full((regs, 32), np.inf, np.float32)
+        self.i = np.full((regs, 32), -1, np.int64)
+
+    def entry(self, s):
+        return self.d[s >> 5, s & 31], self.i[s >> 5, s & 31]
+
+    def insert_one(self, cd, ci):
+        lane, k = np.arange(32), self.k
+        pos = -1
+        for r in range(self.regs):
+            after = (r * 32 + lane < k) & _before(cd, ci, self.d[r],
+                                                  self.i[r])
+            if after.any():
+                pos = r * 32 + int(np.argmax(after))
+                break
+        if pos < 0:
+            return
+        d_prev, i_prev = np.float32(np.inf), -1
+        for r in range(self.regs):
+            if r * 32 + 31 < pos:
+                continue
+            if r * 32 >= k:
+                break
+            ud = np.concatenate([[d_prev], self.d[r][:-1]])
+            ui = np.concatenate([[i_prev], self.i[r][:-1]])
+            d_prev, i_prev = self.d[r][31], self.i[r][31]
+            s = r * 32 + lane
+            shift = (s > pos) & (s < k)
+            self.d[r] = np.where(s == pos, cd, np.where(shift, ud, self.d[r]))
+            self.i[r] = np.where(s == pos, ci, np.where(shift, ui, self.i[r]))
+
+    def merge_all(self, cd, ci):
+        lane, k = np.arange(32), self.k
+        size = 2
+        while size <= 32:
+            stride = size >> 1
+            while stride:
+                first = ((lane & stride) == 0) == (((lane & size) == 0)
+                                                   | (size == 32))
+                cd, ci = _exchange(cd, ci, stride, first)
+                stride >>= 1
+            size <<= 1
+        for r in range(self.regs):
+            if r * 32 >= k or not (ci >= 0).any():
+                break
+            rd, ri = cd[31 - lane], ci[31 - lane]
+            take = _before(rd, ri, self.d[r], self.i[r])
+            ld, li = np.where(take, rd, self.d[r]), np.where(take, ri,
+                                                             self.i[r])
+            hd, hi = np.where(take, self.d[r], rd), np.where(take, self.i[r],
+                                                             ri)
+            for stride in (16, 8, 4, 2, 1):
+                ld, li = _exchange(ld, li, stride, (lane & stride) == 0)
+            self.d[r], self.i[r] = ld, li
+            if r + 1 < self.regs and (r + 1) * 32 < k:
+                for stride in (16, 8, 4, 2, 1):
+                    hd, hi = _exchange(hd, hi, stride, (lane & stride) == 0)
+            cd, ci = hd, hi
+        past = np.arange(self.regs)[:, None] * 32 + lane >= k
+        self.d[past], self.i[past] = np.inf, -1
+
+    def visit(self, d2, idx):
+        """A tile's 32 candidates as knn.cu's ``visit`` takes them: those
+        before the k-th entry, one by one up to 4, else merged at once."""
+        kd, ki = self.entry(self.k - 1)
+        acc = (idx >= 0) & _before(d2, idx, kd, ki)
+        if acc.sum() > 4:
+            self.merge_all(np.where(acc, d2, np.float32(np.inf)),
+                           np.where(acc, idx, -1))
+            return
+        for lane in np.nonzero(acc)[0]:
+            self.insert_one(d2[lane], idx[lane])
+
+
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("ties", [True, False])
+def test_warp_list_above_32_keeps_the_k_first(k, ties):
+    """Tiles of candidates in random index order (exact distance ties
+    across registers when ``ties``): the list holds the k first by (d, i),
+    slots past k empty, whether they came one by one or merged."""
+    rng = np.random.default_rng(k + ties)
+    regs = 2 if k <= 64 else 4
+    wl = WarpList(regs, k)
+    seen_d, seen_i = [], []
+    order = rng.permutation(40 * 32)
+    for t in range(40):
+        d2 = (rng.integers(0, 60, 32).astype(np.float32) * np.float32(0.25)
+              if ties else rng.random(32).astype(np.float32))
+        if t >= 10 and t % 3:     # late tiles: few candidates get in
+            d2 = d2 + np.float32(10.0 if ties else 0.9)
+        idx = order[t * 32:(t + 1) * 32].astype(np.int64)
+        idx[rng.random(32) < 0.1] = -1           # invalid lanes
+        wl.visit(d2, idx)
+        seen_d.append(d2[idx >= 0])
+        seen_i.append(idx[idx >= 0])
+        all_d, all_i = np.concatenate(seen_d), np.concatenate(seen_i)
+        o = np.lexsort((all_i, all_d))[:k]
+        flat_d, flat_i = wl.d.reshape(-1), wl.i.reshape(-1)
+        np.testing.assert_array_equal(flat_d[:len(o)], all_d[o])
+        np.testing.assert_array_equal(flat_i[:len(o)], all_i[o])
+        assert (flat_i[len(o):] == -1).all()
+
+
+@pytest.mark.parametrize("k,radius", [(64, 0.05), (128, 0.08), (128, None)])
+def test_knn_model_ball_queries_match_plain(k, radius):
+    """k > 32 (the version-1.0 ball queries): a query set against a
+    scan-order row with duplicates, as the kernel's tile order visits it."""
+    pos, valid = sweep_row(3, 4096, 8, keep=0.5, dup=60)
+    query, q_valid = pos[::16].contiguous(), valid[::16].contiguous()
+    want = knn.knn_search_ref(query[None], pos[None], q_valid[None],
+                              valid[None], k, radius)
+    i_m, d_m, _, _ = knn_model(query, pos, q_valid, valid, k, radius)
+    assert_knn_equal((i_m[None], d_m[None]), want)
+    if radius is not None:
+        assert (want[0] >= 0).sum(-1).min() < k   # some balls not full
+
+
 def _ulp_cloud(seed):
     """Points a few ulps apart around a few centres (their f32 bits moved
     by -4..4), a tight and a wide spread: (queries, points)."""
@@ -492,14 +631,16 @@ def test_field_key_orders_the_field():
 
 
 @pytest.mark.parametrize("n,threads", [
-    (n, t) for n in (519, 1728, 5530, 5760, 18432, 36864)
-    for t in (128, 256, 512, 1024)] + [(fps.MAX_N, fps._THREADS)])
+    (n, t) for n in (519, 1728, 5530, 5760, 18432, 23040, 36864)
+    for t in (128, 256, 512, 1024)] + [(fps.SMEM_N, fps._THREADS),
+                                       (fps.MAX_N, fps._THREADS)])
 def test_fps_launch_config_covers_the_row(n, threads):
-    """The main path's rows (and the largest the wrapper takes):
-    ``launch_config``'s shape covers the row with the fewest points a
-    thread the kernel is built for and its shared memory fits; at other
-    widths ``tools/fps_sweep.py`` takes such a shape exactly where the
-    kernel has one; a row past the wrapper's limit raises."""
+    """The main path's rows (A2D2's 23040-point row past the all-in-shared-
+    memory limit; the largest the wrapper takes): ``launch_config``'s
+    shape covers the row with the fewest points a thread the kernel is
+    built for whose shared memory fits; at other widths
+    ``tools/fps_sweep.py`` takes such a shape exactly where the kernel has
+    one; a row past the wrapper's limit raises."""
     from curvecloudnet_tpu_torch.tools import fps_sweep
 
     built = [p for p, most in fps._POINTS.items() if threads <= most]
@@ -512,8 +653,12 @@ def test_fps_launch_config_covers_the_row(n, threads):
             fps.launch_config(n)
         return
     t, p = fps.launch_config(n)
-    assert t == fps._THREADS and fps._POINTS[p] >= t and t * p >= n
-    assert all(q * t < n for q in fps._POINTS if q < p)
-    assert 512 + 128 + 12 * n <= _build.MAX_SMEM
+    fits = [q for q in fps._POINTS if q * fps._THREADS >= n and
+            fps.smem_bytes(n, fps._THREADS, q) <= _build.MAX_SMEM]
+    if (t, p) == (fps._BIG_T, fps._BIG_P):   # past every other build
+        assert not fits
+    else:
+        assert t == fps._THREADS and fps._POINTS[p] >= t and p == min(fits)
+    assert t * p >= n and fps.smem_bytes(n, t, p) <= _build.MAX_SMEM
     with pytest.raises(ValueError):
         fps.launch_config(fps.MAX_N + 1)

@@ -35,7 +35,7 @@ from curvecloudnet_tpu_torch.models import kernel_launches
 from curvecloudnet_tpu_torch.models import parse_model_config as tparse
 from curvecloudnet_tpu_torch.ops import (conv1d_chain, fps, gather,
                                          group_reduce, knn)
-from torch_port_utils import jax_init, lidar, load_step, to_torch
+from torch_port_utils import direct_knn, jax_init, lidar, load_step, to_torch
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,28 +107,13 @@ def test_step_module_matches_jax(narrow, i, n):
            rows_exact=step.name in ("sa", "sa-geo"))
 
 
-def _direct_knn(query, points, q_valid, p_valid, k, radius=None, **_):
-    """An exact JAX kNN on direct differences (the JAX CPU search expands
-    |q|^2 + |p|^2 - 2 q.p, whose rounding moves the fp step's inverse-d^2
-    weights by up to eps |p|^2 / d^2; tests/test_torch_port_ops.py holds
-    the interpolation against the real JAX search within that bound)."""
-    d2 = jnp.sum((query[:, :, None, :] - points[:, None, :, :]) ** 2, -1)
-    d2 = jnp.where(p_valid[:, None, :], d2, 1e30)
-    neg, idx = jax.lax.top_k(-d2, min(k, points.shape[1]))
-    good = (-neg < 1e30) & q_valid[:, :, None]
-    if radius is not None:
-        good = good & (-neg <= radius * radius)
-    return (jnp.where(good, idx, -1).astype(jnp.int32),
-            jnp.where(good, jnp.sqrt(-neg), 1e30))
-
-
 @pytest.mark.parametrize("i", [4, 18, 30])
 def test_skip_and_fp_modules_match_jax(narrow, i, monkeypatch):
     """skip-connect (step 4), fp (18: voxel-kept sources, the JAX fp search
     run on direct differences), fp-geo (30: curve-sampled sources)."""
     from curvecloudnet_tpu.ops import interpolate as jint
 
-    monkeypatch.setattr(jint.nbr_ops, "knn", _direct_knn)
+    monkeypatch.setattr(jint.nbr_ops, "knn", direct_knn)
     jspec, tspec = narrow
     step, tstep = jspec.steps[i], tspec.steps[i]
     n = 768
