@@ -108,7 +108,33 @@ Phases (any failure raises and exits non-zero before the result line):
      shapenet-seg on the fused edge route (K9 with the slow message order
      folded in on its max sgcnn steps): launch counters set to 0, batch 0
      with launches equal to the spec's, logits within 1e-5 of the group
-     route's, each K9 call held against its plain version at 1e-4.
+     route's, each K9 call held against its plain version at 1e-4;
+ 16. the eval entry (``curvecloudnet_tpu_torch.main``) on the card:
+     launch counters set to 0, ``main.main`` with ``only_val`` on
+     configs/nuscenes.yaml (n_pad 36864, 2 synthetic val scans, 12-view
+     TTA in view-batched chunks of 2: B=2 forwards), launches equal to
+     the spec's count x 6 chunks x 2 scans (path ``eval_tta``), its logged
+     miou / mean_forward_s / points_per_sec / peak memory printed; on scan
+     0: the batched mean logits within 1e-4 (of max(1, |ref|)) of the mean
+     of 12 sequential B=1 ``predict`` forwards and of the per-view path's,
+     every kernel call of one B=2 chunk held against its plain version
+     (phase 3's tolerances), the overflow telemetry of each view (zero
+     ``*overflow*`` / ``*truncated*`` on the identity view; the worst of
+     each key over the 12 views printed); 3 scans' TTA queued back to
+     back per view and at 2 and 6 views a call (a line each: ms a
+     view, the scan's TTA wall, points/s, peak memory), beside
+     ``evaluate_segmentation``'s own figures per view and at 2 (and the
+     result dict's keys), and the host waits of one TTA scan by line
+     (``torch.cuda.set_sync_debug_mode``); KITTI's TTA (n_pad 131072, 2
+     views a call) timed the same way, with its host waits and the device
+     busy ms of a B=2 chunk; ``main`` with ``only_val`` on shapenet-seg
+     and shapenet-class (16 val scans in batches of 8; launches equal to
+     the spec's x 2, paths ``eval_loop_shapenet_seg`` /
+     ``eval_loop_shapenet_class``;
+     logged metrics finite; the loop's ms a batch), and with ``only_test``
+     on a nuScenes scan given a submission meta by a wrapper here: one
+     ``.bin`` of the valid points' length under
+     ``build/phase16/nuscenes_test/results/lidarseg/test``.
 
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
@@ -122,6 +148,7 @@ import copy
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -139,6 +166,21 @@ KITTI_N_PAD = 131072
 V1_CONFIGS = [("a2d2", "audi"), ("shapenet_seg", "shapenet-seg"),
               ("kortx", "kortx-testsplit"), ("shapenet_class", "shapenet-class")]
 V1_SCANS = 3
+# phase 16: the eval entry (val scans through main, views a chunk, the
+# views-a-call sweep (a warm-up scan and three timed), KITTI's val scans,
+# object val scans in batches of 8)
+EVAL_N_VAL = 2
+EVAL_VIEWS_PER_CALL = 2
+SWEEP_SCANS = 4
+KITTI_N_VAL = 3
+SWEEP_VIEWS = (1, 2, 6)   # 1: the per-view path (tools/tta_walls.py: more)
+OBJECT_N_VAL = 16
+OBJECT_BATCH = 8
+TTA_TOL = 1e-4
+OUT16 = os.path.join(REPO, "build", "phase16")
+RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
+               "points_per_sec", "peak_device_memory_gb", "overflow",
+               "scan_wall_s"}
 FUSED_V1_TOL = 1e-5   # shapenet-seg's fused route against its group route
 RECALL_FLOOR = 0.95  # tests/test_grid_recall.py's floor on curve-sampled rows
 LR = 5e-4
@@ -1344,6 +1386,299 @@ def run_v1_fused(P, mods, dev, kernel_launches, label, config, scan0,
     return launched, report["edge_mlp"]
 
 
+def hold(label, kernels, mods, calls):
+    """Each recorded call re-run through the kernel and its plain version,
+    compared at the kernel's tolerance (no timing) -> {name: max err}."""
+    import torch
+
+    worst = {}
+    for name, mod, wrapper, ref_name, *_, tol in kernels:
+        kern, ref = getattr(mods[mod], wrapper), getattr(mods[mod], ref_name)
+        errs = [0.0]
+        with torch.no_grad():
+            for args, kwargs, _ in calls[name]:
+                errs.append(compare(name, kern(*args, **kwargs),
+                                    ref(*args, **kwargs), tol))
+        worst[name] = max(errs)
+        log(f"  {label} {name}: {len(calls[name])} calls, max abs err "
+            f"{worst[name]:.3g}")
+    return worst
+
+
+class WithMeta:
+    """A val set whose samples carry a nuScenes submission meta (file
+    name, identity reorder), as the real test split's do."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get(self, idx, rng=None, augment=False):
+        import numpy as np
+
+        sample = self.dataset.get(idx, rng, augment)
+        sample.meta = {"format": "nuscenes", "fname": f"scan{idx}.bin",
+                       "reorder": np.arange(len(sample.pos))}
+        return sample
+
+
+def run_eval_entry(P, mods, dev, kernel_launches):
+    """Phase 16 -> ({kernel: worst error of the B=2 chunk's calls},
+    launches by path)."""
+    import numpy as np
+    import torch
+
+    from curvecloudnet_tpu_torch import main as M
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.data import datasets as D
+    from curvecloudnet_tpu_torch.run import tasks as T
+    from curvecloudnet_tpu_torch.ops import grid_topk
+    from curvecloudnet_tpu_torch.tools.tta_walls import host_syncs, tta_scan
+
+    t_phase = time.perf_counter()
+    quiet = dict(log=lambda *a: None)
+
+    def cfg_of(name, label, **extra):
+        cfg = load_config(os.path.join(REPO, "configs", f"{name}.yaml"))
+        cfg.update(device=str(dev), only_val=True,
+                   outdir=os.path.join(OUT16, label))
+        cfg.update(extra)
+        # a fresh outdir: no resume from an earlier run's checkpoint
+        shutil.rmtree(cfg["outdir"], ignore_errors=True)
+        return cfg
+
+    def counted_main(cfg, kernels=EVAL_KERNELS):
+        for name, mod, wrapper, *_ in kernels:
+            getattr(mods[mod], wrapper).launches = 0
+        t0 = time.perf_counter()
+        score = M.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {name: getattr(mods[mod], w).launches
+                    for name, mod, w, *_ in kernels}
+        with open(os.path.join(cfg["outdir"], "metrics.jsonl")) as f:
+            logged = json.loads(f.readlines()[-1])
+        return score, launched, wall, logged
+
+    def check_launches(label, launched, want, times):
+        log(f"{label} launches:", launched, f"spec x {times}:", want)
+        for name, got in launched.items():
+            if got != times * want.get(name, 0):
+                raise AssertionError(f"{name}: {got} launches on {label}, "
+                                     f"want {times} x {want.get(name, 0)}")
+
+    def logged_line(logged):
+        keys = ("miou", "mean_forward_s", "scan_wall_s", "points_per_sec",
+                "peak_device_memory_gb")
+        for key in keys:
+            if key not in logged or not np.isfinite(logged[key]):
+                raise AssertionError(f"main's logged {key}: "
+                                     f"{logged.get(key)}")
+        return ", ".join(f"{k} {logged[k]!r}" for k in keys)
+
+    # the nuScenes val split through main: 12-view TTA, chunks of 2 views
+    by_path = {}
+    cfg = cfg_of("nuscenes", "nuscenes", n_val=EVAL_N_VAL)
+    score, by_path["eval_tta"], wall, logged = counted_main(cfg)
+    info, val_ds, model = M.build(cfg)
+    chunks = T.N_VIEWS // EVAL_VIEWS_PER_CALL
+    check_launches("eval_tta", by_path["eval_tta"],
+                   kernel_launches(model.spec, val_ds.n_pad),
+                   chunks * EVAL_N_VAL)
+    log(f"main --only_val nuScenes ({EVAL_N_VAL} scans, n_pad "
+        f"{val_ds.n_pad}, 12 views in chunks of {EVAL_VIEWS_PER_CALL}): "
+        f"{wall:.2f} s; " + logged_line(logged))
+    if score != logged["miou"]:
+        raise AssertionError(f"main's score {score} is not its miou")
+
+    # scan 0: batched TTA against 12 sequential B=1 forwards and the
+    # per-view path
+    np_batch = next(D.batch_iterator(val_ds, 1))
+    batch = D.to_device_batch(np_batch, info.task, dev)
+    cloud, valid0 = batch.cloud, batch.cloud.valid
+    mean_b, valid_b, _, _ = T.make_batched_tta_eval(
+        model, EVAL_VIEWS_PER_CALL, n_cls=info.n_out,
+        metric_ignore=info.metric_ignore)(cloud, batch.labels)
+    views = [(torch.from_numpy(f).to(dev), torch.tensor(s, device=dev))
+             for f in T.TTA_FLIPS for s in T.TTA_SCALES]
+    total = None
+    for f, s in views:
+        pos = torch.cat([cloud.pos[..., :2] * f * s, cloud.pos[..., 2:]], -1)
+        lg = P.predict(model, pos, cloud.x, cloud.curve_id, cloud.valid)[0]
+        total = lg if total is None else total + lg
+    per_view = T.make_tta_eval(model, with_stats=True)
+    outs = [per_view(cloud, f, s) for f, s in views]
+    mean_p, _ = T.make_eval_post(info.n_out, info.metric_ignore)(
+        [o[0] for o in outs], batch.labels, outs[0][1])
+    if not torch.equal(valid_b, valid0):
+        raise AssertionError("batched TTA: valid rows differ")
+    e_seq = _err("batched TTA vs sequential predict", mean_b[valid0],
+                 (total / T.N_VIEWS)[valid0], TTA_TOL)
+    e_pv = _err("batched TTA vs the per-view path", mean_b[valid0],
+                mean_p[valid0], TTA_TOL)
+    log(f"scan 0 mean logits, batched (B={EVAL_VIEWS_PER_CALL} chunks) vs "
+        f"12 sequential B=1 predict forwards: max abs err {e_seq:.3g}; vs "
+        f"the per-view path: {e_pv:.3g} (tolerance {TTA_TOL:g})")
+
+    # the overflow telemetry of each view; zero on the identity view
+    worst = {}
+    for vi, out in enumerate(outs):
+        stats = {k: float(v) for k, v in out[2].items()}
+        if vi == 0:
+            bad = {k: v for k, v in stats.items()
+                   if ("overflow" in k or "truncated" in k) and v > 0}
+            if bad:
+                raise AssertionError(f"identity view overflows: {bad}")
+        for k, v in stats.items():
+            worst[k] = max(worst.get(k, v), v)
+    log(f"overflow telemetry, identity view zero; worst of 12 views: {worst}")
+    del outs, total, mean_p
+
+    # every kernel call of one B=2 chunk against its plain version
+    fs = torch.from_numpy(T.tta_views()[:EVAL_VIEWS_PER_CALL]).to(dev)
+    chunk = T.view_batch(cloud, fs)
+    calls, _ = capture(EVAL_KERNELS, mods, lambda: P.predict(
+        model, chunk.pos, chunk.x, chunk.curve_id, chunk.valid))
+    errs = hold("nuScenes B=2 chunk", EVAL_KERNELS, mods, calls)
+    del calls
+    busy = device_ms(lambda: P.predict(model, chunk.pos, chunk.x,
+                                       chunk.curve_id, chunk.valid), reps=2)
+    log(f"device busy (torch.profiler): a B={EVAL_VIEWS_PER_CALL} chunk "
+        f"{busy:.2f} ms ({busy / EVAL_VIEWS_PER_CALL:.2f} ms a view)")
+    del chunk
+
+    # per view and at 2 and 6 views a call: the loop's TTA scan wall over
+    # the scans after its warm-up scan
+    sweep = D.SyntheticLidarSeg(n_samples=SWEEP_SCANS, n_pad=val_ds.n_pad,
+                                n_classes=info.n_out, seed=2)
+    for v in SWEEP_VIEWS:
+        res = T.evaluate_segmentation(model, sweep, info, batched_tta=v > 1,
+                                      tta_views_per_call=v, **quiet)
+        if set(res) != RESULT_KEYS or not np.isfinite(res["scan_wall_s"]):
+            raise AssertionError(f"evaluate_segmentation: {sorted(res)}, "
+                                 f"scan_wall_s {res['scan_wall_s']}")
+        log(f"TTA {'per view' if v == 1 else f'{v} views a call'}, "
+            f"{SWEEP_SCANS - 1} scans after a warm-up: scan TTA wall "
+            f"{res['scan_wall_s'] * 1e3:.1f} ms, "
+            f"{res['scan_wall_s'] * 1e3 / T.N_VIEWS:.3f} ms a view, "
+            f"{res['points_per_sec']:.0f} points/s, peak memory "
+            f"{res['peak_device_memory_gb']:.3f} GB, miou {res['miou']:.4g}")
+    staged = D.to_device_batch(next(D.batch_iterator(sweep, 1)), info.task,
+                               dev)
+    tta = tta_scan(model, info, SWEEP_VIEWS[-1])
+    tta(staged)   # its first call stages the chunks' view parameters
+    waits = host_syncs(lambda: tta(staged))
+    log(f"nuScenes TTA scan ({T.N_VIEWS // SWEEP_VIEWS[-1]} chunks of "
+        f"{SWEEP_VIEWS[-1]} views and the histogram): "
+        f"{sum(waits.values())} host waits (sync debug mode), by line: "
+        f"{waits}")
+    del staged, tta, model, sweep
+
+    # KITTI's val split through main (n_pad 131072, grid rows: K5 on the
+    # records tail), launches counted; then one B=2 chunk's kernel calls
+    # against their plain versions, K10 on the planes of each K5 call
+    kernels = KITTI_KERNELS + TOPK_KERNELS
+    kcfg = cfg_of("kitti", "kitti", n_val=KITTI_N_VAL)
+    _, by_path["eval_tta_kitti"], wall, logged = counted_main(kcfg, kernels)
+    kinfo, kval, kmodel = M.build(kcfg)
+    check_launches("eval_tta_kitti", by_path["eval_tta_kitti"],
+                   kernel_launches(kmodel.spec, kval.n_pad),
+                   chunks * KITTI_N_VAL)
+    log(f"main --only_val KITTI ({KITTI_N_VAL} scans, n_pad {kval.n_pad}, "
+        f"chunks of {EVAL_VIEWS_PER_CALL} views): {wall:.2f} s; "
+        + logged_line(logged))
+    kstaged = D.to_device_batch(next(D.batch_iterator(kval, 1)), kinfo.task,
+                                dev)
+    ktta = tta_scan(kmodel, kinfo, EVAL_VIEWS_PER_CALL)
+    ktta(kstaged)
+    waits = host_syncs(lambda: ktta(kstaged))
+    kchunk = T.view_batch(kstaged.cloud, fs)
+    calls, _ = capture(KITTI_KERNELS, mods, lambda: P.predict(
+        kmodel, kchunk.pos, kchunk.x, kchunk.curve_id, kchunk.valid))
+    kerrs = hold("KITTI B=2 chunk", KITTI_KERNELS, mods, calls)
+    topk_calls = []
+    for args, _, out in calls["grid_topk"]:
+        table, counts, nbr, query, q_valid, k, r2 = args
+        planes = grid_topk.planes(table, nbr, query, q_valid, r2)
+        got = grid_topk.topk_smallest(*planes, k)
+        if not (torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])):
+            raise AssertionError("KITTI B=2 chunk: K10 on the candidate "
+                                 "planes differs from K5")
+        topk_calls.append(((*planes, k), {}, got))
+    del calls
+    kerrs.update(hold("KITTI B=2 chunk", TOPK_KERNELS, mods,
+                      {"topk_smallest": topk_calls}))
+    del topk_calls
+    busy = device_ms(lambda: P.predict(kmodel, kchunk.pos, kchunk.x,
+                                       kchunk.curve_id, kchunk.valid), reps=1)
+    log(f"KITTI: device busy {busy:.2f} ms a B=2 chunk; "
+        f"{sum(waits.values())} host waits a TTA scan, by line: {waits}")
+    del kstaged, ktta, kmodel, kchunk
+    errs = {k: max(errs.get(k, 0.0), kerrs.get(k, 0.0))
+            for k in set(errs) | set(kerrs)}
+
+    # the object loops through main
+    for label, name, keys in [
+            ("eval_loop_shapenet_seg", "shapenet-seg",
+             ("instance_miou", "category_miou")),
+            ("eval_loop_shapenet_class", "shapenet-class",
+             ("accuracy", "balanced_accuracy"))]:
+        cfg = cfg_of(name, label, n_val=OBJECT_N_VAL,
+                     eval_batch_size=OBJECT_BATCH)
+        score, by_path[label], wall, logged = counted_main(cfg)
+        info, val_ds, model = M.build(cfg)
+        batches = -(-OBJECT_N_VAL // OBJECT_BATCH)
+        check_launches(label, by_path[label],
+                       kernel_launches(model.spec, val_ds.n_pad), batches)
+        if not all(np.isfinite(logged.get(k, np.nan)) for k in keys):
+            raise AssertionError(f"{label}: logged {logged}")
+        # the kernel calls of one batch of the loop's forward
+        batch = D.to_device_batch(next(D.batch_iterator(val_ds,
+                                                        OBJECT_BATCH)),
+                                  info.task, dev)
+        fwd = T.make_tta_eval(model)
+        calls, _ = capture(V1_KERNELS, mods, lambda: fwd(
+            batch.cloud, views[0][0], views[0][1], batch.categories))
+        for k, e in hold(f"{name} batch of {OBJECT_BATCH}", V1_KERNELS,
+                         mods, calls).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        del calls, batch
+        t0 = time.perf_counter()
+        M.run_eval(model, val_ds, info, cfg, **quiet)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / batches
+        log(f"main --only_val {name} ({OBJECT_N_VAL} scans, batches of "
+            f"{OBJECT_BATCH}, n_pad {val_ds.n_pad}): {wall:.2f} s; "
+            + ", ".join(f"{k} {logged[k]:.4g}" for k in keys)
+            + f"; the loop again: {ms:.1f} ms a batch")
+        del model
+
+    # only_test: the submission file of a scan with a nuScenes meta
+    cfg = cfg_of("nuscenes", "nuscenes_test", n_val=1, only_val=False,
+                 only_test=True)
+    load = M.load_datasets
+    with replaced(M, "load_datasets",
+                  lambda c: (lambda tr, va: (tr, WithMeta(va)))(*load(c))):
+        M.main(cfg)
+    path = os.path.join(cfg["outdir"], "results", "lidarseg", "test",
+                        "scan0.bin")
+    pred = np.fromfile(path, np.uint8)
+    n_valid = len(load(cfg)[1].get(0).pos)
+    if len(pred) != n_valid or pred.min() < 1 or pred.max() > 16:
+        raise AssertionError(f"{path}: {len(pred)} predictions in "
+                             f"[{pred.min()}, {pred.max()}], want {n_valid} "
+                             "in [1, 16]")
+    log(f"main --only_test nuScenes: {path} holds {len(pred)} predictions "
+        f"(the scan's valid points), classes {pred.min()}-{pred.max()}")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return errs, by_path
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -1607,6 +1942,10 @@ def main():
                 P, mods, dev, kernel_launches, label, config, *scan)
             v1_reports.append({"edge_mlp": k9_row})
 
+    # 16. the eval entry
+    eval16_errs, eval16_launched = run_eval_entry(P, mods, dev,
+                                                  kernel_launches)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -1631,16 +1970,19 @@ def main():
         for name, row in rows.items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               row["max_abs_err"])
+    for name, err in eval16_errs.items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0),
                    "eval_fused": fused_launched.get(name, 0)}
-        for path, counts in list(kitti_launched.items()) + list(
-                v1_launched.items()):
+        for path, counts in (list(kitti_launched.items())
+                             + list(v1_launched.items())
+                             + list(eval16_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""The weight bridge from the JAX package's flax trees to the port.
+"""The weight bridge from the JAX package's flax trees to the port, and
+the port's native checkpoints (``save_checkpoint`` / ``restore_checkpoint``
+with the JAX package's ``latest_state.json`` resume contract).
 
 The port's parameters carry the reference torch ``state_dict`` names that
 ``curvecloudnet_tpu/checkpoint.py`` ``load_torch_checkpoint`` reads, so
@@ -28,8 +30,10 @@ gradient tree (the params' structure) to the port's parameter names:
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -104,3 +108,61 @@ def load_reference_state_dict(model: torch.nn.Module,
           for k, v in state_dict.items()
           if not k.endswith(".num_batches_tracked")}
     model.load_state_dict(sd, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# Native checkpoints and the resume contract
+# ---------------------------------------------------------------------------
+#
+# The JAX package saves orbax directories; the port saves torch state dicts.
+# The formats differ; the contract is shared: a checkpoint is the directory
+# ``outdir/name`` (``latest`` rolling, ``epoch{E}`` periodic,
+# ``best_epoch{E}`` best), and ``outdir/latest_state.json`` holds
+# ``{epoch, max_score}`` of the rolling one.
+
+CHECKPOINT_FILE = "checkpoint.pt"
+
+
+def save_checkpoint(outdir: str, name: str, model: torch.nn.Module,
+                    optimizer=None, step: int = 0) -> str:
+    """Save the model's state dict (and the optimizer's, when given) and
+    the step under ``outdir/name``."""
+    path = os.path.abspath(os.path.join(outdir, name))
+    os.makedirs(path, exist_ok=True)
+    blob = {"model": model.state_dict(), "step": int(step),
+            "optimizer": None if optimizer is None else optimizer.state_dict()}
+    torch.save(blob, os.path.join(path, CHECKPOINT_FILE))
+    return path
+
+
+def restore_checkpoint(outdir: str, name: str, model: torch.nn.Module,
+                       optimizer=None) -> int:
+    """Load ``outdir/name`` into ``model`` (strictly) and ``optimizer``
+    (when given; the checkpoint must hold its state) -> the saved step."""
+    path = os.path.join(os.path.abspath(os.path.join(outdir, name)),
+                        CHECKPOINT_FILE)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(blob["model"], strict=True)
+    if optimizer is not None:
+        if blob["optimizer"] is None:
+            raise ValueError(f"{path} holds no optimizer state")
+        optimizer.load_state_dict(blob["optimizer"])
+    return int(blob["step"])
+
+
+def dump_latest_state(outdir: str, epoch: int, max_score: float) -> None:
+    """``latest_state.json`` (reference main.py:139-141)."""
+    with open(os.path.join(outdir, "latest_state.json"), "w") as f:
+        json.dump({"epoch": epoch, "max_score": max_score}, f)
+
+
+def read_latest_state(outdir: str) -> Optional[Dict[str, Any]]:
+    p = os.path.join(outdir, "latest_state.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def has_latest(outdir: str) -> bool:
+    return os.path.isdir(os.path.join(outdir, "latest"))

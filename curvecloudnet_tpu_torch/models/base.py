@@ -262,6 +262,7 @@ class CurveCloudNet(nn.Module):
                                    grid_bounds[i], grid_caps[i], edge_kernel)
             elif name in ("conv1d-fast-v1", "conv1d-fast-v2"):
                 mod = SymmetricCurveConvStep(spec, step, w)
+                mod.name = f"step_{i}_{name}"
             elif name == "sa-global":
                 n_now = 1
                 mod = GlobalSAStep(spec, step, dims, w)

@@ -24,7 +24,7 @@ from torch import nn
 
 from ..ops import (conv1d_chain, conv1d_train, curve1d, edge_mlp,
                    group_reduce, group_train, interpolate, neighbors,
-                   sampling)
+                   sampling, segments, telemetry)
 from .cloud import Cloud
 from .layers import MLP, MaskedBatchNorm, leaky_relu
 from .spec import ModelSpec, StepSpec
@@ -125,6 +125,7 @@ class SymmetricCurveConvStep(nn.Module):
         if step.name not in ("conv1d-fast-v1", "conv1d-fast-v2"):
             raise NotImplementedError(f"{step.name} is not ported")
         self.spec, self.step = spec, step
+        self.name = step.name   # telemetry's; the model's "step_{i}_{name}"
         self.v1 = step.name == "conv1d-fast-v1"
         self.half_k = (step.kernel_size or 5) // 2
         if self.half_k < 1 and not self.v1:
@@ -153,6 +154,14 @@ class SymmetricCurveConvStep(nn.Module):
         pad = self.half_k * len(self.conv_modules)
         exp_idx, n_exp, used = curve1d.gap_expand_indices(
             cid, valid, pad, self.spec.curve_budget)
+        if telemetry.active():
+            # curves past the gap layout's budget (JAX's TPU kernel path
+            # records this key alone; its CPU halo path also compacts the
+            # curve starts, which the port does not)
+            n_curves = (segments.curve_starts(cid, valid) & valid).sum(-1)
+            over = n_curves - 1 - self.spec.curve_budget
+            telemetry.record(f"{self.name}/curve_budget_overflow",
+                             torch.clamp(over, min=0).sum())
         xe = curve1d.gap_scatter(x, exp_idx, n_exp)
         if train:
             return cloud.with_features(curve1d.gap_gather(

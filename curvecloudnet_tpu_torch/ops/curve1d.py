@@ -8,10 +8,12 @@ the JAX package and the reference.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from . import segments
+from . import segments, telemetry
 from .segments import sq_norm3, take_rows
 
 _FAR = np.float32(100.0)  # invalid-distance fill
@@ -24,8 +26,21 @@ def interleaved_offsets(window: int) -> np.ndarray:
     return np.concatenate([np.zeros(1, np.int64), pairs.astype(np.int64)])
 
 
+@functools.lru_cache(maxsize=None)
+def _index_table(window: int, ascending: bool, device) -> torch.Tensor:
+    """The interleaved offsets of a window (or the permutation that sorts
+    them ascending) on ``device``, copied there once: a copy from host
+    memory makes the host wait for the card.  Made outside inference
+    mode, so train-mode indexing can save it."""
+    table = interleaved_offsets(window)
+    if ascending:
+        table = np.argsort(table + window)
+    with torch.inference_mode(False):
+        return torch.as_tensor(table, device=device)
+
+
 def _offsets(window: int, device) -> torch.Tensor:
-    return torch.as_tensor(interleaved_offsets(window), device=device)
+    return _index_table(window, False, torch.device(device))
 
 
 def shift_fill(x: torch.Tensor, d: int, fill=0) -> torch.Tensor:
@@ -149,6 +164,16 @@ def radius_1d_group_subset(pos, idx, idx_valid, curve_id, valid,
                                          window)
     k_q = take_rows(per_pt_k, idx)
     kept = mask & (torch.cumsum(mask.float(), dim=-1) <= k_q[:, :, None])
+    if telemetry.active():
+        # a query is truncated when its radius wants more neighbors than
+        # the static window offers and its curve extends past the window
+        wanted = torch.minimum(k_q, take_rows(npts, idx))
+        truncated = (mask.sum(dim=-1).float() < wanted) & idx_valid
+        nq = torch.clamp(idx_valid.sum(), min=1)
+        wanted = torch.where(idx_valid, wanted, torch.zeros_like(wanted))
+        telemetry.record("curve_window_truncated_frac", truncated.sum() / nq)
+        telemetry.record("curve_window_wanted_max", wanted.max())
+        telemetry.record("curve_window_wanted_mean", wanted.sum() / nq)
     return torch.where(kept, cand_safe, torch.full_like(cand_safe, -1)), kept
 
 
@@ -168,8 +193,7 @@ def window_rows(x: torch.Tensor, idx: torch.Tensor, half_w: int):
 def ascending_from_interleaved(t: torch.Tensor, half_w: int) -> torch.Tensor:
     """Permute a (..., 2w+1) interleaved-order window tensor to ascending
     offset order [-w..+w]."""
-    inv = np.argsort(interleaved_offsets(half_w) + half_w)
-    return t[..., torch.as_tensor(inv, device=t.device)]
+    return t[..., _index_table(half_w, True, t.device)]
 
 
 def knn_1d_group_superset(pos, kept_idx, kept_valid, curve_id, valid, k: int):

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import grid_topk
+from . import grid_topk, telemetry
 from .segments import sqrt32
 
 INF = 1e30
@@ -222,4 +222,7 @@ def grid_knn(query, points, q_valid, p_valid, k: int, radius: float,
         d2, idx = grid_topk.topk_smallest(
             *grid_topk.planes(table, nbr, qf, qv, r2), k_eff)
     idx, dist = finalize(d2, idx, k, k_eff)
+    if telemetry.active():
+        telemetry.record(f"grid_cap_drop.n{n}.r{radius:g}.s{stencil}",
+                         n_dropped.sum())
     return idx.reshape(b, q, k), dist.reshape(b, q, k), n_dropped

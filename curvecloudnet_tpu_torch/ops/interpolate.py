@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from . import curve1d, neighbors
+from . import curve1d, neighbors, telemetry
 from .knn import INF
 from .sampling import mask_to_indices
 from .segments import sq_norm3, take_rows
@@ -51,7 +51,11 @@ def knn_interpolate_subset(x_cand, cand_idx, cand_valid, pos_full, full_valid,
     kept = (rank >= 0) & full_valid
     dropped = full_valid & ~kept
     budget = min(n, max(k, n - int(SPLIT_KEEP_FRAC * m)))
-    d_idx, d_valid = mask_to_indices(dropped, budget)
+    d_idx, d_valid = mask_to_indices(dropped, budget, telemetry_name=None)
+    if telemetry.active():
+        n_drop = dropped.sum(dim=-1)
+        telemetry.record(f"fp_split_overflow.n{n}",
+                         torch.clamp(n_drop - budget, min=0).sum())
     di, dd = neighbors.knn(take_rows(pos_full, d_idx), cand_pos, d_valid,
                            cand_valid, k)
 

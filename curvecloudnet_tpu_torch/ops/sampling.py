@@ -21,12 +21,17 @@ from __future__ import annotations
 import torch
 
 from . import fps as _k6
-from . import segments
+from . import segments, telemetry
 from .segments import norm3
 
 
-def mask_to_indices(mask: torch.Tensor, budget: int):
-    """(B, N) selection mask -> (B, budget) ascending indices + validity."""
+def mask_to_indices(mask: torch.Tensor, budget: int,
+                    telemetry_name: str | None = "budget"):
+    """(B, N) selection mask -> (B, budget) ascending indices + validity.
+    Under a telemetry capture, records ``{telemetry_name}_overflow_frac``
+    (the batch mean of the selected points' share past the budget) and
+    ``{telemetry_name}_occupancy`` (the mean share of the budget filled);
+    ``telemetry_name=None`` records nothing."""
     b, n = mask.shape
     rank = torch.cumsum(mask.long(), dim=-1) - 1
     iota = torch.arange(n, device=mask.device).expand(b, n)
@@ -34,8 +39,16 @@ def mask_to_indices(mask: torch.Tensor, budget: int):
                        torch.full_like(rank, budget))
     out = torch.zeros((b, budget + 1), dtype=torch.int64, device=mask.device)
     out.scatter_(1, slot, iota)
-    count = torch.clamp(mask.sum(dim=-1), max=budget)
+    selected = mask.sum(dim=-1)
+    count = torch.clamp(selected, max=budget)
     idx_valid = torch.arange(budget, device=mask.device)[None, :] < count[:, None]
+    if telemetry.active() and telemetry_name is not None:
+        sel = selected.float()
+        cap = torch.full_like(sel, budget)
+        telemetry.record(f"{telemetry_name}_overflow_frac", torch.mean(
+            torch.clamp(sel - cap, min=0.0) / torch.clamp(sel, min=1.0)))
+        telemetry.record(f"{telemetry_name}_occupancy",
+                         torch.mean(torch.minimum(sel, cap) / cap))
     return out[:, :budget], idx_valid
 
 

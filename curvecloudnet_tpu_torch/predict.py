@@ -38,10 +38,10 @@ from .config import load_config
 from .data import lidar_batch, object_batch
 from .models import CurveCloudNet, cloud_from_arrays, parse_model_config
 from .models.modules import EDGE_ROUTES
+from .run.tasks import TASKS, task_for
 
-# output classes of each task (curvecloudnet_tpu/run/tasks.py TASKS)
-N_OUT = {"nuscenes": 17, "kitti": 20, "audi": 13, "shapenet-seg": 50,
-         "kortx": 50, "shapenet-class": 16}
+# output classes of each task
+N_OUT = {name: info.n_out for name, info in TASKS.items()}
 # beams (curves) of each lidar dataset's sensor: nuScenes' has 32, KITTI's
 # 64 (the JAX package's grid recall tests draw 64 for KITTI rows; its
 # bench.py draws 32 at every size), A2D2's car five lidars of 16 beams
@@ -56,14 +56,10 @@ DEFAULT_N_PAD = 2048   # the JAX entry's n_pad where a config sets none
 
 
 def task_of(cfg: dict) -> str:
-    """The task a config serves (the JAX package's ``run/tasks.task_for``
-    on its ``dataset_source`` and ``task``)."""
-    src = cfg.get("dataset_source", "nuscenes")
-    if src in ("shapenet-seg", "shapenet") and cfg.get("task") == \
-            "classification":
-        return "shapenet-class"
-    return {"shapenet": "shapenet-seg",
-            "summer-robotics": "kortx"}.get(src, src)
+    """The task a config serves (``run/tasks.task_for`` on its
+    ``dataset_source`` and ``task``)."""
+    return task_for(cfg.get("dataset_source", "nuscenes"),
+                    cfg.get("task", "segmentation")).name
 
 
 def dataset_of(config_path: str) -> str:

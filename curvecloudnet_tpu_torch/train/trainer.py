@@ -19,10 +19,11 @@ from ..run import losses as losses_lib
 
 @dataclasses.dataclass
 class Batch:
-    """A padded cloud and its per-point labels."""
+    """A padded cloud and its labels."""
     cloud: Cloud
-    labels: torch.Tensor                        # (B, N)
+    labels: torch.Tensor                        # (B, N) seg or (B,) class
     label_valid: Optional[torch.Tensor] = None  # (B, N) or None -> valid
+    categories: Optional[torch.Tensor] = None   # (B,) object category
 
 
 @dataclasses.dataclass(frozen=True)
