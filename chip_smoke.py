@@ -21,7 +21,7 @@ Phases (any failure raises and exits non-zero before the result line):
      call (row, valid points, picks, launch shape, kernel / plain / bound
      ms, us a pick, the fixed cost of a round on a 1024-point row and the
      serial floor: that cost x the picks up to the last valid point);
-  4. launch counters set to 0, three synthetic scans (seeds 0, 1, 2) served
+  4. launch counters set to 0, two synthetic scans (seeds 0, 1) served
      through ``predict``; each kernel's count must equal the spec-derived
      count per scan;
   5. the same first scan through the plain versions on the card: logits
@@ -64,7 +64,7 @@ Phases (any failure raises and exits non-zero before the result line):
      against its plain version (equal) on each K5 call's
      candidate planes, and against K5's answer, timed beside torch.topk,
      its bound all of d and idx at the k chosen columns;
- 10. launch counters set to 0, three KITTI scans (seeds 0, 1, 2) through
+ 10. launch counters set to 0, two KITTI scans (seeds 0, 1) through
      ``predict``: logits finite of shape (1, 131072, 20), launches equal to
      the spec-derived counts (two K5 launches a scan), latency and peak
      memory printed;
@@ -98,13 +98,13 @@ Phases (any failure raises and exits non-zero before the result line):
      as phase 3 does (K3's ball queries, k = 128, with indices and
      distances equal; a line per K3 call gives its device ms and the
      ``cdist`` + ``topk`` time of the same search), launch counters set to
-     0 and scans 0-2 through ``predict`` with launches equal to the
+     0 and scans 0-1 through ``predict`` with launches equal to the
      spec-derived counts, a line per scan (wall ms, device-busy ms from
      ``torch.profiler``, peak memory), then scan 0 through the plain
      versions: logits within 2e-3;
  15. the same for the object configs (shapenet-seg and kortx-testsplit
      with each sample's category, shapenet-class with one logit row per
-     sample) at n_pad 2048, B=24, object-scan batches 0-2; then
+     sample) at n_pad 2048, B=24, object-scan batches 0-1; then
      shapenet-seg on the fused edge route (K9 with the slow message order
      folded in on its max sgcnn steps): launch counters set to 0, batch 0
      with launches equal to the spec's, logits within 1e-5 of the group
@@ -120,7 +120,7 @@ Phases (any failure raises and exits non-zero before the result line):
      every kernel call of one B=2 chunk held against its plain version
      (phase 3's tolerances), the overflow telemetry of each view (zero
      ``*overflow*`` / ``*truncated*`` on the identity view; the worst of
-     each key over the 12 views printed); 3 scans' TTA queued back to
+     each key over the 12 views printed); 2 scans' TTA queued back to
      back per view and at 2 and 6 views a call (a line each: ms a
      view, the scan's TTA wall, points/s, peak memory), beside
      ``evaluate_segmentation``'s own figures per view and at 2 (and the
@@ -134,7 +134,40 @@ Phases (any failure raises and exits non-zero before the result line):
      logged metrics finite; the loop's ms a batch), and with ``only_test``
      on a nuScenes scan given a submission meta by a wrapper here: one
      ``.bin`` of the valid points' length under
-     ``build/phase16/nuscenes_test/results/lidarseg/test``.
+     ``build/phase16/nuscenes_test/results/lidarseg/test``;
+ 17. the train paths of the other shipped configs and ``main``'s epoch
+     loop.  A2D2 (configs/audi.yaml, n_pad 36864, B=1, an 80-beam sweep
+     and its labels, the task's loss) and the object configs
+     (shapenet-seg with categories, kortx-testsplit, shapenet-class with
+     the classification loss; n_pad 2048, B=24, ``object_batch`` seed 0),
+     each through ``train.__main__.train_batch``: one capture step
+     recording every K7 forward and backward, K4/K4b, K3 and K6 call, each
+     held against its plain version as phase 6 holds it (A2D2 and
+     shapenet-seg also timed, a line per call and per K7 site as phase 6's,
+     its stored chain's size included; on A2D2 the rows of each K7
+     attend site whose attention activation takes another slope in the
+     kernel than in float64 counted, under 0.1% of the live rows, and its
+     K7 calls captured again on sweep 1, held and counted so, a second
+     witness); launch counters set
+     to 0 and three steps through ``train_step`` (losses finite, launches
+     equal to three times ``kernel_launches(train=True)``; paths
+     ``train_audi``, ``train_shapenet_seg``, ``train_kortx``,
+     ``train_shapenet_class``), a line with the step walls, the device
+     busy ms of one more step (``torch.profiler``), its host waits by line
+     and the peak memory; one step from the same weights through the
+     kernels and through the plain versions, held as phase 8 holds it.
+     KITTI (n_pad 131072, B=1, a 64-beam sweep): the capture step with
+     K8, K7, K4/K4b, K3, K5 (equal) and K6 held, three steps with
+     launches equal to the spec's (``train_kitti``), walls, busy ms, host
+     waits, peak memory.  ``main``'s epoch loop: shapenet-class (48 train
+     and 16 val scans, batches of 24, 2 epochs; launches equal to the
+     spec's train count x its steps plus its eval count x its val
+     batches, path ``train_loop_shapenet_class``; ``best_epoch*``,
+     ``latest`` and ``latest_state.json`` written, the score finite), then
+     the same outdir to 3 epochs (it resumes at epoch 2: one epoch's
+     steps); nuScenes (6 train sweeps, the config's batch of 6, 2 val
+     scans under 12-view TTA in chunks of 2, 1 epoch; path
+     ``train_loop_nuscenes``; the B=6 step's wall and peak memory).
 
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
@@ -156,7 +189,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "nuscenes.yaml")
 N_PAD = 36864
-SCANS = 3
+SCANS = 2
 TRAIN_STEPS = 5
 KITTI_CONFIG = os.path.join(REPO, "configs", "kitti.yaml")
 KITTI_N_PAD = 131072
@@ -165,19 +198,30 @@ KITTI_N_PAD = 131072
 # batch_size, 24), under their names in launches_by_path
 V1_CONFIGS = [("a2d2", "audi"), ("shapenet_seg", "shapenet-seg"),
               ("kortx", "kortx-testsplit"), ("shapenet_class", "shapenet-class")]
-V1_SCANS = 3
+V1_SCANS = 2
 # phase 16: the eval entry (val scans through main, views a chunk, the
-# views-a-call sweep (a warm-up scan and three timed), KITTI's val scans,
+# views-a-call sweep (a warm-up scan and two timed), KITTI's val scans,
 # object val scans in batches of 8)
 EVAL_N_VAL = 2
 EVAL_VIEWS_PER_CALL = 2
-SWEEP_SCANS = 4
-KITTI_N_VAL = 3
+SWEEP_SCANS = 3
+KITTI_N_VAL = 2
 SWEEP_VIEWS = (1, 2, 6)   # 1: the per-view path (tools/tta_walls.py: more)
 OBJECT_N_VAL = 16
 OBJECT_BATCH = 8
 TTA_TOL = 1e-4
 OUT16 = os.path.join(REPO, "build", "phase16")
+# phase 17: the train paths (label, config, timed with per-site lines)
+TRAIN17 = [("train_audi", "audi", True),
+           ("train_shapenet_seg", "shapenet-seg", True),
+           ("train_kortx", "kortx-testsplit", False),
+           ("train_shapenet_class", "shapenet-class", False)]
+TRAIN17_STEPS = 3
+# the path whose K7 attend sites' slope flips are counted (float64 chains:
+# shapenet-seg's sa-geo site would not fit the card), and whose K7 calls
+# are captured again on a second input (seed 1), held and counted so
+WITNESS17 = "train_audi"
+OUT17 = os.path.join(REPO, "build", "phase17")
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -226,7 +270,13 @@ TOPK_KERNELS = [
 # near-equal slots, so rare rows within rounding of such a point take
 # another branch in the kernel than in the plain version, moving single
 # elements by up to their own size (measured up to 3.9e-3 in L2 at the
-# flagship's 519- and 1728-query sites)
+# flagship's 519- and 1728-query sites); an attention BN's (gamma, beta)
+# gradient past that bound is held against the plain version in float64
+# (see _yardstick: the shift gradient at A2D2's 23040-query sa-geo site sums
+# ~47k live rows whose terms nearly cancel, and float32 rounds it by ~2e-3
+# relative, plain included), with the kernel's own attention slopes, whose
+# flips from float64's must stay under FLIP_CAP of the live rows
+FLIP_CAP = 1e-3
 TRAIN_KERNELS = [
     # K8: forward z 1e-4 and its statistics 1e-5 (of max(1, |plain|));
     # reduce and t passes K7's backward yardstick, z perturbed
@@ -269,6 +319,13 @@ TRAIN_COUNTED = [("conv1d_train_fwd", "conv1d_train", "conv1d_train_fwd_layer"),
                  ("gather", "gather", "gather_km"),
                  ("scatter", "gather", "scatter_km"),
                  ("knn", "knn", "knn_search"), ("fps", "fps", "fps_picks")]
+# phase 17: KITTI's train capture adds K5; main's epoch loops count the
+# train and the eval wrappers (each wrapper once)
+GRID_HELD = [k for k in KITTI_KERNELS if k[0] == "grid_topk"]
+LOOP_COUNTED = TRAIN_COUNTED + [
+    ("conv1d_chain", "conv1d_chain", "conv1d_chain_eval"),
+    ("group_reduce", "group_reduce", "group_reduce"),
+    ("grid_topk", "grid_topk", "grid_topk_records")]
 # phases 14-15: no K1 (conv1d-fast-v1 is plain torch in both packages)
 V1_KERNELS = [k for k in EVAL_KERNELS if k[0] != "conv1d_chain"]
 # phase 13: K9 on the fused edge route
@@ -282,6 +339,12 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+def stamp(t_start, phases):
+    """The smoke's elapsed seconds at the end of ``phases``."""
+    log(f"chip_smoke: phases {phases} done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+
 @contextlib.contextmanager
 def replaced(module, name, fn):
     old = getattr(module, name)
@@ -292,8 +355,15 @@ def replaced(module, name, fn):
         setattr(module, name, old)
 
 
+# a timed run longer than this ends the timing of its call (a plain FPS
+# on a 23040-point row takes ~1.3 s: its spread between runs is far below
+# what comparing it with its kernel needs)
+ONE_RUN_MS = 200.0
+
+
 def cuda_ms(fn, reps=3):
-    """Median milliseconds of ``fn()`` on the current stream."""
+    """Median milliseconds of ``fn()`` on the current stream over ``reps``
+    runs after a warm-up run, or the first run's past ``ONE_RUN_MS``."""
     import torch
 
     fn()
@@ -306,6 +376,8 @@ def cuda_ms(fn, reps=3):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+        if times[0] > ONE_RUN_MS:
+            break
     return sorted(times)[len(times) // 2]
 
 
@@ -375,19 +447,40 @@ def _shaken(t, seed=7):
     return t * (1 + 1e-5 * torch.randn(t.shape, generator=g, device=t.device))
 
 
-def _yardstick(name, outs, tol, what):
+def _yardstick(name, outs, tol, what, exact=None):
     """Backward outputs [(kernel, plain, plain under a 1e-5 perturbation of
     an input)]: each within ``tol`` in relative L2 norm plus 3x the plain
     version's own change; norms floored at 1e-3 of the call's largest (for
-    outputs that are zero in exact arithmetic).  Returns the max abs err."""
+    outputs that are zero in exact arithmetic).  ``exact``: (indices, fn)
+    for a K7 attention BN's (gamma, beta) gradients, which sum terms that
+    nearly cancel (each query's softmax weights sum to one), so float32
+    rounds them above a perturbation's change; where one of those two is
+    past its bound, ``fn()`` gives both in float64 (as the kernel's branches
+    and as the plain version's own) and it is held against float64 instead,
+    within ``tol`` plus 3x the larger of the float32 plain version's own
+    error and its perturbation change.  Every other output keeps its bound.
+    Returns the max abs err."""
     import torch
 
     floor = 1e-3 * max(float(want.norm()) for _, want, _ in outs)
     err = worst = 0.0
+    indices, exact_fn = exact or ((), None)
+    exact_outs = None
     for i, (got, want, shaken) in enumerate(outs):
         scale = max(float(want.norm()), floor)
         rel = float((got - want).norm()) / scale
-        bound = tol + 3 * float((shaken - want).norm()) / scale
+        moved = float((shaken - want).norm()) / scale
+        bound = tol + 3 * moved
+        if bool(torch.isfinite(got).all()) and rel > bound and i in indices:
+            if exact_outs is None:
+                exact_outs = exact_fn()
+            j = indices.index(i)
+            ex, own_ex = exact_outs[0][j], exact_outs[1][j]
+            rel = float((got.double() - ex).norm()) / scale
+            own = float((want.double() - own_ex).norm()) / scale
+            bound = tol + 3 * max(own, moved)
+            log(f"  {name}: output {i} against float64: kernel err {rel:.3g},"
+                f" float32 plain err {own:.3g}, bound {bound:.3g}")
         if not bool(torch.isfinite(got).all()) or rel > bound:
             raise AssertionError(f"{name}: output {i} ({what}) relative L2 "
                                  f"err {rel} > {bound}")
@@ -401,6 +494,8 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
     """Kernel outputs of a recorded train call against its plain version
     (a K8 t pass's fused reduce sums are held by :func:`k8_sums`).
     Returns (max abs err, plain callable for timing)."""
+    import torch
+
     from curvecloudnet_tpu_torch.ops import group_train as G
 
     if name == "conv1d_train_fwd":
@@ -441,11 +536,79 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
                                s_extras, dout)
         outs = list(zip((kern_out[0],) + tuple(kern_out[1]),
                         (d_h1,) + tuple(grads), (s_h1,) + tuple(s_grads)))
+        exact = None
+        if cfg.attend and extras[0].dtype == torch.int32:
+            # outputs: d_h1, then the grads; the attention BN's (gamma, beta)
+            k = 4 * cfg.n_loc + 3
+            exact = ((k, k + 1), lambda: _att_branches(*args)[:2])
         err = _yardstick(name, outs, tol, "0: d_h1, then the params' "
-                         "gradients")
+                         "gradients", exact)
         return err, lambda: ref_fn(*r_args)
     ref = ref_fn(*args)
     return _err(name, kern_out, ref, tol), lambda: ref_fn(*args)
+
+
+def _att_branches(h1, mask, cfg, params, stats, n, extras, dout):
+    """A K7 attend call's backward (its recorded arguments): the attention
+    BN's (gamma, beta) gradients in float64 with act' taken at the kernel's
+    own activation inputs and at float64's -> (kernel-branch pair, float64
+    pair, rows that take another slope, live rows).  A row's a_y within the
+    kernel's rounding of 0 takes the other slope of the leaky ReLU there,
+    and the shift gradient sums terms that nearly cancel, so one such row
+    moves it by ~1e-3 of its norm; such rows must stay under ``FLIP_CAP``
+    of the live rows."""
+    import torch
+
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    L = cfg.n_loc
+    d = [h1.double()] + [p.double() for p in params]
+    _, e_stats, e_n, e_extras = G.group_train_fwd_ref(d[0], mask, cfg, d[1:])
+    _, e_grads = G.group_train_bwd_ref(d[0], mask, cfg, d[1:], e_stats, e_n,
+                                       e_extras, dout.double())
+    want = e_grads[4 * L + 2:4 * L + 4]
+    _, _, ga, bta, wa1, _ = G._att(cfg, d[1:])
+    mk = G._plane_mask(mask, torch.float64)
+    keep, _ = G._chain_ref(d[0], mk, e_n, cfg, d[1:], e_stats)
+    out, mx, den = e_extras
+    lg = torch.where(mk > 0, keep["logits"],
+                     torch.full_like(keep["msg"], G.ATTEND_FILL))
+    w = torch.exp(lg - mx[:, None]) / den[:, None]
+    dlogit = w * (keep["msg"] - out[:, None]) * dout.double()[:, None] * mk
+    a = cfg.att_dim
+    rows = extras[0].long()
+    pre = (dlogit @ wa1.t()).reshape(-1, a)[rows]
+    a_xhat = keep["a_xhat"].reshape(-1, a)[rows]
+    a_y = a_xhat * ga + bta
+    gv, inv = extras[5 + L], extras[5 + L + 2 + L]
+    k_y = ((gv.double() - stats[L][0].double()) * inv.double()
+           * ga.float().double() + bta.float().double())
+    # T = pre * act'(a_y) on the live rows: the kernel's slopes less float64's
+    moved = (G._dact(k_y, cfg.attend_act)
+             - G._dact(a_y, cfg.attend_act)) * pre
+    flips = int((moved != 0).any(-1).sum())
+    log(f"  group_train_bwd: {flips} of {rows.numel()} live rows take another "
+        f"attention slope in the kernel than in float64")
+    if flips > FLIP_CAP * rows.numel():
+        raise AssertionError(f"group_train_bwd: {flips} of {rows.numel()} "
+                             f"live rows flip slope (cap {FLIP_CAP:g})")
+    kern = [want[0] + (moved * a_xhat).sum(0), want[1] + moved.sum(0)]
+    return kern, list(want), flips, rows.numel()
+
+
+def k7_flips(label, calls):
+    """:func:`_att_branches`' slope flips at every K7 attend site of a
+    captured step (each under ``FLIP_CAP`` of its live rows)."""
+    import torch
+
+    total = live = sites = 0
+    with torch.no_grad():
+        for args, _, _ in calls["group_train_bwd"]:
+            if args[2].attend and args[6][0].dtype == torch.int32:
+                f, n = _att_branches(*args)[2:]
+                total, live, sites = total + f, live + n, sites + 1
+    log(f"{label} K7 attention slope flips at {sites} attend sites: {total} "
+        f"of {live} live rows")
 
 
 def work(name, args, out):
@@ -950,11 +1113,12 @@ def pass_times(G, fn):
     return out
 
 
-def k7_sites(spec, calls, per_call, G):
-    """Phase 6: one line per K7 call of the captured train step (the
-    grouping steps, in order), forward and backward: live rows, queries
-    with no live slot and the check that the call's ``dout`` is exactly 0
-    at every one of them (the contract that lets K7 drop their rows),
+def k7_sites(spec, calls, per_call, G, label="nuScenes"):
+    """Phases 6 and 17: one line per K7 call of the captured train step
+    (the grouping steps, in order), forward and backward: live rows,
+    queries with no live slot and the check that the call's ``dout`` is
+    exactly 0 at every one of them (the contract that lets K7 drop their
+    rows), the size of the chain the forward stores for the backward,
     kernel / plain / bound / 3xTF32-floor ms and the kernel's ms per pass;
     then their sums."""
     import torch
@@ -972,8 +1136,9 @@ def k7_sites(spec, calls, per_call, G):
     keys = ("ms", "plain_ms", "bound_ms", "floor_ms")
     sums = {d: dict.fromkeys(keys, 0.0) for d in ("fwd", "bwd")}
     passes = {"fwd": {}, "bwd": {}}
-    for step, (args, _, _), tf in zip(steps, fwd, t_fwd):
+    for step, (args, _, f_out), tf in zip(steps, fwd, t_fwd):
         h1, mask, cfg, params = args
+        stored = sum(t.numel() * t.element_size() for t in f_out[3][5:])
         b_args, tb = by_h1[(h1.data_ptr(), tuple(h1.shape))]
         dout = b_args[7]
         dead = ~mask.any(-1)
@@ -996,14 +1161,16 @@ def k7_sites(spec, calls, per_call, G):
             line.append(f"{d} kernel {t['ms']:.3f} ms, plain "
                         f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f}"
                         f" ms, 3xTF32 floor {floor:.3f} ms ({per})")
-        log(f"K7 site step_{step}: M {h1.shape[2]}, K {h1.shape[1]}, widths "
-            f"{list(cfg.dims)}, attend {cfg.att_dim}, {cfg.aggr}, live rows "
-            f"{int(mask.sum())} of {mask.numel()}, {int(dead.sum())} queries "
-            f"with no live slot (dout 0 at all); " + "; ".join(line))
+        log(f"K7 site {label} step_{step}: B {h1.shape[0]}, M {h1.shape[2]},"
+            f" K {h1.shape[1]}, widths {list(cfg.dims)}, attend "
+            f"{cfg.att_dim}, {cfg.aggr}, live rows {int(mask.sum())} of "
+            f"{mask.numel()}, {int(dead.sum())} queries with no live slot "
+            f"(dout 0 at all), stored chain {stored / 2**30:.3f} GiB; "
+            + "; ".join(line))
     for d in ("fwd", "bwd"):
         s = sums[d]
         per = ", ".join(f"{k} {v:.3f}" for k, v in passes[d].items())
-        log(f"K7 {d}, {len(fwd)} calls: kernel {s['ms']:.3f} ms, plain "
+        log(f"K7 {label} {d}, {len(fwd)} calls: kernel {s['ms']:.3f} ms, plain "
             f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms, 3xTF32 "
             f"floor {s['floor_ms']:.3f} ms; by pass: {per}")
 
@@ -1086,7 +1253,7 @@ def run_kitti(P, mods, dev, kernel_launches):
                           train=False))
     del topk_calls
 
-    # 10. three scans through predict, launches counted
+    # 10. two scans through predict, launches counted
     want = kernel_launches(model.spec, KITTI_N_PAD)
     for name, mod, wrapper, *_ in KITTI_KERNELS:
         getattr(mods[mod], wrapper).launches = 0
@@ -1679,6 +1846,343 @@ def run_eval_entry(P, mods, dev, kernel_launches):
     return errs, by_path
 
 
+def step_runner(model, state0, batch, loss_cfg, mods, dev):
+    """fn(plain_path=False, shaken=False, lr=LR) -> (loss, ms, peak bytes):
+    one train step of ``model`` from a fresh copy of the weights
+    ``state0``, through the kernels or (``plain_path``) every kernel's
+    plain version, the weights x (1 + 1e-5 noise) with ``shaken``."""
+    import torch
+
+    from curvecloudnet_tpu_torch.train import train_step
+    from curvecloudnet_tpu_torch.train.trainer import create_optimizer
+
+    def one_step(plain_path=False, shaken=False, lr=LR):
+        model.load_state_dict(state0)
+        if shaken:
+            g = torch.Generator(device=dev).manual_seed(5)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1e-5 * torch.randn(p.shape, generator=g,
+                                                  device=dev))
+        opt = create_optimizer(model)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with contextlib.ExitStack() as stack:
+            if plain_path:
+                for name, mod, wrapper, ref_name, *_ in (
+                        EVAL_KERNELS + TRAIN_KERNELS + PLAIN_CHAINS):
+                    m = mods[mod]
+                    stack.enter_context(replaced(m, wrapper,
+                                                 getattr(m, ref_name)))
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(model, opt, lr, batch, gen, 0.1, loss_cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return float(out["loss"]), ms, torch.cuda.max_memory_allocated()
+
+    return one_step
+
+
+def hold_step(label, one_step, model):
+    """Phases 8 and 17: one step from the same weights through the kernels
+    and through the plain versions (and the plain versions on perturbed
+    weights, the yardstick); raises past the tolerances -> {path: (loss,
+    ms, peak bytes, grads, buffers)}."""
+    results = {}
+    for what, plain_path, shaken in [("kernel", False, False),
+                                     ("plain", True, False),
+                                     ("plain, weights x (1 + 1e-5 noise)",
+                                      True, True)]:
+        loss, ms, peak = one_step(plain_path, shaken)
+        results[what] = (loss, ms, peak, *grads_and_stats(model))
+        log(f"{label} one step, {what} path: loss {loss:.8g}, {ms:.1f} ms, "
+            f"peak memory {peak / 2**30:.2f} GiB")
+    k_loss, _, _, k_grads, k_bufs = results["kernel"]
+    p_loss, _, _, p_grads, p_bufs = results["plain"]
+    _, _, _, s_grads, s_bufs = results["plain, weights x (1 + 1e-5 noise)"]
+    if abs(k_loss - p_loss) > 1e-4 * abs(p_loss):
+        raise AssertionError(f"{label} loss: kernel {k_loss} vs plain "
+                             f"{p_loss}")
+    stat_bar = stat_yard = 0
+    for name, v in p_bufs.items():
+        scale = max(1.0, float(v.abs().max()))
+        err = float((k_bufs[name] - v).abs().max())
+        if err <= 1e-5 * scale:
+            stat_bar += 1
+            continue
+        noise = float((s_bufs[name] - v).abs().max())
+        log(f"  running statistic {name}: err {err:.3g} > 1e-5 x {scale:.3g};"
+            f" plain path's 1e-5-perturbation change {noise:.3g}")
+        if err > 3 * noise + 1e-5 * scale:
+            raise AssertionError(f"{label} running statistic {name} differs "
+                                 f"by {err}")
+        stat_yard += 1
+    log(f"{label} running statistics: {stat_bar} within 1e-5, {stat_yard} "
+        f"within the perturbation yardstick")
+    if k_grads.keys() != p_grads.keys():
+        raise AssertionError(f"{label} gradients: different parameter sets")
+    bar = yardstick = 0
+    worst = (0.0, "")
+    # gradients that are zero in exact arithmetic (a bias before a BN) are
+    # rounding noise on both paths: floored at 1e-5 of the largest gradient
+    floor = 1e-5 * max(float(g.abs().max()) for g in p_grads.values())
+    for name, g in p_grads.items():
+        scale = float(g.abs().max())
+        err = float((k_grads[name] - g).abs().max())
+        if err <= 2e-3 * scale:
+            bar += 1
+            continue
+        noise = float((s_grads[name] - g).abs().max())
+        ratio = err / (3 * noise + 2e-3 * scale + floor)
+        worst = max(worst, (ratio, name))
+        log(f"  gradient {name}: err {err:.3g} of max {scale:.3g} > 2e-3; "
+            f"plain path's 1e-5-perturbation change {noise:.3g}")
+        if ratio > 1:
+            raise AssertionError(f"{label} gradient {name}: err {err} beyond "
+                                 f"3 x {noise} + 2e-3 x {scale} + {floor}")
+        yardstick += 1
+    log(f"{label} gradients: {bar} within 2e-3 of their max, {yardstick} "
+        f"within the perturbation yardstick (worst {worst[0]:.3g} of its "
+        f"bound, {worst[1]})")
+    return results
+
+
+def hold_train(label, kernels, mods, calls):
+    """Each recorded call of a train step held against its plain version
+    as phase 6 holds it (no timing): the train kernels through
+    :func:`compare_train`, K3 / K5 / K6 through :func:`compare` on the
+    call's own output -> {name: max err}."""
+    import torch
+
+    train_names = {k[0] for k in TRAIN_KERNELS}
+    worst = {}
+    for name, mod, wrapper, ref_name, *_, tol in kernels:
+        ref = getattr(mods[mod], ref_name)
+        errs = [0.0]
+        with torch.no_grad():
+            for args, kwargs, out in calls[name]:
+                if name in train_names:
+                    errs.append(compare_train(name, args, kwargs, out, ref,
+                                              tol)[0])
+                else:
+                    errs.append(compare(name, out, ref(*args, **kwargs),
+                                        tol))
+        worst[name] = max(errs)
+        log(f"  {label} {name}: {len(calls[name])} calls, max abs err "
+            f"{worst[name]:.3g}")
+    return worst
+
+
+def k7_dead_dout(label, spec, calls):
+    """The K7 contract at every site of a captured step: ``dout`` exactly 0
+    at each query with no live slot (a query slot past the sampling budget
+    among them), whose rows the kernels drop."""
+    by_h1 = {(a[0].data_ptr(), tuple(a[0].shape)): a[7]
+             for a, _, _ in calls["group_train_bwd"]}
+    dead_total = 0
+    for args, _, _ in calls["group_train_fwd"]:
+        mask = args[1]
+        dout = by_h1[(args[0].data_ptr(), tuple(args[0].shape))]
+        dead = ~mask.any(-1)
+        dead_total += int(dead.sum())
+        if bool((dout[dead] != 0).any()):
+            raise AssertionError(f"{label} K7: dout is not 0 at a query "
+                                 "with no live slot")
+    log(f"{label} K7: {len(calls['group_train_fwd'])} sites, "
+        f"{dead_total} queries with no live slot, dout 0 at all")
+
+
+def run_train17(P, mods, dev, kernel_launches, label, config, timed):
+    """Phase 17, one config's train path -> (launches of its steps, {kernel:
+    worst error of its capture step})."""
+    import torch
+
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.run.tasks import loss_for
+    from curvecloudnet_tpu_torch.tools.tta_walls import host_syncs
+    from curvecloudnet_tpu_torch.train import train_step
+    from curvecloudnet_tpu_torch.train.__main__ import train_batch
+    from curvecloudnet_tpu_torch.train.trainer import create_optimizer
+
+    t_path = time.perf_counter()
+    kitti = config == KITTI_CONFIG
+    n_pad = P.n_pad_of(config)
+    loss_cfg = loss_for(load_config(config))
+    model = P.build_model(config, n_pad, dev).train()
+    batch = train_batch(config, 0, n_pad, dev)
+    state0 = copy.deepcopy(model.state_dict())
+    one_step = step_runner(model, state0, batch, loss_cfg, mods, dev)
+    held = TRAIN_KERNELS + TRAIN_HELD + (GRID_HELD if kitti else [])
+    calls, (cap_loss, cap_ms, cap_peak) = capture(
+        held, mods, lambda: one_step(lr=0.0))
+    log(f"{label} capture step: B {batch.cloud.valid.shape[0]}, n_pad "
+        f"{n_pad}, {int(batch.cloud.valid.sum())} valid points, loss "
+        f"{cap_loss:.6g}, {cap_ms:.1f} ms, peak {cap_peak / 2**30:.2f} GiB")
+    k7_dead_dout(label, model.spec, calls)
+    if timed:
+        per_call = {}
+        live = [k for k in TRAIN_KERNELS if calls[k[0]]]
+        worst = {name: row["max_abs_err"] for name, row in measure(
+            live, mods, calls, train=True, per_call=per_call).items()}
+        k7_sites(model.spec, calls, per_call, mods["group_train"], label)
+        worst.update(hold_train(label, TRAIN_HELD, mods, calls))
+    else:
+        worst = hold_train(label, held, mods, calls)
+    if label == WITNESS17:
+        k7_flips(f"{label} seed 0", calls)
+    del calls
+    if label == WITNESS17:
+        k7 = [k for k in TRAIN_KERNELS if k[1] == "group_train"]
+        step1 = step_runner(model, state0, train_batch(config, 1, n_pad, dev),
+                            loss_cfg, mods, dev)
+        calls, _ = capture(k7, mods, lambda: step1(lr=0.0))
+        for name, e in hold_train(f"{label} seed 1", k7, mods,
+                                  calls).items():
+            worst[name] = max(worst[name], e)
+        k7_flips(f"{label} seed 1", calls)
+        del calls, step1
+
+    # three steps, launches counted; a step's device busy ms and host waits
+    want = kernel_launches(model.spec, n_pad, train=True)
+    counted = TRAIN_COUNTED + (
+        [("grid_topk", "grid_topk", "grid_topk_records")] if kitti else [])
+    for name, mod, wrapper in counted:
+        getattr(mods[mod], wrapper).launches = 0
+    model.load_state_dict(state0)
+    opt = create_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+
+    def step():
+        return train_step(model, opt, LR, batch, gen, 0.1, loss_cfg)
+
+    for _ in range(TRAIN17_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w in counted}
+    log(f"{label} launches:", launched, "spec per step:", want)
+    for name, got in launched.items():
+        if got != TRAIN17_STEPS * want.get(name, 0):
+            raise AssertionError(f"{name}: {got} {label} launches, want "
+                                 f"{TRAIN17_STEPS} x {want.get(name, 0)}")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"{label} losses not finite: {losses}")
+    busy = device_ms(step, reps=1)
+    waits = host_syncs(step)
+    log(f"{label} steps: losses {losses}, walls {[round(w, 1) for w in walls]}"
+        f" ms, device busy {busy:.2f} ms a step, host waits a step {waits}, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    if not kitti:
+        hold_step(label, one_step, model)
+    log(f"{label}: {time.perf_counter() - t_path:.1f} s")
+    return launched, worst
+
+
+def run_loops(P, mods, dev, kernel_launches):
+    """Phase 17, ``main``'s epoch loop on shapenet-class (then resumed) and
+    nuScenes -> launches by path."""
+    import torch
+
+    from curvecloudnet_tpu_torch import main as M
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.models import parse_model_config
+    from curvecloudnet_tpu_torch.run import tasks as T
+
+    def loop(label, name, overrides, val_forwards):
+        """``main.main`` training ``name`` with ``overrides``; launches
+        checked against the spec's train count x steps + eval count x
+        val forwards -> (launches, step (ms, peak bytes) list, cfg)."""
+        cfg = load_config(os.path.join(REPO, "configs", f"{name}.yaml"))
+        cfg.update(device=str(dev), outdir=os.path.join(OUT17, label),
+                   **overrides)
+        train_ds, _ = M.load_datasets(cfg)
+        info = T.task_for(cfg["dataset_source"], cfg["task"])
+        spec = parse_model_config(cfg["model"], in_dim=train_ds.in_dim,
+                                  n_out=info.n_out)
+        resumed = M.ckpt.read_latest_state(cfg["outdir"])
+        epochs = cfg["epochs"] - (0 if resumed is None
+                                  else resumed["epoch"] + 1)
+        steps = len(train_ds) // int(cfg["batch_size"])
+        want = {}
+        for counts, times in ((kernel_launches(spec, train_ds.n_pad,
+                                               train=True), steps),
+                              (kernel_launches(spec, train_ds.n_pad),
+                               val_forwards)):
+            for k, v in counts.items():
+                want[k] = want.get(k, 0) + epochs * times * v
+        for _, mod, wrapper in LOOP_COUNTED:
+            getattr(mods[mod], wrapper).launches = 0
+        timed, inner = [], M.train_step
+
+        def train_step(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed.append(((time.perf_counter() - t0) * 1e3,
+                          torch.cuda.max_memory_allocated()))
+            return out
+
+        t0 = time.perf_counter()
+        with replaced(M, "train_step", train_step):
+            score = M.main(cfg)
+        wall = time.perf_counter() - t0
+        launched = {name_: getattr(mods[mod], w).launches
+                    for name_, mod, w in LOOP_COUNTED}
+        log(f"{label}: {len(timed)} steps in {epochs} epochs, score "
+            f"{score}, {wall:.1f} s; launches {launched}")
+        for k, got in launched.items():
+            if got != want.get(k, 0):
+                raise AssertionError(f"{label} {k}: {got} launches, want "
+                                     f"{want.get(k, 0)}")
+        if len(timed) != epochs * steps or not score == score:
+            raise AssertionError(f"{label}: {len(timed)} steps, score "
+                                 f"{score}")
+        return launched, timed, cfg
+
+    shutil.rmtree(OUT17, ignore_errors=True)
+    by_path = {}
+    common = dict(n_train=48, n_val=16, num_workers=2)
+    launched, timed, cfg = loop("train_loop_shapenet_class",
+                                "shapenet-class", dict(common, epochs=2), 2)
+    outdir = cfg["outdir"]
+    files = sorted(os.listdir(outdir))
+    state = M.ckpt.read_latest_state(outdir)
+    log(f"shapenet-class loop: steps (ms, GiB) "
+        f"{[(round(ms, 1), round(b / 2**30, 2)) for ms, b in timed]}; "
+        f"outdir {files}; latest_state {state}")
+    if not (any(f.startswith("best_epoch") for f in files) and "latest"
+            in files and state["epoch"] == 1):
+        raise AssertionError(f"shapenet-class loop: outdir {files}, {state}")
+    again, timed, _ = loop("train_loop_shapenet_class", "shapenet-class",
+                           dict(common, epochs=3), 2)
+    state = M.ckpt.read_latest_state(outdir)
+    log(f"shapenet-class loop resumed to 3 epochs: {len(timed)} steps "
+        f"(epoch 2 only), latest_state {state}")
+    if state["epoch"] != 2:
+        raise AssertionError(f"shapenet-class resume: {state}")
+    by_path["train_loop_shapenet_class"] = {
+        k: launched[k] + again[k] for k in launched}
+    # 2 val scans, each 12 TTA views in chunks of 2: 12 eval forwards
+    launched, timed, cfg = loop(
+        "train_loop_nuscenes", "nuscenes",
+        dict(n_train=6, n_val=2, epochs=1, num_workers=2),
+        2 * (T.N_VIEWS // 2))
+    ms, peak = timed[0]
+    log(f"nuScenes loop: a B=6 step at n_pad {cfg['n_pad']} {ms:.1f} ms, peak "
+        f"{peak / 2**30:.2f} GiB")
+    by_path["train_loop_nuscenes"] = launched
+    return by_path
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -1723,6 +2227,7 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({_build.BUILD_DIR / _build.LIB_NAME})")
 
+    stamp(t_start, "1-2")
     # 3. capture one eval forward, compare and time every recorded call
     model = P.build_model(CONFIG, N_PAD, dev)
     scan0 = P.synthetic_scan(0, N_PAD, dev)
@@ -1738,7 +2243,7 @@ def main():
     k6_calls("nuScenes", calls["fps"], group_call_ms["fps"], fps)
     del calls
 
-    # 4. the eval path: three scans through predict, launches counted
+    # 4. the eval path: two scans through predict, launches counted
     want = kernel_launches(model.spec, N_PAD)
     for name, mod, wrapper, *_ in EVAL_KERNELS:
         getattr(mods[mod], wrapper).launches = 0
@@ -1778,41 +2283,18 @@ def main():
     log(f"per-scan latency ms: {scan_ms}")
     del model, plain
 
+    stamp(t_start, "3-5")
     # 6. capture one train step, compare and time every recorded call
     loss_cfg = LossConfig(ignore_index=0, use_lovasz=True)
     batch = synthetic_batch(0, N_PAD, dev)
     init = P.build_model(CONFIG, N_PAD, dev).train()
     state0 = copy.deepcopy(init.state_dict())
 
-    def one_step(model, plain_path=False, shaken=False, lr=LR):
-        """One train step of a fresh copy of the initial weights."""
-        model.load_state_dict(state0)
-        if shaken:
-            g = torch.Generator(device=dev).manual_seed(5)
-            with torch.no_grad():
-                for p in model.parameters():
-                    p.mul_(1 + 1e-5 * torch.randn(p.shape, generator=g,
-                                                  device=dev))
-        opt = create_optimizer(model)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        with contextlib.ExitStack() as stack:
-            if plain_path:
-                for name, mod, wrapper, ref_name, *_ in (
-                        EVAL_KERNELS + TRAIN_KERNELS + PLAIN_CHAINS):
-                    m = mods[mod]
-                    stack.enter_context(replaced(m, wrapper,
-                                                 getattr(m, ref_name)))
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = train_step(model, opt, lr, batch, gen, 0.1, loss_cfg)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        return float(out["loss"]), ms, torch.cuda.max_memory_allocated()
+    one_step = step_runner(init, state0, batch, loss_cfg, mods, dev)
 
     # learning rate 0: the recorded calls hold views of the weights
     calls, (cap_loss, cap_ms, _) = capture(
-        TRAIN_KERNELS + TRAIN_HELD, mods, lambda: one_step(init, lr=0.0))
+        TRAIN_KERNELS + TRAIN_HELD, mods, lambda: one_step(lr=0.0))
     log(f"train capture step: loss {cap_loss:.6g}, {cap_ms:.1f} ms")
     train_call_ms = {}
     train_report = measure(TRAIN_KERNELS, mods, calls, train=True,
@@ -1860,75 +2342,25 @@ def main():
         raise AssertionError(f"train losses not finite and falling: {losses}")
 
     # 8. one step from the same weights: kernel path against plain path
-    results = {}
-    for label, plain_path, shaken in [("kernel", False, False),
-                                      ("plain", True, False),
-                                      ("plain, weights x (1 + 1e-5 noise)",
-                                       True, True)]:
-        loss, ms, peak = one_step(init, plain_path, shaken)
-        results[label] = (loss, ms, peak, *grads_and_stats(init))
-        log(f"one step, {label} path: loss {loss:.8g}, {ms:.1f} ms, peak "
-            f"memory {peak / 2**30:.2f} GiB")
-    k_loss, _, _, k_grads, k_bufs = results["kernel"]
-    p_loss, _, _, p_grads, p_bufs = results["plain"]
-    _, _, _, s_grads, s_bufs = results["plain, weights x (1 + 1e-5 noise)"]
-    if abs(k_loss - p_loss) > 1e-4 * abs(p_loss):
-        raise AssertionError(f"loss: kernel {k_loss} vs plain {p_loss}")
-    stat_bar = stat_yard = 0
-    for name, v in p_bufs.items():
-        scale = max(1.0, float(v.abs().max()))
-        err = float((k_bufs[name] - v).abs().max())
-        if err <= 1e-5 * scale:
-            stat_bar += 1
-            continue
-        noise = float((s_bufs[name] - v).abs().max())
-        log(f"  running statistic {name}: err {err:.3g} > 1e-5 x {scale:.3g};"
-            f" plain path's 1e-5-perturbation change {noise:.3g}")
-        if err > 3 * noise + 1e-5 * scale:
-            raise AssertionError(f"running statistic {name} differs by {err}")
-        stat_yard += 1
-    log(f"running statistics: {stat_bar} within 1e-5, {stat_yard} within the "
-        f"perturbation yardstick")
-    if k_grads.keys() != p_grads.keys():
-        raise AssertionError("gradients: different parameter sets")
-    bar = yardstick = 0
-    worst = (0.0, "")
-    # gradients that are zero in exact arithmetic (a bias before a BN) are
-    # rounding noise on both paths: floored at 1e-5 of the largest gradient
-    floor = 1e-5 * max(float(g.abs().max()) for g in p_grads.values())
-    for name, g in p_grads.items():
-        scale = float(g.abs().max())
-        err = float((k_grads[name] - g).abs().max())
-        if err <= 2e-3 * scale:
-            bar += 1
-            continue
-        noise = float((s_grads[name] - g).abs().max())
-        ratio = err / (3 * noise + 2e-3 * scale + floor)
-        worst = max(worst, (ratio, name))
-        log(f"  gradient {name}: err {err:.3g} of max {scale:.3g} > 2e-3; "
-            f"plain path's 1e-5-perturbation change {noise:.3g}")
-        if ratio > 1:
-            raise AssertionError(f"gradient {name}: err {err} beyond "
-                                 f"3 x {noise} + 2e-3 x {scale} + {floor}")
-        yardstick += 1
-    log(f"gradients: {bar} within 2e-3 of their max, {yardstick} within the "
-        f"perturbation yardstick (worst {worst[0]:.3g} of its bound, "
-        f"{worst[1]})")
+    results = hold_step("train", one_step, init)
     log(f"train: capture step {cap_ms:.1f} ms; steps {step_ms} ms; kernel "
         f"path peak memory {kernel_peak / 2**30:.2f} GiB; plain step "
         f"{results['plain'][1]:.1f} ms, peak "
         f"{results['plain'][2] / 2**30:.2f} GiB; losses {losses}")
 
+    stamp(t_start, "6-8")
     del init, opt, batch
     kitti_report, kitti_launched, kitti_scan = run_kitti(P, mods, dev,
                                                          kernel_launches)
     fused_report, fused_launched, fused_k2_err = run_fused(
         P, mods, dev, kernel_launches, scan0, logits0, valid0, group_call_ms)
+    stamp(t_start, "9-13 (nuScenes' fused route)")
     kitti_launched["kitti_fused"], kitti_k9_err = run_kitti_fused(
         P, mods, dev, kernel_launches, *kitti_scan)
     fused_report["edge_mlp"]["max_abs_err"] = max(
         fused_report["edge_mlp"]["max_abs_err"], kitti_k9_err)
 
+    stamp(t_start, "13 (KITTI's fused route)")
     # 14-15. the version-1.0 configs
     v1_reports, v1_launched = [], {}
     for label, name in V1_CONFIGS:
@@ -1942,9 +2374,22 @@ def main():
                 P, mods, dev, kernel_launches, label, config, *scan)
             v1_reports.append({"edge_mlp": k9_row})
 
+    stamp(t_start, "14-15")
     # 16. the eval entry
     eval16_errs, eval16_launched = run_eval_entry(P, mods, dev,
                                                   kernel_launches)
+
+    # 17. the train paths of the other configs, main's epoch loop
+    t_phase = time.perf_counter()
+    train17_launched, train17_errs = {}, {}
+    for label, name, timed in TRAIN17 + [("train_kitti", "kitti", False)]:
+        config = os.path.join(REPO, "configs", f"{name}.yaml")
+        train17_launched[label], errs = run_train17(
+            P, mods, dev, kernel_launches, label, config, timed)
+        for k, e in errs.items():
+            train17_errs[k] = max(train17_errs.get(k, 0.0), e)
+    train17_launched.update(run_loops(P, mods, dev, kernel_launches))
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
@@ -1970,7 +2415,7 @@ def main():
         for name, row in rows.items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               row["max_abs_err"])
-    for name, err in eval16_errs.items():
+    for name, err in list(eval16_errs.items()) + list(train17_errs.items()):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
@@ -1978,11 +2423,12 @@ def main():
                    "eval_fused": fused_launched.get(name, 0)}
         for path, counts in (list(kitti_launched.items())
                              + list(v1_launched.items())
-                             + list(eval16_launched.items())):
+                             + list(eval16_launched.items())
+                             + list(train17_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

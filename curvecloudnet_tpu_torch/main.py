@@ -1,30 +1,38 @@
-"""The config-driven eval and test entry point (counterpart of
+"""The config-driven train, eval and test entry point (counterpart of
 ``curvecloudnet_tpu/main.py``).
 
 Usage, as the reference's (``src/main.py``)::
 
     python -m curvecloudnet_tpu_torch.main --config configs/nuscenes.yaml \\
-        --only_val=true [--n_val=2] [--device=cpu] [--key=value ...]
+        [--epochs=2] [--n_train=6] [--n_val=2] [--device=cpu] [--key=value ...]
+    python -m curvecloudnet_tpu_torch.main --config configs/nuscenes.yaml \\
+        --only_val=true [--n_val=2] [--device=cpu]
 
-``--only_val`` scores the val split (mIoU under 12-view TTA for the lidar
-datasets, part mIoU or accuracy for the objects); ``--only_test`` also
-writes the test-split submission files under ``outdir``.  The model is
-built at the dataset's ``n_pad`` on ``device`` (default ``cuda``; there is
-no fallback to the CPU), with random weights from ``seed``, the
-reference ``.pth`` at ``weights``, a native checkpoint at ``weights``, or
-the ``latest`` checkpoint of ``outdir``.  Where ``data_path`` does not
-exist the datasets are the JAX entry's synthetic stand-ins.
+Without ``only_val`` / ``only_test`` it trains (:func:`train`, the JAX
+entry's epoch loop): Adam on the config's schedule, the task's loss, the
+BN momentum decayed per epoch, a validation every ``val_every`` epochs,
+``best_epoch{E}`` / ``epoch{E}`` / ``latest`` checkpoints with the
+optimizer state, resuming from ``outdir``'s ``latest``.  ``--only_val``
+scores the val split (mIoU under 12-view TTA for the lidar datasets, part
+mIoU or accuracy for the objects); ``--only_test`` also writes the
+test-split submission files under ``outdir``.  The model is built at the
+dataset's ``n_pad`` on ``device`` (default ``cuda``; there is no fallback
+to the CPU), with random weights from ``seed``, the reference ``.pth`` at
+``weights``, a native checkpoint at ``weights``, or the ``latest``
+checkpoint of ``outdir``.  Where ``data_path`` does not exist the
+datasets are the JAX entry's synthetic stand-ins.
 
-Not ported yet, and raising ``NotImplementedError``: the epoch loop
-(training; ``python -m curvecloudnet_tpu_torch.train`` is the train
-entry), ``only_viz``, more than one process, and reading real datasets.
+Not ported yet, and raising ``NotImplementedError``: ``only_viz``, more
+than one process or device, and reading real datasets.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import checkpoint as ckpt
@@ -33,6 +41,8 @@ from .data import datasets as D
 from .logging_utils import MetricLogger
 from .models import CurveCloudNet, parse_model_config
 from .run import tasks as T
+from .train.trainer import (bn_momentum_for_epoch, create_optimizer,
+                            make_schedule, train_step)
 
 LIDAR_SOURCES = ("nuscenes", "kitti", "audi")
 OBJECT_SOURCES = ("shapenet-seg", "shapenet", "kortx")
@@ -127,10 +137,13 @@ def device_of(cfg: dict) -> torch.device:
     return device
 
 
-def build(cfg: dict, logger: Optional[MetricLogger] = None):
-    """(task info, val dataset, model in eval mode on the config's device)
-    with the weights of ``weights``, of ``outdir``'s ``latest``
-    checkpoint, or random from ``seed``."""
+def _setup(cfg: dict, logger: Optional[MetricLogger] = None,
+           with_optimizer: bool = False):
+    """(task info, train set, val set, model on the config's device,
+    optimizer or None, (start epoch, max score, optimizer step)) with the
+    weights of ``weights``, of ``outdir``'s ``latest`` checkpoint (the
+    optimizer's state too, and the epoch after the saved one), or random
+    from ``seed``."""
     from .predict import init_weights
 
     device = device_of(cfg)
@@ -147,9 +160,13 @@ def build(cfg: dict, logger: Optional[MetricLogger] = None):
     print(f"Model Parameters: {n_params:,}")
     if logger is not None:
         logger.log({"model_parameters": int(n_params)})
+    model = model.to(device)
+    opt = (create_optimizer(model, weight_decay=float(
+        cfg.get("weight_decay", 0.0))) if with_optimizer else None)
 
     outdir = cfg.get("outdir", "./out/run")
     weights = cfg.get("weights", "")
+    resume = (0, -1e30, 0)
     if weights:
         if weights.endswith((".pth", ".pt")):
             ckpt.load_reference_state_dict(
@@ -160,19 +177,107 @@ def build(cfg: dict, logger: Optional[MetricLogger] = None):
             ckpt.restore_checkpoint(os.path.dirname(weights) or ".",
                                     os.path.basename(weights), model)
     elif ckpt.has_latest(outdir):
-        ckpt.restore_checkpoint(outdir, "latest", model)
+        step = ckpt.restore_checkpoint(outdir, "latest", model, opt)
         latest = ckpt.read_latest_state(outdir) or {}
+        resume = (int(latest.get("epoch", -1)) + 1,
+                  float(latest.get("max_score", -1e30)), step)
         if logger is not None:
             # run-spanning statistics must see the entries before a resume
             logger.reload_history()
-        print(f"resumed from {outdir} at epoch "
-              f"{int(latest.get('epoch', -1)) + 1}")
-    return info, val_ds, model.to(device).eval()
+        print(f"resumed from {outdir} at epoch {resume[0]}")
+    return info, train_ds, val_ds, model, opt, resume
+
+
+def build(cfg: dict, logger: Optional[MetricLogger] = None):
+    """(task info, val dataset, model in eval mode on the config's device)
+    with the weights of ``weights``, of ``outdir``'s ``latest``
+    checkpoint, or random from ``seed``."""
+    info, _, val_ds, model, _, _ = _setup(cfg, logger)
+    return info, val_ds, model.eval()
+
+
+def train(cfg: dict, logger: MetricLogger) -> float:
+    """The epoch loop (JAX ``main.py:280-413``, one process) -> the best
+    val score.
+
+    Per epoch: the BN momentum ``bn_momentum_for_epoch(epoch,
+    bn_momentum_decay)``; the train set shuffled and augmented from
+    ``seed`` by ``PrefetchLoader``; per batch one :func:`train_step` at the
+    schedule's learning rate of the optimizer's step count (a step count a
+    resume restores), the sampling steps drawing from one
+    ``torch.Generator`` seeded from ``seed`` (JAX splits a key per step,
+    which torch cannot reproduce: docs/DEVIATIONS.md #14); every 10 steps
+    the previous step's loss is logged (its copy was started without
+    blocking, so the host waits for that step, not the one just queued);
+    the epoch's mean loss.  Every ``val_every`` epochs ``run_eval``, the
+    score and the median of the top five, and ``best_epoch{E}`` on a new
+    best; ``epoch{E}`` every ``save_every`` epochs; ``latest`` and
+    ``latest_state.json`` after every epoch."""
+    from .data.loader import PrefetchLoader
+
+    if int(cfg.get("data_parallel_devices") or 1) > 1:
+        raise NotImplementedError("data_parallel_devices > 1: scale-out is "
+                                  "not ported (ROADMAP.md)")
+    info, train_ds, val_ds, model, opt, resume = _setup(cfg, logger, True)
+    start_epoch, max_score, step = resume
+    device = next(model.parameters()).device
+    outdir = cfg.get("outdir", "./out/run")
+    loss_cfg = T.loss_for(cfg)
+    batch_size = int(cfg.get("batch_size", 4))
+    seed = int(cfg.get("seed", 0))
+    steps_per_epoch = max(1, -(-len(train_ds) // batch_size))
+    schedule = make_schedule(cfg.get("scheduler"), float(cfg.get("lr", 1e-3)),
+                             steps_per_epoch)
+    epochs = int(cfg.get("epochs", 10))
+    val_every = int(cfg.get("val_every", 1))
+    save_every = int(cfg.get("save_every", 10))
+    bn_decay = float(cfg.get("bn_momentum_decay", 0.97))
+    loader = PrefetchLoader(train_ds, batch_size, shuffle=True, seed=seed,
+                            augment=True,
+                            num_workers=int(cfg.get("num_workers", 4)))
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for epoch in range(start_epoch, epochs):
+        t_ep = time.time()
+        bn_m = bn_momentum_for_epoch(epoch, bn_decay)
+        losses = []
+        for np_batch in loader.epoch(epoch):
+            batch = D.to_device_batch(np_batch, info.task, device)
+            out = train_step(model, opt, schedule(step), batch, generator,
+                             bn_m, loss_cfg)
+            step += 1
+            losses.append(T.stage(device, out["loss"]))
+            if step % 10 == 0 and len(losses) >= 2:
+                (loss,), event = losses[-2]
+                T.wait(event)
+                logger.log({"train_loss": float(loss)}, step=step - 1)
+        for _, event in losses:
+            T.wait(event)
+        ep_loss = (float(np.mean([float(h[0]) for h, _ in losses]))
+                   if losses else 0.0)
+        print(f"epoch {epoch}: loss {ep_loss:.4f} "
+              f"({time.time() - t_ep:.1f}s)")
+
+        if (epoch + 1) % val_every == 0:
+            score = score_of(run_eval(model, val_ds, info, cfg))
+            logger.log({"score": score, "epoch": epoch}, step=step)
+            # the reference's 'Median Top 5 IOU' (nuscenes_seg.py:159-161)
+            logger.log({"median_top5_score": logger.median_top_k("score")},
+                       step=step)
+            if score > max_score:
+                max_score = score
+                ckpt.save_checkpoint(outdir, f"best_epoch{epoch}", model,
+                                     opt, step)
+        if (epoch + 1) % save_every == 0:
+            ckpt.save_checkpoint(outdir, f"epoch{epoch}", model, opt, step)
+        # the preemption checkpoint (reference main.py:127-141)
+        ckpt.save_checkpoint(outdir, "latest", model, opt, step)
+        ckpt.dump_latest_state(outdir, epoch, max_score)
+    return max_score
 
 
 def main(cfg: dict) -> Optional[float]:
-    """The eval / test entry: the val set's score (mIoU, instance part
-    mIoU or accuracy)."""
+    """Train (the best val score), or with ``only_val`` / ``only_test``
+    score the val set (mIoU, instance part mIoU or accuracy)."""
     dist = cfg.get("distributed") or {}
     if int(dist.get("num_processes") or 0) > 1:
         raise NotImplementedError("distributed.num_processes > 1: scale-out "
@@ -180,16 +285,13 @@ def main(cfg: dict) -> Optional[float]:
     if _flag(cfg, "only_viz"):
         raise NotImplementedError("only_viz: visualization/ is not ported "
                                   "(ROADMAP.md queue 1, item 7)")
-    if not (_flag(cfg, "only_val") or _flag(cfg, "only_test")):
-        raise NotImplementedError(
-            "the epoch loop (training) of main is not ported (ROADMAP.md "
-            "queue 1, item 4); train with python -m "
-            "curvecloudnet_tpu_torch.train")
     outdir = cfg.get("outdir", "./out/run")
     os.makedirs(outdir, exist_ok=True)
     logger = MetricLogger(outdir, use_wandb=_flag(cfg, "use_wandb"),
                           config=cfg)
     try:
+        if not (_flag(cfg, "only_val") or _flag(cfg, "only_test")):
+            return train(cfg, logger)
         info, val_ds, model = build(cfg, logger)
         result = run_eval(model, val_ds, info, cfg, logger=logger)
         logger.log({k: v for k, v in result.items()

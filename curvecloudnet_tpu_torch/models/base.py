@@ -138,9 +138,6 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
     runs) in place of K4 and K2."""
     if edge_kernel not in EDGE_ROUTES:
         raise ValueError(f"edge_kernel {edge_kernel!r}")
-    if train and spec.version != 2.0:
-        raise NotImplementedError("the train step of a version-1.0 model "
-                                  "is not ported")
     counts = ({"conv1d_train_fwd": 0, "conv1d_train_reduce": 0,
                "conv1d_train_t": 0, "group_train_fwd": 0,
                "group_train_bwd": 0, "gather": 0, "scatter": 0, "knn": 0,
@@ -344,12 +341,10 @@ class CurveCloudNet(nn.Module):
                 prop_skips.append(i)
         x = cloud.x
         if self.lin_categorical is not None:
-            if train:
-                raise NotImplementedError("the lin_categorical head in train "
-                                          "is not ported")
             onehot = torch.nn.functional.one_hot(
                 categories.long(), self.spec.n_categories).to(x.dtype)
-            cats = self.lin_categorical(onehot[:, None, :])
+            # no mask: in train its BatchNorm takes the B samples' statistics
+            cats = self.lin_categorical(onehot[:, None, :], **kw)
             x = torch.cat([x, cats.expand(-1, x.shape[1], -1)], dim=-1)
         if self.mlp is not None:
             x = self.mlp(x, mask=cloud.valid, **kw)

@@ -50,7 +50,7 @@ class MaskedBatchNorm(nn.Module):
         c = x.shape[-1]
         xf = x.reshape(-1, c).float()
         if mask is None:
-            cnt = torch.tensor(float(xf.shape[0]), device=x.device)
+            cnt = xf.new_full((), float(xf.shape[0]))  # no host copy
             mean = xf.mean(dim=0)
             return mean, ((xf - mean) ** 2).mean(dim=0), cnt
         mf = mask.reshape(-1, 1).float()

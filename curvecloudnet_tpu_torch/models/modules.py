@@ -50,13 +50,6 @@ def _check_aggr(step: StepSpec):
             f"{step.name}: aggr_type {step.aggr_type!r} is not ported")
 
 
-def _eval_only(train: bool, what: str):
-    """The version-1.0 branches run in eval only: their train forward is
-    not held against the JAX package yet."""
-    if train:
-        raise NotImplementedError(f"{what} in train is not ported")
-
-
 def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str,
              train: bool = False, bn_momentum=0.1):
     """Layer-0 messages (B, K, M, C1) -> the MLP's remaining layers and the
@@ -116,8 +109,9 @@ class SymmetricCurveConvStep(nn.Module):
     conv1d-fast-v1 re-stuffs the zeros and recomputes the feature diffs
     before every layer (fast_conv1d.py:129-143), so each curve convolves
     alone: same-curve windows (``curve1d.symmetric_window_concat``), one
-    ``torch.matmul``, masked BN and leaky ReLU a layer, eval only (the JAX
-    package runs it outside any Pallas kernel too).  With ``with_diff`` the
+    ``torch.matmul``, masked BN (batch statistics of the valid points in
+    train) and leaky ReLU a layer, in eval and train (the JAX package runs
+    it outside any Pallas kernel too).  With ``with_diff`` the
     input width I of every v1 layer is twice its feature width."""
 
     def __init__(self, spec: ModelSpec, step: StepSpec, c_in: Optional[int]):
@@ -143,8 +137,7 @@ class SymmetricCurveConvStep(nn.Module):
     def forward(self, cloud: Cloud, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
         if self.v1:
-            _eval_only(train, "conv1d-fast-v1")
-            return cloud.with_features(self._v1(cloud))
+            return cloud.with_features(self._v1(cloud, train, bn_momentum))
         step = self.step
         cid, valid = cloud.curve_id, cloud.valid
         x = cloud.xyz_concat(step.with_xyz)
@@ -171,7 +164,7 @@ class SymmetricCurveConvStep(nn.Module):
         out = conv1d_chain.conv1d_chain_eval(xe, weights, used, self.half_k)
         return cloud.with_features(curve1d.gap_gather(out, exp_idx, valid))
 
-    def _v1(self, cloud: Cloud) -> torch.Tensor:
+    def _v1(self, cloud: Cloud, train: bool, bn_momentum) -> torch.Tensor:
         cid, valid = cloud.curve_id, cloud.valid
         x = cloud.xyz_concat(self.step.with_xyz)
         for conv, norm in zip(self.conv_modules, self.norm_modules):
@@ -180,7 +173,8 @@ class SymmetricCurveConvStep(nn.Module):
             o, i, taps = conv.weight.shape
             w = conv.weight.permute(2, 1, 0).reshape(taps * i, o)
             xw = curve1d.symmetric_window_concat(x, cid, valid, self.half_k)
-            x = leaky_relu(norm(xw @ w + conv.bias, mask=valid))
+            x = leaky_relu(norm(xw @ w + conv.bias, mask=valid, train=train,
+                                momentum=bn_momentum))
         return x * valid[..., None].to(x.dtype)
 
     def _train_chain(self, xe, used, bn_momentum):
@@ -254,8 +248,8 @@ class SAStep(nn.Module):
     table at ``grid_bound`` / ``grid_cap`` on a row above
     ``neighbors.TABLE_MAX_N``), PointNetConv.  A step with no ``knn`` and
     no fast kNN groups by ball query instead: the 128 nearest points
-    within ``radius`` (``neighbors.ball_query``, kernel K3 at k = 128),
-    eval only."""
+    within ``radius`` (``neighbors.ball_query``, kernel K3 at k = 128,
+    no gradient), grouped by K2 in eval and K7 in train."""
 
     BALL_K = 128   # the reference's ball-query cap (point_ops.py:81)
 
@@ -288,7 +282,6 @@ class SAStep(nn.Module):
                                           self.budget, u=draws)
         down = cloud.gather(idx, idx_valid)
         if self.ball:
-            _eval_only(train, "sa ball grouping")
             nbr_idx, _ = neighbors.ball_query(down.pos, cloud.pos, down.valid,
                                               cloud.valid, step.radius,
                                               self.BALL_K)
@@ -332,8 +325,10 @@ class EdgeConvStep(nn.Module):
     The fast message order [x_j, x_i - x_j] (dgcnn.py:158-207) takes the
     row table at the step's radius plus a self loop.  With
     ``use_sparse_feat_agg`` the slow order [x_i, x_j - x_i] (dgcnn.py:
-    209-266) takes an exact, unbounded kNN table with no self loop, eval
-    only, and may aggregate by attention (``attend_nn``).  Layer 0
+    209-266) takes an exact, unbounded kNN table with no self loop and may
+    aggregate by attention (``attend_nn``); in train both aggregations run
+    on K7 (the JAX package takes its XLA path for attend: the same masked
+    batch statistics).  Layer 0
     re-associates as gather(x @ (Wt - Wb)) + x_i @ Wb (+ b) in the fast
     order and as gather(x @ Wb) + x_i @ (Wt - Wb) (+ b) in the slow one, so
     the (B, N, K, 2C) message concat never materializes.  The ``group``
@@ -387,7 +382,6 @@ class EdgeConvStep(nn.Module):
         step = self.step
         x = cloud.xyz_concat(step.with_xyz)
         if self.slow:
-            _eval_only(train, "sgcnn with use_sparse_feat_agg")
             nbr_idx, _ = neighbors.same_set_knn(
                 cloud.pos, cloud.valid, step.knn,
                 table_bound=self.table_bound, tables=tables)
@@ -417,8 +411,10 @@ class EdgeConvStep(nn.Module):
 class GlobalSAStep(nn.Module):
     """sa-global: an MLP over [x, pos], then a masked max or mean over
     each sample's points, giving a one-point cloud (reference
-    pointnet2.py:81-116); plain torch, eval only, as the JAX package runs
-    no kernel here."""
+    pointnet2.py:81-116); plain torch, as the JAX package runs no kernel
+    here.  In train the MLP's BatchNorms take the valid points' batch
+    statistics; the max splits a tie's gradient evenly (as ``jnp.max``),
+    and the -1e30 fill of padded rows takes none of it."""
 
     def __init__(self, spec, step, dims, c_in: int):
         super().__init__()
@@ -427,10 +423,9 @@ class GlobalSAStep(nn.Module):
 
     def forward(self, cloud: Cloud, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
-        _eval_only(train, "sa-global")
         valid = cloud.valid
         x = self.nn(torch.cat([cloud.x, cloud.pos.to(cloud.x.dtype)], -1),
-                    mask=valid)
+                    mask=valid, train=train, bn_momentum=bn_momentum)
         mask = valid[..., None]
         if self.step.pooling == "mean":
             pooled = (torch.where(mask, x, torch.zeros_like(x)).sum(1)

@@ -73,13 +73,13 @@ def _act(x, kind: str):
 
 def _dact(y, kind: str):
     """act'(y) at the activation input y (the BN output)."""
-    one = torch.ones_like(y)
+    one = torch.ones((), dtype=y.dtype, device=y.device)
     if kind == "relu":
-        return torch.where(y > 0, one, torch.zeros_like(y))
+        return torch.where(y > 0, one, torch.zeros_like(one))
     if kind == "leaky_relu":
-        return torch.where(y > 0, one, torch.full_like(y, 0.01))
+        return torch.where(y > 0, one, torch.full_like(one, 0.01))
     if kind == "identity":
-        return one
+        return one.expand_as(y)
     raise ValueError(kind)
 
 
@@ -142,9 +142,13 @@ def _plane_mask(mask, dtype):
 
 def _chain_ref(h1, mk, n, cfg, params, stats=None):
     """The chain over every (plane, query) row.  With ``stats=None`` the
-    batch statistics are computed on the way (the forward); returns the
-    kept values and the statistics [(mean, var)] (attend last)."""
-    keep = {"xhat": [], "y": []}
+    batch statistics are computed on the way (the forward) and only the
+    message (and logits) kept; with ``stats`` (the backward) each BN's
+    x-hat is kept too (its output y = x-hat * gamma + beta is recomputed
+    where needed: the same operations, so the same values, in less memory
+    on the wide sites).  Returns the kept values and the statistics
+    [(mean, var)] (attend last)."""
+    keep = {"xhat": []}
     new_stats = []
     v = h1
     for i in range(cfg.n_loc):
@@ -152,17 +156,23 @@ def _chain_ref(h1, mk, n, cfg, params, stats=None):
         mv = _masked_stats(v, mk, n) if stats is None else stats[i]
         new_stats.append(mv)
         xhat, y = _bn(v, *mv, g, bt, cfg.eps)
-        keep["xhat"].append(xhat)
-        keep["y"].append(y)
+        if stats is not None:
+            keep["xhat"].append(xhat)
+        del xhat
         v = _act(y, cfg.act) @ w + b
+        del y
     keep["msg"] = v
     if cfg.attend:
         wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
         gv = v @ wa0 + ba0
         mv = _masked_stats(gv, mk, n) if stats is None else stats[cfg.n_loc]
         new_stats.append(mv)
-        keep["a_xhat"], keep["a_y"] = _bn(gv, *mv, ga, bta, cfg.eps)
-        keep["logits"] = _act(keep["a_y"], cfg.attend_act) @ wa1 + ba1
+        a_xhat, a_y = _bn(gv, *mv, ga, bta, cfg.eps)
+        del gv
+        if stats is not None:
+            keep["a_xhat"] = a_xhat
+        del a_xhat
+        keep["logits"] = _act(a_y, cfg.attend_act) @ wa1 + ba1
     return keep, new_stats
 
 
@@ -204,30 +214,40 @@ def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
     msg, d = keep["msg"], dout[:, None]
     grads = [None] * cfg.n_params
     if cfg.attend:
+        # the slab-wide terms are formed in place where a term is dead
+        # after the step (the same operations in the same order: the same
+        # values, in less memory at the wide sites)
         out, mx, den = extras
         wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
-        lg = torch.where(mk > 0, keep["logits"],
-                         torch.full_like(msg, ATTEND_FILL))
-        w = torch.exp(lg - mx[:, None]) / den[:, None]
-        dlogit = w * (msg - out[:, None]) * d * mk
-        a_y, a_xhat = keep["a_y"], keep["a_xhat"]
-        ta = (dlogit @ wa1.t()) * _dact(a_y, cfg.attend_act) * mk
+        w = torch.where(mk > 0, keep.pop("logits"),
+                        torch.full_like(msg[:1, :1, :1], ATTEND_FILL))
+        w = torch.exp_(w.sub_(mx[:, None])).div_(den[:, None])
+        dlogit = (msg - out[:, None]).mul_(w).mul_(d).mul_(mk)
+        a_xhat = keep.pop("a_xhat")
+        a_y = a_xhat * ga + bta
+        ta = (dlogit @ wa1.t()).mul_(_dact(a_y, cfg.attend_act)).mul_(mk)
         rsa, rpa = _colsum(ta), _colsum(ta * a_xhat)
         inva = torch.rsqrt(stats[cfg.n_loc][1] + cfg.eps)
-        dg1 = ga * inva * (ta - mk * (rsa / n + a_xhat * (rpa / n)))
+        dg1 = (a_xhat * (rpa / n)).add_(rsa / n).mul_(mk)
+        dg1 = torch.sub(ta, dg1, out=dg1).mul_(ga * inva)
+        del ta, a_xhat
         k = 4 * cfg.n_loc
         grads[k:k + 6] = [_wgrad(msg, dg1), _colsum(dg1), rpa, rsa,
                           _wgrad(_act(a_y, cfg.attend_act), dlogit),
                           _colsum(dlogit)]
-        dv = w * d + dg1 @ wa0.t()
+        del a_y, dlogit
+        dv = w.mul_(d).add_(dg1 @ wa0.t())
+        del w, dg1
     else:
         mx, cnt = extras
         hit = torch.where(mk > 0, msg, torch.full_like(msg, MAX_FILL))
         eq = (hit == mx[:, None]).to(h1.dtype)
         dv = d * eq * mk / torch.clamp(cnt, min=1.0)[:, None]
     for li in reversed(range(cfg.n_loc)):
-        g, _, w_l, _ = _local(cfg, params, li)
-        xhat, y = keep["xhat"][li], keep["y"][li]
+        g, bt, w_l, _ = _local(cfg, params, li)
+        xhat = keep["xhat"][li]
+        keep["xhat"][li] = None
+        y = xhat * g + bt
         dw, db = _wgrad(_act(y, cfg.act), dv), _colsum(dv)
         t = (dv @ w_l.t()) * _dact(y, cfg.act) * mk
         rs, rp = _colsum(t), _colsum(t * xhat)

@@ -1,4 +1,5 @@
-"""Segmentation losses (counterpart of ``curvecloudnet_tpu/run/losses.py``).
+"""Segmentation and classification losses (counterpart of
+``curvecloudnet_tpu/run/losses.py``).
 
 Lovász-Softmax sorts every class's errors in one sort over the point axis;
 invalid (padded or ignored) rows get the error -1 and sort last, and the
@@ -81,3 +82,10 @@ def seg_loss(logits, labels, valid, ignore_index: Optional[int] = 0,
         loss = loss + lovasz_weight * lovasz_softmax(
             torch.softmax(flat_logits, dim=-1), flat_labels, lov_valid)
     return loss
+
+
+def classification_loss(logits, labels):
+    """Cross-entropy of per-sample logits (B, C) at the labels (B,): the
+    mean NLL of ``log_softmax`` (the reference's shape classification)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None]).mean()

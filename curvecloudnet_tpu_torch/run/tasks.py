@@ -34,42 +34,13 @@ from ..train.trainer import LossConfig
 from . import globals as G
 from . import metrics as M
 
-# SemanticKITTI's 19 labelled classes (1..19): inverse-frequency weights,
-# normalized to sum 1; class 0 ('unlabeled') is the ignore index
-KITTI_CLASS_WEIGHTS = tuple(float(w) for w in
-                            np.concatenate([[0.0], G.KITTI_CLASS_WEIGHTS]))
-
-# dataset -> (loss without class weights, the task's class weights)
-TASK_LOSSES = {
-    "nuscenes": (LossConfig(ignore_index=0, use_lovasz=True,
-                            lovasz_weight=1.0), None),
-    "kitti": (LossConfig(ignore_index=0, use_lovasz=True, lovasz_weight=2.0,
-                         mean_over_all=True), KITTI_CLASS_WEIGHTS),
-}
-
-
-def loss_for(cfg: dict) -> LossConfig:
-    """The loss a config trains with, as the JAX train entry picks it
-    (``use_lovasz_loss`` overrides the task's Lovász switch; the class
-    weights apply when ``use_ce_weights`` is set)."""
-    loss, weights = TASK_LOSSES[cfg.get("dataset_source", "nuscenes")]
-    changes = {}
-    if "use_lovasz_loss" in cfg:
-        changes["use_lovasz"] = bool(cfg["use_lovasz_loss"])
-    if cfg.get("use_ce_weights") and weights is not None:
-        changes["class_weights"] = weights
-    return dataclasses.replace(loss, **changes)
-
-
 @dataclasses.dataclass
 class TaskInfo:
     name: str
     task: str                      # "segmentation" | "classification"
     n_out: int
-    # the segmentation loss; None where the task's loss is not ported
-    # (classification)
-    loss_cfg: Optional[LossConfig]
-    class_weights: Optional[np.ndarray] = None
+    loss_cfg: LossConfig             # without the class weights
+    class_weights: Optional[np.ndarray] = None   # with use_ce_weights
     class_names: Optional[list] = None
     # eval protocol
     tta: bool = False              # 12-view flips x scales (nuscenes/kitti)
@@ -80,11 +51,13 @@ class TaskInfo:
 TASKS: Dict[str, TaskInfo] = {
     "nuscenes": TaskInfo(
         name="nuscenes", task="segmentation", n_out=17,
-        loss_cfg=TASK_LOSSES["nuscenes"][0],
+        loss_cfg=LossConfig(ignore_index=0, use_lovasz=True,
+                            lovasz_weight=1.0),
         class_names=G.NUSCENES_CLASSES, tta=True, metric_ignore=0),
     "kitti": TaskInfo(
         name="kitti", task="segmentation", n_out=20,
-        loss_cfg=TASK_LOSSES["kitti"][0],
+        loss_cfg=LossConfig(ignore_index=0, use_lovasz=True,
+                            lovasz_weight=2.0, mean_over_all=True),
         class_weights=np.concatenate([[0.0], G.KITTI_CLASS_WEIGHTS]),
         class_names=G.KITTI_CLASSES, tta=True, metric_ignore=0),
     "audi": TaskInfo(
@@ -105,9 +78,25 @@ TASKS: Dict[str, TaskInfo] = {
         tta=False, metric_ignore=None, part_iou=True),
     "shapenet-class": TaskInfo(
         name="shapenet-class", task="classification", n_out=16,
-        loss_cfg=None,
+        loss_cfg=LossConfig(task="classification"),
         class_names=G.SHAPENET_CATEGORY_NAMES, metric_ignore=None),
 }
+
+
+def loss_for(cfg: dict) -> LossConfig:
+    """The loss a config trains with, as the JAX entry picks it: its task's
+    (``task_for``), ``use_lovasz_loss`` overriding the Lovász switch
+    (``dataclasses_replace_lovasz``), the task's class weights where
+    ``use_ce_weights`` is set."""
+    info = task_for(cfg.get("dataset_source", "nuscenes"),
+                    cfg.get("task", "segmentation"))
+    changes = {}
+    if "use_lovasz_loss" in cfg:
+        changes["use_lovasz"] = bool(cfg["use_lovasz_loss"])
+    if cfg.get("use_ce_weights") and info.class_weights is not None:
+        changes["class_weights"] = tuple(float(w) for w in
+                                         info.class_weights)
+    return dataclasses.replace(info.loss_cfg, **changes)
 
 
 def task_for(dataset_source: str, task: str) -> TaskInfo:
@@ -306,10 +295,10 @@ def dump_submission(mean_logits, valid, metas, outdir: str):
             raw.tofile(os.path.join(folder, fname))
 
 
-def _stage(device: torch.device, *tensors):
+def stage(device: torch.device, *tensors):
     """Start the copies of device tensors to the host -> (host tensors,
     the event after them, or None on the CPU): fresh pinned buffers,
-    copied without blocking, read after :func:`_wait`."""
+    copied without blocking, read after :func:`wait`."""
     if device.type != "cuda":
         return list(tensors), None
     host = []
@@ -322,7 +311,8 @@ def _stage(device: torch.device, *tensors):
     return host, event
 
 
-def _wait(event) -> None:
+def wait(event) -> None:
+    """Block until the copies :func:`stage` started are done."""
     if event is not None:
         event.synchronize()
 
@@ -398,7 +388,7 @@ def evaluate_segmentation(model, dataset, task_info: TaskInfo,
     def _drain(entry):
         nonlocal t_done, n_pts
         host, event, keys, metas, nv, t0 = entry
-        _wait(event)
+        wait(event)
         now = time.time()
         # steady state: completion-to-completion interval per scan
         span = now - (t_done if t_done is not None else t0)
@@ -436,7 +426,7 @@ def evaluate_segmentation(model, dataset, task_info: TaskInfo,
         keys, vec = _pack(stats)
         out = ([vec] if keys else []) + (
             [mean_logits, batch.cloud.valid] if test_mode else [])
-        host, event = _stage(device, *out)
+        host, event = stage(device, *out)
         if prev is not None:
             _drain(prev)
         prev = (host, event, keys, metas, nv, t0)
@@ -511,7 +501,7 @@ def evaluate_part_segmentation(model, dataset, task_info: TaskInfo,
 
     def consume(entry):
         (logits, valid, cats), event, labels = entry
-        _wait(event)
+        wait(event)
         logits, valid, cats = (t.numpy() for t in (logits, valid, cats))
         for k in range(len(cats)):
             if task_info.part_iou:
@@ -533,7 +523,7 @@ def evaluate_part_segmentation(model, dataset, task_info: TaskInfo,
         labels = np.asarray(np_batch["labels"])
         batch = to_device_batch(np_batch, task_info.task, device)
         logits, out_valid = fwd(batch.cloud, flip, scale, batch.categories)
-        staged = _stage(device, logits, out_valid, batch.categories)
+        staged = stage(device, logits, out_valid, batch.categories)
         if pending is not None:
             consume(pending)
         pending = (*staged, labels)
@@ -570,7 +560,7 @@ def evaluate_classification(model, dataset, task_info: TaskInfo,
 
     def consume(entry):
         (pred,), event, labels = entry
-        _wait(event)
+        wait(event)
         for y, p in zip(labels, pred.numpy()):
             confmat[int(y), int(p)] += 1
 
@@ -580,7 +570,7 @@ def evaluate_classification(model, dataset, task_info: TaskInfo,
         labels = np.asarray(np_batch["labels"])
         batch = to_device_batch(np_batch, task_info.task, device)
         logits, _ = fwd(batch.cloud, flip, scale, batch.categories)
-        staged = _stage(device, torch.argmax(logits[:, 0, :], dim=-1))
+        staged = stage(device, torch.argmax(logits[:, 0, :], dim=-1))
         if pending is not None:
             consume(pending)
         pending = (*staged, labels)

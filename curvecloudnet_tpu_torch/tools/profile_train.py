@@ -1,13 +1,14 @@
-"""Device time of one flagship train step by kernel and by K7 pass, and
-the device's idle share (GPU, ``torch.profiler`` and CUDA events).
+"""Device time of one train step by kernel and by K7 pass, and the
+device's idle share (GPU, ``torch.profiler`` and CUDA events).
 
-Builds the nuScenes flagship at n_pad 36864, B=1, trains on synthetic
-sweep 0 with its labels (NLL + Lovász), runs one warm-up step, times one
-step on the host clock, times every K7 launch of one step with CUDA
-events (by pass and by site), then profiles one more step with CPU and
-CUDA activities.  Run::
+Builds a config's model at its n_pad (the nuScenes flagship at 36864 by
+default) and its synthetic train batch (``train.__main__.setup``: a
+sweep of its sensor at B=1, or object scans at its batch size) with its
+task's loss, runs one warm-up step, times one step on the host clock,
+times every K7 launch of one step with CUDA events (by pass and by
+site), then profiles one more step with CPU and CUDA activities.  Run::
 
-    python -m curvecloudnet_tpu_torch.tools.profile_train
+    python -m curvecloudnet_tpu_torch.tools.profile_train [--config configs/audi.yaml]
 
 Prints one JSON line (step wall, device busy time by group, idle share,
 peak memory, K7 time by pass and by site, and the device time and
@@ -17,6 +18,7 @@ kernels.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -28,22 +30,23 @@ from ..ops import group_train
 from ..train.__main__ import setup
 from ..train.trainer import train_step
 
-N_PAD = 36864
 GROUPS = (("K7", "gt_gemm"), ("K7", "gt_finalize"), ("K7", "gt_aggregate"),
           ("K7", "gt_rowstats"), ("K8", "conv1d_train"), ("K4", "gather_km"),
-          ("K4b", "scatter_km"), ("K3", "knn_kernel"), ("K6", "fps_kernel"),
-          ("gemm", "gemm"))
+          ("K4b", "scatter_km"), ("K3", "knn_"), ("K6", "fps_kernel"),
+          ("K5", "grid_topk"), ("gemm", "gemm"))
 # kernels whose device time is printed one by one: K4, K4b, K8's passes
 APART = ("gather_km", "scatter_km", "conv1d_train")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="configs/nuscenes.yaml")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    model, opt, sched, loss_cfg, batch, gen = setup(
-        "configs/nuscenes.yaml", dev, 0, N_PAD)
+    model, opt, sched, loss_cfg, batch, gen = setup(args.config, dev, 0)
 
     def step() -> float:
         torch.cuda.synchronize()
@@ -79,7 +82,8 @@ def main() -> None:
         "device_ms": e.self_device_time_total / 1e3, "launches": e.count}
         for e in kern if any(n in e.key for n in APART)}
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "step_wall_ms": wall,
+        "device": torch.cuda.get_device_name(0), "config": args.config,
+        "batch": int(batch.cloud.valid.shape[0]), "step_wall_ms": wall,
         "peak_memory_gib": peak / 2 ** 30, "busy_ms": busy,
         "by_group_ms": groups, "launches": sum(e.count for e in kern),
         "profiled_wall_ms": prof_wall,

@@ -2,7 +2,8 @@
 ``curvecloudnet_tpu/train/trainer.py``): Adam with a learning rate
 stepped once per epoch (exponential, or cosine warm restarts), the
 reference's BatchNorm momentum decay, and one step = one forward in train
-mode, the segmentation loss, its backward and the optimizer update.
+mode, the task's loss (segmentation or classification), its backward and
+the optimizer update.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class Batch:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
+    task: str = "segmentation"              # or "classification"
     ignore_index: Optional[int] = 0
     use_lovasz: bool = False
     lovasz_weight: float = 1.0
@@ -86,6 +88,8 @@ def create_optimizer(model: torch.nn.Module, lr: float = 0.0,
 
 
 def compute_loss(logits, out_valid, batch: Batch, cfg: LossConfig):
+    if cfg.task == "classification":
+        return losses_lib.classification_loss(logits[:, 0, :], batch.labels)
     lv = batch.label_valid if batch.label_valid is not None else out_valid
     class_weights = (None if cfg.class_weights is None else torch.tensor(
         cfg.class_weights, dtype=torch.float32, device=logits.device))
@@ -95,23 +99,34 @@ def compute_loss(logits, out_valid, batch: Batch, cfg: LossConfig):
         class_weights=class_weights, mean_over_all=cfg.mean_over_all)
 
 
+def _categories(model, batch: Batch):
+    """The batch's categories where the model has the category head."""
+    return batch.categories if model.spec.with_seg_category else None
+
+
 def train_step(model, optimizer, lr: float, batch: Batch, generator=None,
                bn_momentum: float = 0.1, loss_cfg: LossConfig = LossConfig()):
-    """One optimizer step; returns {"loss": detached scalar}."""
+    """One optimizer step; returns {"loss": detached scalar} and, for
+    classification, {"acc": the batch's accuracy}, on the device."""
     optimizer.zero_grad(set_to_none=True)
-    logits, out_valid = model(batch.cloud, train=True,
-                              bn_momentum=bn_momentum, generator=generator)
+    logits, out_valid = model(batch.cloud, _categories(model, batch),
+                              train=True, bn_momentum=bn_momentum,
+                              generator=generator)
     loss = compute_loss(logits, out_valid, batch, loss_cfg)
     loss.backward()
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
-    return {"loss": loss.detach()}
+    metrics = {"loss": loss.detach()}
+    if loss_cfg.task == "classification":
+        pred = logits[:, 0, :].detach().argmax(dim=-1)
+        metrics["acc"] = (pred == batch.labels.long()).float().mean()
+    return metrics
 
 
 @torch.no_grad()
 def eval_step(model, batch: Batch, loss_cfg: LossConfig = LossConfig()):
     """(logits, out_valid, loss) of the eval forward."""
-    logits, out_valid = model(batch.cloud)
+    logits, out_valid = model(batch.cloud, _categories(model, batch))
     return logits, out_valid, compute_loss(logits, out_valid, batch,
                                            loss_cfg)

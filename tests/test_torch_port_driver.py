@@ -18,9 +18,9 @@ the JAX package on the CPU.
   ``main.run_eval``, ``evaluate_classification`` against JAX's (logits
   2e-3; scores equal unless an argmax is a near-tie);
 * the entry point: ``main.main`` with ``only_val`` returns the score of
-  ``run_eval`` on the model it builds; the epoch loop, ``only_viz``, more
-  than one process, wandb, real data, a missing card and the confusion
-  figure raise.
+  ``run_eval`` on the model it builds; ``only_viz``, more than one
+  process, wandb, real data, a missing card and the confusion figure
+  raise (the epoch loop: ``test_torch_port_main_train.py``).
 """
 
 import os
@@ -199,13 +199,10 @@ def test_task_for_matches_jax(source, task):
         assert got.class_weights is None
     else:
         np.testing.assert_array_equal(got.class_weights, want.class_weights)
-    if want.task == "segmentation":
-        for field in ("ignore_index", "use_lovasz", "lovasz_weight",
-                      "mean_over_all"):
-            assert getattr(got.loss_cfg, field) == \
-                getattr(want.loss_cfg, field), field
-    else:
-        assert got.loss_cfg is None   # the classification loss: not ported
+    for field in ("task", "ignore_index", "use_lovasz", "lovasz_weight",
+                  "mean_over_all"):
+        assert getattr(got.loss_cfg, field) == \
+            getattr(want.loss_cfg, field), field
     assert got.n_out == predict.N_OUT.get(got.name, got.n_out)
 
 
@@ -500,8 +497,6 @@ def test_main_only_val_returns_run_eval(name, extra, tmp_path):
 
 def test_main_raises(tmp_path, monkeypatch):
     cfg = _narrow_cfg("shapenet-class", tmp_path, n_pad=128, n_val=2)
-    with pytest.raises(NotImplementedError, match="epoch loop"):
-        tmain.main(dict(cfg, only_val=False))
     with pytest.raises(NotImplementedError, match="only_viz"):
         tmain.main(dict(cfg, only_viz=True))
     with pytest.raises(NotImplementedError, match="scale-out"):

@@ -19,8 +19,8 @@ classification, Kortx) on the port against the JAX package on the CPU.
   segmentation with categories and ShapeNet classification (n_pad 1024,
   B=2); launch counts of all four configs against ``kernel_launches``; a
   round trip of each model's weights through JAX
-  ``checkpoint.load_torch_checkpoint``; the fused edge route's gate; the
-  train forward raising on the branches held here in eval only.
+  ``checkpoint.load_torch_checkpoint``; the fused edge route's gate (the
+  train path of these configs: ``test_torch_port_train_v1.py``).
 """
 
 import os
@@ -394,23 +394,6 @@ def test_fused_gate_follows_jax():
     model = TNet(tspec, 2048, feat_channels=1, edge_kernel="fused")
     sgcnn = [m for m in model.steps if isinstance(m, tmod.EdgeConvStep)]
     assert sgcnn and not any(m.fused for m in sgcnn)
-
-
-@pytest.mark.parametrize("name,i", [("audi", 2), ("audi", 4), ("audi", 5),
-                                    ("shapenet-class", 14)])
-def test_train_raises_on_eval_only_branches(narrow, name, i):
-    _, tspec, task = narrow[name]
-    n = 256
-    port = TNet(tspec, n, feat_channels=None if task in predict.OBJECT_TASKS
-                else 1)
-    pos, x, cid, valid = lidar(n, seed=1, feat=port.in_widths[i])
-    tc = tcloud(*to_torch(pos, cid, valid, x))
-    mod = port.steps[i]
-    with pytest.raises(NotImplementedError, match="in train"):
-        mod(tc, None, train=True) if tspec.steps[i].name in (
-            "sa", "sgcnn") else mod(tc, train=True)
-    with pytest.raises(NotImplementedError):
-        kernel_launches(tspec, n, train=True)
 
 
 def test_object_scans_match_jax():
