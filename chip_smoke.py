@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Proof that the PyTorch port serves and trains on one NVIDIA GPU.
+"""Proof that the PyTorch port serves and trains on one NVIDIA GPU, from
+dataset files on disk too.
 
 Run from the repository root with no arguments::
 
@@ -145,8 +146,9 @@ Phases (any failure raises and exits non-zero before the result line):
      held against its plain version as phase 6 holds it (A2D2 and
      shapenet-seg also timed, a line per call and per K7 site as phase 6's,
      its stored chain's size included; on A2D2 the rows of each K7
-     attend site whose attention activation takes another slope in the
-     kernel than in float64 counted, under 0.1% of the live rows, and its
+     attend site whose activation input takes another slope in the
+     kernel than in float64 counted at every BN, each under 0.1% of the
+     live rows, and its
      K7 calls captured again on sweep 1, held and counted so, a second
      witness); launch counters set
      to 0 and three steps through ``train_step`` (losses finite, launches
@@ -167,12 +169,33 @@ Phases (any failure raises and exits non-zero before the result line):
      the same outdir to 3 epochs (it resumes at epoch 2: one epoch's
      steps); nuScenes (6 train sweeps, the config's batch of 6, 2 val
      scans under 12-view TTA in chunks of 2, 1 epoch; path
-     ``train_loop_nuscenes``; the B=6 step's wall and peak memory).
+     ``train_loop_nuscenes``; the B=6 step's wall and peak memory);
+ 18. the data layer: nuScenes, KITTI, A2D2 and shapenet-seg from files
+     on disk, written by ``tools/fake_datasets.py`` in each dataset's own
+     format at real frame sizes under ``build/phase18/data`` (nuScenes
+     31-37k points a frame, KITTI 111-131k, A2D2 33-37k over 5 sensors,
+     objects 2048 points).  Per config: each reader's host ms a sample
+     (``get`` + ``collate``; KITTI and nuScenes with and without
+     PolarMix); ``main`` training one epoch of three steps at the
+     config's ``batch_size`` (PolarMix on for KITTI and nuScenes) and
+     validating (TTA as the task has it) with a line of step walls, peak
+     memory, points a sample and ``n_pad_dropped`` a batch and the
+     train loop's share of waits for the loader, launches equal to the
+     spec's (paths ``disk_nuscenes``, ``disk_kitti``, ``disk_audi``,
+     ``disk_shapenet_seg``); every telemetry channel's maximum over two
+     val scans on the trained weights (``tools/calibrate.collect``);
+     KITTI and nuScenes ``--only_test`` (paths ``disk_kitti_test``,
+     ``disk_nuscenes_test``), each submission file one prediction a
+     point of its frame, in the frame's order, equal to the argmax of
+     the mean logits the loop dumped; one batch read from disk (lidar
+     B=1, objects the config's 24) through a capture train step and a
+     val batch through an eval forward, every kernel call held against
+     its plain version at phase 6's and phase 3's tolerances.
 
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
-A2D2 and the object configs), the card's name and power limit, and as the
-last line
+A2D2 and the object configs, the loops and the paths from disk), the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -222,6 +245,17 @@ TRAIN17_STEPS = 3
 # are captured again on a second input (seed 1), held and counted so
 WITNESS17 = "train_audi"
 OUT17 = os.path.join(REPO, "build", "phase17")
+# phase 18: the data layer.  Fixture files at real frame sizes in each
+# dataset's format (tools/fake_datasets.py) under build/phase18: (path,
+# config, frames by split: three train steps at the config's batch_size,
+# two val scans (objects: two eval batches of 8), two test frames)
+DISK18 = [("disk_nuscenes", "nuscenes", {"train": 18, "val": 2, "test": 2}),
+          ("disk_kitti", "kitti", {"train": 6, "val": 2, "test": 2}),
+          ("disk_audi", "audi", {"train": 24, "val": 2}),
+          ("disk_shapenet_seg", "shapenet-seg", {"train": 72, "val": 16})]
+OUT18 = os.path.join(REPO, "build", "phase18")
+HOST18_SAMPLES = 4   # samples a reader is timed on, after one warm-up
+TELEMETRY18_SCANS = 2
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -270,12 +304,13 @@ TOPK_KERNELS = [
 # near-equal slots, so rare rows within rounding of such a point take
 # another branch in the kernel than in the plain version, moving single
 # elements by up to their own size (measured up to 3.9e-3 in L2 at the
-# flagship's 519- and 1728-query sites); an attention BN's (gamma, beta)
-# gradient past that bound is held against the plain version in float64
-# (see _yardstick: the shift gradient at A2D2's 23040-query sa-geo site sums
-# ~47k live rows whose terms nearly cancel, and float32 rounds it by ~2e-3
-# relative, plain included), with the kernel's own attention slopes, whose
-# flips from float64's must stay under FLIP_CAP of the live rows
+# flagship's 519- and 1728-query sites); a K7 output past that bound is
+# held against float64 with the kernel's own slopes (see _yardstick and
+# _bn_branches: the gradients sum terms that nearly cancel, so the few rows
+# whose BN output is within the kernel's rounding of 0 move them: 15 of
+# A2D2's ~47k sa-geo rows by ~3e-3 at its attention BN, 45 of 340616 on a
+# KITTI sa-geo site by up to 8.9e-3), whose flips from float64's must stay
+# under FLIP_CAP of the live rows at every BN
 FLIP_CAP = 1e-3
 TRAIN_KERNELS = [
     # K8: forward z 1e-4 and its statistics 1e-5 (of max(1, |plain|));
@@ -452,14 +487,16 @@ def _yardstick(name, outs, tol, what, exact=None):
     an input)]: each within ``tol`` in relative L2 norm plus 3x the plain
     version's own change; norms floored at 1e-3 of the call's largest (for
     outputs that are zero in exact arithmetic).  ``exact``: (indices, fn)
-    for a K7 attention BN's (gamma, beta) gradients, which sum terms that
-    nearly cancel (each query's softmax weights sum to one), so float32
-    rounds them above a perturbation's change; where one of those two is
-    past its bound, ``fn()`` gives both in float64 (as the kernel's branches
-    and as the plain version's own) and it is held against float64 instead,
-    within ``tol`` plus 3x the larger of the float32 plain version's own
-    error and its perturbation change.  Every other output keeps its bound.
-    Returns the max abs err."""
+    for a K7 call's outputs, which sum terms that nearly cancel (each BN
+    re-centres what flows back through it; a softmax's weights sum to
+    one), so the rare rows that take another leaky-ReLU slope in the kernel
+    than in the plain version can move them past a perturbation's change;
+    where one of them is past its bound, ``fn()`` gives the outputs in
+    float64 (with the kernel's slopes and with float64's own,
+    :func:`_bn_branches`, which caps the rows that flip) and it is held
+    against float64 with the kernel's slopes instead, within ``tol`` plus
+    3x the larger of the float32 plain version's own error against
+    float64 and its perturbation change.  Returns the max abs err."""
     import torch
 
     floor = 1e-3 * max(float(want.norm()) for _, want, _ in outs)
@@ -537,10 +574,11 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
         outs = list(zip((kern_out[0],) + tuple(kern_out[1]),
                         (d_h1,) + tuple(grads), (s_h1,) + tuple(s_grads)))
         exact = None
-        if cfg.attend and extras[0].dtype == torch.int32:
-            # outputs: d_h1, then the grads; the attention BN's (gamma, beta)
-            k = 4 * cfg.n_loc + 3
-            exact = ((k, k + 1), lambda: _att_branches(*args)[:2])
+        if extras[0].dtype == torch.int32:
+            # the kernel's residuals: every output may be held against
+            # float64 with the kernel's slopes
+            exact = (tuple(range(len(outs))),
+                     lambda: _bn_branches(*args)[:2])
         err = _yardstick(name, outs, tol, "0: d_h1, then the params' "
                          "gradients", exact)
         return err, lambda: ref_fn(*r_args)
@@ -548,15 +586,19 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
     return _err(name, kern_out, ref, tol), lambda: ref_fn(*args)
 
 
-def _att_branches(h1, mask, cfg, params, stats, n, extras, dout):
-    """A K7 attend call's backward (its recorded arguments): the attention
-    BN's (gamma, beta) gradients in float64 with act' taken at the kernel's
-    own activation inputs and at float64's -> (kernel-branch pair, float64
-    pair, rows that take another slope, live rows).  A row's a_y within the
-    kernel's rounding of 0 takes the other slope of the leaky ReLU there,
-    and the shift gradient sums terms that nearly cancel, so one such row
-    moves it by ~1e-3 of its norm; such rows must stay under ``FLIP_CAP``
-    of the live rows."""
+def _bn_branches(h1, mask, cfg, params, stats, n, extras, dout):
+    """A K7 call's backward (its recorded arguments) in float64, once with
+    every BN's act' taken at float64's own activation inputs and once at
+    the kernel's (its stored values, statistics and inverse deviations, on
+    the live rows) -> (kernel-branch outputs, float64 outputs: d_h1, then
+    the parameters' gradients; {BN: live rows that take another slope},
+    live rows); BN ``cfg.n_loc`` is the attention BN.  A row whose
+    activation input lies within the kernel's rounding of 0 takes the
+    other slope of the leaky ReLU there, and the gradients sum terms that
+    nearly cancel (each BN re-centres what flows back through it, a
+    softmax's weights sum to one), so a few such rows move them by ~5e-3
+    of their norm; such rows must stay under ``FLIP_CAP`` of the live rows
+    at every BN."""
     import torch
 
     from curvecloudnet_tpu_torch.ops import group_train as G
@@ -564,51 +606,68 @@ def _att_branches(h1, mask, cfg, params, stats, n, extras, dout):
     L = cfg.n_loc
     d = [h1.double()] + [p.double() for p in params]
     _, e_stats, e_n, e_extras = G.group_train_fwd_ref(d[0], mask, cfg, d[1:])
-    _, e_grads = G.group_train_bwd_ref(d[0], mask, cfg, d[1:], e_stats, e_n,
-                                       e_extras, dout.double())
-    want = e_grads[4 * L + 2:4 * L + 4]
-    _, _, ga, bta, wa1, _ = G._att(cfg, d[1:])
-    mk = G._plane_mask(mask, torch.float64)
-    keep, _ = G._chain_ref(d[0], mk, e_n, cfg, d[1:], e_stats)
-    out, mx, den = e_extras
-    lg = torch.where(mk > 0, keep["logits"],
-                     torch.full_like(keep["msg"], G.ATTEND_FILL))
-    w = torch.exp(lg - mx[:, None]) / den[:, None]
-    dlogit = w * (keep["msg"] - out[:, None]) * dout.double()[:, None] * mk
-    a = cfg.att_dim
     rows = extras[0].long()
-    pre = (dlogit @ wa1.t()).reshape(-1, a)[rows]
-    a_xhat = keep["a_xhat"].reshape(-1, a)[rows]
-    a_y = a_xhat * ga + bta
-    gv, inv = extras[5 + L], extras[5 + L + 2 + L]
-    k_y = ((gv.double() - stats[L][0].double()) * inv.double()
-           * ga.float().double() + bta.float().double())
-    # T = pre * act'(a_y) on the live rows: the kernel's slopes less float64's
-    moved = (G._dact(k_y, cfg.attend_act)
-             - G._dact(a_y, cfg.attend_act)) * pre
-    flips = int((moved != 0).any(-1).sum())
-    log(f"  group_train_bwd: {flips} of {rows.numel()} live rows take another "
-        f"attention slope in the kernel than in float64")
-    if flips > FLIP_CAP * rows.numel():
-        raise AssertionError(f"group_train_bwd: {flips} of {rows.numel()} "
-                             f"live rows flip slope (cap {FLIP_CAP:g})")
-    kern = [want[0] + (moved * a_xhat).sum(0), want[1] + moved.sum(0)]
-    return kern, list(want), flips, rows.numel()
+    vals = extras[5:5 + L + 2 * cfg.attend]
+    invs = extras[5 + L + 2 * cfg.attend:]
+    slopes = {}
+    for i in range(L + int(cfg.attend)):
+        if i < L:
+            g, bt = params[4 * i:4 * i + 2]
+            v = h1.reshape(-1, h1.shape[-1])[rows] if i == 0 else vals[i - 1]
+        else:
+            g, bt = G._att(cfg, params)[2:4]
+            v = vals[L]
+        y = ((v.double() - stats[i][0].double()) * invs[i].double()
+             * g.double() + bt.double())
+        slopes[i] = G._dact(y, cfg.act if i < L else cfg.attend_act)
+    # the backward asks for act' at the attention BN, then levels L-1..0
+    order = ([L] if cfg.attend else []) + list(reversed(range(L)))
+    flips, own = {}, G._dact
+
+    def kernel_slopes(y, kind):
+        i = order[len(flips)]
+        k = own(y, kind)
+        if kind == "identity":       # one slope: nothing flips
+            flips[i] = 0
+            return k
+        live = k.view(-1, y.shape[-1])   # a fresh tensor: set in place
+        flips[i] = int((live[rows] != slopes[i]).any(-1).sum())
+        live[rows] = slopes[i]
+        return k
+
+    bwd = (d[0], mask, cfg, d[1:], e_stats, e_n, e_extras, dout.double())
+    # each float64 backward of a wide site takes ~30 GB: hand the cached
+    # blocks the recorded step left free back before each
+    torch.cuda.empty_cache()
+    e_h1, e_grads = G.group_train_bwd_ref(*bwd)
+    torch.cuda.empty_cache()
+    with replaced(G, "_dact", kernel_slopes):
+        k_h1, k_grads = G.group_train_bwd_ref(*bwd)
+    log(f"  group_train_bwd: live rows that take another slope in the "
+        f"kernel than in float64, by BN: {flips} of {rows.numel()}")
+    for i, f in flips.items():
+        if f > FLIP_CAP * rows.numel():
+            raise AssertionError(f"group_train_bwd: {f} of {rows.numel()} "
+                                 f"live rows flip slope at BN {i} (cap "
+                                 f"{FLIP_CAP:g})")
+    return [k_h1, *k_grads], [e_h1, *e_grads], flips, rows.numel()
 
 
 def k7_flips(label, calls):
-    """:func:`_att_branches`' slope flips at every K7 attend site of a
-    captured step (each under ``FLIP_CAP`` of its live rows)."""
+    """:func:`_bn_branches`' slope flips at every K7 attend site of a
+    captured step (each BN's under ``FLIP_CAP`` of its live rows)."""
     import torch
 
-    total = live = sites = 0
+    total = att = live = sites = 0
     with torch.no_grad():
         for args, _, _ in calls["group_train_bwd"]:
             if args[2].attend and args[6][0].dtype == torch.int32:
-                f, n = _att_branches(*args)[2:]
-                total, live, sites = total + f, live + n, sites + 1
-    log(f"{label} K7 attention slope flips at {sites} attend sites: {total} "
-        f"of {live} live rows")
+                flips, n = _bn_branches(*args)[2:]
+                total, live, sites = total + sum(flips.values()), live + n, \
+                    sites + 1
+                att += flips[args[2].n_loc]
+    log(f"{label} K7 slope flips at {sites} attend sites: {total} at all "
+        f"BNs, {att} at the attention BNs, of {live} live rows")
 
 
 def work(name, args, out):
@@ -2183,6 +2242,268 @@ def run_loops(P, mods, dev, kernel_launches):
     return by_path
 
 
+def loader_waits(record):
+    """A ``PrefetchLoader.epoch`` that, for shuffled (train) loaders,
+    records each batch's ``n_pad_dropped`` and points a sample (after
+    augmentation, before padding), the consumer's waits for the next
+    batch and the loop's wall from its first request to its end."""
+    from curvecloudnet_tpu_torch.data.loader import PrefetchLoader
+
+    inner = PrefetchLoader.epoch
+
+    def epoch(loader, epoch_=0):
+        batches = inner(loader, epoch_)
+        if not loader.shuffle:
+            yield from batches
+            return
+        t_start = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                break
+            record["wait_s"] += time.perf_counter() - t0
+            dropped = batch["n_pad_dropped"]
+            record["dropped"].append(dropped.tolist())
+            record["points"].append(
+                (batch["valid"].sum(-1) + dropped).tolist())
+            yield batch
+        record["loop_s"] += time.perf_counter() - t_start
+
+    return epoch
+
+
+def reader_ms(ds, augment, n=HOST18_SAMPLES):
+    """Host ms a sample of ``ds.get`` + ``collate`` (one warm-up first)."""
+    import numpy as np
+
+    from curvecloudnet_tpu_torch.data.datasets import collate
+
+    rng = np.random.default_rng(0)
+    collate(ds, [ds.get(0, rng, augment)])
+    t0 = time.perf_counter()
+    for i in range(n):
+        collate(ds, [ds.get(i % len(ds), rng, augment)])
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def check_submission(name, val_ds, dumped, outdir):
+    """Each submission file: one prediction a point of its frame, in the
+    frame's original order, equal to the argmax of the mean logits the
+    loop dumped, mapped as the benchmark reads it -> files checked."""
+    import numpy as np
+
+    from curvecloudnet_tpu_torch.run.globals import KITTI_LEARNING_MAP_INV
+
+    lidar_of = {os.path.basename(seg or ""): lp
+                for lp, seg, _ in getattr(val_ds, "pairs", [])}
+    lut = np.zeros(max(KITTI_LEARNING_MAP_INV) + 1, np.uint32)
+    for a, b in KITTI_LEARNING_MAP_INV.items():
+        lut[a] = b
+    checked = 0
+    for mean_logits, valid, metas in dumped:
+        for k, meta in enumerate(metas):
+            logits = mean_logits[k].numpy()[valid[k].numpy()]
+            if name == "kitti":
+                n = len(np.fromfile(meta["fpath"], np.float32)) // 4
+                want = lut[np.argmax(logits, -1)]   # KITTI keeps its order
+                parts = meta["fpath"].split(os.sep)
+                path = os.path.join(outdir, "method_predictions", "sequences",
+                                    parts[-3], "predictions",
+                                    parts[-1][:-4] + ".label")
+                got = np.fromfile(path, np.uint32)
+            else:
+                raw = np.fromfile(lidar_of[meta["fname"]],
+                                  np.float32).reshape(-1, 5)
+                n = len(raw)
+                # the reader's order is the stable ring sort of the file's
+                order = np.argsort(raw[:, 4].astype(np.int64), kind="stable")
+                want = np.empty(n, np.uint8)
+                want[order] = np.argmax(logits[:, 1:], -1) + 1
+                got = np.fromfile(os.path.join(
+                    outdir, "results", "lidarseg", "test", meta["fname"]),
+                    np.uint8)
+            if len(got) != n or len(logits) != n or \
+                    not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{name} submission for {meta}: {len(got)} predictions "
+                    f"for {n} points, equal to the dumped argmax: "
+                    f"{np.array_equal(got[:len(want)], want[:len(got)])}")
+            checked += 1
+    return checked
+
+
+def run_disk(P, mods, dev, kernel_launches, label, name, frames):
+    """Phase 18, one config from files on disk -> (launches by path,
+    {kernel: worst error of its held calls})."""
+    import torch
+
+    from curvecloudnet_tpu_torch import main as M
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.data import datasets as D
+    from curvecloudnet_tpu_torch.data.loader import PrefetchLoader
+    from curvecloudnet_tpu_torch.models import parse_model_config
+    from curvecloudnet_tpu_torch.run import tasks as T
+    from curvecloudnet_tpu_torch.tools import calibrate
+    from curvecloudnet_tpu_torch.tools import fake_datasets as F
+
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", f"{name}.yaml"))
+    t0 = time.perf_counter()
+    root = F.write_for_config(cfg, os.path.join(OUT18, "data", name), frames,
+                              seed=18)
+    write_s = time.perf_counter() - t0
+    outdir = os.path.join(OUT18, label)
+    cfg.update(device=str(dev), data_path=root, outdir=outdir, epochs=1,
+               val_every=1, save_every=100)
+    train_ds, val_ds = M.load_datasets(cfg)
+    info = T.task_for(cfg["dataset_source"], cfg["task"])
+    lidar = info.task == "segmentation" and not info.part_iou
+    sizes = [len(train_ds.get(i).pos) for i in range(len(train_ds))]
+    log(f"{label}: wrote {sum(frames.values())} files in {write_s:.1f} s "
+        f"under {root}; {type(train_ds).__name__} train {len(train_ds)} / "
+        f"val {len(val_ds)}, points a sample {min(sizes)}-{max(sizes)}, "
+        f"n_pad {train_ds.n_pad}")
+
+    # the readers' host ms a sample (get + collate), with and without
+    # PolarMix where the config mixes
+    host = {"augment": reader_ms(train_ds, True),
+            "val": reader_ms(val_ds, False)}
+    if getattr(train_ds, "polarmix_aug", False):
+        train_ds.polarmix_aug = False
+        host["augment, no PolarMix"] = reader_ms(train_ds, True)
+        train_ds.polarmix_aug = True
+    log(f"{label} reader host ms a sample (get + collate): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+
+    # main trains one epoch from the files and validates (nuScenes and
+    # KITTI under 12-view TTA in chunks of 2, A2D2 without TTA, as the
+    # task has it; objects in batches of 8)
+    spec = parse_model_config(cfg["model"], in_dim=train_ds.in_dim,
+                              n_out=info.n_out)
+    steps = len(train_ds) // int(cfg["batch_size"])
+    tta = info.tta if cfg.get("use_tta") is None else bool(cfg["use_tta"])
+    val_forwards = (len(val_ds) * (T.N_VIEWS // 2 if tta else 1) if lidar
+                    else -(-len(val_ds) // 8))
+    want = {}
+    for counts, times in ((kernel_launches(spec, train_ds.n_pad, train=True),
+                           steps),
+                          (kernel_launches(spec, train_ds.n_pad),
+                           val_forwards)):
+        for k, v in counts.items():
+            want[k] = want.get(k, 0) + times * v
+    for _, mod, wrapper in LOOP_COUNTED:
+        getattr(mods[mod], wrapper).launches = 0
+    timed, inner = [], M.train_step
+    record = {"wait_s": 0.0, "loop_s": 0.0, "dropped": [], "points": []}
+
+    def train_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed.append(((time.perf_counter() - t0) * 1e3,
+                      torch.cuda.max_memory_allocated()))
+        return out
+
+    shutil.rmtree(outdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with replaced(M, "train_step", train_step), \
+            replaced(PrefetchLoader, "epoch", loader_waits(record)):
+        score = M.main(cfg)
+    wall = time.perf_counter() - t0
+    launched = {k: getattr(mods[mod], w).launches
+                for k, mod, w in LOOP_COUNTED}
+    log(f"{label}: main trained {len(timed)} steps at B "
+        f"{cfg['batch_size']} and validated {len(val_ds)} scans in "
+        f"{wall:.1f} s, score {score}; step (ms, GiB) "
+        f"{[(round(ms, 1), round(b / 2**30, 2)) for ms, b in timed]}; "
+        f"points a sample {record['points']}, n_pad_dropped "
+        f"{record['dropped']} a batch; loader waits "
+        f"{record['wait_s'] * 1e3:.1f} ms of the train loop's "
+        f"{record['loop_s'] * 1e3:.1f} ms "
+        f"({record['wait_s'] / max(record['loop_s'], 1e-9):.3f})")
+    log(f"{label} launches {launched}")
+    for k, got in launched.items():
+        if got != want.get(k, 0):
+            raise AssertionError(f"{label} {k}: {got} launches, want "
+                                 f"{want.get(k, 0)}")
+    if len(timed) != steps or not score == score:
+        raise AssertionError(f"{label}: {len(timed)} steps, score {score}")
+    by_path = {label: launched}
+
+    # every telemetry channel's maximum over val scans, the trained weights
+    trained = dict(cfg, weights=os.path.join(outdir, "latest"))
+    _, _, model = M.build(trained)
+    totals = calibrate.collect(model, val_ds, TELEMETRY18_SCANS, info.task)
+    log(f"{label} telemetry max over {TELEMETRY18_SCANS} val scans: "
+        + str({k: max(v) for k, v in sorted(totals.items())}))
+    del model
+
+    # --only_test: the submission files of the val frames
+    if name in ("kitti", "nuscenes"):
+        test_out = os.path.join(OUT18, label + "_test")
+        shutil.rmtree(test_out, ignore_errors=True)
+        for _, mod, wrapper, *_ in EVAL_KERNELS + GRID_HELD:
+            getattr(mods[mod], wrapper).launches = 0
+        dumped, dump = [], T.dump_submission
+
+        def spy(mean_logits, valid, metas, out):
+            dumped.append((mean_logits, valid, metas))
+            return dump(mean_logits, valid, metas, out)
+
+        t0 = time.perf_counter()
+        with replaced(T, "dump_submission", spy):
+            M.main(dict(trained, only_test=True, outdir=test_out))
+        test_s = time.perf_counter() - t0
+        got = {k: getattr(mods[mod], w).launches
+               for k, mod, w, *_ in EVAL_KERNELS + GRID_HELD}
+        per = kernel_launches(spec, val_ds.n_pad)
+        for k, n in got.items():
+            if n != len(val_ds) * (T.N_VIEWS // 2) * per.get(k, 0):
+                raise AssertionError(f"{label} --only_test {k}: {n} "
+                                     "launches")
+        files = check_submission(name, val_ds, dumped, test_out)
+        by_path[label + "_test"] = got
+        log(f"{label} --only_test: {files} submission files in "
+            f"{test_s:.1f} s, one prediction a point in each frame's "
+            f"order; launches {got}")
+
+    # one batch read from disk through the kernels and the plain versions:
+    # a train step (phase 6's holds) and an eval forward (phase 3's)
+    kitti = name == "kitti"
+    _, train_ds, val_ds, model, _, _ = M._setup(
+        dict(cfg, outdir=os.path.join(OUT18, label + "_hold")))
+    b_train = int(cfg["batch_size"]) if not lidar else 1
+    np_batch = next(PrefetchLoader(train_ds, b_train, shuffle=True, seed=1,
+                                   augment=True, num_workers=1).epoch(0))
+    batch = D.to_device_batch(np_batch, info.task, dev)
+    state0 = copy.deepcopy(model.state_dict())
+    one_step = step_runner(model, state0, batch, T.loss_for(cfg), mods, dev)
+    held = TRAIN_KERNELS + TRAIN_HELD + (GRID_HELD if kitti else [])
+    calls, (loss, ms, peak) = capture(held, mods, lambda: one_step(lr=0.0))
+    log(f"{label} capture step on a disk batch: B {b_train}, "
+        f"{int(batch.cloud.valid.sum())} valid points, loss {loss:.6g}, "
+        f"{ms:.1f} ms, peak {peak / 2**30:.2f} GiB")
+    worst = hold_train(f"{label} train", held, mods, calls)
+    del calls, one_step
+    eval_kernels = (KITTI_KERNELS if kitti else EVAL_KERNELS
+                    if name == "nuscenes" else V1_KERNELS)
+    np_val = next(D.batch_iterator(val_ds, 1 if lidar else 8))
+    vb = D.to_device_batch(np_val, info.task, dev)
+    model.eval()
+    with torch.inference_mode():
+        calls, _ = capture(eval_kernels, mods, lambda: T._forward(
+            model, vb.cloud, vb.categories, None, None))
+    for k, e in hold(f"{label} eval", eval_kernels, mods, calls).items():
+        worst[k] = max(worst.get(k, 0.0), e)
+    del calls, model
+    log(f"{label}: {time.perf_counter() - t_path:.1f} s")
+    return by_path, worst
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -2391,6 +2712,19 @@ def main():
     train17_launched.update(run_loops(P, mods, dev, kernel_launches))
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
+    # 18. the data layer: main trains, validates and writes submissions
+    # from files on disk; a disk batch of each config held kernel vs plain
+    t_phase = time.perf_counter()
+    shutil.rmtree(OUT18, ignore_errors=True)
+    disk_launched, disk_errs = {}, {}
+    for label, name, frames in DISK18:
+        launched, errs = run_disk(P, mods, dev, kernel_launches, label, name,
+                                  frames)
+        disk_launched.update(launched)
+        for k, e in errs.items():
+            disk_errs[k] = max(disk_errs.get(k, 0.0), e)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -2415,7 +2749,8 @@ def main():
         for name, row in rows.items():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               row["max_abs_err"])
-    for name, err in list(eval16_errs.items()) + list(train17_errs.items()):
+    for name, err in (list(eval16_errs.items()) + list(train17_errs.items())
+                      + list(disk_errs.items())):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
@@ -2424,11 +2759,12 @@ def main():
         for path, counts in (list(kitti_launched.items())
                              + list(v1_launched.items())
                              + list(eval16_launched.items())
-                             + list(train17_launched.items())):
+                             + list(train17_launched.items())
+                             + list(disk_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

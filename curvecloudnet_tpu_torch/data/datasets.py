@@ -6,9 +6,14 @@ fixed-shape numpy arrays, so every forward of a run has one shape.  A
 sample is drawn from ``seed * 100003 + idx``, as in the JAX package, so
 both packages give the same sample for the same (seed, idx).
 
-Included sources: ``SyntheticLidarSeg`` / ``SyntheticObjects``, procedural
-data on :mod:`.synthetic`.  The readers of real files (the JAX package's
-``ObjectPthDataset`` and its lidar datasets) are not ported yet.
+Included sources:
+  * ``SyntheticLidarSeg`` / ``SyntheticObjects``: procedural data on
+    :mod:`.synthetic`, the stand-ins ``main`` takes where ``data_path`` does
+    not exist;
+  * ``ObjectPthDataset``: the reference's simulated ShapeNet / Kortx
+    ``.pth`` split files (reference ``object_datasets.py:8-65``);
+  * the lidar readers (SemanticKITTI, nuScenes, A2D2) in :mod:`.lidar`, the
+    Kortx ``.npz`` shard in :mod:`.kortx`.
 """
 
 from __future__ import annotations
@@ -106,6 +111,75 @@ class SyntheticObjects(CurveDataset):
         labels = (np.int32(cat) if self.task == "classification" else parts)
         return Sample(pos=pos, curve_id=cid, feat=None, labels=labels,
                       category=cat)
+
+
+def object_stem(data_generation: Optional[dict]) -> str:
+    """The stem of a config's object split files, ``data_{num_points}_
+    {resolution}_{line_density}_{laser_motion}`` after its
+    ``data_generation`` (``{stem}_{split}.pth``)."""
+    gen = data_generation or {}
+    return "data_{}_{}_{}_{}".format(
+        gen.get("num_points", 2048), gen.get("resolution", 2048),
+        gen.get("line_density", 0.25), gen.get("laser_motion", "random"))
+
+
+class ObjectPthDataset(CurveDataset):
+    """Reference-format simulated object scans from a ``.pth`` split file.
+
+    The reference stores one torch_geometric ``Batch`` a split with fields
+    pos / y / curve_idxs / batch (+ ``labels``: categories, + optional
+    ``curvature``).  Unpickling such a ``Batch`` needs torch_geometric;
+    any object with those tensor attributes reads (e.g. a
+    ``types.SimpleNamespace``).  Each cloud is normalized into the unit
+    sphere and, in train, augmented with a random anisotropic scale and
+    jitter (object_datasets.py:32-36, 61-66); its curve ids start at 0."""
+
+    def __init__(self, path: str, n_pad: int = 2048,
+                 task: str = "segmentation", n_classes: int = 50,
+                 normalize: bool = True, use_curvature: bool = False):
+        # a pickled object, not a state dict: the reference's own format
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        self._pos = np.asarray(blob.pos, np.float32)
+        self._batch = np.asarray(blob.batch, np.int64)
+        self._curves = np.asarray(blob.curve_idxs, np.int64)
+        self._y = np.asarray(blob.y, np.int64) if hasattr(blob, "y") else None
+        self._cats = (np.asarray(blob.labels, np.int64)
+                      if hasattr(blob, "labels") else None)
+        self._curvature = (np.asarray(blob.curvature, np.float32)
+                           if use_curvature and hasattr(blob, "curvature")
+                           else None)
+        self.use_curvature = self._curvature is not None
+        self._ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(self._batch))]).astype(np.int64)
+        self.n_pad = n_pad
+        self.in_dim = 6 if self.use_curvature else 3
+        self.task = task
+        self.n_classes = n_classes
+        self.ignore_index = None
+        self.normalize = normalize
+
+    def __len__(self):
+        return len(self._ptr) - 1
+
+    def get(self, idx, rng=None, augment=False):
+        s, e = self._ptr[idx], self._ptr[idx + 1]
+        pos = self._pos[s:e].copy()
+        if self.normalize:
+            pos -= pos.mean(0, keepdims=True)
+            pos /= max(np.linalg.norm(pos, axis=1).max(), 1e-8)
+        if augment and rng is not None:
+            pos = _object_augment(pos, rng)
+        cid = self._curves[s:e]
+        cid = cid - cid.min()
+        cat = int(self._cats[idx]) if self._cats is not None else 0
+        if self.task == "classification":
+            labels = np.int32(cat)
+        else:
+            labels = self._y[s:e].astype(np.int32)
+        feat = (self._curvature[s:e] if self.use_curvature else None)
+        return Sample(pos=pos.astype(np.float32),
+                      curve_id=cid.astype(np.int32), feat=feat,
+                      labels=labels, category=cat)
 
 
 def _object_augment(pos, rng):

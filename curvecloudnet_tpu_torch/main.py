@@ -19,11 +19,14 @@ test-split submission files under ``outdir``.  The model is built at the
 dataset's ``n_pad`` on ``device`` (default ``cuda``; there is no fallback
 to the CPU), with random weights from ``seed``, the reference ``.pth`` at
 ``weights``, a native checkpoint at ``weights``, or the ``latest``
-checkpoint of ``outdir``.  Where ``data_path`` does not exist the
-datasets are the JAX entry's synthetic stand-ins.
+checkpoint of ``outdir``.  The datasets are read from ``data_path``
+(:func:`load_datasets`: SemanticKITTI, nuScenes, A2D2 and the object
+``.pth`` files, in the layouts ``data/lidar.py`` and
+``data/datasets.py`` describe); where ``data_path`` does not exist they
+are the JAX entry's synthetic stand-ins.
 
-Not ported yet, and raising ``NotImplementedError``: ``only_viz``, more
-than one process or device, and reading real datasets.
+Not ported yet, and raising ``NotImplementedError``: ``only_viz`` and
+more than one process or device.
 """
 
 from __future__ import annotations
@@ -50,8 +53,11 @@ OBJECT_SOURCES = ("shapenet-seg", "shapenet", "kortx")
 
 def load_datasets(cfg):
     """(train, val) datasets of a config (the reference's
-    load_utils.load_dataset:73-126): the synthetic stand-ins where
-    ``data_path`` does not exist."""
+    load_utils.load_dataset:73-126): the lidar readers of ``data/lidar.py``
+    on ``data_path``, the object ``.pth`` split files
+    ``data_{num_points}_{resolution}_{line_density}_{laser_motion}_{split}
+    .pth`` under it, or the synthetic stand-ins where ``data_path`` does not
+    exist."""
     src = cfg["dataset_source"]
     if src == "summer-robotics":  # the reference's Kortx test split
         src = "kortx"
@@ -60,12 +66,9 @@ def load_datasets(cfg):
     n_pad = int(cfg.get("n_pad", 2048 if "shapenet" in src or "kortx" in src
                          or "object" in src else 32768))
     have_data = bool(data_path) and os.path.exists(data_path)
-    if have_data and src in LIDAR_SOURCES + OBJECT_SOURCES:
-        raise NotImplementedError(
-            f"reading {src} from {data_path!r} is not ported (ROADMAP.md "
-            "queue 1, item 5: the data layer)")
 
-    if src.startswith("synthetic-lidar") or src in LIDAR_SOURCES:
+    if src.startswith("synthetic-lidar") or (
+            src in LIDAR_SOURCES and not have_data):
         if not src.startswith("synthetic"):
             print(f"[data] {data_path!r} missing -> synthetic lidar stand-in")
         n_cls = T.task_for(src, task).n_out if src in T.TASKS else 17
@@ -75,7 +78,13 @@ def load_datasets(cfg):
                                   n_pad=n_pad, n_classes=n_cls, seed=2)
         return train, val
 
-    if src.startswith("synthetic-object") or src in OBJECT_SOURCES:
+    if src in LIDAR_SOURCES:
+        from .data import lidar
+
+        return lidar.load_lidar_datasets(cfg, n_pad)
+
+    if src.startswith("synthetic-object") or (
+            src in OBJECT_SOURCES and not have_data):
         if not src.startswith("synthetic"):
             print(f"[data] {data_path!r} missing -> synthetic objects "
                   "stand-in")
@@ -84,6 +93,16 @@ def load_datasets(cfg):
         val = D.SyntheticObjects(n_samples=cfg.get("n_val", 16),
                                  n_pad=n_pad, task=task, seed=2)
         return train, val
+
+    if src in OBJECT_SOURCES:
+        stem = D.object_stem(cfg.get("data_generation"))
+        n_cls = (16 if task == "classification"
+                 else T.task_for(src, task).n_out)
+        use_curv = bool(cfg.get("use_curvature", False))
+        return tuple(D.ObjectPthDataset(
+            os.path.join(data_path, f"{stem}_{split}.pth"), n_pad=n_pad,
+            task=task, n_classes=n_cls, use_curvature=use_curv)
+            for split in ("train", "val"))
 
     raise KeyError(f"unknown dataset_source {src!r}")
 

@@ -1,2 +1,4 @@
-"""Measurement scripts of the port, run on a GPU as
-``python -m curvecloudnet_tpu_torch.tools.<name>`` from the repo root."""
+"""Scripts of the port, run as ``python -m curvecloudnet_tpu_torch.tools.<name>``
+from the repo root: measurement scripts on a GPU, the budget tools
+(``calibrate``, ``budget_audit``), ``convert_checkpoint``, and
+``fake_datasets``, the tests' writer of stand-in dataset files."""

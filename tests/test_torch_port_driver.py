@@ -19,11 +19,13 @@ the JAX package on the CPU.
   2e-3; scores equal unless an argmax is a near-tie);
 * the entry point: ``main.main`` with ``only_val`` returns the score of
   ``run_eval`` on the model it builds; ``only_viz``, more than one
-  process, wandb, real data, a missing card and the confusion figure
-  raise (the epoch loop: ``test_torch_port_main_train.py``).
+  process, wandb, an empty dataset split, a missing card and the
+  confusion figure raise (the epoch loop: ``test_torch_port_main_train.py``;
+  reading dataset files: ``test_torch_port_data*.py``).
 """
 
 import os
+import re
 import threading
 import time
 import warnings
@@ -504,8 +506,13 @@ def test_main_raises(tmp_path, monkeypatch):
                         distributed={"num_processes": 2}))
     with pytest.raises(NotImplementedError, match="wandb"):
         tmain.main(dict(cfg, only_val=True, use_wandb=True))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmain.load_datasets(dict(cfg, data_path=str(tmp_path)))
+    # an existing but empty KITTI root: the split raises, naming its glob
+    kitti = dict(tconfig.load_config(_config("kitti")),
+                 data_path=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=re.escape(os.path.join(
+            "sequences", "{00,01,02,03,04,05,06,07,09,10}", "velodyne",
+            "*.bin"))):
+        tmain.load_datasets(kitti)
     with pytest.raises(KeyError):
         tmain.load_datasets(dict(cfg, dataset_source="modelnet"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
