@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Proof that the PyTorch port serves and trains on one NVIDIA GPU, from
-dataset files on disk too.
+dataset files on disk too, with every step option of the model DSL.
 
 Run from the repository root with no arguments::
 
@@ -190,11 +190,41 @@ Phases (any failure raises and exits non-zero before the result line):
      the mean logits the loop dumped; one batch read from disk (lidar
      B=1, objects the config's 24) through a capture train step and a
      val batch through an eval forward, every kernel call held against
-     its plain version at phase 6's and phase 3's tolerances.
+     its plain version at phase 6's and phase 3's tolerances;
+ 19. the step options no shipped config uses, at published widths:
+     ``shapenet-class-options`` (``options_model``: shapenet-class with a
+     dgcnn-rad step prepended, sa-geo on FPS, curve-fps with a one-layer
+     MLP, random and mean sa steps, a dgcnn step, weighted-sum,
+     fast-order attend, head dropout 0.5; n_pad 2048, seed 0's batch of
+     24 object scans): the dgcnn-rad search's kind and ball counts, the
+     curve-fps share kept, a capture eval forward with every K2 / K3 /
+     K6 / K4 call held and timed (K2 site lines), one counted forward
+     (launches equal to ``kernel_launches``; wall, device busy ms, peak
+     memory), logits against the plain path (2e-3); a capture train step
+     with every K7 / K4 / K4b call held and timed (K7 site lines, slope
+     flips) and K3 / K6 held, one counted step (launches equal to
+     ``kernel_launches(train=True)``; wall, peak), the step against the
+     plain path as phase 8 holds it.  The plain runs take the kernel
+     run's dgcnn graph (``GraphReplay``: its own graph, on features that
+     differ by rounding, must differ only at distance ties).
+     ``nuscenes_k1`` (nuScenes with step 0's ``kernel_size`` 1): one scan,
+     launches equal to the spec's (one K1 fewer), logits against the
+     plain path (2e-3); its fp step 18 on a cloud with no ``parent_idx``,
+     that K3 call held against its plain version.
+
+Every captured train step (phases 6, 17, 18, 19) counts K7's slope flips
+at every site (``k7_flips``, a float64 chain a level at a time): each
+flipped element's float64 activation input within ``FLIP_MULT`` 3xTF32
+roundings of its BN's scale, the largest such input logged; each BN's
+flipped rows under ``FLIP_CAP`` of its live rows up to ``FLIP_CAP_WIDTH``
+channels (at every width on a call the float64 fallback holds), a wider
+BN's flipped elements under ``FLIP_CAP / FLIP_CAP_WIDTH`` of its live
+elements (``check_flips``).
 
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
-A2D2 and the object configs, the loops and the paths from disk), the
+A2D2 and the object configs, the loops, the paths from disk and the
+options), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -240,9 +270,8 @@ TRAIN17 = [("train_audi", "audi", True),
            ("train_kortx", "kortx-testsplit", False),
            ("train_shapenet_class", "shapenet-class", False)]
 TRAIN17_STEPS = 3
-# the path whose K7 attend sites' slope flips are counted (float64 chains:
-# shapenet-seg's sa-geo site would not fit the card), and whose K7 calls
-# are captured again on a second input (seed 1), held and counted so
+# the path whose K7 calls are captured again on a second input (seed 1),
+# held and their slope flips counted (every path's capture step is)
 WITNESS17 = "train_audi"
 OUT17 = os.path.join(REPO, "build", "phase17")
 # phase 18: the data layer.  Fixture files at real frame sizes in each
@@ -256,6 +285,13 @@ DISK18 = [("disk_nuscenes", "nuscenes", {"train": 18, "val": 2, "test": 2}),
 OUT18 = os.path.join(REPO, "build", "phase18")
 HOST18_SAMPLES = 4   # samples a reader is timed on, after one warm-up
 TELEMETRY18_SCANS = 2
+# phase 19: the step options on shapenet-class's model (options_model)
+OPTIONS_CONFIG = os.path.join(REPO, "configs", "shapenet-class.yaml")
+# step 4's arclength spacing, curve-fps over its 1024-slot row (the FPS
+# half of a 2048-point object scan): 0.22 keeps ~25% of the row on seed
+# 0's batch (0.2 keeps 27%, 0.3 19%; a CPU count, logged on the card)
+OPTIONS_ARCLEN = 0.22
+NUSCENES_K1 = "nuscenes_k1"   # nuScenes with step 0's kernel_size 1
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -310,8 +346,25 @@ TOPK_KERNELS = [
 # whose BN output is within the kernel's rounding of 0 move them: 15 of
 # A2D2's ~47k sa-geo rows by ~3e-3 at its attention BN, 45 of 340616 on a
 # KITTI sa-geo site by up to 8.9e-3), whose flips from float64's must stay
-# under FLIP_CAP of the live rows at every BN
+# under FLIP_CAP of the live rows at every BN.  Each flipped element's
+# float64 activation input must lie within FLIP_MULT 3xTF32 roundings
+# (TF32X3_EPS, the relative rounding of a 3xTF32 product: the dropped
+# lo x lo term is ~2^-22 of it, doubled) of its BN's scale (the largest
+# |input| of the BN's live rows): a fault that flipped rows far from 0
+# fails this where a count alone would pass (every train capture of
+# the smoke measured 4.43 at most, NVIDIA H100)
 FLIP_CAP = 1e-3
+TF32X3_EPS = 2.0 ** -21
+FLIP_MULT = 32
+# the row cap was set on BNs up to 512 wide (A2D2's attention BN); a row
+# flips where any of its elements does, and the wider BNs of the train
+# steps (1024: nuScenes' step-12 site, shapenet-seg's sa-geo attention
+# BN) are held on every capture to the share of flipped elements the row
+# cap allows a 512-wide BN, FLIP_CAP / FLIP_CAP_WIDTH, and to the row cap
+# where the float64 fallback holds a call (_bn_branches), as before
+FLIP_CAP_WIDTH = 512
+
+
 TRAIN_KERNELS = [
     # K8: forward z 1e-4 and its statistics 1e-5 (of max(1, |plain|));
     # reduce and t passes K7's backward yardstick, z perturbed
@@ -368,6 +421,32 @@ EDGE_KERNELS = [
     ("edge_mlp", "edge_mlp", "fused_edge_mlp_max", "fused_edge_mlp_max_ref",
      "curvecloudnet_tpu_torch/csrc/edge_mlp.cu",
      "curvecloudnet_tpu/ops/pallas_edge.py:85", 1e-4)]
+
+
+def options_model(model_cfg, arclen=OPTIONS_ARCLEN):
+    """shapenet-class's ``model`` block with phase 19's substitutions (its
+    steps counted in the shipped list): a dgcnn-rad step prepended (the
+    JAX package admits it only as step 0; radius sa-geo's), step 0 sa-geo
+    on FPS (ratio 0.5), step 4 sa on curve-fps with a one-layer MLP, step
+    7 sa random, step 10 sa mean, step 5 sgcnn a dgcnn (k 30, in the skip
+    store as the sgcnn was), step 8 weighted-sum, step 11 sgcnn in the
+    fast order with attend, head dropout 0.5."""
+    mc = copy.deepcopy(model_cfg)
+    steps = mc["steps"]
+    steps[0].update(use_curve_fps=False, ratio=0.5)
+    steps[4].update(downsample_type="curve-fps", curve_fps_arclen=arclen,
+                    feat_dims=steps[4]["feat_dims"][:1])
+    steps[5].update(step_name="dgcnn", knn=30)
+    steps[7]["downsample_type"] = "random"
+    steps[8]["aggr_type"] = "weighted-sum"
+    steps[10]["aggr_type"] = "mean"
+    steps[11].update(use_sparse_feat_agg=False, aggr_type="attend")
+    mc["steps"] = [dict(step_name="dgcnn-rad", with_xyz=True,
+                        radius=steps[0]["radius"], feat_dims=[64, 64])] + steps
+    mc["skip_connect_state_store"] = (list(mc["skip_connect_state_store"])
+                                      + ["dgcnn"])
+    mc["out_mlp"]["dropout"] = 0.5
+    return mc
 
 
 def log(*parts):
@@ -493,7 +572,7 @@ def _yardstick(name, outs, tol, what, exact=None):
     than in the plain version can move them past a perturbation's change;
     where one of them is past its bound, ``fn()`` gives the outputs in
     float64 (with the kernel's slopes and with float64's own,
-    :func:`_bn_branches`, which caps the rows that flip) and it is held
+    :func:`_bn_branches`, which holds the rows that flip) and it is held
     against float64 with the kernel's slopes instead, within ``tol`` plus
     3x the larger of the float32 plain version's own error against
     float64 and its perturbation change.  Returns the max abs err."""
@@ -578,7 +657,7 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
             # the kernel's residuals: every output may be held against
             # float64 with the kernel's slopes
             exact = (tuple(range(len(outs))),
-                     lambda: _bn_branches(*args)[:2])
+                     lambda: _bn_branches(*args))
         err = _yardstick(name, outs, tol, "0: d_h1, then the params' "
                          "gradients", exact)
         return err, lambda: ref_fn(*r_args)
@@ -586,19 +665,35 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
     return _err(name, kern_out, ref, tol), lambda: ref_fn(*args)
 
 
+def _kernel_y(h1, cfg, params, stats, extras, i, lo=0, hi=None):
+    """A K7 call's activation input at BN ``i`` on its live rows
+    ``lo:hi``, from the kernel's stored values, statistics and inverse
+    deviations, in float64; BN ``cfg.n_loc`` is the attention BN."""
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    L = cfg.n_loc
+    if i == 0:
+        v = h1.reshape(-1, h1.shape[-1])[extras[0].long()[lo:hi]]
+    else:
+        v = extras[5 + (i - 1 if i < L else L)][lo:hi]
+    g, bt = params[4 * i:4 * i + 2] if i < L else G._att(cfg, params)[2:4]
+    inv = extras[5 + L + 2 * cfg.attend + i]
+    return ((v.double() - stats[i][0].double()) * inv.double()
+            * g.double() + bt.double())
+
+
 def _bn_branches(h1, mask, cfg, params, stats, n, extras, dout):
     """A K7 call's backward (its recorded arguments) in float64, once with
-    every BN's act' taken at float64's own activation inputs and once at
-    the kernel's (its stored values, statistics and inverse deviations, on
-    the live rows) -> (kernel-branch outputs, float64 outputs: d_h1, then
-    the parameters' gradients; {BN: live rows that take another slope},
-    live rows); BN ``cfg.n_loc`` is the attention BN.  A row whose
-    activation input lies within the kernel's rounding of 0 takes the
-    other slope of the leaky ReLU there, and the gradients sum terms that
-    nearly cancel (each BN re-centres what flows back through it, a
-    softmax's weights sum to one), so a few such rows move them by ~5e-3
-    of their norm; such rows must stay under ``FLIP_CAP`` of the live rows
-    at every BN."""
+    every BN's act' taken at the kernel's activation inputs on the live
+    rows (:func:`_kernel_y`) and once at float64's own -> (kernel-branch
+    outputs, float64 outputs: d_h1, then the parameters' gradients).  A
+    row whose activation input lies within the kernel's rounding of 0
+    takes the other slope of the leaky ReLU there, and the gradients sum
+    terms that nearly cancel (each BN re-centres what flows back through
+    it, a softmax's weights sum to one), so a few such rows move them by
+    ~5e-3 of their norm; a call held this way keeps its flipped rows under
+    ``FLIP_CAP`` of the live rows at every BN, whatever its width
+    (:func:`check_flips`)."""
     import torch
 
     from curvecloudnet_tpu_torch.ops import group_train as G
@@ -607,32 +702,17 @@ def _bn_branches(h1, mask, cfg, params, stats, n, extras, dout):
     d = [h1.double()] + [p.double() for p in params]
     _, e_stats, e_n, e_extras = G.group_train_fwd_ref(d[0], mask, cfg, d[1:])
     rows = extras[0].long()
-    vals = extras[5:5 + L + 2 * cfg.attend]
-    invs = extras[5 + L + 2 * cfg.attend:]
-    slopes = {}
-    for i in range(L + int(cfg.attend)):
-        if i < L:
-            g, bt = params[4 * i:4 * i + 2]
-            v = h1.reshape(-1, h1.shape[-1])[rows] if i == 0 else vals[i - 1]
-        else:
-            g, bt = G._att(cfg, params)[2:4]
-            v = vals[L]
-        y = ((v.double() - stats[i][0].double()) * invs[i].double()
-             * g.double() + bt.double())
-        slopes[i] = G._dact(y, cfg.act if i < L else cfg.attend_act)
     # the backward asks for act' at the attention BN, then levels L-1..0
-    order = ([L] if cfg.attend else []) + list(reversed(range(L)))
-    flips, own = {}, G._dact
+    levels = iter(([L] if cfg.attend else []) + list(reversed(range(L))))
+    own = G._dact
 
     def kernel_slopes(y, kind):
-        i = order[len(flips)]
+        i = next(levels)
         k = own(y, kind)
-        if kind == "identity":       # one slope: nothing flips
-            flips[i] = 0
-            return k
-        live = k.view(-1, y.shape[-1])   # a fresh tensor: set in place
-        flips[i] = int((live[rows] != slopes[i]).any(-1).sum())
-        live[rows] = slopes[i]
+        if kind != "identity":       # one slope: nothing flips
+            # a fresh tensor: set in place
+            k.view(-1, y.shape[-1])[rows] = own(
+                _kernel_y(h1, cfg, params, stats, extras, i), kind)
         return k
 
     bwd = (d[0], mask, cfg, d[1:], e_stats, e_n, e_extras, dout.double())
@@ -643,31 +723,132 @@ def _bn_branches(h1, mask, cfg, params, stats, n, extras, dout):
     torch.cuda.empty_cache()
     with replaced(G, "_dact", kernel_slopes):
         k_h1, k_grads = G.group_train_bwd_ref(*bwd)
+    scan = _flip_scan(h1, mask, cfg, params, stats, n, extras)
     log(f"  group_train_bwd: live rows that take another slope in the "
-        f"kernel than in float64, by BN: {flips} of {rows.numel()}")
-    for i, f in flips.items():
-        if f > FLIP_CAP * rows.numel():
-            raise AssertionError(f"group_train_bwd: {f} of {rows.numel()} "
-                                 f"live rows flip slope at BN {i} (cap "
-                                 f"{FLIP_CAP:g})")
-    return [k_h1, *k_grads], [e_h1, *e_grads], flips, rows.numel()
+        f"kernel than in float64, by BN: "
+        f"{ {i: f[0] for i, f in scan.items()} } of {rows.numel()}")
+    check_flips("group_train_bwd", cfg, scan, rows.numel(), every_width=True)
+    return [k_h1, *k_grads], [e_h1, *e_grads]
+
+
+# rows a chunk of the float64 slope scan (its temporaries ~2^28 bytes)
+FLIP_CHUNK_BYTES = 2 ** 28
+
+
+def _flip_scan(h1, mask, cfg, params, stats, n, extras, dout=None):
+    """A K7 call's slope flips, chunked over its live rows in float64: the
+    chain's activation inputs at every BN in float64 (its own batch
+    statistics: E[x^2] - mean^2 over the live rows, as the kernel's)
+    against the kernel's (:func:`_kernel_y`) -> {BN: (flipped rows,
+    flipped elements, largest flipped |input|, it in 3xTF32 roundings of
+    the BN's scale)}, BN ``cfg.n_loc`` the attention BN.  One level a
+    time: the widest sites (shapenet-seg's sa-geo, 1024 wide) fit the card
+    where the whole float64 slab would not."""
+    import torch
+
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    L = cfg.n_loc
+    rows = extras[0].long()
+    v = h1.reshape(-1, h1.shape[-1])[rows].double()
+    nrow = rows.numel()
+    out = {}
+    for i in range(L + int(cfg.attend)):
+        if i < L:
+            g, bt, w, b = (t.double() for t in params[4 * i:4 * i + 4])
+            kind = cfg.act
+        else:
+            wa0, ba0, g, bt = (t.double() for t in G._att(cfg, params)[:4])
+            kind = cfg.attend_act
+            v = v @ wa0 + ba0
+        mu = v.mean(0)
+        inv = torch.rsqrt(torch.clamp((v * v).mean(0) - mu * mu, min=0.0)
+                          + cfg.eps)
+        chunk = max(1, FLIP_CHUNK_BYTES // (8 * max(v.shape[1], 1) * 4))
+        flips, elems, scale, worst = 0, 0, 0.0, 0.0
+        nxt = v.new_empty((nrow, w.shape[1])) if i < L else None
+        for lo in range(0, nrow, chunk):
+            y = (v[lo:lo + chunk] - mu) * inv * g + bt
+            yk = _kernel_y(h1, cfg, params, stats, extras, i, lo, lo + chunk)
+            flipped = (y > 0) != (yk > 0)
+            flips += int(flipped.any(-1).sum())
+            elems += int(flipped.sum())
+            scale = max(scale, float(y.abs().max()))
+            if bool(flipped.any()):
+                worst = max(worst, float(y[flipped].abs().max()))
+            if i < L:
+                nxt[lo:lo + chunk] = G._act(y, kind) @ w + b
+            del y, yk, flipped
+        out[i] = (flips, elems, worst,
+                  worst / (TF32X3_EPS * scale) if scale else 0.0)
+        if i < L:
+            v, nxt = nxt, None
+    return out
+
+
+def check_flips(what, cfg, scan, n_rows, every_width=False):
+    """Hold a K7 call's slope flips (:func:`_flip_scan`) over its
+    ``n_rows`` live rows, at every BN: each flipped element's float64
+    input within ``FLIP_MULT`` 3xTF32 roundings of its BN's scale; the
+    flipped rows under ``FLIP_CAP`` of the live rows at a BN up to
+    ``FLIP_CAP_WIDTH`` channels wide (at every width with
+    ``every_width``); a wider BN's flipped elements under
+    ``FLIP_CAP / FLIP_CAP_WIDTH`` of its live elements."""
+    for i, (rows, elems, _, mult) in scan.items():
+        width = cfg.dims[i] if i < cfg.n_loc else cfg.att_dim
+        if mult > FLIP_MULT:
+            raise AssertionError(
+                f"{what} BN {i}: a flipped element's float64 input is "
+                f"{mult:.3g} 3xTF32 roundings of the BN's scale (bound "
+                f"{FLIP_MULT})")
+        if (every_width or width <= FLIP_CAP_WIDTH) and (
+                rows > FLIP_CAP * n_rows):
+            raise AssertionError(
+                f"{what} BN {i} ({width} wide): {rows} of {n_rows} live "
+                f"rows flip slope (cap {FLIP_CAP:g})")
+        if width > FLIP_CAP_WIDTH and (
+                elems > FLIP_CAP / FLIP_CAP_WIDTH * n_rows * width):
+            raise AssertionError(
+                f"{what} BN {i} ({width} wide): {elems} of {n_rows} x "
+                f"{width} live elements flip slope (cap "
+                f"{FLIP_CAP / FLIP_CAP_WIDTH:.3g})")
 
 
 def k7_flips(label, calls):
-    """:func:`_bn_branches`' slope flips at every K7 attend site of a
-    captured step (each BN's under ``FLIP_CAP`` of its live rows)."""
+    """The slope flips of every K7 site of a captured step
+    (:func:`_flip_scan`), a line for each BN that has any, each site held
+    by :func:`check_flips` once all are logged."""
     import torch
 
     total = att = live = sites = 0
+    worst = (0.0, 0.0)
+    scans = []
     with torch.no_grad():
-        for args, _, _ in calls["group_train_bwd"]:
-            if args[2].attend and args[6][0].dtype == torch.int32:
-                flips, n = _bn_branches(*args)[2:]
-                total, live, sites = total + sum(flips.values()), live + n, \
-                    sites + 1
-                att += flips[args[2].n_loc]
-    log(f"{label} K7 slope flips at {sites} attend sites: {total} at all "
-        f"BNs, {att} at the attention BNs, of {live} live rows")
+        for site, (args, _, _) in enumerate(calls["group_train_bwd"]):
+            cfg, extras = args[2], args[6]
+            if extras[0].dtype != torch.int32:   # not the kernel's residuals
+                continue
+            n_rows = extras[0].numel()
+            scan = _flip_scan(*args)
+            for i, (f, e, big, mult) in scan.items():
+                width = cfg.dims[i] if i < cfg.n_loc else cfg.att_dim
+                if f:
+                    log(f"  {label} K7 call {site} BN {i} ({width} wide): {f} "
+                        f"of {n_rows} live rows flip ({e} elements), largest "
+                        f"flipped input {big:.3g}, {mult:.3g} 3xTF32 "
+                        f"roundings of its scale")
+                total += f
+                att += f if (cfg.attend and i == cfg.n_loc) else 0
+                worst = max(worst, (mult, big))
+            scans.append((site, cfg, scan, n_rows))
+            live, sites = live + n_rows, sites + 1
+            torch.cuda.empty_cache()
+    log(f"{label} K7 slope flips at {sites} sites: {total} rows at all BNs "
+        f"({att} at the attention BNs) of {live} live rows; largest flipped "
+        f"float64 input {worst[1]:.3g}, {worst[0]:.3g} 3xTF32 roundings of "
+        f"its BN's scale (bound {FLIP_MULT})")
+    for site, cfg, scan, n_rows in scans:
+        check_flips(f"{label} K7 call {site}", cfg, scan, n_rows)
 
 
 def work(name, args, out):
@@ -953,13 +1134,24 @@ def measure(kernels, mods, calls, train, per_call=None, labels=None):
     return report
 
 
+def grouped_steps(spec, train=False):
+    """The steps that run K2 (eval) or K7 (train): the grouping steps that
+    ``modules.kernel_grouped`` admits and the edge route does not fuse."""
+    from curvecloudnet_tpu_torch.models.modules import (EDGE_STEPS,
+                                                        kernel_grouped)
+
+    return [i for i, st in enumerate(spec.steps)
+            if (st.name in ("sa", "sa-geo") or st.name in EDGE_STEPS)
+            and kernel_grouped(st.aggr_type, len(spec.input_dim(i)) - 1,
+                               train)]
+
+
 def k2_sites(label, spec, calls, per_call):
     """Phases 3 and 9: one line per K2 call of the captured forward (the
     grouping steps, in order; batch row 0's queries with no live slot, and
     how many of those have K equal h1 planes), and their sums with the
     3xTF32 floor (3x the FP32 operations at the TF32 tensor-core peak)."""
-    steps = [i for i, st in enumerate(spec.steps)
-             if st.name in ("sa", "sa-geo", "sgcnn")]
+    steps = grouped_steps(spec)
     sums = dict.fromkeys(("ms", "plain_ms", "bound_ms", "floor_ms"), 0.0)
     for i, ((args, kwargs, _), t) in enumerate(zip(calls, per_call)):
         h1, mask, _, local, att = args[:5]
@@ -1182,8 +1374,7 @@ def k7_sites(spec, calls, per_call, G, label="nuScenes"):
     then their sums."""
     import torch
 
-    steps = [i for i, st in enumerate(spec.steps)
-             if st.name in ("sa", "sa-geo", "sgcnn")]
+    steps = grouped_steps(spec, train=True)
     fwd, bwd = calls["group_train_fwd"], calls["group_train_bwd"]
     t_fwd, t_bwd = per_call["group_train_fwd"], per_call["group_train_bwd"]
     # autograd runs the backward calls in reverse; pair them by h1
@@ -2088,8 +2279,7 @@ def run_train17(P, mods, dev, kernel_launches, label, config, timed):
         worst.update(hold_train(label, TRAIN_HELD, mods, calls))
     else:
         worst = hold_train(label, held, mods, calls)
-    if label == WITNESS17:
-        k7_flips(f"{label} seed 0", calls)
+    k7_flips(f"{label} seed 0", calls)
     del calls
     if label == WITNESS17:
         k7 = [k for k in TRAIN_KERNELS if k[1] == "group_train"]
@@ -2488,6 +2678,7 @@ def run_disk(P, mods, dev, kernel_launches, label, name, frames):
         f"{int(batch.cloud.valid.sum())} valid points, loss {loss:.6g}, "
         f"{ms:.1f} ms, peak {peak / 2**30:.2f} GiB")
     worst = hold_train(f"{label} train", held, mods, calls)
+    k7_flips(f"{label} train", calls)
     del calls, one_step
     eval_kernels = (KITTI_KERNELS if kitti else EVAL_KERNELS
                     if name == "nuscenes" else V1_KERNELS)
@@ -2502,6 +2693,317 @@ def run_disk(P, mods, dev, kernel_launches, label, name, frames):
     del calls, model
     log(f"{label}: {time.perf_counter() - t_path:.1f} s")
     return by_path, worst
+
+
+class GraphReplay:
+    """dgcnn's feature-space graph, held fixed across the runs of one
+    comparison: the first run of the kernel path records each
+    ``neighbors.feature_knn`` table; the plain path's runs take them, and
+    each of its own tables (on its own features, which differ from the
+    kernel path's by rounding) is compared with the recorded one: a query
+    whose neighbor set differs must differ only at a distance tie (a
+    swapped point within 1e-4 of the cut's squared distance, relative).
+    A 3-D search (positions: the same in every run) is not replayed."""
+
+    TIE = 1e-4
+
+    def __init__(self):
+        self.tables, self.at, self.recording, self.check = [], 0, True, True
+        self.differ = self.queries = 0
+
+    def patch(self, neighbors):
+        real = neighbors.feature_knn
+
+        def feature_knn(x, valid, k, radius=None):
+            if x.shape[-1] == 3:
+                return real(x, valid, k, radius)
+            if self.recording:
+                self.tables.append((None, real(x, valid, k, radius)))
+                return self.tables[-1][1]
+            _, table = self.tables[self.at % len(self.tables)]
+            self.at += 1
+            if self.check:
+                self._check(x, valid, real(x, valid, k, radius)[0], table[0])
+            return table
+        return replaced(neighbors, "feature_knn", feature_knn)
+
+    def _check(self, x, valid, own, rec):
+        import torch
+
+        o = torch.sort(own, -1).values
+        r = torch.sort(rec, -1).values
+        bad = ((o != r).any(-1) & valid)
+        self.queries += int(valid.sum())
+        self.differ += int(bad.sum())
+        for b, q in bad.nonzero().tolist():
+            xs = x[b].double()
+            d2 = ((xs - xs[q]) ** 2).sum(-1)
+            a, c = set(own[b, q].tolist()) - {-1}, set(rec[b, q].tolist()) - {-1}
+            cut = float(d2[list(a | c)].max()) if a | c else 0.0
+            for j in a ^ c:
+                if abs(float(d2[j]) - cut) > self.TIE * max(cut, 1e-30):
+                    raise AssertionError(
+                        f"dgcnn graph: query ({b}, {q}) takes point {j} at "
+                        f"d2 {float(d2[j]):.6g} in one path only, cut "
+                        f"{cut:.6g}: not a distance tie")
+
+
+def run_options(P, mods, dev, kernel_launches):
+    """Phase 19 -> (report rows of the options path, launches by path,
+    {kernel: worst error})."""
+    import torch
+
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.models import (CurveCloudNet,
+                                                parse_model_config)
+    from curvecloudnet_tpu_torch.ops import neighbors
+    from curvecloudnet_tpu_torch.run.tasks import loss_for
+    from curvecloudnet_tpu_torch.train import train_step
+    from curvecloudnet_tpu_torch.train.__main__ import train_batch
+    from curvecloudnet_tpu_torch.train.trainer import create_optimizer
+
+    t_phase = time.perf_counter()
+    label = "options"
+    cfg = load_config(OPTIONS_CONFIG)
+    spec = parse_model_config(options_model(cfg["model"]),
+                              in_dim=P.OBJECT_IN_DIM,
+                              n_out=P.N_OUT["shapenet-class"])
+    n_pad = P.n_pad_of(OPTIONS_CONFIG)
+    model = CurveCloudNet(spec, n_pad)
+    P.init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    inputs = P.synthetic_inputs(OPTIONS_CONFIG, 0, n_pad, dev)
+    pos, _, _, valid, _ = inputs
+    by_path, worst = {}, {}
+
+    # step 0's dgcnn-rad search, and step 5's curve-fps share
+    st0 = spec.steps[0]
+    if model.in_widths[0] is None and st0.with_xyz:
+        kind = "a 3-D ball query on K3 (positions only)"
+    else:
+        kind = "a feature-space ball (plain torch)"
+    with torch.no_grad():
+        idx, _ = neighbors.ball_query(pos, pos, valid, valid, st0.radius,
+                                      model.steps[0].BALL_K)
+    cnt = (idx >= 0).sum(-1)[valid].float()
+    log(f"{label} step_0 dgcnn-rad: {kind}, radius {st0.radius}, k 128: "
+        f"ball counts mean {float(cnt.mean()):.1f}, max {int(cnt.max())}, "
+        f"{int((cnt == 128).sum())} of {cnt.numel()} queries at the cap")
+    seen = {}
+    hook = model.steps[5].register_forward_hook(
+        lambda m, a, out: seen.update(n_in=int(a[0].valid.sum()),
+                                      n_out=int(out.valid.sum()),
+                                      slots=out.valid.shape[1]))
+
+    # eval: capture, hold and time every call; launches; kernel vs plain
+    replay = GraphReplay()
+    with replay.patch(neighbors):
+        calls, (logits0, valid0, _) = capture(
+            V1_KERNELS, mods, lambda: P.predict(model, *inputs))
+    hook.remove()
+    log(f"{label} step_5 sa curve-fps at arclength {OPTIONS_ARCLEN}: kept "
+        f"{seen['n_out']} of {seen['n_in']} valid points "
+        f"({seen['n_out'] / seen['n_in']:.3f}) in {seen['slots']} slots")
+    per_call = {}
+    report = measure(V1_KERNELS, mods, calls, train=False, per_call=per_call)
+    k2_sites(label, spec, calls["group_reduce"], per_call["group_reduce"])
+    k3_calls(label, calls["knn"], per_call["knn"], mods["knn"])
+    k6_calls(label, calls["fps"], per_call["fps"], mods["fps"])
+    del calls
+    want = kernel_launches(spec, n_pad)
+    for name, mod, wrapper, *_ in EVAL_KERNELS:
+        getattr(mods[mod], wrapper).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, valid1, _ = P.predict(model, *inputs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in EVAL_KERNELS}
+    log(f"{label} eval launches:", launched, "spec:", want)
+    for name, got in launched.items():
+        if got != want.get(name, 0):
+            raise AssertionError(f"{name}: {got} {label} eval launches, want "
+                                 f"{want.get(name, 0)}")
+    by_path["options_eval"] = launched
+    if logits.shape != (inputs[0].shape[0], 1, spec.n_out) or not bool(
+            torch.isfinite(logits[valid1]).all()):
+        raise AssertionError(f"{label}: bad logits {tuple(logits.shape)}")
+    busy = device_ms(lambda: P.predict(model, *inputs), reps=1)
+    replay.recording = False
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(replay.patch(neighbors))
+        for name, mod, wrapper, ref_name, *_ in EVAL_KERNELS:
+            m = mods[mod]
+            stack.enter_context(replaced(m, wrapper, getattr(m, ref_name)))
+        plain = P.predict(model, *inputs)[0]
+    err = float((logits0 - plain)[valid0].abs().max())
+    log(f"{label} eval: B {inputs[0].shape[0]}, n_pad {n_pad}, wall "
+        f"{wall:.1f} ms, {busy:.2f} ms device busy, peak memory {peak:.2f} "
+        f"GiB; logits kernel vs plain path max abs err {err:.3g}; dgcnn "
+        f"graph of the plain path's own features: {replay.differ} of "
+        f"{replay.queries} queries differ, at distance ties")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"{label} logits differ from the plain path by "
+                             f"{err}")
+
+    # train: a capture step held and timed, K7's sites and slope flips,
+    # one counted step, the kernel step against the plain step
+    loss_cfg = loss_for(cfg)
+    batch = train_batch(OPTIONS_CONFIG, 0, n_pad, dev)
+    model.train()
+    state0 = copy.deepcopy(model.state_dict())
+    one_step = step_runner(model, state0, batch, loss_cfg, mods, dev)
+    calls, (cap_loss, cap_ms, cap_peak) = capture(
+        TRAIN_KERNELS + TRAIN_HELD, mods, lambda: one_step(lr=0.0))
+    log(f"{label} capture step: B {batch.cloud.valid.shape[0]}, loss "
+        f"{cap_loss:.6g}, {cap_ms:.1f} ms, peak {cap_peak / 2**30:.2f} GiB")
+    k7_dead_dout(label, spec, calls)
+    per_call = {}
+    live = [k for k in TRAIN_KERNELS if calls[k[0]]]
+    t_report = measure(live, mods, calls, train=True, per_call=per_call)
+    k7_sites(spec, calls, per_call, mods["group_train"], label)
+    for name, e in hold_train(label, TRAIN_HELD, mods, calls).items():
+        worst[name] = max(worst.get(name, 0.0), e)
+    k7_flips(label, calls)
+    del calls
+    want_t = kernel_launches(spec, n_pad, train=True)
+    for name, mod, wrapper in TRAIN_COUNTED:
+        getattr(mods[mod], wrapper).launches = 0
+    model.load_state_dict(state0)
+    opt = create_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(train_step(model, opt, LR, batch, gen, 0.1,
+                            loss_cfg)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w in TRAIN_COUNTED}
+    log(f"{label} train launches:", launched, "spec:", want_t)
+    for name, got in launched.items():
+        if got != want_t.get(name, 0):
+            raise AssertionError(f"{name}: {got} {label} train launches, "
+                                 f"want {want_t.get(name, 0)}")
+    if not loss == loss or abs(loss) == float("inf"):
+        raise AssertionError(f"{label} train loss not finite: {loss}")
+    by_path["options_train"] = launched
+    log(f"{label} train step: loss {loss:.6g}, wall {step_ms:.1f} ms, peak "
+        f"memory {step_peak:.2f} GiB")
+    replay = GraphReplay()
+    with replay.patch(neighbors):
+        hold_step(label, _recording_first(one_step, replay), model)
+    log(f"{label} train: dgcnn graph of the plain paths' own features: "
+        f"{replay.differ} of {replay.queries} queries differ, at distance "
+        f"ties")
+    del model, opt, one_step
+
+    # nuScenes with a one-tap first conv; its fp step 18 without parent_idx
+    by_path[NUSCENES_K1], fp_err = run_nuscenes_k1(P, mods, dev,
+                                                   kernel_launches)
+    worst["knn"] = max(worst.get("knn", 0.0), fp_err)
+    report.update(t_report)
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return report, by_path, worst
+
+
+def _recording_first(one_step, replay):
+    """``one_step`` whose first call (hold_step's kernel path) records the
+    dgcnn graph and whose later calls (the plain paths) replay it, the
+    second (the plain path on the same weights) checking its own graph."""
+    def step(*args, **kwargs):
+        try:
+            return one_step(*args, **kwargs)
+        finally:
+            if replay.recording:
+                replay.recording = False
+            else:
+                replay.check = False
+    return step
+
+
+def run_nuscenes_k1(P, mods, dev, kernel_launches):
+    """Phase 19's nuScenes path with step 0's ``kernel_size`` 1 (the
+    per-curve route, plain torch in both packages): one scan, launches
+    against the spec (one K1 fewer than the shipped model's), logits
+    kernel vs plain; then its fp step 18 on a cloud with no ``parent_idx``
+    (``interpolate.knn_interpolate``: K3 over the whole row), that K3 call
+    held -> (launches, K3 err)."""
+    import dataclasses
+
+    import torch
+
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.models import (CurveCloudNet,
+                                                parse_model_config)
+
+    cfg = load_config(CONFIG)
+    cfg["model"]["steps"][0]["kernel_size"] = 1
+    spec = parse_model_config(cfg["model"], in_dim=P.IN_DIM,
+                              n_out=P.N_OUT["nuscenes"])
+    model = CurveCloudNet(spec, N_PAD, feat_channels=P.FEAT_CHANNELS)
+    P.init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    scan0 = P.synthetic_scan(0, N_PAD, dev)
+    want = kernel_launches(spec, N_PAD)
+    shipped = kernel_launches(parse_model_config(
+        load_config(CONFIG)["model"], in_dim=P.IN_DIM,
+        n_out=P.N_OUT["nuscenes"]), N_PAD)
+    for name, mod, wrapper, *_ in EVAL_KERNELS:
+        getattr(mods[mod], wrapper).launches = 0
+    fp_in = {}
+    hook = model.steps[18].register_forward_pre_hook(
+        lambda m, a: fp_in.update(cloud=a[0], skip=a[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, valid, _ = P.predict(model, *scan0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    hook.remove()
+    launched = {name: getattr(mods[mod], w).launches
+                for name, mod, w, *_ in EVAL_KERNELS}
+    log(f"{NUSCENES_K1} launches:", launched, "spec:", want, "shipped "
+        f"model's:", shipped)
+    for name, got in launched.items():
+        if got != want.get(name, 0):
+            raise AssertionError(f"{name}: {got} {NUSCENES_K1} launches, "
+                                 f"want {want.get(name, 0)}")
+    if want["conv1d_chain"] != shipped["conv1d_chain"] - 1:
+        raise AssertionError(f"{NUSCENES_K1}: K1 {want['conv1d_chain']}, "
+                             f"shipped {shipped['conv1d_chain']}")
+    with contextlib.ExitStack() as stack:
+        for name, mod, wrapper, ref_name, *_ in EVAL_KERNELS:
+            m = mods[mod]
+            stack.enter_context(replaced(m, wrapper, getattr(m, ref_name)))
+        plain = P.predict(model, *scan0)[0]
+    err = float((logits - plain)[valid].abs().max())
+    log(f"{NUSCENES_K1} scan 0: {wall:.1f} ms wall, logits kernel vs plain "
+        f"path max abs err {err:.3g}")
+    if not err <= LOGIT_TOL or not bool(torch.isfinite(logits[valid]).all()):
+        raise AssertionError(f"{NUSCENES_K1} logits differ from the plain "
+                             f"path by {err}")
+    fp = model.steps[18]
+    cloud = dataclasses.replace(fp_in["cloud"], parent_idx=None)
+    knn_k = [k for k in EVAL_KERNELS if k[0] == "knn"]
+    with torch.inference_mode():
+        calls, up = capture(knn_k, mods, lambda: fp._upsample(
+            cloud, fp_in["skip"], fp.step.knn or 3))
+        subset = fp._upsample(fp_in["cloud"], fp_in["skip"],
+                              fp.step.knn or 3)
+    fp_err = hold("fp step_18 without parent_idx", knn_k, mods,
+                  calls)["knn"]
+    (q, p_, *_), _, _ = calls["knn"][0]
+    rows = fp_in["skip"].valid
+    log(f"fp step_18 without parent_idx: K3 over {p_.shape[1]} source "
+        f"points for {q.shape[1]} queries, kernel vs plain err {fp_err:.3g};"
+        f" features vs the parent_idx route max abs diff "
+        f"{float((up - subset)[rows].abs().max()):.3g}")
+    return launched, fp_err
 
 
 def grads_and_stats(model):
@@ -2622,6 +3124,7 @@ def main():
                            per_call=train_call_ms,
                            labels=conv_labels(init.spec, calls))
     k7_sites(init.spec, calls, train_call_ms, group_train)
+    k7_flips("train", calls)
     reduce_row = train_report["conv1d_train_reduce"]
     reduce_row["max_abs_err"] = max(reduce_row["max_abs_err"], k8_sums(
         calls, train_call_ms, conv_labels(init.spec, calls), conv1d_train,
@@ -2725,6 +3228,12 @@ def main():
             disk_errs[k] = max(disk_errs.get(k, 0.0), e)
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
+    stamp(t_start, "16-18")
+    # 19. the step options: shapenet-class with every option substituted,
+    # nuScenes with a one-tap first conv, fp without parent_idx
+    opt_report, opt_launched, opt_errs = run_options(P, mods, dev,
+                                                     kernel_launches)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -2750,7 +3259,8 @@ def main():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               row["max_abs_err"])
     for name, err in (list(eval16_errs.items()) + list(train17_errs.items())
-                      + list(disk_errs.items())):
+                      + list(disk_errs.items()) + list(opt_errs.items())
+                      + [(k, r["max_abs_err"]) for k, r in opt_report.items()]):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
@@ -2760,11 +3270,12 @@ def main():
                              + list(v1_launched.items())
                              + list(eval16_launched.items())
                              + list(train17_launched.items())
-                             + list(disk_launched.items())):
+                             + list(disk_launched.items())
+                             + list(opt_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

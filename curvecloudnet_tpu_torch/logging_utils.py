@@ -1,10 +1,13 @@
-"""Metric logging to an append-only ``metrics.jsonl`` (counterpart of
+"""Metric logging to an append-only ``metrics.jsonl``, and to Weights &
+Biases when asked and available (counterpart of
 ``curvecloudnet_tpu/logging_utils.py``).
 
 The reference logs to Weights & Biases; this logger keeps its call shape
 (``log(dict)``, summary maxima, run history) and writes one JSON line a
-call that tooling can tail.  wandb is not a dependency of the port, so
-``use_wandb=True`` raises instead of logging somewhere else than asked.
+call that tooling can tail.  wandb is not a dependency of the port: with
+``use_wandb=True`` the logger also logs to wandb if it imports and its
+run starts, and otherwise prints one line and carries on with
+``metrics.jsonl`` alone, as the JAX package's logger does.
 """
 
 from __future__ import annotations
@@ -19,17 +22,22 @@ class MetricLogger:
     def __init__(self, outdir: Optional[str] = None, use_wandb: bool = False,
                  config: Optional[dict] = None,
                  project: str = "curvecloudnet-tpu"):
-        if use_wandb:
-            raise NotImplementedError(
-                "MetricLogger(use_wandb=True): wandb is not supported by "
-                "the port; metrics go to metrics.jsonl")
         self.outdir = outdir
         self._fh = None
+        self._wandb = None
         self.summary_max: Dict[str, float] = {}
         self._history: Dict[str, list] = {}
         if outdir:
             os.makedirs(outdir, exist_ok=True)
             self._fh = open(os.path.join(outdir, "metrics.jsonl"), "a")
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project=project, config=config or {})
+                self._wandb = wandb
+            except Exception as e:  # not installed, offline, no login
+                print(f"[logging] wandb unavailable ({e}); using JSONL only")
 
     def reload_history(self) -> None:
         """Rebuild the in-memory history from this outdir's
@@ -66,6 +74,8 @@ class MetricLogger:
         if self._fh:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
+        if self._wandb:
+            self._wandb.log(metrics, step=step)
 
     def log_media(self, name: str, obj, step: Optional[int] = None) -> None:
         """Persist a figure or image under ``<outdir>/media/`` and record
@@ -117,3 +127,5 @@ class MetricLogger:
     def close(self):
         if self._fh:
             self._fh.close()
+        if self._wandb:
+            self._wandb.finish()

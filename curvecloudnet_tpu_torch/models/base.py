@@ -21,10 +21,10 @@ from ..ops.conv1d_train import fused_reduce
 from ..ops.neighbors import TABLE_K, TableCache
 from .cloud import Cloud
 from .layers import MLP
-from .modules import (EDGE_ROUTES, CurveFPStep, CurveSAStep, EdgeConvStep,
-                      FPStep, GlobalSAStep, SAStep, SharedMLPStep,
-                      SkipConnectStep, SymmetricCurveConvStep,
-                      fused_edge_admits)
+from .modules import (EDGE_ROUTES, EDGE_STEPS, CurveFPStep, CurveSAStep,
+                      EdgeConvStep, FPStep, GlobalSAStep, SAStep,
+                      SharedMLPStep, SkipConnectStep, SymmetricCurveConvStep,
+                      edge_widths, fused_edge_admits, kernel_grouped)
 from .spec import ModelSpec
 
 
@@ -111,12 +111,25 @@ def _search_radius(step):
     return None
 
 
+def _x_width(spec: ModelSpec, i: int):
+    """Width of the features the cloud carries into step i: the declared
+    input width less its xyz at step 0 (None: a position-only cloud, as
+    the object configs' ``in_dim`` 3), the previous step's output after."""
+    if i == 0:
+        return spec.in_dim - 3 or None
+    return spec.steps[i - 1].feat_dims[-1]
+
+
 def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
                     edge_kernel: str = "group"):
     """Kernel launches of one eval forward, or with ``train`` of one train
     step (forward + backward), any batch size, derived from the spec.
 
-    Eval: K1 once per conv step, K2 once per grouping step.  Train: per
+    Eval: K1 once per conv1d-fast-v2 step past one tap (``kernel_size``
+    // 2 >= 1), K2 once per
+    grouping step that :func:`kernel_grouped` admits (max or attend; in
+    train also a dense past layer 0; mean, weighted-sum and a one-layer
+    train MLP run in plain torch).  Train: per
     conv step with L layers, K8 runs L forward and L t passes, and a
     standalone reduce for the last layer and for each layer whose successor
     takes an input wider than ``conv1d_train.DW_FUSED`` (the others' sums
@@ -127,13 +140,16 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
     (two denses, a finalize); its backward runs 4 per dense (data
     gradient, weight gradient, a finalize each) and 7 more under attend.
     Both: K4
-    once per sgcnn step (its self-row gather; K4b once in the backward),
-    K6 once per FPS step, K3 once per exact shared row table and per fp
-    sweep, K5 (``grid_topk``, listed only where it runs) once per distinct
+    once per edge step (sgcnn, dgcnn, dgcnn-rad: its self-row gather; K4b
+    once in the backward), K6 once per FPS step (an sa step's ``fps``, an
+    sa-geo step without ``use_curve_fps``), K3 once per exact shared row
+    table, per fp sweep and per dgcnn search in 3-D (a position-only
+    cloud: a wider one is plain torch), K5 (``grid_topk``, listed only
+    where it runs) once per distinct
     grid table of a row above ``neighbors.TABLE_MAX_N``; a search no table
     serves launches its own, a ball-grouped sa step (k = 128) one K3.
     conv1d-fast-v1 and sa-global launch nothing.  With
-    ``edge_kernel="fused"`` an eval sgcnn step whose widths and aggregation
+    ``edge_kernel="fused"`` an eval edge step whose widths and aggregation
     ``fused_edge_admits`` launches K9 (``edge_mlp``, listed only where it
     runs) in place of K4 and K2."""
     if edge_kernel not in EDGE_ROUTES:
@@ -149,7 +165,7 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
     tables = {}      # distinct shared table -> the kernel that builds it
     for i, step in enumerate(spec.steps):
         n = sizes[row]
-        if step.name == "conv1d-fast-v2":
+        if step.name == "conv1d-fast-v2" and (step.kernel_size or 5) // 2:
             if train:
                 dims = list(step.feat_dims)
                 counts["conv1d_train_fwd"] += len(dims)
@@ -158,27 +174,33 @@ def kernel_launches(spec: ModelSpec, n_points: int, train: bool = False,
                     not fused_reduce(c) for c in dims[:-1])
             else:
                 counts["conv1d_chain"] += 1
-        fused = (step.name == "sgcnn" and not train and edge_kernel == "fused"
-                 and fused_edge_admits(spec.input_dim(i), step.aggr_type))
+        edge = step.name in EDGE_STEPS
+        dims, cx = spec.input_dim(i), None
+        if edge:     # the widths EdgeConvStep builds
+            cx, dims = edge_widths(step, dims, _x_width(spec, i))
+        fused = (edge and not train and edge_kernel == "fused"
+                 and fused_edge_admits(dims, step.aggr_type))
         if fused:
             counts["edge_mlp"] = counts.get("edge_mlp", 0) + 1
-        elif step.name in ("sa", "sa-geo", "sgcnn"):
+        elif (step.name in ("sa", "sa-geo") or edge) and kernel_grouped(
+                step.aggr_type, len(dims) - 1, train):
             if train:
-                n_loc = len(spec.input_dim(i)) - 2
+                n_loc = len(dims) - 2
                 attend = int(step.aggr_type == "attend")
                 counts["group_train_fwd"] += 2 * n_loc + 2 + 3 * attend
                 counts["group_train_bwd"] += 4 * n_loc + 7 * attend
             else:
                 counts["group_reduce"] += 1
-        if step.name == "sgcnn" and not fused:
+        if edge and not fused:
             counts["gather"] += 1
             if train:
                 counts["scatter"] += 1
-        if step.name == "sa" and step.downsample_type == "fps":
+        if (step.name == "sa" and step.downsample_type == "fps") or (
+                step.name == "sa-geo" and not step.use_curve_fps):
             counts["fps"] += 1
         ball = (step.name == "sa" and not step.use_fast_knn
                 and step.knn is None)
-        if ball:
+        if ball or (step.name in ("dgcnn", "dgcnn-rad") and cx == 3):
             counts["knn"] += 1
         elif step.name in ("sa", "sgcnn"):
             radius = _search_radius(step)
@@ -254,7 +276,7 @@ class CurveCloudNet(nn.Module):
                 take, prop_skips = prop_skips[-k:], prop_skips[:-k]
                 mod = SkipConnectStep(spec, step, dims, w, [
                     3 if widths[j] is None else widths[j] for j in take])
-            elif name == "sgcnn":
+            elif name in EDGE_STEPS:
                 mod = EdgeConvStep(spec, step, dims, w, bounds[i],
                                    grid_bounds[i], grid_caps[i], edge_kernel)
             elif name in ("conv1d-fast-v1", "conv1d-fast-v2"):
@@ -266,7 +288,7 @@ class CurveCloudNet(nn.Module):
             elif name == "mlp":
                 mod = SharedMLPStep(spec, step, dims, w)
             else:
-                raise NotImplementedError(f"step {name!r} is not ported")
+                raise ValueError(f"unknown step {name!r}")
             steps.append(mod)
             if name in ("sa", "sa-geo", "sa-global"):
                 down_skips.append(i)
@@ -290,25 +312,32 @@ class CurveCloudNet(nn.Module):
     @staticmethod
     def _draws(step, cloud: Cloud, generator):
         """A sampling step's uniform draws from ``generator`` (None: the
-        deterministic operating point): sa-geo one phase scalar, voxel sa
-        one jitter per point, FPS sa one start per sample."""
+        deterministic operating point), the shapes of the JAX package's:
+        arclength sampling (sa-geo, curve-fps sa) one phase scalar, voxel
+        sa one jitter a point, random sa one score a point, FPS (sa, sa-geo
+        without ``use_curve_fps``) one start a sample."""
         if generator is None or step.name not in ("sa", "sa-geo"):
             return None
         b, n = cloud.valid.shape
-        shape = (() if step.name == "sa-geo" else
-                 (b, n) if step.downsample_type == "voxel" else (b,))
+        kind = ("fps" if step.name == "sa-geo" and not step.use_curve_fps
+                else "curve-fps" if step.name == "sa-geo"
+                else step.downsample_type)
+        shape = {"curve-fps": (), "voxel": (b, n), "random": (b, n)}.get(
+            kind, (b,))
         return torch.rand(shape, generator=generator,
                           device=generator.device).to(cloud.pos.device)
 
     def forward(self, cloud: Cloud, categories: torch.Tensor | None = None,
                 train: bool = False, bn_momentum=0.1,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                dropout_masks=None):
         """Returns (logits (B, N, n_out), valid (B, N)); N is 1 after an
         sa-global step.  ``categories`` (B,) int: each sample's object
         category, required by a model with ``with_seg_category``.
         ``train`` runs BatchNorm on masked batch statistics and updates
         the running ones with ``bn_momentum``; the sampling steps draw
-        from ``generator`` in step order."""
+        from ``generator`` in step order, then the head's dropout (its
+        keep-masks, in order, may be given as ``dropout_masks``)."""
         if (categories is None) == (self.lin_categorical is not None):
             raise ValueError("categories are given exactly when the spec "
                              "has with_seg_category")
@@ -323,7 +352,7 @@ class CurveCloudNet(nn.Module):
                 cloud = mod(cloud, tables, draws=draws, **kw)
             elif name == "sa-geo":
                 cloud = mod(cloud, draws=draws, **kw)
-            elif name == "sgcnn":
+            elif name in EDGE_STEPS:
                 cloud = mod(cloud, tables, **kw)
             elif name in ("fp", "fp-geo"):
                 cloud = mod(cloud, input_clouds[down_skips.pop()], **kw)
@@ -347,5 +376,6 @@ class CurveCloudNet(nn.Module):
             cats = self.lin_categorical(onehot[:, None, :], **kw)
             x = torch.cat([x, cats.expand(-1, x.shape[1], -1)], dim=-1)
         if self.mlp is not None:
-            x = self.mlp(x, mask=cloud.valid, **kw)
+            x = self.mlp(x, mask=cloud.valid, generator=generator,
+                         dropout_masks=dropout_masks, **kw)
         return x, cloud.valid

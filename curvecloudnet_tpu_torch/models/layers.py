@@ -106,20 +106,44 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor, mask=None, train: bool = False,
                 bn_momentum=0.1, bn_stats=None, upto: int | None = None,
                 first: torch.Tensor | None = None,
-                update_running: bool = True) -> torch.Tensor:
+                update_running: bool = True, generator=None,
+                dropout_masks=None) -> torch.Tensor:
         """``upto=i`` returns layer i's pre-norm output; ``first`` replaces
         layer 0's ``lin_0(x)`` (the edge conv's matmul-before-gather);
-        ``bn_stats[i]`` overrides layer i's batch statistics in train."""
-        if train and self.dropout > 0:
-            raise NotImplementedError("train-mode MLP dropout is not ported")
+        ``bn_stats[i]`` overrides layer i's batch statistics in train.
+
+        With ``dropout`` > 0, train mode drops each hidden layer's
+        activation and the last layer's input (with ``plain_last``), as
+        flax's ``nn.Dropout`` in the JAX package's MLP: kept values are
+        divided by the keep rate.  Each drop's keep-mask is drawn as
+        ``rand < keep rate`` from ``generator`` (the global generator when
+        None), or taken in order from ``dropout_masks`` (a list of bool
+        tensors of the activations' shapes, True = kept)."""
         act = ACTIVATIONS[self.act]
+        masks = iter(dropout_masks) if dropout_masks is not None else None
+        n = len(self.lins)
+
+        def drop(x):
+            if not train or self.dropout <= 0:
+                return x
+            keep = 1.0 - self.dropout
+            if masks is not None:
+                kept = next(masks)
+            else:
+                dev = x.device if generator is None else generator.device
+                kept = (torch.rand(x.shape, generator=generator, device=dev)
+                        < keep).to(x.device)
+            return torch.where(kept, x / keep, torch.zeros_like(x))
+
         for i, lin in enumerate(self.lins):
+            if i == n - 1 and self.n_norms < n:
+                x = drop(x)
             x = first if (i == 0 and first is not None) else lin(x)
             if upto is not None and i == upto:
                 return x
             if i < self.n_norms:
-                x = act(self.norms[i](
+                x = drop(act(self.norms[i](
                     x, mask=mask, train=train, momentum=bn_momentum,
                     stats_override=None if bn_stats is None else bn_stats[i],
-                    update_running=update_running))
+                    update_running=update_running)))
         return x

@@ -2,12 +2,16 @@
 eval and train.
 
 Each module maps a batch-padded :class:`Cloud` to a new Cloud.  Every
-grouping family (sa-geo curve windows, sa neighborhoods, sgcnn edges)
-builds its layer-0 messages with one plain matmul, k-major ``(B, K, M, C1)``,
-and hands the rest of its MLP and the masked aggregation to kernel K2
-(``ops/group_reduce.py``) in eval, kernel K7 (``ops/group_train.py``) in
-train.  In train every BatchNorm normalizes with masked batch statistics
-and updates its running statistics.  Module and parameter names follow the
+grouping family (sa-geo curve windows, sa neighborhoods, sgcnn / dgcnn
+edges) builds its layer-0 messages with one plain matmul, k-major
+``(B, K, M, C1)``, and hands the rest of its MLP and the masked
+aggregation to kernel K2 (``ops/group_reduce.py``) in eval, kernel K7
+(``ops/group_train.py``) in train, where :func:`kernel_grouped` admits
+the step (max or attend, and in train a dense past layer 0, the JAX
+package's kernel gate); other steps (mean, weighted-sum, a one-layer MLP
+in train) run it in plain torch, as the JAX package runs them in XLA.
+In train every BatchNorm normalizes with masked batch statistics and
+updates its running statistics.  Module and parameter names follow the
 reference's torch ``state_dict`` (``checkpoint.py``).
 
 Constructors take the actual incoming feature width ``c_in`` (None when
@@ -22,9 +26,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops import (conv1d_chain, conv1d_train, curve1d, edge_mlp,
-                   group_reduce, group_train, interpolate, neighbors,
-                   sampling, segments, telemetry)
+from ..ops import (aggregate, conv1d_chain, conv1d_train, curve1d,
+                   edge_mlp, group_reduce, group_train, interpolate,
+                   neighbors, sampling, segments, telemetry)
 from .cloud import Cloud
 from .layers import MLP, MaskedBatchNorm, leaky_relu
 from .spec import ModelSpec, StepSpec
@@ -44,18 +48,40 @@ def attend_dims(spec: ModelSpec, step: StepSpec, d: int):
     return (d, d, d)
 
 
-def _check_aggr(step: StepSpec):
-    if step.aggr_type not in ("max", "attend"):
-        raise NotImplementedError(
-            f"{step.name}: aggr_type {step.aggr_type!r} is not ported")
+# the steps whose neighbor sets come from an edge convolution
+EDGE_STEPS = ("sgcnn", "dgcnn", "dgcnn-rad")
+
+
+def kernel_grouped(aggr: str, n_lins: int, train: bool) -> bool:
+    """Whether a grouping step with an MLP of ``n_lins`` dense layers runs
+    on K2 (eval) or K7 (train): max or attend, and in train a dense past
+    layer 0 (the JAX package's gate, its ``modules.py:78-81,133-136``)."""
+    return aggr in ("max", "attend") and (not train or n_lins >= 2)
+
+
+def _grouped_plain(h1, mask, local_nn: MLP, attend_nn: Optional[MLP],
+                   aggr: str, train: bool, bn_momentum):
+    """The MLP past layer 0 and the aggregation in plain torch over the
+    query-major (B, M, K) slab, BN statistics over its masked rows (the
+    JAX package's XLA path)."""
+    msg = local_nn(None, mask=mask, train=train, bn_momentum=bn_momentum,
+                   first=h1.permute(0, 2, 1, 3))
+    logits = (attend_nn(msg, mask=mask, train=train, bn_momentum=bn_momentum)
+              if attend_nn is not None else None)
+    return aggregate.aggregate(msg, mask, aggr, logits)
 
 
 def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str,
              train: bool = False, bn_momentum=0.1):
-    """Layer-0 messages (B, K, M, C1) -> the MLP's remaining layers and the
-    masked aggregation over K -> (B, M, C_out): kernel K2 in eval, kernel
-    K7 in train.  In train the running statistics are written from K7's
-    batch statistics, through each BN with ``stats_override``."""
+    """Layer-0 messages (B, K, M, C1) and the mask (B, M, K) -> the MLP's
+    remaining layers and the masked aggregation over K -> (B, M, C_out):
+    kernel K2 in eval, kernel K7 in train where :func:`kernel_grouped`
+    admits them, else plain torch.  In train the running statistics are
+    written from K7's batch statistics, through each BN with
+    ``stats_override``."""
+    if not kernel_grouped(aggr, len(local_nn.lins), train):
+        return _grouped_plain(h1, mask, local_nn, attend_nn, aggr, train,
+                              bn_momentum)
     if train:
         out, loc, att = group_train.group_train_reduce(
             h1, mask, local_nn, attend_nn, aggr=aggr, act=local_nn.act)
@@ -85,12 +111,17 @@ class PointConv(nn.Module):
         self.attend_nn = attend_nn
 
 
+def _attend_mlp(spec, step, d: int) -> Optional[MLP]:
+    """The attention MLP of an ``attend`` or ``weighted-sum`` step."""
+    if step.aggr_type not in ("attend", "weighted-sum"):
+        return None
+    return MLP(attend_dims(spec, step, d), act="leaky_relu",
+               use_bias=spec.use_bias)
+
+
 def _point_conv(spec, step, dims, act: str) -> PointConv:
-    _check_aggr(step)
-    use_bias = spec.use_bias
-    attend = (MLP(attend_dims(spec, step, dims[-1]), act="leaky_relu",
-                  use_bias=use_bias) if step.aggr_type == "attend" else None)
-    return PointConv(MLP(dims, act=act, use_bias=use_bias), attend)
+    return PointConv(MLP(dims, act=act, use_bias=spec.use_bias),
+                     _attend_mlp(spec, step, dims[-1]))
 
 
 def _flat_layer0(mlp: MLP, msg: torch.Tensor) -> torch.Tensor:
@@ -112,7 +143,10 @@ class SymmetricCurveConvStep(nn.Module):
     ``torch.matmul``, masked BN (batch statistics of the valid points in
     train) and leaky ReLU a layer, in eval and train (the JAX package runs
     it outside any Pallas kernel too).  With ``with_diff`` the
-    input width I of every v1 layer is twice its feature width."""
+    input width I of every v1 layer is twice its feature width.  A v2
+    step of one tap (``kernel_size`` 1: no window crosses a gap) takes
+    the same per-curve route, its diffs concatenated before the first
+    layer only, as the JAX package's ``half_k == 0`` route."""
 
     def __init__(self, spec: ModelSpec, step: StepSpec, c_in: Optional[int]):
         super().__init__()
@@ -122,8 +156,7 @@ class SymmetricCurveConvStep(nn.Module):
         self.name = step.name   # telemetry's; the model's "step_{i}_{name}"
         self.v1 = step.name == "conv1d-fast-v1"
         self.half_k = (step.kernel_size or 5) // 2
-        if self.half_k < 1 and not self.v1:
-            raise NotImplementedError("conv1d-fast-v2 with kernel_size < 3")
+        self.per_curve = self.v1 or self.half_k == 0
         cx = xyz_width(c_in, step.with_xyz)
         outs = list(step.feat_dims)
         ins = [cx] + outs[:-1]
@@ -136,7 +169,7 @@ class SymmetricCurveConvStep(nn.Module):
 
     def forward(self, cloud: Cloud, train: bool = False,
                 bn_momentum=0.1) -> Cloud:
-        if self.v1:
+        if self.per_curve:
             return cloud.with_features(self._v1(cloud, train, bn_momentum))
         step = self.step
         cid, valid = cloud.curve_id, cloud.valid
@@ -167,8 +200,9 @@ class SymmetricCurveConvStep(nn.Module):
     def _v1(self, cloud: Cloud, train: bool, bn_momentum) -> torch.Tensor:
         cid, valid = cloud.curve_id, cloud.valid
         x = cloud.xyz_concat(self.step.with_xyz)
-        for conv, norm in zip(self.conv_modules, self.norm_modules):
-            if self.step.with_diff:
+        for j, (conv, norm) in enumerate(zip(self.conv_modules,
+                                             self.norm_modules)):
+            if self.step.with_diff and (self.v1 or j == 0):
                 x = torch.cat([x, curve1d.feature_diffs(x, cid, valid)], -1)
             o, i, taps = conv.weight.shape
             w = conv.weight.permute(2, 1, 0).reshape(taps * i, o)
@@ -206,13 +240,12 @@ class _Taps(nn.Module):
 
 
 class CurveSAStep(nn.Module):
-    """sa-geo: arclength sampling + geodesic radius grouping along curves
-    (reference pointnet2.py:146-181)."""
+    """sa-geo: arclength sampling (FPS at ``ratio``, kernel K6, without
+    ``use_curve_fps``) + geodesic radius grouping along curves (reference
+    pointnet2.py:146-181)."""
 
     def __init__(self, spec, step, dims, c_in, budget: int):
         super().__init__()
-        if not step.use_curve_fps:
-            raise NotImplementedError("sa-geo without use_curve_fps")
         self.step, self.budget = step, budget
         cx = xyz_width(c_in, step.with_xyz)
         msg_w = 3 if cx is None else cx + 3
@@ -223,9 +256,13 @@ class CurveSAStep(nn.Module):
                 draws=None) -> Cloud:
         step, w = self.step, self.step.curve_window
         cloud = cloud.with_features(cloud.xyz_concat(step.with_xyz))
-        idx, idx_valid = sampling.curve_fps(cloud.pos, cloud.curve_id,
-                                            cloud.valid, step.curve_fps_arclen,
-                                            self.budget, u=draws)
+        if step.use_curve_fps:
+            idx, idx_valid = sampling.curve_fps(
+                cloud.pos, cloud.curve_id, cloud.valid, step.curve_fps_arclen,
+                self.budget, u=draws)
+        else:
+            idx, idx_valid = sampling.fps(cloud.pos, cloud.valid, step.ratio,
+                                          self.budget, u=draws)
         down = cloud.gather(idx, idx_valid)
         _, nbr_mask = curve1d.radius_1d_group_subset(
             cloud.pos, idx, down.valid, cloud.curve_id, cloud.valid,
@@ -242,10 +279,28 @@ class CurveSAStep(nn.Module):
             train, bn_momentum))
 
 
+def downsample(step: StepSpec, cloud: Cloud, budget: int, draws=None):
+    """An sa step's sampler by ``downsample_type`` (the JAX package's
+    ``_downsample``): voxel, arclength (curve-fps), random, or FPS (kernel
+    K6), each fed its uniform draws."""
+    kind = step.downsample_type
+    if kind == "voxel":
+        return sampling.voxel_downsample(cloud.pos, cloud.valid,
+                                         step.voxel_size, budget, u=draws)
+    if kind == "curve-fps":
+        return sampling.curve_fps(cloud.pos, cloud.curve_id, cloud.valid,
+                                  step.curve_fps_arclen, budget, u=draws)
+    if kind == "random":
+        return sampling.random_downsample(cloud.valid, step.ratio, budget,
+                                          u=draws)
+    return sampling.fps(cloud.pos, cloud.valid, step.ratio, budget, u=draws)
+
+
 class SAStep(nn.Module):
-    """PointNet++ set abstraction (reference pointnet2.py:33-78): voxel or
-    FPS downsampling, kNN grouping from the row table (exact, or the grid
-    table at ``grid_bound`` / ``grid_cap`` on a row above
+    """PointNet++ set abstraction (reference pointnet2.py:33-78): voxel,
+    arclength, random or FPS downsampling (:func:`downsample`), kNN
+    grouping from the row table (exact, or the grid table at
+    ``grid_bound`` / ``grid_cap`` on a row above
     ``neighbors.TABLE_MAX_N``), PointNetConv.  A step with no ``knn`` and
     no fast kNN groups by ball query instead: the 128 nearest points
     within ``radius`` (``neighbors.ball_query``, kernel K3 at k = 128,
@@ -256,9 +311,6 @@ class SAStep(nn.Module):
     def __init__(self, spec, step, dims, c_in, budget: int, table_bound,
                  grid_bound=None, grid_cap=None):
         super().__init__()
-        if step.downsample_type not in ("voxel", "fps"):
-            raise NotImplementedError(
-                f"sa downsample_type {step.downsample_type!r} is not ported")
         self.ball = not step.use_fast_knn and step.knn is None
         if not (self.ball or step.knn):
             raise NotImplementedError("sa with fast kNN needs a knn")
@@ -274,12 +326,7 @@ class SAStep(nn.Module):
     def forward(self, cloud: Cloud, tables, train: bool = False,
                 bn_momentum=0.1, draws=None) -> Cloud:
         step = self.step
-        if step.downsample_type == "voxel":
-            idx, idx_valid = sampling.voxel_downsample(
-                cloud.pos, cloud.valid, step.voxel_size, self.budget, u=draws)
-        else:
-            idx, idx_valid = sampling.fps(cloud.pos, cloud.valid, step.ratio,
-                                          self.budget, u=draws)
+        idx, idx_valid = downsample(step, cloud, self.budget, draws)
         down = cloud.gather(idx, idx_valid)
         if self.ball:
             nbr_idx, _ = neighbors.ball_query(down.pos, cloud.pos, down.valid,
@@ -319,16 +366,32 @@ def fused_edge_admits(dims, aggr: str) -> bool:
     return aggr == "max" and max(dims) <= 512
 
 
-class EdgeConvStep(nn.Module):
-    """sgcnn edge convolution (reference dgcnn.py:158-266).
+def edge_widths(step: StepSpec, dims, c_in: Optional[int]):
+    """An edge step's (search width, MLP widths) on a cloud whose features
+    are ``c_in`` wide: its messages are twice ``Cloud.xyz_concat``'s width,
+    and lin_0 takes that, as flax sizes it (the spec's ``dims[0]`` is
+    ``in_dim`` for a first dgcnn-rad step); dgcnn searches in the space of
+    ``xyz_concat``."""
+    cx = xyz_width(c_in, step.with_xyz)
+    return cx, (2 * cx,) + tuple(dims[1:])
 
-    The fast message order [x_j, x_i - x_j] (dgcnn.py:158-207) takes the
-    row table at the step's radius plus a self loop.  With
+
+class EdgeConvStep(nn.Module):
+    """sgcnn / dgcnn edge convolution (reference dgcnn.py:98-266).
+
+    sgcnn's fast message order [x_j, x_i - x_j] (dgcnn.py:158-207) takes
+    the row table at the step's radius plus a self loop.  With
     ``use_sparse_feat_agg`` the slow order [x_i, x_j - x_i] (dgcnn.py:
-    209-266) takes an exact, unbounded kNN table with no self loop and may
-    aggregate by attention (``attend_nn``); in train both aggregations run
-    on K7 (the JAX package takes its XLA path for attend: the same masked
-    batch statistics).  Layer 0
+    209-266) takes an exact, unbounded kNN table with no self loop.
+    dgcnn and dgcnn-rad take the slow order over a dynamic graph: the
+    ``knn`` nearest points, or the 128 nearest within ``radius``, in the
+    space of [x, pos] (``with_xyz``; x alone otherwise), the positions
+    kept in float32 (``neighbors.feature_knn``: K3 for a 3-D search, a
+    plain torch search for a wider one, as the JAX package).  Any order
+    may aggregate by attention (``attend_nn``); in train max and attend
+    run on K7 (the JAX package takes its XLA path for attend: the same
+    masked batch statistics); mean and weighted-sum run in plain torch
+    (:func:`_grouped`).  Layer 0
     re-associates as gather(x @ (Wt - Wb)) + x_i @ Wb (+ b) in the fast
     order and as gather(x @ Wb) + x_i @ (Wt - Wb) (+ b) in the slow one, so
     the (B, N, K, 2C) message concat never materializes.  The ``group``
@@ -341,27 +404,24 @@ class EdgeConvStep(nn.Module):
     chain, the layer-0 rows built in shared memory; train always takes
     K4/K4b + K7."""
 
+    BALL_K = 128   # dgcnn-rad's cap (reference DynamicEdgeConv)
+
     def __init__(self, spec, step, dims, c_in, table_bound, grid_bound=None,
                  grid_cap=None, edge_kernel: str = "group"):
         super().__init__()
-        if step.name != "sgcnn":
+        if step.name not in EDGE_STEPS:
             raise NotImplementedError(f"{step.name} is not ported")
-        _check_aggr(step)
-        if step.aggr_type == "attend" and not step.use_sparse_feat_agg:
-            raise NotImplementedError("sgcnn attend in the fast message "
-                                      "order is not ported")
         if edge_kernel not in EDGE_ROUTES:
             raise ValueError(f"edge_kernel {edge_kernel!r}: one of "
                              f"{EDGE_ROUTES}")
         self.step = step
-        self.slow = step.use_sparse_feat_agg
+        self.feature_space = step.name != "sgcnn"
+        self.slow = self.feature_space or step.use_sparse_feat_agg
         self.table_bound, self.grid_bound, self.grid_cap = (
             table_bound, grid_bound, grid_cap)
-        cx = xyz_width(c_in, step.with_xyz)
-        self.nn = MLP((2 * cx,) + tuple(dims[1:]), use_bias=spec.use_bias)
-        self.attend_nn = (MLP(attend_dims(spec, step, dims[-1]),
-                              act="leaky_relu", use_bias=spec.use_bias)
-                          if step.aggr_type == "attend" else None)
+        self.nn = MLP(edge_widths(step, dims, c_in)[1],
+                      use_bias=spec.use_bias)
+        self.attend_nn = _attend_mlp(spec, step, dims[-1])
         self.fused = edge_kernel == "fused" and fused_edge_admits(
             self.nn.dims, step.aggr_type)
 
@@ -381,7 +441,12 @@ class EdgeConvStep(nn.Module):
                 bn_momentum=0.1) -> Cloud:
         step = self.step
         x = cloud.xyz_concat(step.with_xyz)
-        if self.slow:
+        if self.feature_space:
+            rad = step.name == "dgcnn-rad"
+            nbr_idx, _ = neighbors.feature_knn(
+                x, cloud.valid, self.BALL_K if rad else step.knn,
+                step.radius if rad else None)
+        elif self.slow:
             nbr_idx, _ = neighbors.same_set_knn(
                 cloud.pos, cloud.valid, step.knn,
                 table_bound=self.table_bound, tables=tables)
@@ -473,7 +538,9 @@ class SkipConnectStep(nn.Module):
 
 class FPStep(nn.Module):
     """Feature propagation upsample (reference pointnet2.py:119-143); the
-    3-NN sources are the subset ``parent_idx`` of the skip row."""
+    3-NN sources are the subset ``parent_idx`` of the skip row, or, for a
+    cloud with no ``parent_idx``, any points (``knn_interpolate``, K3 over
+    the whole row)."""
 
     def __init__(self, spec, step, dims, c_in: int, skip_width: int,
                  act: str = "relu"):
@@ -484,6 +551,10 @@ class FPStep(nn.Module):
                       use_bias=spec.use_bias)
 
     def _upsample(self, cloud: Cloud, skip: Cloud, k: int):
+        if cloud.parent_idx is None:
+            return interpolate.knn_interpolate(cloud.x, cloud.pos,
+                                               cloud.valid, skip.pos,
+                                               skip.valid, k=k)
         return interpolate.knn_interpolate_subset(
             cloud.x, cloud.parent_idx, cloud.valid, skip.pos, skip.valid, k=k,
             cand_pos=cloud.pos)

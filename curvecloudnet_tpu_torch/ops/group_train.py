@@ -663,9 +663,10 @@ def group_train_reduce(h1, mask, local_nn, attend_nn=None, aggr="max",
     (out (B, M, C_out), local_stats [(mean, var, n)] for norm_0..norm_{L-1}
     of ``local_nn``, att_stats [(mean, var, n)] for the attention norm)."""
     if len(local_nn.lins) < 2:
-        raise NotImplementedError("train grouping with a one-layer MLP")
+        raise ValueError("K7 runs the denses past layer 0: a one-layer MLP "
+                         "takes the plain route (models/modules._grouped)")
     if aggr == "attend" and (attend_nn is None or len(attend_nn.lins) != 2):
-        raise NotImplementedError("attend needs a two-layer attention MLP")
+        raise ValueError("attend takes a two-layer attention MLP")
     dims = (h1.shape[-1],) + tuple(lin.out_features
                                    for lin in local_nn.lins[1:])
     cfg = TrainCfg(dims=dims, aggr=aggr, act=act, attend_act=attend_act,

@@ -25,6 +25,16 @@ def _weighted_mean(x_nbr, d2, mask):
     return num / torch.clamp(den, min=1e-16)
 
 
+def knn_interpolate(x, pos_src, src_valid, pos_dst, dst_valid, k: int = 3):
+    """Features of the src points (B, M, C) at the dst points (B, N, C):
+    the k nearest valid src points of each dst point (kernel K3),
+    inverse-d^2 weighted (the fp upsample of a cloud with no
+    ``parent_idx``)."""
+    idx, dist = neighbors.knn(pos_dst, pos_src, dst_valid, src_valid, k)
+    return _weighted_mean(neighbors.gather_neighbors(x, idx), dist * dist,
+                          idx >= 0)
+
+
 def _cand_rank(cand_idx, cand_valid, n: int):
     """Row -> candidate-slot rank (-1 where not kept)."""
     b, m = cand_idx.shape

@@ -189,6 +189,50 @@ def ball_query(query, points, q_valid, p_valid, radius: float, k: int = 128):
     return _k3.knn_search(query, points, q_valid, p_valid, k, float(radius))
 
 
+def brute_knn(query, points, q_valid, p_valid, k: int, radius=None):
+    """Exact masked kNN in any dimension, plain torch: squared distances
+    expanded as |q|^2 + |p|^2 - 2 q.p (clamped at 0), as the JAX
+    package's XLA search computes them, ties to the lower index; the
+    output contract of :func:`knn`.  Serves the feature-space searches
+    (dgcnn), which JAX runs outside Pallas too."""
+    b, q, _ = query.shape
+    n = points.shape[1]
+    k = min(k, n)
+    r2 = _k3._r2(radius)
+    p_sq = (points * points).sum(-1)
+    idx = torch.empty((b, q, k), dtype=torch.int32, device=query.device)
+    dist = torch.empty((b, q, k), dtype=torch.float32, device=query.device)
+    step = max(1, (1 << 26) // max(b * n, 1))
+    for lo in range(0, q, step):
+        qc = query[:, lo:lo + step]
+        d2 = ((qc * qc).sum(-1)[:, :, None] + p_sq[:, None, :]
+              - 2.0 * (qc @ points.transpose(1, 2)))
+        d2 = torch.where(p_valid[:, None, :], torch.clamp(d2, min=0.0),
+                         torch.full_like(d2, float("inf")))
+        best, order = torch.sort(d2, dim=-1, stable=True)
+        best, order = best[..., :k], order[..., :k]
+        good = ((best < float("inf")) & (best <= r2)
+                & q_valid[:, lo:lo + step, None])
+        idx[:, lo:lo + step] = torch.where(good, order,
+                                           torch.full_like(order, -1)).int()
+        dist[:, lo:lo + step] = torch.where(good, torch.sqrt(best),
+                                            torch.full_like(best, INF))
+    return idx, dist
+
+
+def feature_knn(x, valid, k: int, radius=None):
+    """The dgcnn graph: each valid point's k nearest valid points of its
+    own row in the space of ``x`` (B, N, D), within ``radius`` if given
+    (dgcnn-rad, k = 128).  A 3-D search (a position-only cloud) runs on
+    K3, as the JAX package sends its 3-D searches to Pallas (a ball query
+    exact, :func:`ball_query`); a wider one is :func:`brute_knn`."""
+    if x.shape[-1] == 3:
+        if radius is None:
+            return knn(x, x, valid, valid, k)
+        return ball_query(x, x, valid, valid, radius, k)
+    return brute_knn(x, x, valid, valid, k, radius)
+
+
 def add_self_loops(idx, q_valid):
     """Prepend each query's own index as neighbor 0 (query set == row)."""
     b, q, _ = idx.shape

@@ -3,8 +3,10 @@
 
 Each sampler takes its uniform draws as an explicit tensor ``u``; ``None``
 is the JAX package's deterministic ``key=None`` point (FPS starts at index
-0, curve sampling has phase 0, voxel sampling has no jitter).  Fed the
-draws ``jax.random.uniform(key, ...)`` makes, a sampler picks what the JAX
+0, curve sampling has phase 0, voxel sampling has no jitter; random
+sampling, which JAX draws from ``PRNGKey(0)`` there, draws from a
+``torch.Generator`` seeded 0, ``docs/DEVIATIONS.md`` #14).  Fed the draws
+``jax.random.uniform(key, ...)`` makes, a sampler picks what the JAX
 sampler picks with that key.
 
 Every sampler returns ``(idx, idx_valid)``: ``idx`` (B, M) int64 ascending
@@ -50,6 +52,26 @@ def mask_to_indices(mask: torch.Tensor, budget: int,
         telemetry.record(f"{telemetry_name}_occupancy",
                          torch.mean(torch.minimum(sel, cap) / cap))
     return out[:, :budget], idx_valid
+
+
+def random_downsample(valid, ratio: float, budget: int, u=None):
+    """A uniform random subset of ceil(n_valid * ratio) points a sample:
+    the valid points of the smallest draws ``u`` (B, N), ties to the lower
+    index.  ``u=None`` draws them from a CPU ``torch.Generator`` seeded 0
+    (the JAX package's ``key=None`` draws from ``PRNGKey(0)``, which torch
+    cannot reproduce)."""
+    b, n = valid.shape
+    if u is None:
+        u = torch.rand((b, n), generator=torch.Generator().manual_seed(0))
+        u = u.to(valid.device)
+    scores = torch.where(valid, u.float(), torch.full_like(u.float(), 1e30))
+    order = torch.argsort(scores, dim=-1, stable=True)
+    rank_of = torch.empty_like(order)
+    rank_of.scatter_(1, order, torch.arange(n, device=valid.device).expand(
+        b, n))
+    lengths = segments.lengths_from_valid(valid).float()
+    keep = torch.ceil(lengths * torch.full_like(lengths, ratio)).long()
+    return mask_to_indices(valid & (rank_of < keep[:, None]), budget)
 
 
 def fps(pos, valid, ratio: float, budget: int, u=None):
