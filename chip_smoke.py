@@ -337,6 +337,17 @@ BF16_OBJECTS = "shapenet-seg"
 # path's (equal to 3 digits on those scans)
 BF16_MAX_FACTOR = 2.0
 BF16_MEAN_FACTOR = 1.1
+# phase 21: bfloat16 training (configs written under build/phase20; main's
+# loop under build/phase21): the flagship's train step at full width on
+# seeds 0 (held and timed) and 1 (held), the steps that must lower the
+# loss, the walls (steps of each dtype, in turns), the object config at its
+# batch, main's loop (steps, val scans)
+OUT21 = os.path.join(REPO, "build", "phase21")
+BF16_TRAIN_SEEDS = (0, 1)
+BF16_TRAIN_STEPS = 3
+BF16_WALL_STEPS = 3
+BF16_LOOP_TRAIN = 2
+BF16_LOOP_VAL = 1
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -488,8 +499,50 @@ EDGE_BF16_KERNELS = [
     ("edge_mlp_bf16", "edge_mlp", "fused_edge_mlp_max_bf16",
      "fused_edge_mlp_max_ref", "curvecloudnet_tpu_torch/csrc/edge_mlp.cu",
      "curvecloudnet_tpu/ops/pallas_edge.py:85", 1e-4)]
+# phase 21: the bfloat16 train kernels.  Kernel and plain version round at
+# the same points (bfloat16 operands, f32 products and sums), so they
+# differ by the order of the f32 sums, which now and then flips a
+# bfloat16 rounding of an operand (T between K7's backward levels, a
+# layer input u, a pair sum) and, rarely, an activation's slope: the
+# forward outputs and statistics within 2^-8 (one bfloat16 rounding) of
+# the output's largest value; the backward outputs within 2^-7 in
+# relative L2 norm plus twice the plain version's own bf16-vs-f32 change
+# (norms floored at 2^-8 of the call's largest): a gradient that is 0 in
+# exact arithmetic (a bias feeding a BatchNorm) is the sum of K7's
+# bfloat16 roundings of T, so one flipped rounding moves it by a share of
+# its size (3.3% on a card test of an sa-geo-like site); K4b's sums
+# within 2^-8 of the largest (f32 sums, one rounding, atomics in any
+# order)
+BF16_TRAIN_KERNELS = [
+    ("conv1d_train_fwd_bf16", "conv1d_train", "conv1d_train_fwd_layer_bf16",
+     "conv1d_train_fwd_layer_ref",
+     "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
+     "curvecloudnet_tpu/ops/pallas_conv1d.py:407", 2.0 ** -8),
+    ("conv1d_train_t_bf16", "conv1d_train", "conv1d_train_bwd_t_bf16",
+     "conv1d_train_bwd_t_ref", "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
+     "curvecloudnet_tpu/ops/pallas_conv1d.py:477", 2.0 ** -7),
+    ("group_train_fwd_bf16", "group_train", "group_train_fwd_bf16",
+     "group_train_fwd_ref", "curvecloudnet_tpu_torch/csrc/group_train.cu",
+     "curvecloudnet_tpu/ops/pallas_group_train.py:591", 2.0 ** -8),
+    ("group_train_bwd_bf16", "group_train", "group_train_bwd_bf16",
+     "group_train_bwd_ref", "curvecloudnet_tpu_torch/csrc/group_train.cu",
+     "curvecloudnet_tpu/ops/pallas_group_train.py:591", 2.0 ** -7),
+    ("scatter_bf16", "gather", "scatter_km_bf16", "scatter_km_ref",
+     "curvecloudnet_tpu_torch/csrc/gather.cu",
+     "curvecloudnet_tpu/ops/pallas_gather.py:237", 2.0 ** -8)]
+# the bfloat16 wrappers a train step or main's loop counts beside the
+# float32 ones (check_bf16_launches adds each to its twin)
+BF16_COUNTED = [(name, mod, wrapper) for name, mod, wrapper, *_ in
+                BF16_TRAIN_KERNELS] + [
+    ("gather_bf16", "gather", "gather_km_bf16"),
+    ("conv1d_chain_bf16", "conv1d_chain", "conv1d_chain_eval_bf16"),
+    ("group_reduce_bf16", "group_reduce", "group_reduce_bf16")]
 # the operations' peak rate of each kernel's bound (FP32 where not listed)
-OPS_PEAK = {"conv1d_chain_bf16": PEAK_BF16, "group_reduce_bf16": PEAK_BF16}
+OPS_PEAK = {"conv1d_chain_bf16": PEAK_BF16, "group_reduce_bf16": PEAK_BF16,
+            "conv1d_train_fwd_bf16": PEAK_BF16,
+            "conv1d_train_t_bf16": PEAK_BF16,
+            "group_train_fwd_bf16": PEAK_BF16,
+            "group_train_bwd_bf16": PEAK_BF16}
 
 
 def options_model(model_cfg, arclen=OPTIONS_ARCLEN):
@@ -702,6 +755,8 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
 
     from curvecloudnet_tpu_torch.ops import group_train as G
 
+    if name.endswith("_bf16"):
+        return compare_bf16_train(name, args, kwargs, kern_out, ref_fn, tol)
     if name == "conv1d_train_fwd":
         ref = ref_fn(*args)
         errs = (_err(name, kern_out[0], ref[0], tol),
@@ -751,6 +806,84 @@ def compare_train(name, args, kwargs, kern_out, ref_fn, tol):
         return err, lambda: ref_fn(*r_args)
     ref = ref_fn(*args)
     return _err(name, kern_out, ref, tol), lambda: ref_fn(*args)
+
+
+def _bf16_max(name, got, want, tol):
+    """Max abs error of a float output within ``tol`` of max |want|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or err > tol * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
+    return err
+
+
+def _bf16_l2(name, outs, tol):
+    """Backward outputs [(kernel, plain bf16, plain f32)] each within
+    ``tol`` plus twice the plain versions' own bf16-vs-f32 change, in
+    relative L2 norm, norms floored at 2^-8 of the call's largest -> max
+    abs err."""
+    import torch
+
+    outs = [(g.float(), w.float(), w32.float()) for g, w, w32 in outs]
+    floor = 2.0 ** -8 * max(float(w.norm()) for _, w, _ in outs)
+    err = worst = 0.0
+    for i, (got, want, w32) in enumerate(outs):
+        scale = max(float(want.norm()), floor)
+        rel = float((got - want).norm()) / scale
+        bound = tol + 2 * float((want - w32).norm()) / scale
+        if not bool(torch.isfinite(got).all()) or rel > bound:
+            raise AssertionError(f"{name}: output {i} relative L2 err {rel} "
+                                 f"> {bound}")
+        worst = max(worst, rel / bound)
+        err = max(err, float((got - want).abs().max()))
+    log(f"  {name}: relative L2 errors within {worst:.3g} of their bounds")
+    return err
+
+
+def compare_bf16_train(name, args, kwargs, out, ref_fn, tol):
+    """A bfloat16 train kernel's recorded call against its plain version
+    under the bfloat16 contract -> (max abs err, plain callable)."""
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    base = name.removesuffix("_bf16")
+    kw = dict(kwargs, bf16=True) if base.startswith("conv1d") else kwargs
+    if base == "group_train_bwd":
+        # the plain backward with the plain forward's own residuals
+        h1, mask, cfg, params, _, _, _, dout = args
+        _, r_stats, r_n, r_extras = G.group_train_fwd_ref(h1, mask, cfg,
+                                                         params)
+        r_args = (h1, mask, cfg, params, r_stats, r_n, r_extras, dout)
+        d_h1, grads = ref_fn(*r_args)
+        h32 = h1.float()
+        _, s32, n32, e32 = G.group_train_fwd_ref(h32, mask, cfg, params)
+        f_h1, f_grads = ref_fn(h32, mask, cfg, params, s32, n32, e32, dout)
+        err = _bf16_l2(name, list(zip((out[0],) + tuple(out[1]),
+                                      (d_h1,) + tuple(grads),
+                                      (f_h1,) + tuple(f_grads))), tol)
+        return err, lambda: ref_fn(*r_args)
+    want = ref_fn(*args, **kw)
+    if base == "conv1d_train_fwd":
+        err = max(_bf16_max(name, out[0], want[0], tol),
+                  _bf16_max(name + " mean", out[1], want[1], tol),
+                  _bf16_max(name + " var", out[2], want[2], tol))
+    elif base == "conv1d_train_t":
+        w32 = ref_fn(*args[:2], args[2].float(), *args[3:], **kwargs)
+        pairs = list(zip(out[:3], want[:3], w32[:3]))
+        if len(out) == 4:   # the previous layer's reduce sums
+            pairs += list(zip(out[3], want[3], w32[3]))
+        err = _bf16_l2(name, pairs, tol)
+    elif base == "group_train_fwd":
+        rows = _rows(args[1])
+        err = _bf16_max(name, out[0][rows], want[0][rows], tol)
+        for (mu, var), (r_mu, r_var) in zip(out[1], want[1]):
+            err = max(err, _bf16_max(name + " mean", mu, r_mu, tol),
+                      _bf16_max(name + " var", var, r_var, tol))
+    else:   # scatter: f32 sums rounded once
+        err = _bf16_max(name, out, want, tol)
+    return err, lambda: ref_fn(*args, **kw)
 
 
 def _kernel_y(h1, cfg, params, stats, extras, i, lo=0, hi=None):
@@ -1162,7 +1295,8 @@ def library_call(name, args):
         d, idx, n = args[:3]
         flat = idx.clamp(min=0).long().reshape(idx.shape[0], -1)
         dd = d.reshape(d.shape[0], -1, d.shape[-1])
-        out = torch.zeros((d.shape[0], n, d.shape[-1]), device=d.device)
+        out = torch.zeros((d.shape[0], n, d.shape[-1]), dtype=d.dtype,
+                          device=d.device)
         return lambda: [out[b].index_add_(0, flat[b], dd[b])
                         for b in range(d.shape[0])]
     return None
@@ -1518,19 +1652,22 @@ def pass_times(G, fn):
     return out
 
 
-def k7_sites(spec, calls, per_call, G, label="nuScenes"):
+def k7_sites(spec, calls, per_call, G, label="nuScenes",
+             names=("group_train_fwd", "group_train_bwd"),
+             floor_of=("3xTF32 floor", 3 / PEAK_TF32)):
     """Phases 6 and 17: one line per K7 call of the captured train step
     (the grouping steps, in order), forward and backward: live rows,
     queries with no live slot and the check that the call's ``dout`` is
     exactly 0 at every one of them (the contract that lets K7 drop their
     rows), the size of the chain the forward stores for the backward,
     kernel / plain / bound / 3xTF32-floor ms and the kernel's ms per pass;
-    then their sums."""
+    then their sums.  ``names``: the wrappers' (the bfloat16 variant's),
+    ``floor_of``: the floor's name and seconds an operation."""
     import torch
 
     steps = grouped_steps(spec, train=True)
-    fwd, bwd = calls["group_train_fwd"], calls["group_train_bwd"]
-    t_fwd, t_bwd = per_call["group_train_fwd"], per_call["group_train_bwd"]
+    fwd, bwd = calls[names[0]], calls[names[1]]
+    t_fwd, t_bwd = per_call[names[0]], per_call[names[1]]
     # autograd runs the backward calls in reverse; pair them by h1
     by_h1 = {(a[0].data_ptr(), tuple(a[0].shape)): (a, t)
              for (a, _, _), t in zip(bwd, t_bwd)}
@@ -1555,7 +1692,7 @@ def k7_sites(spec, calls, per_call, G, label="nuScenes"):
             pb = pass_times(G, lambda: G.group_train_bwd(*b_args))
         line = []
         for d, t, pt in (("fwd", tf, pf), ("bwd", tb, pb)):
-            floor = 3 * t["flops"] / PEAK_TF32 * 1e3
+            floor = t["flops"] * floor_of[1] * 1e3
             for key, v in zip(keys, (t["ms"], t["plain_ms"], t["bound_ms"],
                                      floor)):
                 sums[d][key] += v
@@ -1564,7 +1701,7 @@ def k7_sites(spec, calls, per_call, G, label="nuScenes"):
             per = ", ".join(f"{k} {v:.3f}" for k, v in pt.items())
             line.append(f"{d} kernel {t['ms']:.3f} ms, plain "
                         f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f}"
-                        f" ms, 3xTF32 floor {floor:.3f} ms ({per})")
+                        f" ms, {floor_of[0]} {floor:.3f} ms ({per})")
         log(f"K7 site {label} step_{step}: B {h1.shape[0]}, M {h1.shape[2]},"
             f" K {h1.shape[1]}, widths {list(cfg.dims)}, attend "
             f"{cfg.att_dim}, {cfg.aggr}, live rows {int(mask.sum())} of "
@@ -1575,8 +1712,8 @@ def k7_sites(spec, calls, per_call, G, label="nuScenes"):
         s = sums[d]
         per = ", ".join(f"{k} {v:.3f}" for k, v in passes[d].items())
         log(f"K7 {label} {d}, {len(fwd)} calls: kernel {s['ms']:.3f} ms, plain "
-            f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms, 3xTF32 "
-            f"floor {s['floor_ms']:.3f} ms; by pass: {per}")
+            f"{s['plain_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms, "
+            f"{floor_of[0]} {s['floor_ms']:.3f} ms; by pass: {per}")
 
 
 def recording(calls, fn):
@@ -2359,7 +2496,7 @@ def hold_train(label, kernels, mods, calls):
     call's own output -> {name: max err}."""
     import torch
 
-    train_names = {k[0] for k in TRAIN_KERNELS}
+    train_names = {k[0] for k in TRAIN_KERNELS + BF16_TRAIN_KERNELS}
     worst = {}
     for name, mod, wrapper, ref_name, *_, tol in kernels:
         ref = getattr(mods[mod], ref_name)
@@ -3251,15 +3388,17 @@ def hold_bf16_logits(label, got, ref, p16, p32, valid):
                              f"{float(gap.mean())})")
 
 
-def busy_by_group(fn):
+def busy_by_group(fn, groups_of=None):
     """Device busy ms of one ``fn()`` by ``tools/profile_scan``'s groups
-    (``torch.profiler``, after a warm-up run) -> (busy, {group: ms})."""
+    (or ``groups_of``'s: ``tools/profile_train``'s for a train step;
+    ``torch.profiler``, after a warm-up run) -> (busy, {group: ms})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from curvecloudnet_tpu_torch.tools.profile_scan import GROUPS
 
+    groups_of = groups_of or GROUPS
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3269,7 +3408,7 @@ def busy_by_group(fn):
     groups = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            g = next((g for g, key in GROUPS if key in e.key), "other")
+            g = next((g for g, key in groups_of if key in e.key), "other")
             groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     return sum(groups.values()), {g: round(v, 3) for g, v in
                                   sorted(groups.items(), key=lambda x: -x[1])}
@@ -3449,6 +3588,342 @@ def run_bf16(P, mods, dev, kernel_launches):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], e)
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
     return report, by_path
+
+
+def f32_twin(name, args, kwargs, mods):
+    """The float32 variant's call on a recorded bfloat16 call's inputs
+    widened to float32 (its counterpart on the float32 path)."""
+    C, G, K = mods["conv1d_train"], mods["group_train"], mods["gather"]
+    if name == "conv1d_train_fwd_bf16":
+        return lambda: C.conv1d_train_fwd_layer(args[0].float(), *args[1:])
+    if name == "conv1d_train_t_bf16":
+        a = (*args[:2], args[2].float(), *args[3:])
+        return lambda: C.conv1d_train_bwd_t(*a, **kwargs)
+    if name == "group_train_fwd_bf16":
+        return lambda: G.group_train_fwd(args[0].float(), *args[1:])
+    if name == "group_train_bwd_bf16":
+        h1, mask, cfg, params, *_, dout = args
+        _, st, n, ex = G.group_train_fwd(h1.float(), mask, cfg, params)
+        return lambda: G.group_train_bwd(h1.float(), mask, cfg, params, st,
+                                         n, ex, dout)
+    return lambda: K.scatter_km(args[0].float(), *args[1:], **kwargs)
+
+
+def bf16_train_runner(model, state0, batch, loss_cfg, mods, dev):
+    """fn(plain=False, lr=LR) -> (loss, logits, valid, ms, peak bytes,
+    grads, buffers): one ``train_step`` of ``model`` from the weights
+    ``state0``, through the kernels or every kernel's plain version (K8's
+    passes included: their plain versions take the bfloat16 contract)."""
+    import torch
+
+    from curvecloudnet_tpu_torch.train import train_step
+    from curvecloudnet_tpu_torch.train.trainer import create_optimizer
+
+    def one_step(plain=False, lr=LR):
+        model.load_state_dict(state0)
+        opt = create_optimizer(model)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        seen = []
+        hook = model.register_forward_hook(
+            lambda _m, _a, out: seen.append(out))
+        try:
+            with plain_path(mods, EVAL_KERNELS + TRAIN_KERNELS
+                            if plain else []):
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = train_step(model, opt, lr, batch, gen, 0.1, loss_cfg)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            hook.remove()
+        logits, valid = seen[0]
+        return (float(out["loss"]), logits.detach().float(), valid, ms,
+                torch.cuda.max_memory_allocated(), *grads_and_stats(model))
+
+    return one_step
+
+
+def check_state_f32(label, model):
+    """Parameters, their gradients and the BatchNorm buffers float32."""
+    import torch
+
+    for name, t in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        if t.dtype != torch.float32 or (t.grad is not None
+                                        and t.grad.dtype != t.dtype):
+            raise AssertionError(f"{label}: {name} {t.dtype}")
+
+
+def float32_calls(kernels, calls):
+    """The float32 kernels' recorded calls that ran their float32 variant
+    (a wrapper given bfloat16 inputs, or K8's ``bf16``, dispatches to its
+    bfloat16 twin, recorded apart) -> (kernels with such calls, calls)."""
+    import torch
+
+    def bf16(name, args, kwargs):
+        if name == "conv1d_train_fwd":
+            return len(args) > 6 and bool(args[6])
+        if name == "conv1d_train_t":
+            return bool(kwargs.get("bf16"))
+        return torch.is_tensor(args[0]) and args[0].dtype == torch.bfloat16
+
+    kept = {k[0]: [c for c in calls[k[0]] if not bf16(k[0], *c[:2])]
+            for k in kernels}
+    return [k for k in kernels if kept[k[0]]], kept
+
+
+def run_bf16_train(P, mods, dev, kernel_launches):
+    """Phase 21: bfloat16 training -> (report rows of the bfloat16 train
+    kernels, launches by path).
+
+    ``bf16_train``: the flagship at full width through
+    ``train.__main__.setup`` on a ``compute_dtype: bfloat16`` config
+    (and one step of its ``fused`` edge route's model: launches, the
+    loss within 1e-6 of the group route's)
+    (K8 float32 at step 0, bfloat16 at step 31; K7-bf16 at every grouping
+    site; K4b-bf16): every K7-bf16, K8-bf16 and K4b-bf16 call of a step
+    held against its plain bfloat16 version (seed 0 timed, with the float32
+    variant's time on the same inputs and a line per K7 site; seed 1 held),
+    the step's float32 calls held as phase 6 holds them; one step kernel
+    path vs plain bfloat16 path vs plain float32 path from the same
+    weights: the loss within 2x the plain path's own bf16-vs-f32 gap, the
+    logits as ``hold_bf16_logits``, parameters, gradients and buffers
+    float32; ``BF16_TRAIN_STEPS`` steps lower the loss, launches of both
+    dtypes = the spec's; the step's wall, busy ms by group and peak memory
+    against the float32 step's, in turns.  ``bf16_objects_train``:
+    shapenet-seg at its batch (24) in bfloat16 (K7-bf16 over 128 planes, a
+    1024-wide sa-geo attention BN): a step's bfloat16 calls held,
+    launches.  ``bf16_loop``: ``main`` with ``--model.compute_dtype
+    bfloat16`` (``config.parse_args``): ``BF16_LOOP_TRAIN`` steps, a val
+    scan under TTA, checkpoints, then resumed for a second epoch."""
+    import numpy as np
+    import torch
+
+    from curvecloudnet_tpu_torch import config as C
+    from curvecloudnet_tpu_torch import main as M
+    from curvecloudnet_tpu_torch.train import train_step
+    from curvecloudnet_tpu_torch.train.__main__ import setup, train_batch
+    from curvecloudnet_tpu_torch.train.trainer import create_optimizer
+
+    t_phase = time.perf_counter()
+    counted_all = TRAIN_COUNTED + BF16_COUNTED
+    config = bf16_config("nuscenes")
+    model, _, _, loss_cfg, batch, _ = setup(config, dev, 0)
+    f32, _, _, _, _, _ = setup(CONFIG, dev, 0)
+    n_pad = P.n_pad_of(config)
+    state0 = copy.deepcopy(model.state_dict())
+    for k, v in f32.state_dict().items():
+        if not torch.equal(v, state0[k]):
+            raise AssertionError(f"setup: {k} differs between the dtypes")
+    check_state_f32("bf16 setup", model)
+    one16 = bf16_train_runner(model.train(), state0, batch, loss_cfg, mods,
+                              dev)
+    one32 = bf16_train_runner(f32.train(), state0, batch, loss_cfg, mods,
+                              dev)
+
+    # seed 0's calls: the bfloat16 ones held and timed, the float32 ones
+    # (K8 at step 0, K8's reduce, K3, K6) and K4-bf16 held
+    g16 = [k for k in BF16_KERNELS if k[0] == "gather_bf16"]
+    calls, (cap_loss, *_, cap_ms, cap_peak, _, _) = capture(
+        BF16_TRAIN_KERNELS + TRAIN_KERNELS + TRAIN_HELD + g16, mods,
+        lambda: one16(lr=0.0))
+    log(f"bf16_train capture step: loss {cap_loss:.6g}, {cap_ms:.1f} ms, "
+        f"peak {cap_peak / 2**30:.2f} GiB; calls "
+        + str({k: len(v) for k, v in calls.items()}))
+    for name, *_ in BF16_TRAIN_KERNELS:
+        if not calls[name]:
+            raise AssertionError(f"{name}: no call in the bf16 train step")
+    per_call = {}
+    last = conv_labels(model.spec, {})["conv1d_chain"][-1]
+    report = measure(BF16_TRAIN_KERNELS, mods, calls, train=True,
+                     per_call=per_call, labels={
+                         "conv1d_train_fwd_bf16": [
+                             f"{last} layer {i + 1}" for i in
+                             range(len(calls["conv1d_train_fwd_bf16"]))]})
+    k7_sites(model.spec, calls, per_call, mods["group_train"],
+             "nuScenes bf16", names=("group_train_fwd_bf16",
+                                     "group_train_bwd_bf16"),
+             floor_of=("bfloat16 floor", 1 / PEAK_BF16))
+    for name, *_ in BF16_TRAIN_KERNELS:
+        ms32 = 0.0
+        with torch.no_grad():
+            for args, kwargs, _ in calls[name]:
+                reps = 21 if name.startswith("conv1d") else 1
+                ms32 += cuda_ms(f32_twin(name, args, kwargs, mods), reps)
+        log(f"{name} vs float32 on the same inputs: {len(calls[name])} "
+            f"calls, bfloat16 {report[name]['ms']:.3f} ms, float32 "
+            f"{ms32:.3f} ms; bound at the bfloat16 rate "
+            f"{report[name]['bound_ms']:.3f} ms")
+    f32_held, f32_calls = float32_calls(TRAIN_KERNELS + TRAIN_HELD, calls)
+    log("bf16_train float32 calls: "
+        + str({k[0]: len(f32_calls[k[0]]) for k in f32_held}))
+    hold_train("bf16_train float32 calls", f32_held, mods, f32_calls)
+    hold("bf16_train", g16, mods, calls)
+    del calls, f32_calls
+    batch1 = train_batch(config, 1, n_pad, dev)
+    one16_1 = bf16_train_runner(model, state0, batch1, loss_cfg, mods, dev)
+    calls, _ = capture(BF16_TRAIN_KERNELS, mods, lambda: one16_1(lr=0.0))
+    for name, e in hold_train("bf16_train seed 1", BF16_TRAIN_KERNELS, mods,
+                              calls).items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], e)
+    del calls, one16_1, batch1
+
+    # one step: kernel path vs plain bfloat16 path vs plain float32 path
+    k = one16()
+    check_state_f32("bf16_train kernel step", model)
+    p16, p32 = one16(plain=True), one32(plain=True)
+    for what, r in (("kernel", k), ("plain bf16", p16), ("plain f32", p32)):
+        log(f"bf16_train one step, {what} path: loss {r[0]:.8g}, "
+            f"{r[3]:.1f} ms, peak {r[4] / 2**30:.2f} GiB")
+    gap = abs(p16[0] - p32[0])
+    if not (0 < gap and abs(k[0] - p16[0]) <= BF16_MAX_FACTOR * gap):
+        raise AssertionError(f"bf16_train loss: kernel {k[0]}, plain bf16 "
+                             f"{p16[0]}, plain f32 {p32[0]}")
+    hold_bf16_logits("bf16_train step, kernel vs plain path", k[1], p16[1],
+                     p16[1], p32[1], k[2])
+    for name, g in k[5].items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"bf16_train gradient {name} not finite")
+
+    # the steps: launches of both dtypes, the loss falls
+    model.load_state_dict(state0)
+    opt = create_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses, launched = counted(mods, counted_all, lambda: [
+        float(train_step(model, opt, LR, batch, gen, 0.1, loss_cfg)["loss"])
+        for _ in range(BF16_TRAIN_STEPS)])
+    by_path = {"bf16_train": launched}
+    check_bf16_launches("bf16_train", launched,
+                        kernel_launches(model.spec, n_pad, train=True),
+                        BF16_TRAIN_STEPS)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16_train losses {losses}")
+    log(f"bf16_train {BF16_TRAIN_STEPS} steps: losses {losses}")
+    check_state_f32("bf16_train steps", model)
+    # the fused edge route's model trains through the same kernels (train
+    # takes K4 / K4b + K7 on both routes): its first step's loss is the
+    # group route's (up to f32 rounding, 1e-6 relative)
+    fused = P.build_model(config, n_pad, dev, edge_kernel="fused").train()
+    fused.load_state_dict(state0)
+    o = create_optimizer(fused)
+    g = torch.Generator(device=dev).manual_seed(0)
+    loss_f, by_path["bf16_train_fused"] = counted(
+        mods, counted_all, lambda: float(train_step(
+            fused, o, LR, batch, g, 0.1, loss_cfg)["loss"]))
+    check_bf16_launches("bf16_train_fused", by_path["bf16_train_fused"],
+                        kernel_launches(fused.spec, n_pad, train=True,
+                                        edge_kernel="fused"), 1)
+    if not abs(loss_f - losses[0]) <= 1e-6 * abs(losses[0]):
+        raise AssertionError(f"bf16_train_fused: loss {loss_f}, the group "
+                             f"route's {losses[0]}")
+    log(f"bf16_train_fused: one step, loss {loss_f} (the group route's "
+        f"{losses[0]})")
+    del fused
+
+    # walls, busy ms by group and peak memory of each dtype, in turns
+    walls = {"float32": [], "bfloat16": []}
+    nets = {"float32": f32, "bfloat16": model}
+    steps = {}
+    for dt, net in nets.items():
+        net.load_state_dict(state0)
+        o = create_optimizer(net)
+        g = torch.Generator(device=dev).manual_seed(0)
+        steps[dt] = (lambda net=net, o=o, g=g: train_step(
+            net, o, LR, batch, g, 0.1, loss_cfg))
+    for _ in range(BF16_WALL_STEPS):
+        for dt in nets:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[dt]()
+            torch.cuda.synchronize()
+            walls[dt].append((time.perf_counter() - t0) * 1e3)
+    from curvecloudnet_tpu_torch.tools.profile_train import GROUPS
+
+    for dt in nets:
+        busy, groups = busy_by_group(steps[dt], GROUPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps[dt]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"nuScenes train step {dt}, {BF16_WALL_STEPS} steps: wall median "
+            f"{float(np.median(walls[dt])):.2f} ms (all "
+            f"{[round(w, 2) for w in walls[dt]]}); device busy {busy:.2f} ms,"
+            f" by group {groups}; peak memory {peak:.2f} GiB")
+    del f32, nets, steps, one16, one32, k, p16, p32
+
+    # bf16_objects_train: shapenet-seg at its batch
+    seg = bf16_config(BF16_OBJECTS)
+    obj, _, _, seg_loss, seg_batch, _ = setup(seg, dev, 0)
+    seg_pad = P.n_pad_of(seg)
+    seg0 = copy.deepcopy(obj.state_dict())
+    one_seg = bf16_train_runner(obj.train(), seg0, seg_batch, seg_loss, mods,
+                                dev)
+    calls, (seg_l, *_) = capture(BF16_TRAIN_KERNELS, mods,
+                                 lambda: one_seg(lr=0.0))
+    widths = sorted({max(a[2].dims + (a[2].att_dim,))
+                     for a, _, _ in calls["group_train_fwd_bf16"]})
+    log(f"bf16_objects_train ({BF16_OBJECTS}, B "
+        f"{seg_batch.cloud.valid.shape[0]}, n_pad {seg_pad}): loss "
+        f"{seg_l:.6g}; K7-bf16 sites' widest layers {widths}")
+    for name, e in hold_train("bf16_objects_train", BF16_TRAIN_KERNELS, mods,
+                              calls).items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], e)
+    del calls
+    obj.load_state_dict(seg0)
+    o = create_optimizer(obj)
+    g = torch.Generator(device=dev).manual_seed(0)
+    _, by_path["bf16_objects_train"] = counted(
+        mods, counted_all, lambda: train_step(obj, o, LR, seg_batch, g, 0.1,
+                                              seg_loss))
+    check_bf16_launches("bf16_objects_train", by_path["bf16_objects_train"],
+                        kernel_launches(obj.spec, seg_pad, train=True), 1)
+    check_state_f32("bf16_objects_train", obj)
+    del obj, one_seg, seg_batch
+
+    # bf16_loop: main's epoch loop with the CLI override, then resumed
+    from curvecloudnet_tpu_torch.run import tasks as T
+
+    shutil.rmtree(OUT21, ignore_errors=True)
+    outdir = os.path.join(OUT21, "loop")
+    loop_launched = {}
+    for epochs in (1, 2):
+        cfg = C.parse_args(["--config", CONFIG, "--model.compute_dtype",
+                            "bfloat16", f"--device={dev}",
+                            f"--n_train={BF16_LOOP_TRAIN}",
+                            f"--n_val={BF16_LOOP_VAL}", "--batch_size=1",
+                            f"--epochs={epochs}", "--num_workers=1",
+                            f"--outdir={outdir}"])
+        t0 = time.perf_counter()
+        score, launched = counted(mods, counted_all + LOOP_COUNTED[
+            len(TRAIN_COUNTED):], lambda: M.main(cfg))
+        wall = time.perf_counter() - t0
+        state = M.ckpt.read_latest_state(outdir)
+        info, val_ds, loop_model = M.build(cfg)
+        if loop_model.spec.compute_dtype != "bfloat16":
+            raise AssertionError("main did not take --model.compute_dtype")
+        want = {}
+        for counts, times in ((kernel_launches(loop_model.spec,
+                                               val_ds.n_pad, train=True),
+                               BF16_LOOP_TRAIN),
+                              (kernel_launches(loop_model.spec, val_ds.n_pad),
+                               BF16_LOOP_VAL * (T.N_VIEWS // 2))):
+            for key, v in counts.items():
+                want[key] = want.get(key, 0) + times * v
+        check_bf16_launches(f"bf16_loop epochs {epochs}", launched, want, 1)
+        if state is None or state["epoch"] != epochs - 1 or score != score:
+            raise AssertionError(f"bf16_loop: score {score}, state {state}")
+        files = sorted(os.listdir(outdir))
+        log(f"bf16_loop epochs {epochs}: {wall:.1f} s, score {score:.4g}, "
+            f"latest_state {state}, outdir {files}")
+        for key, v in launched.items():
+            loop_launched[key] = loop_launched.get(key, 0) + v
+        del loop_model
+    by_path["bf16_loop"] = loop_launched
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return report, by_path
+
 
 
 def grads_and_stats(model):
@@ -3683,6 +4158,11 @@ def main():
     # 20. bfloat16 serving
     bf16_report, bf16_launched = run_bf16(P, mods, dev, kernel_launches)
 
+    stamp(t_start, "20")
+    # 21. bfloat16 training
+    bf16t_report, bf16t_launched = run_bf16_train(P, mods, dev,
+                                                  kernel_launches)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -3712,6 +4192,7 @@ def main():
                       + [(k, r["max_abs_err"]) for k, r in opt_report.items()]):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     report.update(bf16_report)   # K1, K2, K4 and K9 in bfloat16
+    report.update(bf16t_report)  # K7, K8 and K4b in bfloat16
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0),
@@ -3722,11 +4203,12 @@ def main():
                              + list(train17_launched.items())
                              + list(disk_launched.items())
                              + list(opt_launched.items())
-                             + list(bf16_launched.items())):
+                             + list(bf16_launched.items())
+                             + list(bf16t_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     for entry in PLAIN_FLIPS:
         log("K7 flips at a BN wider than {4}: {0} call {1} BN {2} ({3} "
             "wide), {5} live rows: plain float32 {6} rows ({7} elements), "

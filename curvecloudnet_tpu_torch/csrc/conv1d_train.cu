@@ -58,6 +58,8 @@
 
 #include <algorithm>
 
+#include <cuda_bf16.h>
+
 #include "conv_tc.cuh"
 
 #define CT_THREADS 256
@@ -131,6 +133,41 @@ __device__ __forceinline__ Moments chan(Moments a, Moments b) {
   return {n, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
 }
 
+// A forward tile's statistics: its first cnt rows of zt (cout wide, cnt <=
+// CV_ROWS) in 8 groups of 16, each group's (count, mean, M2) in two
+// passes, then the groups combined in order by Chan's formula into part
+// (count, cout means, cout M2s); scratch holds 16 cout floats (may lie
+// over anything but zt) and is read after a __syncthreads.
+__device__ __forceinline__ void tile_moments(const float* zt, float* scratch,
+                                             int cnt, int cout, float* part) {
+  float* gm = scratch;  // 8 x cout
+  float* gq = scratch + 8 * cout;
+  for (int i = threadIdx.x; i < 8 * cout; i += blockDim.x) {
+    const int k = i / cout, co = i - k * cout;
+    const int r0 = 16 * k, r1 = min(r0 + 16, cnt);
+    float s = 0.f;
+    for (int r = r0; r < r1; ++r) s += zt[(size_t)r * cout + co];
+    const float mean = r1 > r0 ? s / (float)(r1 - r0) : 0.f;
+    float m2 = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const float d = zt[(size_t)r * cout + co] - mean;
+      m2 = fmaf(d, d, m2);
+    }
+    gm[i] = mean;
+    gq[i] = m2;
+  }
+  __syncthreads();
+  for (int co = threadIdx.x; co < cout; co += blockDim.x) {
+    Moments acc = {0.f, 0.f, 0.f};
+    for (int k = 0; k < 8; ++k)
+      acc = chan(acc, {(float)max(0, min(16, cnt - 16 * k)), gm[k * cout + co],
+                       gq[k * cout + co]});
+    part[1 + co] = acc.mean;
+    part[1 + cout + co] = acc.m2;
+  }
+  if (threadIdx.x == 0) part[0] = (float)cnt;
+}
+
 // forward: z of a tile of CV_ROWS - 2h slots and its (count, mean, M2) per
 // channel.  The block's CV_ROWS rows are the tile and its h-row halo; the
 // product u [W_0 | ... | W_h] streams u (rebuilt from z_prev on load) in
@@ -179,37 +216,8 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_fwd_kernel(
     if (i < n_out) z[((size_t)b * n_exp + t0) * cout + i] = v;
   }
   __syncthreads();
-  // the tile's live rows in 8 groups of 16 (the tile is at most CV_ROWS):
-  // each group's (count, mean, M2) in two passes, then the groups combined
-  // in order by Chan's formula
-  const int cnt = max(0, min(t0 + tile, live_end) - t0);
-  float* gm = smem;               // 8 x cout, over P (no longer read)
-  float* gq = smem + 8 * cout;
-  for (int i = threadIdx.x; i < 8 * cout; i += blockDim.x) {
-    const int k = i / cout, co = i - k * cout;
-    const int r0 = 16 * k, r1 = min(r0 + 16, cnt);
-    float s = 0.f;
-    for (int r = r0; r < r1; ++r) s += zt[(size_t)r * cout + co];
-    const float mean = r1 > r0 ? s / (float)(r1 - r0) : 0.f;
-    float m2 = 0.f;
-    for (int r = r0; r < r1; ++r) {
-      const float d = zt[(size_t)r * cout + co] - mean;
-      m2 = fmaf(d, d, m2);
-    }
-    gm[i] = mean;
-    gq[i] = m2;
-  }
-  __syncthreads();
-  float* part = parts + ((size_t)b * gridDim.x + blockIdx.x) * (2 * cout + 1);
-  for (int co = threadIdx.x; co < cout; co += blockDim.x) {
-    Moments acc = {0.f, 0.f, 0.f};
-    for (int k = 0; k < 8; ++k)
-      acc = chan(acc, {(float)max(0, min(16, cnt - 16 * k)), gm[k * cout + co],
-                       gq[k * cout + co]});
-    part[1 + co] = acc.mean;
-    part[1 + cout + co] = acc.m2;
-  }
-  if (threadIdx.x == 0) part[0] = (float)cnt;
+  tile_moments(zt, smem, max(0, min(t0 + tile, live_end) - t0), cout,
+               parts + ((size_t)b * gridDim.x + blockIdx.x) * (2 * cout + 1));
 }
 
 // one block per channel: the P tile partials combined in a fixed order
@@ -250,9 +258,9 @@ __global__ void conv1d_train_moments_kernel(const float* __restrict__ parts,
 // successor is wider than TDF_MAX; every other layer's sums come from its
 // successor's t pass (conv1d_train_tdup_kernel, prev_sums).
 __global__ void conv1d_train_reduce_kernel(
-    const float* __restrict__ du, const float* __restrict__ z,
-    const float* __restrict__ bn, const int* __restrict__ used,
-    float* __restrict__ parts, int n_exp, int C, int tile) {
+    const float* __restrict__ du, const float* __restrict__ z, Vecs bn,
+    const int* __restrict__ used, float* __restrict__ parts, int n_exp, int C,
+    int tile) {
   __shared__ float red[4][8][32];
   const int b = blockIdx.y, t0 = blockIdx.x * tile;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -264,10 +272,10 @@ __global__ void conv1d_train_reduce_kernel(
     if (c < C) {
       for (int g = t0 + ty; g < r_end; g += 8) {
         const size_t off = ((size_t)b * n_exp + g) * C + c;
-        float xh;
-        const float y = bn_y(z[off], bn, c, C, &xh);
+        const float xh = __fmul_rn(__fsub_rn(z[off], bn.v[0][c]), bn.v[1][c]);
+        const float y = __fadd_rn(__fmul_rn(xh, bn.v[2][c]), bn.v[3][c]);
         const float da = __fmul_rn(du[off], dleaky(y));
-        const float dxh = __fmul_rn(da, bn[2 * C + c]);
+        const float dxh = __fmul_rn(da, bn.v[2][c]);
         a0 += dxh;
         a1 = fmaf(dxh, xh, a1);
         a2 += da;
@@ -669,6 +677,315 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdw_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 variant (a model computing in bfloat16; the JAX package's
+// cdt = xe's dtype in _fwd_layer_kernel and _bwd_t_kernel): every window
+// product rounds its operands to bfloat16 and sums in f32, with the
+// symmetric pairs summed and rounded in bfloat16 on the input side
+// (u(q-d) + u(q+d) forward and for dW, dz(q-d) + dz(q+d) for d_u_prev), so
+// the shifts cannot move to the output side as in the f32 kernels.  One
+// mma.sync m16n8k16 a 16-deep step (cb_taps in conv_tc.cuh, K1's bfloat16
+// routine).  Layer 1 reads xe as bfloat16; later layers read the f32 z of
+// the layer before and round u = leaky(BN(z)) * m as they stage it.
+//  * forward: a block's CV_ROWS slots (a tile of CV_ROWS - 2h and its
+//    halo) as bfloat16 rows in shared memory, KCH input channels at a
+//    time, times the taps packed as bfloat16 pairs; z = acc + b (f32),
+//    then the tile's (count, mean, M2) as the f32 kernel takes them;
+//  * t pass, d_u_prev: the block's dz (f32, written out for dW) rounded
+//    to bfloat16 rows, times the packed W^T taps in column chunks;
+//  * t pass, dW and db: a block a (channel chunk of TDW_M, tap d, row
+//    split, sample): u's rounded pairs (transposed A) times the rounded
+//    dz rows of the split's stages of TDW_ROWS slots; db from the f32 dz;
+//    one partial row a (sample, split), summed by colsum (no atomics);
+//  * prev_sums: the previous layer's reduce sums over d_u_prev by the
+//    reduce kernel, in the same entry.
+// Bound on the H100: the window products at the bfloat16 rate (989
+// TFLOP/s) and the bytes of z_prev / xe, dz and d_u_prev.
+
+#define KCH 64  // input channels a forward stage
+
+// a bfloat16 row buffer c wide: row stride in halves, 8 mod 64
+__host__ __device__ __forceinline__ int bf_ld(int c) {
+  return ((c + 63) & ~63) + 8;
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// u at slot g, channel c of one sample's rows src (C wide, float or
+// bfloat16 TP); 0 outside [0, n_exp)
+template <class TP>
+__device__ __forceinline__ float u_at_t(const TP* src, const Vecs& bn, int g,
+                                        int c, int C, int n_exp,
+                                        int live_end) {
+  if (g < 0 || g >= n_exp) return 0.f;
+  return u_of(load_f32(src + (size_t)g * C + c), bn, g, c, live_end);
+}
+
+// Taps d = 0..h of a row-major ((h+1) K, N) matrix M (tap d's rows d K..),
+// rows k0 .. k0 + kc - 1 of each, columns n0 .. n0 + ncols - 1, packed as
+// bfloat16 pairs for cb_taps: word (d kp + k/2) ldn + n holds rows k, k + 1
+// (rounded to nearest even; 0 past K, kc and ncols); kp = kc rounded to 16,
+// halved.
+__device__ __forceinline__ void pack_taps(uint32_t* Wt, const float* M, int K,
+                                          int N, int h, int k0, int kc,
+                                          int n0, int ncols, int kp,
+                                          int ldn) {
+  const int np = ldn - 8;
+  for (int i = threadIdx.x; i < (h + 1) * kp * np; i += CV_THREADS) {
+    const int n = i % np, row = i / np;
+    const int d = row / kp, k = 2 * (row - d * kp);
+    float lo = 0.f, hi = 0.f;
+    if (n < ncols) {
+      const float* m = M + ((size_t)d * K + k0 + k) * N + n0 + n;
+      if (k < kc && k0 + k < K) lo = __ldg(m);
+      if (k + 1 < kc && k0 + k + 1 < K) hi = __ldg(m + N);
+    }
+    Wt[(size_t)row * ldn + n] = pack_bf16(lo, hi);
+  }
+}
+
+template <int NT, class TP>
+__global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_fwd_bf16_kernel(
+    const TP* __restrict__ zp, Vecs bnp, const float* __restrict__ w,
+    const float* __restrict__ bias, const int* __restrict__ used,
+    float* __restrict__ z, float* __restrict__ parts, int n_exp, int cin,
+    int cout, int h, int a_words) {
+  constexpr int NP = 8 * NT, LDN = NP + 8, LDA = KCH + 8;
+  constexpr int KP = KCH / 2;
+  extern __shared__ float4 fb_sm4[];
+  unsigned short* A = reinterpret_cast<unsigned short*>(fb_sm4);
+  float* zt = reinterpret_cast<float*>(fb_sm4);  // over A, after the product
+  uint32_t* Wt = reinterpret_cast<uint32_t*>(fb_sm4) + a_words;
+  const int b = blockIdx.y;
+  const int tile = CV_ROWS - 2 * h, t0 = blockIdx.x * tile;
+  const int base = t0 - h;  // slot of block row 0
+  const int live_end = min(used[b], n_exp);
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const TP* src = zp + (size_t)b * n_exp * cin;
+  const int nt = (cout + 7) >> 3;
+  float acc[NT][4];
+  zero_acc<NT>(acc);
+  for (int c0 = 0; c0 < cin; c0 += KCH) {
+    const int kc = min(KCH, cin - c0);
+    for (int i = threadIdx.x; i < CV_ROWS * KCH; i += CV_THREADS) {
+      const int r = i / KCH, c = i - r * KCH;
+      A[r * LDA + c] =
+          c < kc ? bf16_bits(u_at_t(src, bnp, base + r, c0 + c, cin, n_exp,
+                                    live_end))
+                 : (unsigned short)0;
+    }
+    pack_taps(Wt, w, cin, cout, h, c0, kc, 0, cout, KP, LDN);
+    __syncthreads();
+    cb_taps<NT>(acc, A, LDA, r0, Wt, KP, LDN, kc, h, nt);
+    __syncthreads();
+  }
+  // z = acc + b at the tile's rows (block rows h .. h + tile - 1), into zt
+  // (tile x cout, over A) and out
+  const int n_out = min(tile, n_exp - t0);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1) - h, c = 8 * j + 2 * t + (e & 1);
+      if (r < 0 || r >= tile || c >= cout) continue;
+      const float v = acc[j][e] + bias[c];
+      zt[r * cout + c] = v;
+      if (r < n_out) z[((size_t)b * n_exp + t0 + r) * cout + c] = v;
+    }
+  __syncthreads();
+  tile_moments(zt, reinterpret_cast<float*>(Wt),
+               max(0, min(t0 + tile, live_end) - t0), cout,
+               parts + ((size_t)b * gridDim.x + blockIdx.x) * (2 * cout + 1));
+}
+
+// t, d_u_prev: dz over the block's CV_ROWS slots (f32 into dzbuf at the
+// tile's rows; 0 at dead and outside slots), rounded to bfloat16 rows, times
+// W^T's taps (wt (h+1, cout, cin)) in column chunks of 8 NT.
+template <int NT>
+__global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_tdup_bf16_kernel(
+    const float* __restrict__ du, const float* __restrict__ z, Vecs coef,
+    const float* __restrict__ wt, const int* __restrict__ used,
+    float* __restrict__ dup, float* __restrict__ dzbuf, int n_exp, int cin,
+    int cout, int h) {
+  constexpr int NP = 8 * NT, LDN = NP + 8;
+  extern __shared__ float4 tb_sm4[];
+  const int lda = bf_ld(cout), kp = ((cout + 15) & ~15) / 2;
+  unsigned short* A = reinterpret_cast<unsigned short*>(tb_sm4);
+  float* cf = reinterpret_cast<float*>(A + CV_ROWS * lda);  // 6 cout
+  uint32_t* Wt = reinterpret_cast<uint32_t*>(cf + 6 * cout);
+  const int b = blockIdx.y;
+  const int tile = CV_ROWS - 2 * h, t0 = blockIdx.x * tile;
+  const int base = t0 - h;
+  const int live_end = min(used[b], n_exp);
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  for (int i = threadIdx.x; i < 6 * cout; i += CV_THREADS)
+    cf[i] = coef.v[i / cout][i % cout];
+  __syncthreads();
+  const int c16 = (cout + 15) & ~15;
+  for (int i = threadIdx.x; i < CV_ROWS * c16; i += CV_THREADS) {
+    const int r = i / c16, c = i - r * c16, q = base + r;
+    float v = 0.f;
+    if (c < cout && q >= 0 && q < live_end) {
+      const size_t off = ((size_t)b * n_exp + q) * cout + c;
+      v = dz_of(du[off], z[off], cf, c, cout);
+    }
+    if (c < cout && r >= h && r < h + tile && q < n_exp)
+      dzbuf[((size_t)b * n_exp + q) * cout + c] = v;
+    A[r * lda + c] = bf16_bits(v);
+  }
+  const int n_out = min(tile, n_exp - t0);
+  for (int n0 = 0; n0 < cin; n0 += NP) {
+    const int ncols = min(NP, cin - n0);
+    pack_taps(Wt, wt, cout, cin, h, 0, cout, n0, ncols, kp, LDN);
+    __syncthreads();
+    float acc[NT][4];
+    zero_acc<NT>(acc);
+    cb_taps<NT>(acc, A, lda, r0, Wt, kp, LDN, cout, h, (ncols + 7) >> 3);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1) - h, c = 8 * j + 2 * t + (e & 1);
+        if (r >= 0 && r < n_out && c < ncols)
+          dup[((size_t)b * n_exp + t0 + r) * cin + n0 + c] = acc[j][e];
+      }
+    __syncthreads();
+  }
+}
+
+// t, dW and db: block (channel chunk mc and tap d, split s, sample b) takes
+// input channels TDW_M mc.. and the split's slots [s rps, (s+1) rps) (up to
+// live_end + h) in stages of TDW_ROWS: the pairs of u (rounded to bfloat16,
+// rebuilt from z_prev or xe, rows p - h .. of the stage) as the transposed
+// A operand, the stage's dz rounded to bfloat16 as B; warp w takes channels
+// 16 (w & 3).. and the stage's slots 16 (w >> 2)..; the two slot halves
+// are added in a fixed order.  db (mc = d = 0 blocks): thread (k, co) adds
+// the f32 dz of rows k, k + 8, .. of every stage, the 8 lanes in order.
+template <int NT, class TP>
+__global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_tdw_bf16_kernel(
+    const float* __restrict__ dzbuf, const TP* __restrict__ zp, Vecs bnp,
+    const int* __restrict__ used, float* __restrict__ parts, int n_exp,
+    int cin, int cout, int h, int rps) {
+  constexpr int LDU = TDW_M + 8;  // halves
+  extern __shared__ float4 tw_sm4[];
+  const int ldd = ((cout + 7) & ~7) + 8;  // halves
+  unsigned short* U = reinterpret_cast<unsigned short*>(tw_sm4);
+  unsigned short* D = U + (TDW_ROWS + 2 * h) * LDU;  // TDW_ROWS x ldd
+  float* red = reinterpret_cast<float*>(tw_sm4);     // at the end, over U, D
+  const int mc = blockIdx.x / (h + 1), d = blockIdx.x - mc * (h + 1);
+  const int s = blockIdx.y, b = blockIdx.z;
+  const int m0 = mc * TDW_M;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 3, kh = warp >> 2;
+  const int nt = (cout + 7) >> 3;
+  const int live_end = min(used[b], n_exp);
+  const int p_begin = s * rps;
+  const int p_end = min(min(p_begin + rps, n_exp), live_end + h);
+  const TP* src = zp + (size_t)b * n_exp * cin;
+  const bool dbb = mc == 0 && d == 0;
+  float acc[NT][4];
+  zero_acc<NT>(acc);
+  float dbacc[3] = {0.f, 0.f, 0.f};  // 8 cout <= 3 CV_THREADS
+  for (int p0 = p_begin; p0 < p_end; p0 += TDW_ROWS) {
+    for (int i = threadIdx.x; i < (TDW_ROWS + 2 * h) * TDW_M;
+         i += CV_THREADS) {
+      const int r = i / TDW_M, c = i - r * TDW_M;
+      U[r * LDU + c] =
+          m0 + c < cin ? bf16_bits(u_at_t(src, bnp, p0 - h + r, m0 + c, cin,
+                                          n_exp, live_end))
+                       : (unsigned short)0;
+    }
+    for (int i = threadIdx.x; i < TDW_ROWS * cout; i += CV_THREADS) {
+      const int r = i / cout, c = i - r * cout, p = p0 + r;
+      D[r * ldd + c] = p < n_exp ? bf16_bits(dzbuf[((size_t)b * n_exp + p) *
+                                                   cout + c])
+                                 : (unsigned short)0;
+    }
+    if (dbb)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int i = threadIdx.x + CV_THREADS * j;
+        if (i < 8 * cout) {
+          const int k = i / cout, co = i - k * cout;
+          for (int r = k; r < TDW_ROWS && p0 + r < n_exp; r += 8)
+            dbacc[j] += dzbuf[((size_t)b * n_exp + p0 + r) * cout + co];
+        }
+      }
+    __syncthreads();
+    if (m0 + mt * 16 < cin) {
+      uint32_t a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // channel m, slots k, k + 1
+        const int m = mt * 16 + g + (e & 1) * 8;
+        const int k = kh * 16 + 2 * t + (e >> 1) * 8;
+        float v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = k + q + h;  // U row of slot p0 + k + q
+          const auto u = [&](int row) {
+            return __uint_as_float((uint32_t)U[row * LDU + m] << 16);
+          };
+          v[q] = d == 0 ? u(r) : u(r - d) + u(r + d);
+        }
+        a[e] = pack_bf16(v[0], v[1]);
+      }
+      const int k = kh * 16 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= nt) break;
+        const int n = 8 * j + g;
+        const unsigned short* dn = D + k * ldd + n;
+        const uint32_t b0 = pack_bf16_bits(dn[0], dn[ldd]);
+        const uint32_t b1 = pack_bf16_bits(dn[8 * ldd], dn[9 * ldd]);
+        mma_bf16(acc[j], a, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  // the second slot half's sums (red: 64 x (8 NT + 4)), then db's lanes
+  constexpr int LDR = 8 * NT + 4;
+  float* dbl = red + TDW_M * LDR;
+  if (kh == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(mt * 16 + g + 8 * (e >> 1)) * LDR + 8 * j + 2 * t + (e & 1)] =
+            acc[j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int i = threadIdx.x + CV_THREADS * j;
+    if (i < 8 * cout) dbl[i] = dbacc[j];
+  }
+  __syncthreads();
+  const size_t wpart = (size_t)(h + 1) * cin * cout + cout;
+  float* part = parts + ((size_t)b * gridDim.y + s) * wpart;
+  if (kh == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = mt * 16 + g + 8 * (e >> 1);
+        const int n = 8 * j + 2 * t + (e & 1);
+        if (m0 + m < cin && n < cout)
+          part[((size_t)d * cin + m0 + m) * cout + n] =
+              acc[j][e] + red[m * LDR + n];
+      }
+  }
+  if (dbb)
+    for (int co = threadIdx.x; co < cout; co += CV_THREADS) {
+      float v = 0.f;
+      for (int k = 0; k < 8; ++k) v += dbl[k * cout + co];
+      part[(size_t)(h + 1) * cin * cout + co] = v;
+    }
+}
+
 static int colsum(const float* parts, int P, int W, float* out,
                   cudaStream_t s) {
   conv1d_train_colsum_kernel<<<(W + 31) / 32, dim3(32, 8), 0, s>>>(parts, P,
@@ -729,6 +1046,18 @@ extern "C" int ccn_conv1d_train_fwd(const float* zp, const float* pm,
   return (int)cudaGetLastError();
 }
 
+static int reduce(const float* du, const float* z, const Vecs& bn,
+                  const int* used, float* parts, float* sums, int B, int n_exp,
+                  int C, int tile, cudaStream_t s) {
+  dim3 grid((n_exp + tile - 1) / tile, B);
+  conv1d_train_reduce_kernel<<<grid, dim3(32, 8), 0, s>>>(du, z, bn, used,
+                                                          parts, n_exp, C,
+                                                          tile);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return colsum(parts, (int)(grid.x * grid.y), 4 * C, sums, s);
+}
+
 // d_u, z (B, n_exp, C) f32; bn (mean, inv, gamma, beta) (4 C); used (B,)
 // -> sums (4 C): dxh, dxh * xhat, da, da * xhat; parts is scratch of
 // B * ceil(n_exp / tile) rows of 4 C floats.
@@ -739,14 +1068,8 @@ extern "C" int ccn_conv1d_train_reduce(const float* du, const float* z,
                                        void* stream) {
   if (B < 1 || n_exp < 1 || C < 1 || tile < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((n_exp + tile - 1) / tile, B);
-  conv1d_train_reduce_kernel<<<grid, dim3(32, 8), 0, s>>>(du, z, bn, used,
-                                                          parts, n_exp, C,
-                                                          tile);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return colsum(parts, (int)(grid.x * grid.y), 4 * C, sums, s);
+  return reduce(du, z, {{bn, bn + C, bn + 2 * C, bn + 3 * C, nullptr, nullptr}},
+                used, parts, sums, B, n_exp, C, tile, (cudaStream_t)stream);
 }
 
 template <int NT, int NW>
@@ -855,4 +1178,154 @@ extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
   return colsum(parts, B * splits,
                 (h + 1) * cin * cout + cout + (prev_sums ? 4 * cin : 0), sums,
                 s);
+}
+
+template <int NT, class TP>
+static int launch_fwd_bf16(const TP* zp, const Vecs& bnp, const float* w,
+                           const float* bias, const int* used, float* z,
+                           float* parts, int B, int n_exp, int cin, int cout,
+                           int h, int tile, cudaStream_t s) {
+  const int a_words = std::max(CV_ROWS * (KCH + 8) / 2, tile * cout);
+  const int w_words = std::max((h + 1) * (KCH / 2) * (8 * NT + 8), 16 * cout);
+  const size_t smem = (size_t)(a_words + w_words) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv1d_train_fwd_bf16_kernel<NT, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((n_exp + tile - 1) / tile, B);
+  conv1d_train_fwd_bf16_kernel<NT, TP><<<grid, CV_THREADS, smem, s>>>(
+      zp, bnp, w, bias, used, z, parts, n_exp, cin, cout, h, a_words);
+  return (int)cudaGetLastError();
+}
+
+template <class TP>
+static int fwd_bf16(const TP* zp, const Vecs& bnp, const float* w,
+                    const float* bias, const int* used, float* z, float* parts,
+                    int B, int n_exp, int cin, int cout, int h, int tile,
+                    cudaStream_t s) {
+  const int nt = nt_of(cout);
+  return nt == 4 ? launch_fwd_bf16<4>(zp, bnp, w, bias, used, z, parts, B,
+                                      n_exp, cin, cout, h, tile, s)
+       : nt == 8 ? launch_fwd_bf16<8>(zp, bnp, w, bias, used, z, parts, B,
+                                      n_exp, cin, cout, h, tile, s)
+                 : launch_fwd_bf16<12>(zp, bnp, w, bias, used, z, parts, B,
+                                       n_exp, cin, cout, h, tile, s);
+}
+
+// ccn_conv1d_train_fwd under the bfloat16 contract: z_prev (B, n_exp, cin)
+// bfloat16 when zbf (xe, layer 1, no previous BN) else f32; w f32 (rounded
+// to bfloat16 as it is staged); cout <= 96; the rest as there.
+extern "C" int ccn_conv1d_train_fwd_bf16(
+    const void* zp, int zbf, const float* pm, const float* pi,
+    const float* pg, const float* pb, const float* w, const float* bias,
+    const int* used, float* z, float* parts, float* mean, float* var, int B,
+    int n_exp, int cin, int cout, int h, int tile, void* stream) {
+  if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 ||
+      tile != CV_ROWS - 2 * h || tile < 1 || nt_of(cout) == 0 ||
+      (zbf && pm != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Vecs bnp = {{pm, pi, pg, pb, nullptr, nullptr}};
+  const int rc =
+      zbf ? fwd_bf16(static_cast<const __nv_bfloat16*>(zp), bnp, w, bias,
+                     used, z, parts, B, n_exp, cin, cout, h, tile, s)
+          : fwd_bf16(static_cast<const float*>(zp), bnp, w, bias, used, z,
+                     parts, B, n_exp, cin, cout, h, tile, s);
+  if (rc != 0) return rc;
+  conv1d_train_moments_kernel<<<cout, CT_THREADS, 0, s>>>(
+      parts, B * ((n_exp + tile - 1) / tile), cout, mean, var);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+static int launch_tdup_bf16(const float* du, const float* z, const Vecs& coef,
+                            const float* wt, const int* used, float* dup,
+                            float* dzbuf, int B, int n_exp, int cin, int cout,
+                            int h, cudaStream_t s) {
+  const int kp = ((cout + 15) & ~15) / 2;
+  const size_t smem = (size_t)CV_ROWS * bf_ld(cout) * 2 + 6 * cout * 4 +
+                      (size_t)(h + 1) * kp * (8 * NT + 8) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv1d_train_tdup_bf16_kernel<NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tile = CV_ROWS - 2 * h;
+  dim3 grid((n_exp + tile - 1) / tile, B);
+  conv1d_train_tdup_bf16_kernel<NT><<<grid, CV_THREADS, smem, s>>>(
+      du, z, coef, wt, used, dup, dzbuf, n_exp, cin, cout, h);
+  return (int)cudaGetLastError();
+}
+
+template <int NT, class TP>
+static int launch_tdw_bf16(const float* dzbuf, const TP* zp, const Vecs& bnp,
+                           const int* used, float* parts, int B, int n_exp,
+                           int cin, int cout, int h, int splits, int rps,
+                           cudaStream_t s) {
+  const size_t stage = (size_t)(TDW_ROWS + 2 * h) * (TDW_M + 8) * 2 +
+                       (size_t)TDW_ROWS * (((cout + 7) & ~7) + 8) * 2;
+  const size_t tail = ((size_t)TDW_M * (8 * NT + 4) + 8 * cout) * 4;
+  const size_t smem = std::max(stage, tail);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv1d_train_tdw_bf16_kernel<NT, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(((cin + TDW_M - 1) / TDW_M) * (h + 1), splits, B);
+  conv1d_train_tdw_bf16_kernel<NT, TP><<<grid, CV_THREADS, smem, s>>>(
+      dzbuf, zp, bnp, used, parts, n_exp, cin, cout, h, rps);
+  return (int)cudaGetLastError();
+}
+
+template <class TP>
+static int tdw_bf16(const float* dzbuf, const TP* zp, const Vecs& bnp,
+                    const int* used, float* parts, int B, int n_exp, int cin,
+                    int cout, int h, int splits, int rps, cudaStream_t s) {
+  const int nt = nt_of(cout);
+  return nt == 4 ? launch_tdw_bf16<4>(dzbuf, zp, bnp, used, parts, B, n_exp,
+                                      cin, cout, h, splits, rps, s)
+       : nt == 8 ? launch_tdw_bf16<8>(dzbuf, zp, bnp, used, parts, B, n_exp,
+                                      cin, cout, h, splits, rps, s)
+                 : launch_tdw_bf16<12>(dzbuf, zp, bnp, used, parts, B, n_exp,
+                                       cin, cout, h, splits, rps, s);
+}
+
+// ccn_conv1d_train_t under the bfloat16 contract: z_prev bfloat16 when zbf
+// (xe, layer 1) else f32; wt f32 (h+1, cout, cin) rounded to bfloat16 as it
+// is staged; dzbuf scratch of B n_exp cout floats (dz, f32); parts scratch
+// of B * splits rows of (h+1) cin cout + cout floats (splits, rps: the
+// row splits of ops/conv1d_train.py dw_splits); with prev_sums (a previous
+// BN) rparts is scratch of B * ceil(n_exp / CV_ROWS) rows of 4 cin floats
+// and sums also holds, after db, the previous layer's reduce sums over
+// d_u_prev, as ccn_conv1d_train_t gives them; cout <= 96.
+extern "C" int ccn_conv1d_train_t_bf16(
+    const float* du, const float* z, const void* zp, int zbf, const float* m,
+    const float* i, const float* g, const float* b, const float* c1,
+    const float* c2, const float* pm, const float* pi, const float* pg,
+    const float* pb, const float* wt, const int* used, float* dup,
+    float* dzbuf, float* parts, float* rparts, float* sums, int B, int n_exp,
+    int cin, int cout, int h, int splits, int rps, int prev_sums,
+    void* stream) {
+  if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 ||
+      nt_of(cout) == 0 || CV_ROWS - 2 * h < 1 || splits < 1 || rps < 1 ||
+      rps % TDW_ROWS != 0 || (long long)splits * rps < n_exp ||
+      (zbf && pm != nullptr) ||
+      (prev_sums && (pm == nullptr || zbf || rparts == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Vecs coef = {{m, i, g, b, c1, c2}};
+  const Vecs bnp = {{pm, pi, pg, pb, nullptr, nullptr}};
+  int rc = cin <= 32 ? launch_tdup_bf16<4>(du, z, coef, wt, used, dup, dzbuf,
+                                           B, n_exp, cin, cout, h, s)
+                     : launch_tdup_bf16<8>(du, z, coef, wt, used, dup, dzbuf,
+                                           B, n_exp, cin, cout, h, s);
+  if (rc != 0) return rc;
+  rc = zbf ? tdw_bf16(dzbuf, static_cast<const __nv_bfloat16*>(zp), bnp, used,
+                      parts, B, n_exp, cin, cout, h, splits, rps, s)
+           : tdw_bf16(dzbuf, static_cast<const float*>(zp), bnp, used, parts,
+                      B, n_exp, cin, cout, h, splits, rps, s);
+  if (rc != 0) return rc;
+  const int n_dw = (h + 1) * cin * cout + cout;
+  rc = colsum(parts, B * splits, n_dw, sums, s);
+  if (rc != 0 || !prev_sums) return rc;
+  return reduce(dup, static_cast<const float*>(zp), bnp, used, rparts,
+                sums + n_dw, B, n_exp, cin, CV_ROWS, s);
 }

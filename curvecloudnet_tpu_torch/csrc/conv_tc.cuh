@@ -248,3 +248,49 @@ template <int NT>
 constexpr int stream_words() {
   return 2 * CV_ROWS * CV_LDA + 2 * CvDims<NT>::BSTAGE;
 }
+
+// The bfloat16 window product of K1's and K8's bfloat16 variants
+// (conv1d_chain.cu, conv1d_train.cu): one mma.sync m16n8k16 a 16-deep
+// step, the pairs summed and rounded in bfloat16 on the input side.
+// acc (NT 8-column tiles of the warp's 16 rows r0 ..) += the (h+1) tap
+// products of layer input A (bfloat16, row stride lda, cin wide, 0 from
+// cin to cin rounded to 16) against the packed taps Wt: tap d's rows are
+// the pair sums A(r - d) + A(r + d), rounded to bfloat16 (tap 0: A(r)).
+template <int NT>
+__device__ __forceinline__ void cb_taps(float (&acc)[NT][4],
+                                        const unsigned short* A, int lda,
+                                        int r0, const uint32_t* Wt, int kp,
+                                        int ldn, int cin, int h, int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ksteps = (cin + 15) >> 4;
+  for (int d = 0; d <= h; ++d) {
+    const uint32_t* Wd = Wt + (size_t)d * kp * ldn;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int c = ks * 16 + 2 * t;
+      uint32_t a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + (e & 1) * 8, col = c + (e >> 1) * 8;
+        if (d == 0) {
+          a[e] = *reinterpret_cast<const uint32_t*>(A + r * lda + col);
+        } else {
+          const int rm = r - d, rp = r + d;
+          const uint32_t um =
+              rm >= 0 ? *reinterpret_cast<const uint32_t*>(A + rm * lda + col)
+                      : 0u;
+          const uint32_t up = rp < CV_ROWS ? *reinterpret_cast<const uint32_t*>(
+                                                 A + rp * lda + col)
+                                           : 0u;
+          a[e] = pack_bf16(
+              __uint_as_float(um << 16) + __uint_as_float(up << 16),
+              __uint_as_float(um & 0xffff0000u) +
+                  __uint_as_float(up & 0xffff0000u));
+        }
+      }
+      const uint32_t* wb = Wd + (size_t)(ks * 8 + t) * ldn + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma_bf16(acc[j], a, wb[8 * j], wb[4 * ldn + 8 * j]);
+    }
+  }
+}

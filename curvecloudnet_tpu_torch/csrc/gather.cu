@@ -26,9 +26,22 @@
 // elements) when C % 8 == 0 and both tensors are 16-byte aligned, else one
 // element a lane; the values are copied bit for bit.
 //
+// K4b's bfloat16 variant (ccn_scatter_km_bf16, a model training in
+// bfloat16; replaces _collapse and the scatter of _gather_bwd on bfloat16
+// cotangents): reads the 2-byte cotangent rows an element a lane, so a
+// warp's 32 atomics fall on neighbouring addresses and coalesce as K4b's
+// do (8 elements a lane from 16-byte loads made the adds 4x slower), adds
+// them as f32 atomics into a zeroed f32 scratch, then one pass rounds the
+// scratch to bfloat16 to nearest even (__float2bfloat16_rn): the sums are
+// f32 and each result is rounded once, as the JAX package's f32 sums cast
+// to the source dtype; nothing accumulates in bfloat16.
+//
 // Bound on the H100: bytes (K4 reads and writes R * C floats, or R * C
-// bfloat16 values; K4b reads them and adds into B * N * C).
+// bfloat16 values; K4b reads them and adds into B * N * C; its bfloat16
+// variant reads R * C bfloat16 values and writes B * N * C).
 
+#include <cuda_bf16.h>
+#include <algorithm>
 #include <cuda_runtime.h>
 
 __global__ void gather_km_kernel(const float* __restrict__ src,
@@ -88,6 +101,32 @@ __global__ void scatter_km_kernel(const float* __restrict__ d_out,
   for (int c = lane; c < C; c += 32) atomicAdd(row + c, g[c]);
 }
 
+// bfloat16 rows of C elements (raw bits) added as f32 into d_src (B, N, C)
+__global__ void scatter_km_bf16_kernel(
+    const unsigned short* __restrict__ d_out, const int* __restrict__ idx,
+    float* __restrict__ d_src, int N, long long R, int C, int fill) {
+  const long long slot = (long long)blockIdx.x * (blockDim.x / 32) +
+                         threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  if (slot >= R) return;
+  const int j = idx[(size_t)b * R + slot];
+  if (fill && j < 0) return;
+  const unsigned short* g = d_out + ((size_t)b * R + slot) * C;
+  float* row = d_src + ((size_t)b * N + (j < 0 ? 0 : j)) * C;
+  for (int c = lane; c < C; c += 32)
+    atomicAdd(row + c, __uint_as_float((unsigned)g[c] << 16));
+}
+
+// out[i] = bfloat16(acc[i]), to nearest even
+__global__ void scatter_km_round_kernel(const float* __restrict__ acc,
+                                  __nv_bfloat16* __restrict__ out,
+                                  long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16_rn(acc[i]);
+}
+
 static dim3 slot_grid(int B, long long R) {
   return dim3((unsigned)((R + 7) / 8), (unsigned)B);  // 8 warps per block
 }
@@ -128,5 +167,24 @@ extern "C" int ccn_scatter_km(const float* d_out, const int* idx,
   if (B < 1 || N < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
   scatter_km_kernel<<<slot_grid(B, R), 256, 0, (cudaStream_t)stream>>>(
       d_out, idx, d_src, N, R, C, fill);
+  return (int)cudaGetLastError();
+}
+
+// d_out (B, R, C) bfloat16 -> d_src (B, N, C) bfloat16 through acc, f32
+// scratch of B * N * C zeroed by the caller
+extern "C" int ccn_scatter_km_bf16(const unsigned short* d_out,
+                                   const int* idx, float* acc,
+                                   __nv_bfloat16* d_src, int B, int N,
+                                   long long R, int C, int fill,
+                                   void* stream) {
+  if (B < 1 || N < 1 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  scatter_km_bf16_kernel<<<slot_grid(B, R), 256, 0, st>>>(d_out, idx, acc, N,
+                                                         R, C, fill);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n = (long long)B * N * C;
+  const long long blocks = std::min<long long>((n + 255) / 256, 132 * 16);
+  scatter_km_round_kernel<<<(unsigned)blocks, 256, 0, st>>>(acc, d_src, n);
   return (int)cudaGetLastError();
 }

@@ -340,15 +340,10 @@ class CurveCloudNet(nn.Module):
         from ``generator`` in step order, then the head's dropout (its
         keep-masks, in order, may be given as ``dropout_masks``).
 
-        With ``compute_dtype: bfloat16`` the model evaluates as the JAX
-        package's does (the Linears and the kernels' products in bfloat16,
-        the logits bfloat16); a train forward raises: the train kernels K7,
-        K8 and K4b take float32 only."""
-        if train and self.spec.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "compute_dtype 'bfloat16' evaluates only: the train kernels "
-                "K7 (group_train), K8 (conv1d_train) and K4b (scatter_km) "
-                "take float32, their bfloat16 variants are not ported")
+        With ``compute_dtype: bfloat16`` the model evaluates and trains as
+        the JAX package's does (the Linears and the kernels' products in
+        bfloat16, the logits bfloat16; parameters, BN statistics and
+        gradients float32)."""
         if (categories is None) == (self.lin_categorical is not None):
             raise ValueError("categories are given exactly when the spec "
                              "has with_seg_category")

@@ -98,7 +98,9 @@ def _grouped(h1, mask, local_nn: MLP, attend_nn: Optional[MLP], aggr: str,
             for norm, st in pairs:
                 norm(st[0][None], train=True, momentum=bn_momentum,
                      stats_override=st, update_running=True)
-        return out
+        # K7 returns float32; the step returns the compute dtype (the JAX
+        # package's _fused_group_train)
+        return out.to(local_nn.dtype or torch.float32)
     aff, local = group_reduce.fold_mlp_eval(local_nn)
     att = (group_reduce.fold_full_mlp_eval(attend_nn)
            if attend_nn is not None else None)
@@ -227,7 +229,8 @@ class SymmetricCurveConvStep(nn.Module):
         """Kernel K8 over the gap layout: BN statistics over every live slot,
         gap slots included (the JAX package's ``mask_exp``); the running
         statistics are written from K8's batch statistics, as ``_grouped``
-        does for K7."""
+        does for K7.  The chain's products take xe's dtype (a bfloat16
+        step input: K8's bfloat16 variant) and its output has it."""
         params = []
         for conv, norm in zip(self.conv_modules, self.norm_modules):
             o, i, taps = conv.weight.shape

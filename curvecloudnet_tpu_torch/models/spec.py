@@ -130,8 +130,8 @@ class ModelSpec:
     skip_connect_state_store: Tuple[str, ...] = ()
     identity_head: bool = False
     # "float32" or "bfloat16": the matmul compute dtype (parameters and BN
-    # statistics stay float32), as in the JAX package; the port evaluates in
-    # either, and a train forward in bfloat16 raises (CurveCloudNet.forward)
+    # statistics stay float32), as in the JAX package; the port evaluates
+    # and trains in either
     compute_dtype: str = "float32"
     # static per-row curve-count budget for the conv1d-fast-v2 gap layout
     # (reference fast_conv1d.py:49-74 zero-stuffs every curve boundary);

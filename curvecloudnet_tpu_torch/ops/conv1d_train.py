@@ -40,6 +40,20 @@ chain, differentiated by torch autograd.  :class:`_Conv1dChainTrain` runs
 the passes as a ``torch.autograd.Function`` (:func:`conv1d_chain_passes`);
 :func:`conv1d_chain_train` takes it for CUDA tensors and the plain chain
 for CPU tensors.
+
+A bfloat16 xe (a model computing in bfloat16) takes the JAX package's
+bfloat16 contract through the whole chain (``pallas_conv1d.py``: ``cdt``
+is xe's dtype): each layer input u, and in the t pass dz, is rounded to
+bfloat16, the symmetric pairs u(q-d) + u(q+d) (dz(q-d) + dz(q+d) for
+d_u_prev, u_prev's pairs for dW) are summed and rounded in bfloat16, the
+weights are rounded to bfloat16, and the products sum in float32; z, the
+statistics, the BN and its backward, the reduce pass, db and the
+d_u_prev between layers stay float32; u_L and d_xe have xe's dtype.  The
+passes take it with ``bf16=True`` (the wrappers launch K8's bfloat16
+kernels, ``conv1d_train_fwd_layer_bf16`` and ``conv1d_train_bwd_t_bf16``);
+on the CPU the bfloat16 chain runs :class:`_Conv1dChainTrain` over the
+plain passes, since torch autograd of the plain chain would round its
+backward elsewhere than the kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +65,9 @@ from .conv1d_chain import MAX_N, ROWS
 from .curve1d import window_concat_nomask
 
 EPS = 1e-5
+# widest C_out of the bfloat16 passes' products (csrc/conv1d_train.cu
+# nt_of: 12 8-column tiles)
+MAX_N_BF16 = 96
 
 
 def _live(used, n_exp: int, device) -> torch.Tensor:
@@ -94,26 +111,47 @@ def _u_of(z, bn, live):
     return _leaky(_affine(z, bn)[1]) * live
 
 
+def _wide(x):
+    """x in the plain versions' working dtype: float32 for bfloat16, else
+    its own (float64 in the gradient checks)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _window_mm(x, w, h: int, bf16: bool):
+    """window(x) @ w: float32, or (``bf16``) x rounded to bfloat16, its
+    pairs summed in bfloat16, times w rounded to bfloat16, summed in
+    float32 (products of two bfloat16 values are exact in float32)."""
+    if not bf16:
+        return window_concat_nomask(x, h) @ w
+    win = window_concat_nomask(x.to(torch.bfloat16), h)
+    return win.float() @ w.to(torch.bfloat16).float()
+
+
 def conv1d_chain_train_ref(xe, params, used, half_k: int):
-    """xe (B, n_exp, C0) f32, params ((W, b, gamma, beta), ...), used (B,).
-    Returns (u_L (B, n_exp, C_L), ((mean, var, n), ...))."""
+    """xe (B, n_exp, C0) f32 or bf16, params ((W, b, gamma, beta), ...),
+    used (B,).  Returns (u_L (B, n_exp, C_L) in xe's dtype, ((mean, var,
+    n), ...))."""
     live = _live(used, xe.shape[1], xe.device)
     n = _count(used)
-    u, stats = xe, []
+    bf = xe.dtype == torch.bfloat16
+    u, stats = _wide(xe), []
     for w, b, gam, bet in params:
-        z = window_concat_nomask(u, half_k) @ w + b
+        z = _window_mm(u, w, half_k, bf) + b
         mean, var = _masked_moments(z, live, n)
         u = _leaky((z - mean) * torch.rsqrt(var + EPS) * gam + bet) * live
         stats.append((mean, var, n))
-    return u, tuple(stats)
+    return u.to(xe.dtype), tuple(stats)
 
 
-def conv1d_train_fwd_layer_ref(z_prev, bn_prev, w, b, used, half_k: int):
+def conv1d_train_fwd_layer_ref(z_prev, bn_prev, w, b, used, half_k: int,
+                               bf16: bool = False):
     """One forward pass: z_prev (B, n_exp, C_in) (xe on layer 1, with
     ``bn_prev`` None) and the previous layer's (mean, inv, gamma, beta) ->
-    (z (B, n_exp, C_out), mean, var) with the statistics over live slots."""
+    (z (B, n_exp, C_out) f32, mean, var) with the statistics over live
+    slots; ``bf16``: the products under the bfloat16 contract."""
     live = _live(used, z_prev.shape[1], z_prev.device)
-    z = window_concat_nomask(_u_of(z_prev, bn_prev, live), half_k) @ w + b
+    z = _window_mm(_u_of(_wide(z_prev), bn_prev, live), w, half_k,
+                   bf16) + b
     return (z, *_masked_moments(z, live, _count(used)))
 
 
@@ -128,11 +166,14 @@ def conv1d_train_bwd_reduce_ref(d_u, z, bn, used):
 
 
 def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
-                           half_k: int, prev_sums: bool = False):
+                           half_k: int, prev_sums: bool = False,
+                           bf16: bool = False):
     """The t pass: dz = inv (dxh - m (c1 + xhat c2)) -> (d_u_prev
-    (B, n_exp, C_in), dW ((h+1) C_in, C_out), db (C_out,)); with
+    (B, n_exp, C_in) f32, dW ((h+1) C_in, C_out), db (C_out,)); with
     ``prev_sums`` also the previous layer's reduce sums over d_u_prev
-    (:func:`conv1d_train_bwd_reduce_ref` of d_u_prev, z_prev, bn_prev)."""
+    (:func:`conv1d_train_bwd_reduce_ref` of d_u_prev, z_prev, bn_prev);
+    ``bf16``: d_u_prev's and dW's products under the bfloat16 contract
+    (dz rounded to bfloat16 for both, db from the float32 dz)."""
     h = half_k
     live = _live(used, z.shape[1], z.device)
     _, inv, gam, _ = bn
@@ -141,9 +182,15 @@ def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
     dz = inv * (da * gam - live * (c1 + xhat * c2))
     c_in, c_out = z_prev.shape[-1], w.shape[1]
     w_t = w.reshape(h + 1, c_in, c_out).transpose(1, 2).reshape(-1, c_in)
-    d_u_prev = window_concat_nomask(dz, h) @ w_t
-    win = window_concat_nomask(_u_of(z_prev, bn_prev, live), h)
-    dw = torch.einsum("bqi,bqo->io", win, dz)
+    d_u_prev = _window_mm(dz, w_t, h, bf16)
+    u_prev = _u_of(_wide(z_prev), bn_prev, live)
+    if bf16:
+        win = window_concat_nomask(u_prev.to(torch.bfloat16), h).float()
+        dw = torch.einsum("bqi,bqo->io", win,
+                          dz.to(torch.bfloat16).float())
+    else:
+        dw = torch.einsum("bqi,bqo->io", window_concat_nomask(u_prev, h),
+                          dz)
     if prev_sums:
         return (d_u_prev, dw, dz.sum(dim=(0, 1)),
                 conv1d_train_bwd_reduce_ref(d_u_prev, z_prev, bn_prev, used))
@@ -179,13 +226,14 @@ def fwd_tile(h: int) -> int:
     return ROWS - 2 * h
 
 
-def dw_splits(n_exp: int, c_in: int, bsz: int):
+def dw_splits(n_exp: int, c_in: int, bsz: int, bf16: bool = False):
     """(splits, slots a split) of the t pass's weight gradient: the
-    ROWS-slot tiles for inputs up to DW_FUSED wide, else rows of a sample
-    cut into ranges of a multiple of DW_STAGE slots, so that about
-    DW_BLOCKS blocks run; depends on the shapes only (a call's partials are
-    summed in the same order every time)."""
-    if c_in <= DW_FUSED:
+    ROWS-slot tiles for inputs up to DW_FUSED wide (float32), else rows of
+    a sample cut into ranges of a multiple of DW_STAGE slots, so that about
+    DW_BLOCKS blocks run (the bfloat16 t pass's separate dW kernel takes
+    these for every width); depends on the shapes only (a call's partials
+    are summed in the same order every time)."""
+    if c_in <= DW_FUSED and not bf16:
         return -(-n_exp // ROWS), ROWS
     m_chunks = -(-c_in // DW_M)
     want = max(1, -(-DW_BLOCKS // (m_chunks * bsz)))
@@ -228,11 +276,17 @@ def _vec_ptrs(vecs, c: int, name: str):
     return out
 
 
-def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int):
-    """K8's forward pass for CUDA tensors, its plain version for CPU
-    tensors.  Returns what :func:`conv1d_train_fwd_layer_ref` returns."""
+def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int,
+                           bf16: bool = False):
+    """K8's forward pass for CUDA tensors (:func:`conv1d_train_fwd_layer_bf16`
+    with ``bf16``), its plain version for CPU tensors.  Returns what
+    :func:`conv1d_train_fwd_layer_ref` returns."""
     if z_prev.device.type == "cpu":
-        return conv1d_train_fwd_layer_ref(z_prev, bn_prev, w, b, used, half_k)
+        return conv1d_train_fwd_layer_ref(z_prev, bn_prev, w, b, used, half_k,
+                                          bf16)
+    if bf16:
+        return conv1d_train_fwd_layer_bf16(z_prev, bn_prev, w, b, used,
+                                           half_k)
     _check(z_prev, w, half_k)
     bsz, n_exp, c_in = z_prev.shape
     c_out = w.shape[1]
@@ -257,6 +311,46 @@ def conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used, half_k: int):
         bsz, n_exp, c_in, c_out, half_k, tile, _build.stream_ptr(dev))
     _build.check(rc, "ccn_conv1d_train_fwd")
     conv1d_train_fwd_layer.launches += 1
+    return z, mean, var
+
+
+def _check_bf16(z_prev, w, half_k: int):
+    if (z_prev.dim() != 3 or w.shape[0] != (half_k + 1) * z_prev.shape[-1]
+            or w.shape[1] > MAX_N_BF16 or fwd_tile(half_k) < 1
+            or z_prev.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"conv1d train bf16 kernel: input "
+                         f"{tuple(z_prev.shape)} {z_prev.dtype} and W "
+                         f"{tuple(w.shape)} with h={half_k}")
+
+
+def conv1d_train_fwd_layer_bf16(z_prev, bn_prev, w, b, used, half_k: int):
+    """K8's forward pass under the bfloat16 contract, CUDA tensors only:
+    z_prev bfloat16 (xe, layer 1) or float32 (a previous z)."""
+    _check_bf16(z_prev, w, half_k)
+    bsz, n_exp, c_in = z_prev.shape
+    c_out = w.shape[1]
+    dev = z_prev.device
+    tile = fwd_tile(half_k)
+    n_tiles = -(-n_exp // tile)
+    zbf = z_prev.dtype == torch.bfloat16
+    z_prev = z_prev.contiguous()
+    wc = w.detach().float().contiguous()
+    bc = b.detach().float().contiguous()
+    used = used.to(torch.int32).contiguous()
+    z = torch.empty((bsz, n_exp, c_out), device=dev)
+    parts = torch.empty((bsz * n_tiles, 2 * c_out + 1), device=dev)
+    mean = torch.empty(c_out, device=dev)
+    var = torch.empty(c_out, device=dev)
+    rc = _build.library().ccn_conv1d_train_fwd_bf16(
+        _build.ptr(z_prev, z_prev.dtype, "z_prev", 3), int(zbf),
+        *_vec_ptrs(bn_prev, c_in, "bn_prev"),
+        _build.ptr(wc, torch.float32, "w", 2),
+        _build.ptr(bc, torch.float32, "b", 1),
+        _build.ptr(used, torch.int32, "used", 1),
+        z.data_ptr(), parts.data_ptr(), mean.data_ptr(), var.data_ptr(),
+        bsz, n_exp, c_in, c_out, half_k, tile, _build.stream_ptr(dev))
+    _build.check(rc, "ccn_conv1d_train_fwd_bf16")
+    conv1d_train_fwd_layer_bf16.launches += 1
     return z, mean, var
 
 
@@ -288,13 +382,18 @@ def conv1d_train_bwd_reduce(d_u, z, bn, used):
 
 
 def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
-                       half_k: int, prev_sums: bool = False):
-    """K8's t pass for CUDA tensors, its plain version for CPU tensors.
-    Returns what :func:`conv1d_train_bwd_t_ref` returns; ``prev_sums``
-    needs a previous BN and an input :func:`fused_reduce` admits."""
+                       half_k: int, prev_sums: bool = False,
+                       bf16: bool = False):
+    """K8's t pass for CUDA tensors (:func:`conv1d_train_bwd_t_bf16` with
+    ``bf16``), its plain version for CPU tensors.  Returns what
+    :func:`conv1d_train_bwd_t_ref` returns; ``prev_sums`` needs a previous
+    BN and an input :func:`fused_reduce` admits."""
     if z.device.type == "cpu":
         return conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2,
-                                      used, half_k, prev_sums)
+                                      used, half_k, prev_sums, bf16)
+    if bf16:
+        return conv1d_train_bwd_t_bf16(d_u, z, z_prev, bn, bn_prev, w, c1,
+                                       c2, used, half_k, prev_sums)
     _check(z_prev, w, half_k)
     h = half_k
     bsz, n_exp, c_out = z.shape
@@ -339,9 +438,61 @@ def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
     return out
 
 
+def conv1d_train_bwd_t_bf16(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
+                            half_k: int, prev_sums: bool = False):
+    """K8's t pass under the bfloat16 contract, CUDA tensors only: z_prev
+    bfloat16 (xe, layer 1) or float32; d_u_prev float32.  With
+    ``prev_sums`` the same launch also takes the previous layer's reduce
+    sums over d_u_prev (K8's reduce kernel, in the entry)."""
+    _check_bf16(z_prev, w, half_k)
+    h = half_k
+    bsz, n_exp, c_out = z.shape
+    c_in = z_prev.shape[-1]
+    if prev_sums and bn_prev is None:
+        raise ValueError("conv1d train bf16 kernel: prev_sums needs a "
+                         "previous BN")
+    dev = z.device
+    splits, rps = dw_splits(n_exp, c_in, bsz, bf16=True)
+    zbf = z_prev.dtype == torch.bfloat16
+    d_u = d_u.float().contiguous()
+    z = z.float().contiguous()
+    z_prev = z_prev.contiguous()
+    w_t = (w.detach().float().reshape(h + 1, c_in, c_out).transpose(1, 2)
+           .contiguous())
+    used = used.to(torch.int32).contiguous()
+    n_dw = (h + 1) * c_in * c_out
+    d_u_prev = torch.empty((bsz, n_exp, c_in), device=dev)
+    dz = torch.empty((bsz, n_exp, c_out), device=dev)
+    width = n_dw + c_out + (4 * c_in if prev_sums else 0)
+    parts = torch.empty((bsz * splits, n_dw + c_out), device=dev)
+    rparts = (torch.empty((bsz * -(-n_exp // ROWS), 4 * c_in), device=dev)
+              if prev_sums else None)
+    sums = torch.empty(width, device=dev)
+    rc = _build.library().ccn_conv1d_train_t_bf16(
+        _build.ptr(d_u, torch.float32, "d_u", 3),
+        _build.ptr(z, torch.float32, "z", 3),
+        _build.ptr(z_prev, z_prev.dtype, "z_prev", 3), int(zbf),
+        *_vec_ptrs((*bn, c1, c2), c_out, "bn"),
+        *_vec_ptrs(bn_prev, c_in, "bn_prev"),
+        _build.ptr(w_t, torch.float32, "w_t", 3),
+        _build.ptr(used, torch.int32, "used", 1),
+        d_u_prev.data_ptr(), dz.data_ptr(), parts.data_ptr(),
+        None if rparts is None else rparts.data_ptr(),
+        sums.data_ptr(), bsz, n_exp, c_in, c_out, h, splits, rps,
+        int(prev_sums), _build.stream_ptr(dev))
+    _build.check(rc, "ccn_conv1d_train_t_bf16")
+    conv1d_train_bwd_t_bf16.launches += 1
+    out = (d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:n_dw + c_out])
+    if prev_sums:
+        return (*out, tuple(sums[n_dw + c_out:].view(4, c_in).unbind(0)))
+    return out
+
+
 conv1d_train_fwd_layer.launches = 0
 conv1d_train_bwd_reduce.launches = 0
 conv1d_train_bwd_t.launches = 0
+conv1d_train_fwd_layer_bf16.launches = 0
+conv1d_train_bwd_t_bf16.launches = 0
 
 
 def _bn_of(stats, params, li):
@@ -358,16 +509,18 @@ class _Conv1dChainTrain(torch.autograd.Function):
     def forward(ctx, half_k, xe, used, *flat):
         params = [flat[i:i + 4] for i in range(0, len(flat), 4)]
         n = _count(used)
+        bf = xe.dtype == torch.bfloat16
         zs, stats = [], []
         z_prev, bn_prev = xe, None
         for li, (w, b, _, _) in enumerate(params):
             z, mean, var = conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used,
-                                                  half_k)
+                                                  half_k, bf)
             zs.append(z)
             stats += [mean, var]
             z_prev, bn_prev = z, _bn_of(stats, params, li)
         out = _u_of(z_prev, bn_prev, _live(used, xe.shape[1], xe.device))
-        ctx.half_k, ctx.n_layers = half_k, len(params)
+        out = out.to(xe.dtype)
+        ctx.half_k, ctx.n_layers, ctx.bf = half_k, len(params), bf
         ctx.save_for_backward(xe, used, n, *flat, *zs, *stats)
         ctx.mark_non_differentiable(n, *stats)
         return (out, n, *stats)
@@ -378,7 +531,7 @@ class _Conv1dChainTrain(torch.autograd.Function):
         xe, used, n, *rest = ctx.saved_tensors
         flat, zs, stats = rest[:4 * L], rest[4 * L:5 * L], rest[5 * L:]
         params = [flat[i:i + 4] for i in range(0, 4 * L, 4)]
-        d_u = d_out.contiguous()
+        d_u = _wide(d_out).contiguous()
         grads = [None] * (4 * L)
         sums = None  # layer li's reduce sums, when layer li + 1 took them
         for li in range(L - 1, -1, -1):
@@ -391,10 +544,10 @@ class _Conv1dChainTrain(torch.autograd.Function):
             fuse = li > 0 and fused_reduce(z_prev.shape[-1])
             d_u, dw, db, *rest = conv1d_train_bwd_t(
                 d_u, zs[li], z_prev, bn, bn_prev, params[li][0], s_dxh / n,
-                s_dxh_xh / n, used, h, prev_sums=fuse)
+                s_dxh_xh / n, used, h, prev_sums=fuse, bf16=ctx.bf)
             sums = rest[0] if fuse else None
             grads[4 * li:4 * li + 4] = [dw, db, s_da_xh, s_da]
-        return (None, d_u, None, *grads)
+        return (None, d_u.to(xe.dtype), None, *grads)
 
 
 def conv1d_chain_passes(xe, params, used, half_k: int):
@@ -409,7 +562,8 @@ def conv1d_chain_passes(xe, params, used, half_k: int):
 
 def conv1d_chain_train(xe, params, used, half_k: int):
     """The train chain through K8's passes for CUDA tensors, the plain chain
-    (torch autograd) for CPU tensors."""
-    if xe.device.type == "cpu":
+    (torch autograd) for float32 CPU tensors and the plain passes for
+    bfloat16 ones (the kernels' backward contract)."""
+    if xe.device.type == "cpu" and xe.dtype != torch.bfloat16:
         return conv1d_chain_train_ref(xe, params, used, half_k)
     return conv1d_chain_passes(xe, params, used, half_k)

@@ -12,7 +12,10 @@ runs the plain version for CPU tensors and the kernel for CUDA tensors.
 src (B, N, C), idx (B, K, Q) with -1 fill -> (B, K, Q, C) = src[max(idx, 0)];
 with ``fill`` the slots where idx < 0 read zeros and, in the backward,
 add nothing.  A bfloat16 src (a model computing in bfloat16) is gathered
-by :func:`gather_km_bf16`, rows of 2-byte elements, in eval only.
+by :func:`gather_km_bf16`, rows of 2-byte elements, and its bfloat16
+cotangents are summed by :func:`scatter_km_bf16`: float32 sums, rounded
+to bfloat16 once, as the JAX package's ``_gather_bwd`` (f32 ``_collapse``
+and scatter, then ``astype`` the source dtype).
 """
 
 from __future__ import annotations
@@ -33,14 +36,17 @@ def gather_km_ref(src, idx, fill: bool = True):
 
 
 def scatter_km_ref(d_out, idx, n: int, fill: bool = True):
-    """The gather's transpose: (B, K, Q, C) cotangents -> (B, N, C)."""
+    """The gather's transpose: (B, K, Q, C) cotangents -> (B, N, C) in
+    d_out's dtype, summed in float32 for bfloat16 cotangents."""
     b, c = d_out.shape[0], d_out.shape[-1]
     if fill:
         d_out = torch.where((idx >= 0)[..., None], d_out,
                             torch.zeros_like(d_out))
     rows = torch.clamp(idx, min=0).reshape(b, -1, 1).long().expand(-1, -1, c)
-    out = torch.zeros((b, n, c), dtype=d_out.dtype, device=d_out.device)
-    return out.scatter_add_(1, rows, d_out.reshape(b, -1, c))
+    wdt = torch.float32 if d_out.dtype == torch.bfloat16 else d_out.dtype
+    out = torch.zeros((b, n, c), dtype=wdt, device=d_out.device)
+    out.scatter_add_(1, rows, d_out.reshape(b, -1, c).to(wdt))
+    return out.to(d_out.dtype)
 
 
 def _check_idx(idx):
@@ -86,9 +92,12 @@ def _gather(src, idx, fill: bool, dtype):
 
 
 def scatter_km(d_out, idx, n: int, fill: bool = True):
-    """Kernel K4b for CUDA tensors, its plain version for CPU tensors."""
+    """Kernel K4b for CUDA tensors (:func:`scatter_km_bf16` for bfloat16
+    cotangents), its plain version for CPU tensors."""
     if d_out.device.type == "cpu":
         return scatter_km_ref(d_out, idx, n, fill)
+    if d_out.dtype == torch.bfloat16:
+        return scatter_km_bf16(d_out, idx, n, fill)
     b, k, q, c = d_out.shape
     idx = _check_idx(idx)
     d_out = d_out.float().contiguous()
@@ -103,9 +112,29 @@ def scatter_km(d_out, idx, n: int, fill: bool = True):
     return out
 
 
+def scatter_km_bf16(d_out, idx, n: int, fill: bool = True):
+    """Kernel K4b's bfloat16 variant, CUDA tensors only: bfloat16
+    cotangents (B, K, Q, C) summed into a float32 scratch, then rounded
+    once -> (B, N, C) bfloat16."""
+    b, k, q, c = d_out.shape
+    idx = _check_idx(idx)
+    d_out = d_out.contiguous()
+    acc = torch.zeros((b, n, c), dtype=torch.float32, device=d_out.device)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=d_out.device)
+    rc = _build.library().ccn_scatter_km_bf16(
+        _build.ptr(d_out, torch.bfloat16, "d_out", 4),
+        _build.ptr(idx, torch.int32, "idx", 3),
+        acc.data_ptr(), out.data_ptr(), b, n, k * q, c, int(fill),
+        _build.stream_ptr(d_out.device))
+    _build.check(rc, "ccn_scatter_km_bf16")
+    scatter_km_bf16.launches += 1
+    return out
+
+
 gather_km.launches = 0
 gather_km_bf16.launches = 0
 scatter_km.launches = 0
+scatter_km_bf16.launches = 0
 
 
 class _GatherKM(torch.autograd.Function):
@@ -118,6 +147,8 @@ class _GatherKM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         (idx,) = ctx.saved_tensors
+        # d_src in the source's dtype (d_out carries it: the gather's
+        # output has src's dtype)
         return scatter_km(d_out, idx, ctx.n, ctx.fill), None, None
 
 

@@ -38,6 +38,17 @@ wrappers :func:`group_train_fwd` / :func:`group_train_bwd` run the plain
 versions for CPU tensors and the kernels for CUDA tensors;
 :class:`_GroupTrain` is the ``torch.autograd.Function`` around them.
 
+A bfloat16 h1 (a model computing in bfloat16) takes the JAX package's
+bfloat16 contract (``pallas_group_train.py`` ``_dot``, ``_dot_t``,
+``_dot_wgrad`` with ``cdt`` h1's dtype): every product, forward, data
+gradient and weight gradient, rounds both operands to bfloat16 (the
+float32 deltas too) and sums in float32; the values between layers, the
+BN statistics and backward, the softmax and the aggregation stay float32,
+the output is float32; each local level's BN-output cotangent T is kept
+in bfloat16 between backward levels (its BN sums taken before the
+rounding), and d_h1 is bfloat16.  The kernels take the contract with one
+bfloat16 ``mma.sync`` a product in place of 3xTF32.
+
 Layouts: h1 (B, K, M, C0) k-major, mask (B, M, K) bool query-major with its
 columns in h1's plane order.  Rows of fully masked queries carry junk
 values and junk gradients, as in the JAX package; every consumer masks
@@ -121,6 +132,24 @@ def _att(cfg, params):
     return params[4 * cfg.n_loc:]
 
 
+def _wdt(h1):
+    """The plain versions' working dtype: float32 under the bfloat16
+    contract, else h1's (float64 in the gradient checks)."""
+    return torch.float32 if h1.dtype == torch.bfloat16 else h1.dtype
+
+
+def _rnd(x, bf: bool):
+    """x rounded to bfloat16 (to nearest even) and back, under the
+    bfloat16 contract; x itself otherwise."""
+    return x.to(torch.bfloat16).float() if bf else x
+
+
+def _mm(a, w, bf: bool):
+    """a @ w: float32, or bfloat16 operands with float32 sums (products of
+    two bfloat16 values are exact in float32)."""
+    return _rnd(a, bf) @ _rnd(w, bf)
+
+
 def _bn(v, mu, var, g, b, eps):
     inv = torch.rsqrt(var + eps)
     xhat = (v - mu) * inv
@@ -140,7 +169,7 @@ def _plane_mask(mask, dtype):
     return mask.transpose(1, 2)[..., None].to(dtype)        # (B, K, M, 1)
 
 
-def _chain_ref(h1, mk, n, cfg, params, stats=None):
+def _chain_ref(h1, mk, n, cfg, params, stats=None, bf=False):
     """The chain over every (plane, query) row.  With ``stats=None`` the
     batch statistics are computed on the way (the forward) and only the
     message (and logits) kept; with ``stats`` (the backward) each BN's
@@ -150,7 +179,7 @@ def _chain_ref(h1, mk, n, cfg, params, stats=None):
     [(mean, var)] (attend last)."""
     keep = {"xhat": []}
     new_stats = []
-    v = h1
+    v = h1.to(_wdt(h1))
     for i in range(cfg.n_loc):
         g, bt, w, b = _local(cfg, params, i)
         mv = _masked_stats(v, mk, n) if stats is None else stats[i]
@@ -159,12 +188,12 @@ def _chain_ref(h1, mk, n, cfg, params, stats=None):
         if stats is not None:
             keep["xhat"].append(xhat)
         del xhat
-        v = _act(y, cfg.act) @ w + b
+        v = _mm(_act(y, cfg.act), w, bf) + b
         del y
     keep["msg"] = v
     if cfg.attend:
         wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
-        gv = v @ wa0 + ba0
+        gv = _mm(v, wa0, bf) + ba0
         mv = _masked_stats(gv, mk, n) if stats is None else stats[cfg.n_loc]
         new_stats.append(mv)
         a_xhat, a_y = _bn(gv, *mv, ga, bta, cfg.eps)
@@ -172,16 +201,18 @@ def _chain_ref(h1, mk, n, cfg, params, stats=None):
         if stats is not None:
             keep["a_xhat"] = a_xhat
         del a_xhat
-        keep["logits"] = _act(a_y, cfg.attend_act) @ wa1 + ba1
+        keep["logits"] = _mm(_act(a_y, cfg.attend_act), wa1, bf) + ba1
     return keep, new_stats
 
 
 def group_train_fwd_ref(h1, mask, cfg: TrainCfg, params):
     """-> (out (B, M, CL), stats [(mean, var)] per BN (attend last), n,
     extras: (out, mx, den) for attend, (mx, cnt) for max)."""
-    n = torch.clamp(mask.sum().to(h1.dtype), min=1.0)
-    mk = _plane_mask(mask, h1.dtype)
-    keep, stats = _chain_ref(h1, mk, n, cfg, params)
+    wdt = _wdt(h1)
+    n = torch.clamp(mask.sum().to(wdt), min=1.0)
+    mk = _plane_mask(mask, wdt)
+    keep, stats = _chain_ref(h1, mk, n, cfg, params,
+                             bf=h1.dtype == torch.bfloat16)
     on = mk > 0
     msg = keep["msg"]
     if cfg.attend:
@@ -193,13 +224,13 @@ def group_train_fwd_ref(h1, mask, cfg: TrainCfg, params):
         return out, stats, n, (out, mx, den)
     hit = torch.where(on, msg, torch.full_like(msg, MAX_FILL))
     mx = hit.amax(dim=1)
-    cnt = (hit == mx[:, None]).sum(dim=1).to(h1.dtype)
+    cnt = (hit == mx[:, None]).sum(dim=1).to(wdt)
     return mx, stats, n, (mx, cnt)
 
 
-def _wgrad(a, d):
+def _wgrad(a, d, bf=False):
     """sum over every row of a^T d -> (C_a, C_d)."""
-    return torch.einsum("bkmi,bkmj->ij", a, d)
+    return torch.einsum("bkmi,bkmj->ij", _rnd(a, bf), _rnd(d, bf))
 
 
 def _colsum(t):
@@ -208,9 +239,10 @@ def _colsum(t):
 
 def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
                         dout):
-    """-> (d_h1, d_params in the order of ``params``)."""
-    mk = _plane_mask(mask, h1.dtype)
-    keep, _ = _chain_ref(h1, mk, n, cfg, params, stats)
+    """-> (d_h1 in h1's dtype, d_params in the order of ``params``)."""
+    bf = h1.dtype == torch.bfloat16
+    mk = _plane_mask(mask, _wdt(h1))
+    keep, _ = _chain_ref(h1, mk, n, cfg, params, stats, bf)
     msg, d = keep["msg"], dout[:, None]
     grads = [None] * cfg.n_params
     if cfg.attend:
@@ -225,36 +257,38 @@ def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
         dlogit = (msg - out[:, None]).mul_(w).mul_(d).mul_(mk)
         a_xhat = keep.pop("a_xhat")
         a_y = a_xhat * ga + bta
-        ta = (dlogit @ wa1.t()).mul_(_dact(a_y, cfg.attend_act)).mul_(mk)
+        ta = _mm(dlogit, wa1.t(), bf).mul_(_dact(a_y, cfg.attend_act)).mul_(
+            mk)
         rsa, rpa = _colsum(ta), _colsum(ta * a_xhat)
         inva = torch.rsqrt(stats[cfg.n_loc][1] + cfg.eps)
         dg1 = (a_xhat * (rpa / n)).add_(rsa / n).mul_(mk)
         dg1 = torch.sub(ta, dg1, out=dg1).mul_(ga * inva)
         del ta, a_xhat
         k = 4 * cfg.n_loc
-        grads[k:k + 6] = [_wgrad(msg, dg1), _colsum(dg1), rpa, rsa,
-                          _wgrad(_act(a_y, cfg.attend_act), dlogit),
+        grads[k:k + 6] = [_wgrad(msg, dg1, bf), _colsum(dg1), rpa, rsa,
+                          _wgrad(_act(a_y, cfg.attend_act), dlogit, bf),
                           _colsum(dlogit)]
         del a_y, dlogit
-        dv = w.mul_(d).add_(dg1 @ wa0.t())
+        dv = w.mul_(d).add_(_mm(dg1, wa0.t(), bf))
         del w, dg1
     else:
         mx, cnt = extras
         hit = torch.where(mk > 0, msg, torch.full_like(msg, MAX_FILL))
-        eq = (hit == mx[:, None]).to(h1.dtype)
+        eq = (hit == mx[:, None]).to(mk.dtype)
         dv = d * eq * mk / torch.clamp(cnt, min=1.0)[:, None]
     for li in reversed(range(cfg.n_loc)):
         g, bt, w_l, _ = _local(cfg, params, li)
         xhat = keep["xhat"][li]
         keep["xhat"][li] = None
         y = xhat * g + bt
-        dw, db = _wgrad(_act(y, cfg.act), dv), _colsum(dv)
-        t = (dv @ w_l.t()) * _dact(y, cfg.act) * mk
+        dw, db = _wgrad(_act(y, cfg.act), dv, bf), _colsum(dv)
+        t = _mm(dv, w_l.t(), bf) * _dact(y, cfg.act) * mk
         rs, rp = _colsum(t), _colsum(t * xhat)
+        t = _rnd(t, bf)      # kept in h1's dtype between levels
         inv = torch.rsqrt(stats[li][1] + cfg.eps)
         dv = g * inv * (t - mk * (rs / n + xhat * (rp / n)))
         grads[4 * li:4 * li + 4] = [rp, rs, dw, db]
-    return dv, tuple(grads)
+    return dv.to(h1.dtype), tuple(grads)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +303,7 @@ _GEMM_PTRS = ("x", "x2", "mu", "inv", "gam", "bet", "c0", "c1", "c2", "qd",
               "qmx", "qaux", "qout", "w", "bias", "ex", "emu", "einv", "egam",
               "ebet", "elg", "xidx", "qry", "exidx", "asave", "y", "part")
 _GEMM_INTS = ("ldx", "tr", "act", "R", "K", "N", "ep", "stats", "ldex",
-              "eact", "rps")
+              "eact", "rps", "bf16", "xbf", "exbf", "rnd")
 # rows (and output columns) of a GEMM tile; rows of an inner stage
 TILE = 64
 STAGE = 32
@@ -328,7 +362,7 @@ def _dptr(t):
     if t is None:
         return None
     if t.device.type != "cuda" or not t.is_contiguous() or t.dtype not in (
-            torch.float32, torch.int32):
+            torch.float32, torch.int32, torch.bfloat16):
         raise ValueError(f"group train kernel: operand {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
     return t.data_ptr()
@@ -414,13 +448,16 @@ def _bn_args(g, bt, mu, inv, act):
 
 
 def _kernel_wgrad(counter, dev, x, d, c_in, c_out, rows, xidx=None,
-                  tr="none", **bn):
+                  tr="none", bf=False, **bn):
     """(dW (c_in, c_out), db (c_out,)) = sum over the rows of
-    T(x)^T d and of d: per-split partials, then the fixed-order sum."""
+    T(x)^T d and of d: per-split partials, then the fixed-order sum.
+    ``bf``: the products' operands rounded to bfloat16 (x read as
+    bfloat16 where it is h1)."""
     splits, rps = wgrad_split(rows, c_in, c_out, _sm_count(dev))
     part = torch.empty(splits, c_in + 1, c_out, device=dev)
     _gemm(counter, "wgrad", True, dev, splits, x=x, xidx=xidx, ldx=c_in,
-          tr=_TR[tr], w=d, R=rows, K=c_in, N=c_out, rps=rps, part=part, **bn)
+          tr=_TR[tr], w=d, R=rows, K=c_in, N=c_out, rps=rps, part=part,
+          bf16=int(bf), xbf=int(x.dtype == torch.bfloat16), **bn)
     out, _ = _finalize(counter, dev, part, (c_in + 1) * c_out, False)
     out = out.view(c_in + 1, c_out)
     return out[:c_in], out[c_in]
@@ -428,9 +465,10 @@ def _kernel_wgrad(counter, dev, x, d, c_in, c_out, rows, xidx=None,
 
 def _check_inputs(h1, mask, cfg):
     b, k, m, c0 = h1.shape
-    if h1.dtype != torch.float32 or c0 != cfg.dims[0]:
+    if (h1.dtype not in (torch.float32, torch.bfloat16)
+            or c0 != cfg.dims[0]):
         raise ValueError(f"group train kernel: h1 {tuple(h1.shape)} "
-                         f"{h1.dtype}, want f32 width {cfg.dims[0]}")
+                         f"{h1.dtype}, want f32 or bf16 width {cfg.dims[0]}")
     if tuple(mask.shape) != (b, m, k):
         raise ValueError(f"group train kernel: mask {tuple(mask.shape)}")
     if cfg.n_loc < 1 or cfg.aggr not in ("max", "attend"):
@@ -450,20 +488,33 @@ def group_train_fwd(h1, mask, cfg: TrainCfg, params):
     rows, each BN's inverse deviation)."""
     if h1.device.type == "cpu":
         return group_train_fwd_ref(h1, mask, cfg, params)
-    return _kernel_fwd(h1, mask, cfg, params)
+    if h1.dtype == torch.bfloat16:
+        return group_train_fwd_bf16(h1, mask, cfg, params)
+    return _kernel_fwd(h1, mask, cfg, params, group_train_fwd)
 
 
-def _kernel_fwd(h1, mask, cfg, params):
+def group_train_fwd_bf16(h1, mask, cfg: TrainCfg, params):
+    """Kernel K7's bfloat16 forward (what :func:`group_train_fwd` runs on a
+    bfloat16 h1), CUDA tensors only; counted apart."""
+    if h1.dtype != torch.bfloat16:
+        raise ValueError(f"group_train_fwd_bf16: h1 {h1.dtype}")
+    return _kernel_fwd(h1, mask, cfg, params, group_train_fwd_bf16)
+
+
+def _kernel_fwd(h1, mask, cfg, params, cnt=None):
+    """The forward's launches, each counted on ``cnt`` (the wrapper of h1's
+    dtype by default)."""
     h1, mask = _check_inputs(h1, mask, cfg)
     _label(h1, cfg)
     b, k, m, c0 = h1.shape
     dev, L, dims = h1.device, cfg.n_loc, cfg.dims
+    bf = int(h1.dtype == torch.bfloat16)
+    cnt = cnt or (group_train_fwd_bf16 if bf else group_train_fwd)
     rows, qry, start = row_list(mask)
     r = rows.numel()
     n_rows = float(max(r, 1))
     tiles = max(1, -(-r // TILE))
     stream = _build.stream_ptr(dev)
-    cnt = group_train_fwd
     stats, invs, vals = [], [], []
 
     def statistics(part, c):
@@ -473,8 +524,8 @@ def _kernel_fwd(h1, mask, cfg, params):
         invs.append(inv)
 
     part = torch.empty(tiles, 2 * c0, device=dev)
-    _launch(cnt, "stats", "ccn_gt_rowstats", _dptr(h1), _dptr(rows), c0, r,
-            c0, _dptr(part), stream)
+    _launch(cnt, "stats", "ccn_gt_rowstats" + ("_bf16" if bf else ""),
+            _dptr(h1), _dptr(rows), c0, r, c0, _dptr(part), stream)
     statistics(part, c0)
     x, xidx = h1, rows
     for lv in range(L):
@@ -486,7 +537,8 @@ def _kernel_fwd(h1, mask, cfg, params):
               tr=_TR["bn_act"],
               **_bn_args(g, bt, stats[lv][0], invs[lv], cfg.act),
               w=_w(w), bias=_w(bias), y=y, part=part, R=r, K=dims[lv],
-              N=cout, ep=_EP["fwd"], stats=int(more))
+              N=cout, ep=_EP["fwd"], stats=int(more), bf16=bf,
+              xbf=int(x.dtype == torch.bfloat16))
         if more:
             statistics(part, cout)
         vals.append(y)
@@ -499,12 +551,13 @@ def _kernel_fwd(h1, mask, cfg, params):
         part = torch.empty(tiles, 2 * a, device=dev)
         _gemm(cnt, "dense", False, dev, x=msg, ldx=cl, tr=_TR["none"],
               w=_w(wa0), bias=_w(ba0), y=gv, part=part, R=r, K=cl, N=a,
-              ep=_EP["fwd"], stats=1)
+              ep=_EP["fwd"], stats=1, bf16=bf)
         statistics(part, a)
         lg = torch.empty(r, cl, device=dev)
         _gemm(cnt, "dense", False, dev, x=gv, ldx=a, tr=_TR["bn_act"],
               **_bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act),
-              w=_w(wa1), bias=_w(ba1), y=lg, R=r, K=a, N=cl, ep=_EP["fwd"])
+              w=_w(wa1), bias=_w(ba1), y=lg, R=r, K=a, N=cl, ep=_EP["fwd"],
+              bf16=bf)
         vals += [gv, lg]
     out = torch.empty((b, m, cl), device=dev)
     mx = torch.empty((b, m, cl), device=dev) if cfg.attend else out
@@ -524,36 +577,56 @@ def group_train_bwd(h1, mask, cfg: TrainCfg, params, stats, n, extras,
     if h1.device.type == "cpu":
         return group_train_bwd_ref(h1, mask, cfg, params, stats, n, extras,
                                    dout)
-    return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout)
+    if h1.dtype == torch.bfloat16:
+        return group_train_bwd_bf16(h1, mask, cfg, params, stats, n, extras,
+                                    dout)
+    return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout,
+                       group_train_bwd)
 
 
-def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout):
+def group_train_bwd_bf16(h1, mask, cfg: TrainCfg, params, stats, n, extras,
+                         dout):
+    """Kernel K7's bfloat16 backward (what :func:`group_train_bwd` runs on
+    a bfloat16 h1), CUDA tensors only; counted apart."""
+    if h1.dtype != torch.bfloat16:
+        raise ValueError(f"group_train_bwd_bf16: h1 {h1.dtype}")
+    return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout,
+                       group_train_bwd_bf16)
+
+
+def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None):
+    """The backward's launches, each counted on ``cnt`` (the wrapper of
+    h1's dtype by default)."""
     h1, mask = _check_inputs(h1, mask, cfg)
     _label(h1, cfg)
     c0 = h1.shape[-1]
     dev, L, dims = h1.device, cfg.n_loc, cfg.dims
+    bf = h1.dtype == torch.bfloat16
+    cnt = cnt or (group_train_bwd_bf16 if bf else group_train_bwd)
     rows, qry, out, mx, aux = extras[:5]
     vals = extras[5:5 + L + 2 * cfg.attend]
     invs = extras[5 + L + 2 * cfg.attend:]
     r = rows.numel()
     n_rows = float(max(r, 1))
     tiles = max(1, -(-r // TILE))
-    cnt = group_train_bwd
     dout = dout.float().contiguous()
     v = [h1] + list(vals[:L])          # v_0 through the row index
     grads = [None] * cfg.n_params
     per_query = dict(qry=qry, qd=dout, qmx=mx, qaux=aux, qout=out)
 
-    def dgrad(x, tr, save, w, cout, cin, ex, exidx, bn_e, act, **kw):
+    def dgrad(x, tr, save, w, cout, cin, ex, exidx, bn_e, act, rnd, **kw):
         """T (rows, cin) = (T(x) @ w^T) * act'(y) of the level below, and
-        its BN backward's sums -> (T, (gamma, beta) grads, coef)."""
+        its BN backward's sums -> (T, (gamma, beta) grads, coef); ``rnd``
+        keeps T rounded to bfloat16 (its sums taken before)."""
         t = torch.empty(r, cin, device=dev)
         part = torch.empty(tiles, 2 * cin, device=dev)
         _gemm(cnt, "dgrad", False, dev, x=x, ldx=cout, tr=_TR[tr],
               asave=save, w=w.detach().t().contiguous(), y=t, part=part,
               R=r, K=cout, N=cin, ep=_EP["dgrad"], stats=1, ex=ex,
               exidx=exidx, ldex=cin, emu=bn_e["mu"], einv=bn_e["inv"],
-              egam=bn_e["gam"], ebet=bn_e["bet"], eact=_ACT_CODES[act], **kw)
+              egam=bn_e["gam"], ebet=bn_e["bet"], eact=_ACT_CODES[act],
+              bf16=int(bf), exbf=int(ex.dtype == torch.bfloat16),
+              rnd=int(rnd), **kw)
         sums, coef = _finalize(cnt, dev, part, cin, True, 2, n_rows,
                                gam=bn_e["gam"], inv=bn_e["inv"])
         return t, [sums[cin:], sums[:cin]], coef
@@ -565,16 +638,17 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout):
         bn_a = _bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act)
         dl = torch.empty(r, cl, device=dev)
         ta, g_a, coef_a = dgrad(lg, "dlogit", dl, wa1, cl, a, gv, None, bn_a,
-                                cfg.attend_act, x2=v[L], **per_query)
+                                cfg.attend_act, False, x2=v[L], **per_query)
         dwa1, dba1 = _kernel_wgrad(cnt, dev, gv, dl, a, cl, r, tr="bn_act",
-                                   **bn_a)
+                                   bf=bf, **bn_a)
         dg1 = torch.empty(r, a, device=dev)
         dv = torch.empty(r, cl, device=dev)
         _gemm(cnt, "dgrad", False, dev, x=ta, x2=gv, ldx=a, tr=_TR["bnb"],
               mu=bn_a["mu"], inv=bn_a["inv"], c0=coef_a[0], c1=coef_a[1],
               c2=coef_a[2], asave=dg1, w=wa0.detach().t().contiguous(),
-              y=dv, R=r, K=a, N=cl, ep=_EP["att"], elg=lg, **per_query)
-        dwa0, dba0 = _kernel_wgrad(cnt, dev, v[L], dg1, cl, a, r)
+              y=dv, R=r, K=a, N=cl, ep=_EP["att"], elg=lg, bf16=int(bf),
+              **per_query)
+        dwa0, dba0 = _kernel_wgrad(cnt, dev, v[L], dg1, cl, a, r, bf=bf)
         grads[4 * L:4 * L + 6] = [dwa0, dba0, *g_a, dwa1, dba1]
         d_in, tr, kw = dv, "none", {}
     else:
@@ -586,24 +660,27 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout):
         save = None if tr == "none" else torch.empty(r, cout, device=dev)
         xe, xidx = (h1, rows) if lv == 0 else (v[lv], None)
         t, g_l, coef = dgrad(d_in, tr, save, w, cout, cin, xe, xidx, bn_l,
-                             cfg.act, **kw)
+                             cfg.act, bf, **kw)
         dw, db = _kernel_wgrad(cnt, dev, xe, d_in if save is None else save,
-                               cin, cout, r, xidx, "bn_act", **bn_l)
+                               cin, cout, r, xidx, "bn_act", bf, **bn_l)
         grads[4 * lv:4 * lv + 4] = [*g_l, dw, db]
         d_in, tr = t, "bnb"
         kw = dict(x2=xe, mu=bn_l["mu"], inv=bn_l["inv"], c0=coef[0],
                   c1=coef[1], c2=coef[2])
     # epilogue T_0 -> d_h1: elementwise glue over the live rows
     idx = rows.long()
-    xhat0 = (h1.reshape(-1, c0).index_select(0, idx) - stats[0][0]) * invs[0]
+    xhat0 = ((h1.reshape(-1, c0).index_select(0, idx).float() - stats[0][0])
+             * invs[0])
     d0 = coef[0] * (d_in - (coef[1] + xhat0 * coef[2]))
     d_h1 = torch.zeros_like(h1)
-    d_h1.view(-1, c0).index_copy_(0, idx, d0)
+    d_h1.view(-1, c0).index_copy_(0, idx, d0.to(h1.dtype))
     return d_h1, tuple(grads)
 
 
 group_train_fwd.launches = 0
 group_train_bwd.launches = 0
+group_train_fwd_bf16.launches = 0
+group_train_bwd_bf16.launches = 0
 
 
 class _GroupTrain(torch.autograd.Function):

@@ -4,7 +4,13 @@
 Lovász-Softmax sorts every class's errors in one sort over the point axis;
 invalid (padded or ignored) rows get the error -1 and sort last, and the
 Jaccard gradient is data (no gradient through the sort), as in the JAX
-package and the reference's autograd.
+package and the reference's autograd.  On bfloat16 logits the NLL runs in
+the logits' dtype and the Lovász term in float32 (its foreground indicator,
+errors, cumulative counts and sums), as the JAX package promotes them: a
+bfloat16 count is exact only up to 256.  The bfloat16 softmax and
+log-softmax round each operation as ``jax.nn.softmax`` /
+``jax.nn.log_softmax`` do op by op (torch's fused bfloat16 versions round
+once, at the end).
 """
 
 from __future__ import annotations
@@ -12,6 +18,27 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def _shifted(x):
+    return x - x.amax(dim=-1, keepdim=True).detach()
+
+
+def log_softmax(x):
+    """``log_softmax`` over the last axis; in a sub-float32 dtype with each
+    operation rounded to it, as ``jax.nn.log_softmax``."""
+    if x.dtype == torch.float32:
+        return torch.log_softmax(x, dim=-1)
+    s = _shifted(x)
+    return s - torch.log(torch.exp(s).sum(dim=-1, keepdim=True))
+
+
+def softmax(x):
+    """``softmax`` over the last axis, rounded as ``jax.nn.softmax``."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(_shifted(x))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def nll_loss(log_probs, labels, valid, ignore_index: Optional[int] = None,
@@ -39,17 +66,18 @@ def nll_loss(log_probs, labels, valid, ignore_index: Optional[int] = None,
 
 def lovasz_softmax(probs, labels, valid):
     """Multi-class Lovász-Softmax over the present classes.  probs (N, C),
-    labels (N,), valid (N,) with ignored rows already masked out."""
+    labels (N,), valid (N,) with ignored rows already masked out; float32
+    whatever the dtype of probs."""
     n, c = probs.shape
     fg = (labels.long()[:, None] == torch.arange(c, device=probs.device)) \
         & valid[:, None]
-    fgf = fg.to(probs.dtype)
+    fgf = fg.float()
     errors = torch.abs(fgf - probs)
     errors = torch.where(valid[:, None], errors, torch.full_like(errors, -1.0))
     err_sorted, perm = torch.sort(errors.detach(), dim=0, descending=True,
                                   stable=True)
     fg_sorted = torch.gather(fgf, 0, perm)
-    valid_sorted = (err_sorted >= 0).to(probs.dtype)
+    valid_sorted = (err_sorted >= 0).float()
     gts = fgf.sum(dim=0)
     intersection = gts - torch.cumsum(fg_sorted, dim=0)
     union = gts + torch.cumsum((1.0 - fg_sorted) * valid_sorted, dim=0)
@@ -72,7 +100,7 @@ def seg_loss(logits, labels, valid, ignore_index: Optional[int] = 0,
     flat_logits = logits.reshape(-1, c)
     flat_labels = labels.reshape(-1)
     flat_valid = valid.reshape(-1)
-    logp = torch.log_softmax(flat_logits, dim=-1)
+    logp = log_softmax(flat_logits)
     loss = nll_loss(logp, flat_labels, flat_valid, ignore_index,
                     class_weights, mean_over_all)
     if use_lovasz:
@@ -80,12 +108,12 @@ def seg_loss(logits, labels, valid, ignore_index: Optional[int] = 0,
         if ignore_index is not None:
             lov_valid = lov_valid & (flat_labels != ignore_index)
         loss = loss + lovasz_weight * lovasz_softmax(
-            torch.softmax(flat_logits, dim=-1), flat_labels, lov_valid)
+            softmax(flat_logits), flat_labels, lov_valid)
     return loss
 
 
 def classification_loss(logits, labels):
     """Cross-entropy of per-sample logits (B, C) at the labels (B,): the
     mean NLL of ``log_softmax`` (the reference's shape classification)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits)
     return -torch.gather(logp, -1, labels.long()[:, None]).mean()

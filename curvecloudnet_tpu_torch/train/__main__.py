@@ -80,11 +80,6 @@ def setup(config_path: str, device, seed: int = 0, n_pad: int | None = None):
     n_pad = n_pad_of(config_path) if n_pad is None else n_pad
     model = build_model(config_path, n_pad, device,
                         torch.Generator().manual_seed(seed))
-    if model.spec.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {model.spec.compute_dtype!r}: the port trains in "
-            "float32 only (the bfloat16 train kernels K7, K8 and K4b are not "
-            "ported)")
     opt = create_optimizer(model, weight_decay=float(
         cfg.get("weight_decay", 0.0)))
     sched = make_schedule(cfg.get("scheduler"), float(cfg["lr"]), 1)

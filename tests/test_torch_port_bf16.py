@@ -18,9 +18,10 @@ the CPU.
   float32 from float32 input), the valid rows are equal, and the logits
   pass the yardstick: max and mean |port - JAX bf16| over live rows at
   most 2x JAX's own bf16-vs-f32 gap on the same weights and inputs;
-* bfloat16 evaluates only: a train forward and the train entry raise;
-  parameters and buffers stay float32, and weights carried from JAX by
-  ``from_jax_variables`` are float32;
+* a bfloat16 model also trains (a train forward and the train entry's
+  setup run; ``test_torch_port_bf16_train.py`` holds the step against
+  JAX); parameters and buffers stay float32, and weights carried from JAX
+  by ``from_jax_variables`` are float32;
 * ``-m slow`` also: the flagship at full width (n 4096) on the same
   yardstick.
 """
@@ -340,21 +341,32 @@ def test_shapenet_seg_bf16_matches_jax(monkeypatch):
 
 
 def test_bf16_evaluates_only(flagship, tmp_path):
+    """Named when bfloat16 evaluated only; it now trains too: a train
+    forward and the train entry's setup run on a bfloat16 model, whose
+    parameters and buffers stay float32 (the bfloat16 train step against
+    JAX: ``tests/test_torch_port_bf16_train.py``)."""
+    import copy
+
     _, port, _, inputs = flagship
-    model = port["bfloat16"]
+    model = copy.deepcopy(port["bfloat16"])
     for name, t in list(model.named_parameters()) + list(
             model.named_buffers()):
         assert t.dtype == torch.float32, name
-    with pytest.raises(NotImplementedError, match="K7"):
-        model.train()(inputs[2], train=True)
-    model.eval()
+    logits, valid = model.train()(inputs[2], train=True)
+    assert logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits[valid].float()).all())
+    for name, t in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        assert t.dtype == torch.float32, name
     cfg = load_config(os.path.join(REPO, "configs", "nuscenes.yaml"))
     cfg["model"]["compute_dtype"] = "bfloat16"
     path = tmp_path / "nuscenes_bf16.yaml"
     path.write_text(yaml.safe_dump(cfg))
     from curvecloudnet_tpu_torch.train.__main__ import setup
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        setup(str(path), "cpu", 0, 1024)
+    net, opt, _, _, batch, _ = setup(str(path), "cpu", 0, 1024)
+    assert net.spec.compute_dtype == "bfloat16"
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert batch.cloud.valid.shape == (1, 1024)
 
 
 def test_jax_weights_stay_float32(flagship):

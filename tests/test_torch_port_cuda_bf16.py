@@ -231,3 +231,170 @@ class _plain_kernels:
     def __exit__(self, *exc):
         for m, n, f in self.saved:
             setattr(m, n, f)
+
+
+# --- the bfloat16 train kernels: K7, K8 (fwd and t) and K4b -------------
+#
+# Kernel and plain version round at the same points, so they differ by
+# the order of the f32 sums, which now and then flips a bfloat16 rounding
+# of an operand: forward outputs and statistics within 2^-8 of their
+# largest value; backward outputs within 2^-7 in relative L2 norm plus
+# twice the plain version's own bf16-vs-f32 change (norms floored at 2^-8
+# of the call's largest): a gradient that is 0 in exact arithmetic (a
+# bias feeding a BatchNorm) is the sum of K7's bfloat16 roundings of T,
+# so one flipped rounding moves it by a share of its own size; K4b
+# within 2^-8 of its largest.
+
+BF16_REL = 2.0 ** -8
+
+
+def _max_rel(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / float(
+        want.abs().max().clamp(min=1e-30))
+
+
+def _l2_all(outs, tol):
+    """[(kernel, plain bf16, plain f32)] -> each kernel output within
+    ``tol`` plus twice the plain versions' own gap, in relative L2."""
+    floor = BF16_REL * max(float(w.float().norm()) for _, w, _ in outs)
+    for i, (got, want, w32) in enumerate(outs):
+        scale = max(float(want.float().norm()), floor)
+        rel = float((got.float() - want.float()).norm()) / scale
+        gap = float((want.float() - w32.float()).norm()) / scale
+        assert bool(torch.isfinite(got.float()).all()) and \
+            rel <= tol + 2 * gap, (i, rel, gap)
+
+
+@pytest.mark.parametrize("c,fill", [(64, True), (35, False)])
+def test_scatter_bf16_kernel(dev, c, fill):
+    g = torch.Generator().manual_seed(5)
+    b, n, k = 1, 3000, 20
+    d_out = torch.randn(b, k, n, c, generator=g).to(torch.bfloat16).to(dev)
+    idx = torch.randint(-1, n, (b, k, n), generator=g).to(dev)
+    n0 = gather.scatter_km_bf16.launches
+    got = gather.scatter_km(d_out, idx, n, fill)
+    assert gather.scatter_km_bf16.launches == n0 + 1
+    want = gather.scatter_km_ref(d_out, idx, n, fill)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _max_rel(got, want) <= BF16_REL
+    assert float((got != want).float().mean()) < 0.01
+
+
+def _train_cfg_params(dims, att, g):
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    cfg = G.TrainCfg(dims=dims, att_dim=att, aggr="attend" if att else "max",
+                     act="leaky_relu")
+    params = []
+    for ci, co in zip(dims[:-1], dims[1:]):
+        params += [1 + 0.2 * torch.randn(ci, generator=g),
+                   0.1 * torch.randn(ci, generator=g),
+                   torch.randn(ci, co, generator=g) / ci ** 0.5,
+                   0.1 * torch.randn(co, generator=g)]
+    if att:
+        co = dims[-1]
+        params += [torch.randn(co, att, generator=g) / co ** 0.5,
+                   0.1 * torch.randn(att, generator=g),
+                   1 + 0.2 * torch.randn(att, generator=g),
+                   0.1 * torch.randn(att, generator=g),
+                   torch.randn(att, co, generator=g) / att ** 0.5,
+                   0.1 * torch.randn(co, generator=g)]
+    return cfg, params
+
+
+# the flagship's sa-geo attend site, an sgcnn max site, shapenet-seg's
+# 1024-wide attention
+K7_CASES = [((14, 16, 24, 32), 32, 2048, 9), ((22, 64, 64), 0, 4096, 21),
+            ((259, 512, 1024), 1024, 512, 9)]
+
+
+@pytest.mark.parametrize("dims,att,m,k", K7_CASES)
+def test_group_train_bf16_kernel(dev, dims, att, m, k):
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    g = torch.Generator().manual_seed(7)
+    cfg, params = _train_cfg_params(dims, att, g)
+    h1 = (2 * torch.randn(1, k, m, dims[0], generator=g)).to(torch.bfloat16)
+    mask = torch.rand(1, m, k, generator=g) < 0.6
+    mask[0, :5] = False                      # queries with no live slot
+    dout = torch.randn(1, m, dims[-1], generator=g) * mask.any(-1)[..., None]
+    h1, mask, dout = h1.to(dev), mask.to(dev), dout.to(dev)
+    params = [p.to(dev) for p in params]
+    n0 = (G.group_train_fwd_bf16.launches, G.group_train_bwd_bf16.launches)
+    out, stats, n, extras = G.group_train_fwd(h1, mask, cfg, params)
+    d_h1, grads = G.group_train_bwd(h1, mask, cfg, params, stats, n, extras,
+                                    dout)
+    assert G.group_train_fwd_bf16.launches > n0[0]
+    assert G.group_train_bwd_bf16.launches > n0[1]
+    r_out, r_stats, r_n, r_extras = G.group_train_fwd_ref(h1, mask, cfg,
+                                                          params)
+    rows = mask.any(-1)
+    assert out.dtype == torch.float32 and d_h1.dtype == torch.bfloat16
+    assert _max_rel(out[rows], r_out[rows]) <= BF16_REL
+    for (mu, var), (r_mu, r_var) in zip(stats, r_stats):
+        assert _max_rel(mu, r_mu) <= BF16_REL
+        assert _max_rel(var, r_var) <= BF16_REL
+    r_h1, r_grads = G.group_train_bwd_ref(h1, mask, cfg, params, r_stats,
+                                          r_n, r_extras, dout)
+    h32 = h1.float()
+    _, s32, n32, e32 = G.group_train_fwd_ref(h32, mask, cfg, params)
+    f_h1, f_grads = G.group_train_bwd_ref(h32, mask, cfg, params, s32, n32,
+                                          e32, dout)
+    _l2_all(list(zip((d_h1,) + tuple(grads), (r_h1,) + tuple(r_grads),
+                     (f_h1,) + tuple(f_grads))), 2 * BF16_REL)
+
+
+# the main path's step_31 (xe 262 wide in bfloat16, h 2, three layers of
+# 32) and a layer behind a BN with a wide output
+K8_CASES = [(262, (32, 32, 32), 2, 6000, [5900, 3700]),
+            (40, (64, 48), 1, 3000, [2000, 3000])]
+
+
+@pytest.mark.parametrize("c0,dims,h,n_exp,used", K8_CASES)
+def test_conv1d_train_bf16_kernel(dev, c0, dims, h, n_exp, used):
+    from curvecloudnet_tpu_torch.ops import conv1d_train as C
+
+    g = torch.Generator().manual_seed(9)
+    xe = torch.randn(2, n_exp, c0, generator=g).to(torch.bfloat16)
+    for i, u in enumerate(used):
+        xe[i, u:] = 0
+    params, cin = [], c0
+    for cout in dims:
+        params.append(((torch.randn((h + 1) * cin, cout, generator=g)
+                        / ((h + 1) * cin) ** 0.5).to(dev),
+                       (0.1 * torch.randn(cout, generator=g)).to(dev),
+                       (1 + 0.2 * torch.randn(cout, generator=g)).to(dev),
+                       (0.1 * torch.randn(cout, generator=g)).to(dev)))
+        cin = cout
+    xe = xe.to(dev)
+    tu = torch.tensor(used, dtype=torch.int32).to(dev)
+    z_prev, bn_prev = xe, None
+    for li, (w, b, gam, bet) in enumerate(params):
+        n0 = C.conv1d_train_fwd_layer_bf16.launches
+        z, mean, var = C.conv1d_train_fwd_layer(z_prev, bn_prev, w, b, tu, h,
+                                                True)
+        assert C.conv1d_train_fwd_layer_bf16.launches == n0 + 1
+        r_z, r_mean, r_var = C.conv1d_train_fwd_layer_ref(
+            z_prev, bn_prev, w, b, tu, h, True)
+        assert _max_rel(z, r_z) <= BF16_REL
+        assert _max_rel(mean, r_mean) <= BF16_REL
+        assert _max_rel(var, r_var) <= BF16_REL
+        bn = (mean, torch.rsqrt(var + 1e-5), gam, bet)
+        d_u = torch.randn(z.shape, generator=g).to(dev)
+        c1, c2 = 0.01 * torch.randn(2, z.shape[-1], generator=g).to(dev)
+        fuse = bn_prev is not None and z_prev.shape[-1] <= C.DW_FUSED
+        n0 = C.conv1d_train_bwd_t_bf16.launches
+        got = C.conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, tu,
+                                   h, prev_sums=fuse, bf16=True)
+        assert C.conv1d_train_bwd_t_bf16.launches == n0 + 1
+        want = C.conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1,
+                                        c2, tu, h, prev_sums=fuse, bf16=True)
+        w32 = C.conv1d_train_bwd_t_ref(d_u, z, z_prev.float(), bn, bn_prev, w,
+                                       c1, c2, tu, h, prev_sums=fuse)
+        pairs = list(zip(got[:3], want[:3], w32[:3]))
+        if fuse:
+            pairs += list(zip(got[3], want[3], w32[3]))
+        assert got[0].dtype == torch.float32
+        _l2_all(pairs, 2 * BF16_REL)
+        z_prev, bn_prev = z, bn
