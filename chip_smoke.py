@@ -230,7 +230,27 @@ Phases (any failure raises and exits non-zero before the result line):
      --model.compute_dtype bfloat16`` on 2 val scans at 2 views a call,
      its launches and TTA scan wall; ``bf16_objects``, shapenet-seg at its
      batch (24) in bfloat16, every bfloat16 call held (K2 over 128 ball
-     planes), the logits at those bounds.
+     planes), the logits at those bounds;
+ 21. bfloat16 training (``run_bf16_train``): the flagship's step at full
+     width on a ``compute_dtype: bfloat16`` config, every K7-, K8- and
+     K4b-bf16 call held against its plain bfloat16 version and timed
+     beside its float32 twin, the step against the plain bf16 and f32
+     paths, launches, shapenet-seg at B=24, ``main`` in bfloat16;
+ 22. data parallelism over processes (``run_dp``): two rank processes
+     (``dp_rank``, gloo on the one card) each take the flagship's
+     full-width float32 train step on its own sweep (seeds 0 and 1), and
+     then the bfloat16 one; every rank's loss, gradients, running
+     statistics and parameters after the step bit-identical, rank 0's
+     against this process's single step on the B=2 batch of both sweeps
+     (loss 1e-5 relative, gradients the JAX package's DP bar or phase
+     8's yardstick, statistics 1e-5, the parameters after the Adam step;
+     bfloat16: the loss within 2x the single steps' bf16-vs-f32 gap),
+     each rank's launches equal to the B=1 spec; a rank's step wall, its
+     collectives' own time, the single step's wall and every peak
+     memory; then ``main`` in two processes (``distributed.num_processes
+     2``, ``CCN_PROCESS_ID``) on nuScenes files: an epoch of 2 steps a
+     process, a TTA val scan, process 0's checkpoint, resumed for a
+     second epoch (under ``build/phase22``).
 
 Every captured train step (phases 6, 17, 18, 19) counts K7's slope flips
 at every site (``k7_flips``, a float64 chain a level at a time): each
@@ -247,8 +267,8 @@ line; no check reads them.
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
 A2D2 and the object configs, the loops, the paths from disk, the options
-and bfloat16 serving; the bfloat16 variants of K1, K2, K4 and K9 as
-entries of their own), the
+bfloat16 serving and training, and the data-parallel ranks (summed);
+the bfloat16 variants as entries of their own), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -348,6 +368,16 @@ BF16_TRAIN_STEPS = 3
 BF16_WALL_STEPS = 3
 BF16_LOOP_TRAIN = 2
 BF16_LOOP_VAL = 1
+# phase 22: data parallelism over processes (build/phase22): ranks on the
+# one card (gloo), each rank's deadline a spawn, the timed steps a rank,
+# main's run from nuScenes files (train files: 2 steps a rank; val scans)
+OUT22 = os.path.join(REPO, "build", "phase22")
+DP_WORLD = 2
+DP_TIMEOUT = 420.0
+DP_WALL_STEPS = 3
+DP_LOOP_FILES = {"train": 4, "val": 1}
+# the JAX package's own DP bar on gradients (tests/test_train_e2e.py)
+DP_GRAD_RTOL, DP_GRAD_ATOL = 5e-2, 1e-5
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -3926,6 +3956,422 @@ def run_bf16_train(P, mods, dev, kernel_launches):
 
 
 
+def cat_batches(batches):
+    """Batches -> one batch of their samples in order (a dataclass of
+    tensors with the batch leading, nested dataclasses included)."""
+    import dataclasses
+
+    import torch
+
+    def cat(vals):
+        if dataclasses.is_dataclass(vals[0]):
+            return dataclasses.replace(vals[0], **{
+                f.name: cat([getattr(v, f.name) for v in vals])
+                for f in dataclasses.fields(vals[0])})
+        return torch.cat(vals) if torch.is_tensor(vals[0]) else vals[0]
+
+    return cat(batches)
+
+
+def dp_models(bf16_cfg):
+    """Phase 22's models: (label, config, counted kernels)."""
+    return (("dp", CONFIG, TRAIN_COUNTED),
+            ("dp_bf16", bf16_cfg, TRAIN_COUNTED + BF16_COUNTED))
+
+
+def step_state(model):
+    """(gradients, buffers, parameters) of ``model`` after a step, on the
+    host."""
+    grads, bufs = grads_and_stats(model)
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return [{k: v.cpu() for k, v in d.items()}
+            for d in (grads, bufs, params)]
+
+
+def with_logits(model, run):
+    """``run()`` (a step of ``model``) -> (its result, the logits and the
+    validity of the model's forward in it, on the host)."""
+    seen = []
+    hook = model.register_forward_hook(lambda _m, _a, out: seen.append(out))
+    try:
+        out = run()
+    finally:
+        hook.remove()
+    logits, valid = seen[0]
+    return out, logits.detach().float().cpu(), valid.cpu()
+
+
+def dp_rank(rank, port, out, bf16_cfg, device):
+    """Phase 22's rank process (``chip_smoke.py --dp-rank RANK PORT OUT
+    BF16_CONFIG DEVICE``): joins the ``DP_WORLD``-process group on
+    ``device`` (cuda:0: gloo, the processes share the card) and, for the
+    float32 and the bfloat16
+    flagship at n_pad 36864, takes one train step from seed 0's weights on
+    its own sweep (seed = its rank) with its launches counted, then
+    (float32) ``DP_WALL_STEPS`` timed steps, and one with its
+    collectives timed;
+    writes the results to ``out``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from curvecloudnet_tpu_torch import parallel
+    from curvecloudnet_tpu_torch import predict as P
+    from curvecloudnet_tpu_torch.ops import (conv1d_chain, conv1d_train,
+                                             edge_mlp, fps, gather,
+                                             grid_topk, group_reduce,
+                                             group_train, knn)
+    from curvecloudnet_tpu_torch.train import LossConfig
+    from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {"conv1d_chain": conv1d_chain, "group_reduce": group_reduce,
+            "knn": knn, "fps": fps, "gather": gather,
+            "group_train": group_train, "grid_topk": grid_topk,
+            "conv1d_train": conv1d_train, "edge_mlp": edge_mlp}
+    dev = torch.device(device)
+    parallel.initialize_distributed(f"127.0.0.1:{port}", DP_WORLD, rank, dev)
+    loss_cfg = LossConfig(ignore_index=0, use_lovasz=True)
+    result = {"backend": torch.distributed.get_backend()}
+    try:
+        for label, config, kernels in dp_models(bf16_cfg):
+            model = P.build_model(config, N_PAD, dev).train()
+            one_step = step_runner(model, copy.deepcopy(model.state_dict()),
+                                   synthetic_batch(rank, N_PAD, dev),
+                                   loss_cfg, mods, dev)
+            ((loss, first_ms, peak), logits, valid), launched = counted(
+                mods, kernels, lambda: with_logits(model, one_step))
+            grads, bufs, params = step_state(model)
+            walls = [one_step()[1] for _ in range(
+                DP_WALL_STEPS if label == "dp" else 0)]
+            with parallel.collective_timer() as coll:
+                timed_ms = one_step()[1]
+            result[label] = dict(loss=loss, first_ms=first_ms, peak=peak,
+                                 launched=launched, walls=walls,
+                                 timed_ms=timed_ms, coll=dict(coll),
+                                 grads=grads, bufs=bufs, params=params,
+                                 logits=logits, valid=valid)
+            del model, one_step
+            torch.cuda.empty_cache()
+    finally:
+        parallel.shutdown()
+    reference = [m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
+    if reference:
+        raise AssertionError(f"a rank process loaded {reference}")
+    torch.save(result, out)
+
+
+def ranks_alike(label, ranks):
+    """Every rank's loss, gradients, buffers and parameters after the
+    step bit for bit rank 0's (the global step on every process)."""
+    import torch
+
+    for r, got in enumerate(ranks[1:], 1):
+        if got["loss"] != ranks[0]["loss"]:
+            raise AssertionError(f"{label}: rank {r}'s loss {got['loss']} "
+                                 f"vs rank 0's {ranks[0]['loss']}")
+        for part in ("grads", "bufs", "params"):
+            for k, v in ranks[0][part].items():
+                if not torch.equal(got[part][k], v):
+                    raise AssertionError(f"{label}: rank {r}'s {part} {k} "
+                                         "differs from rank 0's")
+
+
+def hold_dp(label, got, want, shaken):
+    """The data-parallel step (rank 0's ``got``) against the single-process
+    step on the global batch (``want``; ``shaken`` the same on weights x
+    (1 + 1e-5 noise)): loss within 1e-5 relative; running statistics
+    within 1e-5 of max(1, |stat|) or 3x the perturbation's change; each
+    gradient within the JAX package's DP bar (rtol 5e-2, atol 1e-5) or
+    phase 8's yardstick (3x the perturbation's change + 2e-3 of its
+    largest + 1e-5 of the largest gradient); each parameter after the
+    Adam step within 1e-6 (+ 1e-6 relative) where the gradient is above
+    1e-3 of the largest and twice the two steps' gradient difference
+    (there the first step is -lr sign(g) on both), elsewhere within 2 lr."""
+    import torch
+
+    if abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+        raise AssertionError(f"{label} loss: {got['loss']} vs the single "
+                             f"step's {want['loss']}")
+    stat_yard = 0
+    for name, v in want["bufs"].items():
+        scale = max(1.0, float(v.abs().max()))
+        err = float((got["bufs"][name] - v).abs().max())
+        if err <= 1e-5 * scale:
+            continue
+        noise = float((shaken["bufs"][name] - v).abs().max())
+        log(f"  {label} running statistic {name}: err {err:.3g} > 1e-5 x "
+            f"{scale:.3g}; the perturbation's change {noise:.3g}")
+        if err > 3 * noise + 1e-5 * scale:
+            raise AssertionError(f"{label} running statistic {name}: {err}")
+        stat_yard += 1
+    if got["grads"].keys() != want["grads"].keys():
+        raise AssertionError(f"{label}: different parameter sets")
+    top = max(float(g.abs().max()) for g in want["grads"].values())
+    bar = yard = 0
+    worst = (0.0, "")
+    for name, g in want["grads"].items():
+        d = got["grads"][name]
+        if torch.allclose(d, g, rtol=DP_GRAD_RTOL, atol=DP_GRAD_ATOL):
+            bar += 1
+            continue
+        err = float((d - g).abs().max())
+        noise = float((shaken["grads"][name] - g).abs().max())
+        ratio = err / (3 * noise + 2e-3 * float(g.abs().max()) + 1e-5 * top)
+        worst = max(worst, (ratio, name))
+        if ratio > 1:
+            raise AssertionError(f"{label} gradient {name}: err {err}, the "
+                                 f"perturbation's change {noise}")
+        yard += 1
+    params_sure = 0
+    for name, p in want["params"].items():
+        g = want["grads"][name]
+        sure = g.abs() > torch.clamp(2 * (got["grads"][name] - g).abs(),
+                                     min=1e-3 * top)
+        err = (got["params"][name] - p).abs()
+        if bool(sure.any()) and bool((err[sure] > 1e-6 + 1e-6 * p[
+                sure].abs()).any()):
+            raise AssertionError(f"{label} parameter {name} after the step: "
+                                 f"{float(err[sure].max())}")
+        if float(err.max()) > 2 * LR + 1e-6:
+            raise AssertionError(f"{label} parameter {name} after the step: "
+                                 f"{float(err.max())} > 2 lr")
+        params_sure += int(sure.sum())
+    log(f"{label} vs the single B={DP_WORLD} step: loss {got['loss']:.8g} / "
+        f"{want['loss']:.8g}; running statistics {len(want['bufs'])} "
+        f"({stat_yard} by the yardstick); gradients {bar} within the DP "
+        f"bar, {yard} by the yardstick (worst {worst[0]:.3g} of its bound, "
+        f"{worst[1]}); parameters after the step: {params_sure} entries at "
+        f"1e-6, the rest within 2 lr")
+
+
+def hold_dp_bf16(label, got, logits, want, shaken, f32):
+    """The bfloat16 data-parallel step (rank 0's ``got``; ``logits``: both
+    ranks' in rank order) against the single-process bfloat16 step on the
+    global batch (``want``).  bfloat16 steps are draws of its rounding
+    noise (one changed rounding moves most of the logits), so each
+    quantity is held within ``BF16_MAX_FACTOR`` x the noise of the single
+    step: the loss and the logits (``hold_bf16_logits``, the single steps'
+    logits as the plain paths') against its bf16-vs-f32 gap (``f32``: the
+    float32 single step), each running statistic against the larger of
+    that gap and the bf16 single step's change on weights x (1 + 1e-5
+    noise) (``shaken``; the yardstick of ``hold_dp``), or within 1e-5 of
+    max(1, |stat|), the float32 bar; the gradients float32 and finite."""
+    import torch
+
+    gap = abs(want["loss"] - f32["loss"])
+    if not (0 < gap and abs(got["loss"] - want["loss"])
+            <= BF16_MAX_FACTOR * gap):
+        raise AssertionError(f"{label} loss {got['loss']}: the single "
+                             f"bf16 step's {want['loss']}, its "
+                             f"bf16-vs-f32 gap {gap}")
+    hold_bf16_logits(f"{label} logits (both ranks) vs the single bf16 step",
+                     logits, want["logits"], want["logits"], f32["logits"],
+                     want["valid"])
+    if want["bufs"].keys() != f32["bufs"].keys():
+        raise AssertionError(f"{label}: buffers differ from float32's")
+    rows, bad, by_noise = [], [], 0
+    for name, v in want["bufs"].items():
+        err = float((got["bufs"][name] - v).abs().max())
+        g = float((v - f32["bufs"][name]).abs().max())
+        noise = float((shaken["bufs"][name] - v).abs().max())
+        floor = 1e-5 * max(1.0, float(v.abs().max()))
+        bound = max(floor, BF16_MAX_FACTOR * max(g, noise))
+        rows.append((err / bound, name, err, g, noise))
+        by_noise += err > max(floor, BF16_MAX_FACTOR * g)
+        if err > bound:
+            bad.append(name)
+    rows.sort(reverse=True)
+    log(f"{label} running statistics vs the single bf16 step: "
+        f"{len(rows)}, {by_noise} past {BF16_MAX_FACTOR} x the bf16-vs-f32 "
+        "gap and within the perturbation's change; the worst (err / bound, "
+        "name, err, bf16-vs-f32 gap, perturbation's change): "
+        + "; ".join(f"{r:.3g} {n} {e:.3g} {g:.3g} {z:.3g}"
+                    for r, n, e, g, z in rows[:6]))
+    if bad:
+        raise AssertionError(f"{label} running statistics {bad}")
+    for name, g in got["grads"].items():
+        if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} gradient {name}: {g.dtype}")
+    log(f"{label} vs the single B={DP_WORLD} bf16 step: loss "
+        f"{got['loss']:.8g} / {want['loss']:.8g}, within "
+        f"{abs(got['loss'] - want['loss']) / gap:.3g} of the bf16-vs-f32 "
+        f"gap; the perturbation moves the single bf16 step's loss "
+        f"{abs(shaken['loss'] - want['loss']):.3g}")
+
+
+def run_dp(P, mods, dev, kernel_launches, smi):
+    """Phase 22: data parallelism over processes on the one card -> the
+    launches by path (the ranks' summed).
+
+    ``dp`` / ``dp_bf16``: ``DP_WORLD`` rank processes (``dp_rank``, gloo
+    on cuda:0) each take the flagship's full-width train step on its own
+    sweep (seeds 0 and 1) from seed 0's weights; this process takes the
+    single-process step on the B=2 batch of both sweeps (and on
+    perturbed weights, the yardstick).  Held: every rank alike bit for
+    bit, rank 0 against the single step (``hold_dp``; bfloat16:
+    ``hold_dp_bf16``, the loss, running statistics and logits within
+    ``BF16_MAX_FACTOR`` x the single steps' bf16-vs-f32 gap, the
+    gradients finite), each rank's launches equal to
+    ``kernel_launches(train=True)``.  Printed: a rank's step walls, its
+    collectives' time and share of a step, the single step's walls, and
+    each one's peak memory.  ``dp_loop``: ``main`` in ``DP_WORLD``
+    processes (``distributed.num_processes``, ``CCN_PROCESS_ID``) on
+    nuScenes files (``tools/fake_datasets.py``): an epoch of 2 steps a
+    process, a TTA val scan, process 0's checkpoint, then resumed for a
+    second epoch."""
+    import numpy as np
+    import torch
+
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.parallel import dryrun
+    from curvecloudnet_tpu_torch.tools import fake_datasets as F
+    from curvecloudnet_tpu_torch.train import LossConfig
+    from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OUT22, ignore_errors=True)
+    os.makedirs(OUT22)
+    loss_cfg = LossConfig(ignore_index=0, use_lovasz=True)
+    bf16_cfg = bf16_config("nuscenes")
+    batch = cat_batches([synthetic_batch(r, N_PAD, dev)
+                         for r in range(DP_WORLD)])
+    single, specs = {}, {}
+    for label, config, _ in dp_models(bf16_cfg):
+        model = P.build_model(config, N_PAD, dev).train()
+        specs[label] = model.spec
+        one_step = step_runner(model, copy.deepcopy(model.state_dict()),
+                               batch, loss_cfg, mods, dev)
+        runs = {}
+        for what, shaken in [("single", False), ("shaken", True)]:
+            (loss, ms, peak), logits, valid = with_logits(
+                model, lambda: one_step(shaken=shaken))
+            grads, bufs, params = step_state(model)
+            runs[what] = dict(loss=loss, ms=ms, peak=peak, grads=grads,
+                              bufs=bufs, params=params, logits=logits,
+                              valid=valid)
+        runs["walls"] = [one_step()[1] for _ in range(DP_WALL_STEPS)]
+        single[label] = runs
+        del model, one_step
+        torch.cuda.empty_cache()
+
+    paths = [os.path.join(OUT22, f"rank{i}.pt") for i in range(DP_WORLD)]
+    port = dryrun.free_port()
+    t0 = time.perf_counter()
+    dryrun.spawn(lambda i: [sys.executable, os.path.abspath(__file__),
+                            "--dp-rank", str(i), str(port), paths[i],
+                            bf16_cfg, str(dev)], DP_WORLD, DP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    by_path = {}
+    for label, _, kernels in dp_models(bf16_cfg):
+        got = [r[label] for r in ranks]
+        one = single[label]
+        for i, r in enumerate(got):
+            coll = r["coll"]
+            log(f"{label} rank {i}/{DP_WORLD} ({ranks[i]['backend']}, "
+                f"{dev}, B=1): loss {r['loss']:.8g}; first step "
+                f"{r['first_ms']:.1f} ms, steps "
+                f"{[round(w, 1) for w in r['walls']]} ms; a step with its "
+                f"collectives timed (a barrier before each) "
+                f"{r['timed_ms']:.1f} ms, in {coll['calls']} collectives "
+                f"{coll['seconds'] * 1e3:.1f} ms; peak memory "
+                f"{r['peak'] / 2**30:.2f} GiB; {smi}")
+        if label == "dp":
+            dp_ms = float(np.median(got[0]["walls"]))
+            own = got[0]["coll"]["seconds"] * 1e3
+            log(f"{label}: a rank's step {dp_ms:.1f} ms (median) against the "
+                f"single B={DP_WORLD} step's "
+                f"{float(np.median(one['walls'])):.1f} ms; rank 0's "
+                f"collectives' own time {own:.1f} ms, {own / dp_ms:.3f} of "
+                f"its step; {smi}")
+        log(f"{label} single process, B={DP_WORLD}: loss "
+            f"{one['single']['loss']:.8g}; steps "
+            f"{[round(w, 1) for w in one['walls']]} ms (median "
+            f"{float(np.median(one['walls'])):.1f}); peak memory "
+            f"{one['single']['peak'] / 2**30:.2f} GiB; {smi}")
+        ranks_alike(label, got)
+        want = kernel_launches(specs[label], N_PAD, train=True)
+        for i, r in enumerate(got):
+            if label == "dp":
+                log(f"{label} rank {i} launches:", r["launched"], "spec:",
+                    want)
+                for name, n in r["launched"].items():
+                    if n != want[name] or not n:
+                        raise AssertionError(f"{label} rank {i} {name}: {n}"
+                                             f" launches, want {want[name]}")
+            else:
+                check_bf16_launches(f"{label} rank {i}", r["launched"], want,
+                                    1)
+        launched = {}
+        for r in got:
+            for name, n in r["launched"].items():
+                launched[name] = launched.get(name, 0) + n
+        by_path[label] = launched
+        # the ranks' logits, in rank order, are the global batch's
+        logits = torch.cat([r["logits"] for r in got])
+        valid = torch.cat([r["valid"] for r in got])
+        if not torch.equal(valid, one["single"]["valid"]):
+            raise AssertionError(f"{label}: the ranks' valid points differ "
+                                 "from the single step's")
+        if label == "dp":
+            hold_dp(label, got[0], one["single"], one["shaken"])
+            err = (logits - one["single"]["logits"])[valid].abs()
+            log(f"{label} logits (both ranks) vs the single step's: max abs "
+                f"err {float(err.max()):.4g} (mean {float(err.mean()):.3g})")
+            continue
+        hold_dp_bf16(label, got[0], logits, one["single"], one["shaken"],
+                     single["dp"]["single"])
+    log(f"{DP_WORLD} rank processes: {spawn_s:.1f} s")
+
+    # main in DP_WORLD processes from nuScenes files, then resumed
+    cfg = load_config(CONFIG)
+    root = F.write_for_config(cfg, os.path.join(OUT22, "data"),
+                              DP_LOOP_FILES, seed=22)
+    outdir = os.path.join(OUT22, "loop")
+    steps = DP_LOOP_FILES["train"] // DP_WORLD
+    for epochs in (1, 2):
+        port = dryrun.free_port()
+        t0 = time.perf_counter()
+        outs = dryrun.spawn(
+            lambda i: [sys.executable, "-m", "curvecloudnet_tpu_torch.main",
+                       "--config", CONFIG, f"--data_path={root}",
+                       "--batch_size=1", f"--epochs={epochs}",
+                       f"--device={dev}",
+                       "--num_workers=1", f"--outdir={outdir}",
+                       "--distributed.num_processes", str(DP_WORLD),
+                       "--distributed.coordinator_address",
+                       f"127.0.0.1:{port}"],
+            DP_WORLD, DP_TIMEOUT, env_of=lambda i: {"CCN_PROCESS_ID": str(i)})
+        wall = time.perf_counter() - t0
+        with open(os.path.join(OUT22, f"loop_epochs{epochs}.log"), "w") as f:
+            f.write("\n".join(f"--- process {i}\n{o}"
+                              for i, o in enumerate(outs)))
+        if "backend gloo" not in outs[0]:
+            raise AssertionError(f"dp_loop: no gloo backend line: {outs[0]}")
+        for i, o in enumerate(outs):
+            if f"epoch {epochs - 1}: loss" not in o or (
+                    "resumed from" in o) != (epochs == 2):
+                raise AssertionError(f"dp_loop process {i}: {o[-3000:]}")
+        with open(os.path.join(outdir, "latest_state.json")) as f:
+            state = json.load(f)
+        with open(os.path.join(outdir, "metrics.jsonl")) as f:
+            scores = [r for r in map(json.loads, f) if "score" in r]
+        blob = torch.load(os.path.join(outdir, "latest", "checkpoint.pt"),
+                          map_location="cpu", weights_only=True)
+        if (state["epoch"] != epochs - 1 or blob["step"] != steps * epochs
+                or [r["epoch"] for r in scores] != list(range(epochs))):
+            raise AssertionError(f"dp_loop epochs {epochs}: state {state}, "
+                                 f"step {blob['step']}, scores {scores}")
+        log(f"dp_loop epochs {epochs}: {DP_WORLD} processes of main, "
+            f"{wall:.1f} s; {steps} steps a process an epoch, latest_state "
+            f"{state}, checkpoint step {blob['step']}, scores "
+            f"{[round(r['score'], 4) for r in scores]}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -4163,6 +4609,10 @@ def main():
     bf16t_report, bf16t_launched = run_bf16_train(P, mods, dev,
                                                   kernel_launches)
 
+    stamp(t_start, "21")
+    # 22. data parallelism over processes
+    dp_launched = run_dp(P, mods, dev, kernel_launches, smi)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -4204,11 +4654,12 @@ def main():
                              + list(disk_launched.items())
                              + list(opt_launched.items())
                              + list(bf16_launched.items())
-                             + list(bf16t_launched.items())):
+                             + list(bf16t_launched.items())
+                             + list(dp_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s")
     for entry in PLAIN_FLIPS:
         log("K7 flips at a BN wider than {4}: {0} call {1} BN {2} ({3} "
             "wide), {5} live rows: plain float32 {6} rows ({7} elements), "
@@ -4223,4 +4674,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    else:
+        main()

@@ -38,6 +38,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from . import parallel
+
 _BN = {"scale": "weight", "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -126,12 +128,16 @@ CHECKPOINT_FILE = "checkpoint.pt"
 def save_checkpoint(outdir: str, name: str, model: torch.nn.Module,
                     optimizer=None, step: int = 0) -> str:
     """Save the model's state dict (and the optimizer's, when given) and
-    the step under ``outdir/name``."""
+    the step under ``outdir/name``.  With more than one process, process 0
+    writes (the processes hold the same state) while the others wait."""
     path = os.path.abspath(os.path.join(outdir, name))
-    os.makedirs(path, exist_ok=True)
-    blob = {"model": model.state_dict(), "step": int(step),
-            "optimizer": None if optimizer is None else optimizer.state_dict()}
-    torch.save(blob, os.path.join(path, CHECKPOINT_FILE))
+    if parallel.is_primary():
+        os.makedirs(path, exist_ok=True)
+        blob = {"model": model.state_dict(), "step": int(step),
+                "optimizer": (None if optimizer is None
+                              else optimizer.state_dict())}
+        torch.save(blob, os.path.join(path, CHECKPOINT_FILE))
+    parallel.barrier()
     return path
 
 
@@ -151,9 +157,11 @@ def restore_checkpoint(outdir: str, name: str, model: torch.nn.Module,
 
 
 def dump_latest_state(outdir: str, epoch: int, max_score: float) -> None:
-    """``latest_state.json`` (reference main.py:139-141)."""
-    with open(os.path.join(outdir, "latest_state.json"), "w") as f:
-        json.dump({"epoch": epoch, "max_score": max_score}, f)
+    """``latest_state.json`` (reference main.py:139-141), by process 0."""
+    if parallel.is_primary():
+        with open(os.path.join(outdir, "latest_state.json"), "w") as f:
+            json.dump({"epoch": epoch, "max_score": max_score}, f)
+    parallel.barrier()
 
 
 def read_latest_state(outdir: str) -> Optional[Dict[str, Any]]:

@@ -5,7 +5,9 @@ A required ``--config`` YAML, with optional single-level ``base:
 other.yaml`` inheritance resolved relative to the file, takes free-form
 ``--a.b.c=value`` (or ``--a.b.c value``) overrides whose values are
 coerced to the type already present in the YAML (unknown keys warn and
-are added).  The port adds one key, ``device`` (default ``cuda``).
+are added).  The port adds one key, ``device`` (default ``cuda``), and
+a ``--distributed.*`` override creates the ``distributed`` block (the
+JAX entry's multi-process block, which no shipped config holds).
 """
 
 from __future__ import annotations
@@ -112,6 +114,8 @@ def parse_args(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 raise ValueError(f"flag --{path} missing a value")
             value = unknown[i + 1]
             i += 2
+        if path.startswith("distributed."):
+            cfg.setdefault("distributed", {})
         set_dotted(cfg, path, value)
     cfg.setdefault("device", DEFAULT_DEVICE)
     return cfg

@@ -6,6 +6,13 @@ stacking) ahead of the consumer, at most ``prefetch`` batches ahead, so
 host preparation overlaps device compute.  Only the consuming thread
 touches the device.  Batches come out in epoch order whatever thread
 prepared them, and a worker's exception is raised in the consumer.
+
+With more than one process (``parallel``) each process reads its
+lockstep shard of the epoch, as the JAX loader does: every process
+shuffles the same global order (the seed is shared), the order is
+wrap-padded with repetitions to ceil(n / processes) items a process, and
+each process takes its contiguous slice, so every process runs the same
+number of steps.  Eval loaders pass ``shard_by_process=False``.
 """
 
 from __future__ import annotations
@@ -16,17 +23,8 @@ from typing import Iterator
 
 import numpy as np
 
+from ..parallel.mesh import process_shard_range
 from .datasets import CurveDataset, collate
-
-
-def process_count() -> int:
-    """Processes of the run: torch.distributed's world size once it is
-    initialized, else 1."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 class PrefetchLoader:
@@ -44,29 +42,26 @@ class PrefetchLoader:
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
-        # the JAX loader gives each process a slice of a shared order; the
-        # port runs one process until scale-out is ported
         self.shard_by_process = shard_by_process
 
-    def _check_processes(self) -> None:
-        if self.shard_by_process and process_count() > 1:
-            raise NotImplementedError(
-                "PrefetchLoader: sharding over processes is not ported "
-                "(scale-out); it would read the whole set on every process")
-
-    def _shard(self) -> range:
-        self._check_processes()
-        return range(len(self.dataset))
+    def _shard_len(self) -> int:
+        """Items a process reads an epoch: ceil(n / processes)."""
+        if not self.shard_by_process:
+            return len(self.dataset)
+        return len(process_shard_range(len(self.dataset)))
 
     def __len__(self):
-        n = len(self._shard())
+        n = self._shard_len()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batch_indices(self, epoch_seed: int):
-        self._check_processes()
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(epoch_seed).shuffle(order)
+        if self.shard_by_process:
+            # this process's lockstep shard of the shuffled order
+            order = order[np.asarray(process_shard_range(len(order)),
+                                     dtype=np.int64)]
         stop = (len(order) - self.batch_size + 1 if self.drop_last
                 else len(order))
         for s in range(0, max(stop, 0), self.batch_size):

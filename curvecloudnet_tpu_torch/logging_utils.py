@@ -7,7 +7,9 @@ The reference logs to Weights & Biases; this logger keeps its call shape
 call that tooling can tail.  wandb is not a dependency of the port: with
 ``use_wandb=True`` the logger also logs to wandb if it imports and its
 run starts, and otherwise prints one line and carries on with
-``metrics.jsonl`` alone, as the JAX package's logger does.
+``metrics.jsonl`` alone, as the JAX package's logger does.  With more
+than one process only process 0 writes (the file, wandb, media); every
+process keeps the history.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+from . import parallel
 
 
 class MetricLogger:
@@ -27,10 +31,11 @@ class MetricLogger:
         self._wandb = None
         self.summary_max: Dict[str, float] = {}
         self._history: Dict[str, list] = {}
-        if outdir:
+        self.primary = parallel.is_primary()
+        if outdir and self.primary:
             os.makedirs(outdir, exist_ok=True)
             self._fh = open(os.path.join(outdir, "metrics.jsonl"), "a")
-        if use_wandb:
+        if use_wandb and self.primary:
             try:
                 import wandb
 
@@ -84,7 +89,7 @@ class MetricLogger:
         (copied)."""
         import numpy as np
 
-        if not self.outdir:
+        if not self.outdir or not self.primary:
             return
         media = os.path.join(self.outdir, "media")
         os.makedirs(media, exist_ok=True)

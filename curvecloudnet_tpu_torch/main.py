@@ -25,8 +25,24 @@ checkpoint of ``outdir``.  The datasets are read from ``data_path``
 ``data/datasets.py`` describe); where ``data_path`` does not exist they
 are the JAX entry's synthetic stand-ins.
 
-Not ported yet, and raising ``NotImplementedError``: ``only_viz`` and
-more than one process or device.
+Data parallelism (``parallel``): launch one process a rank with the
+same config but for the process id::
+
+    CCN_PROCESS_ID=$i python -m curvecloudnet_tpu_torch.main \\
+        --config configs/nuscenes.yaml --distributed.num_processes 2 \\
+        --distributed.coordinator_address 127.0.0.1:29500
+
+(``distributed.process_id`` in place of ``CCN_PROCESS_ID``), or set
+``data_parallel_devices: n`` to spawn a process a visible GPU (with fewer
+GPUs visible it runs one process).  Each process trains on its lockstep
+shard of every epoch (the schedule counts its steps), the step is the
+global batch's (``train.trainer.train_step``), every process runs the
+validation over the whole val set, and process 0 writes the checkpoints,
+``latest_state.json`` and ``metrics.jsonl``.  A process's device is
+``cuda:{LOCAL_RANK or rank % device count}``; the backend ``nccl`` when
+every process has a card of its own, else ``gloo``.
+
+Not ported yet, and raising ``NotImplementedError``: ``only_viz``.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
+from . import parallel
 from .config import DEFAULT_DEVICE, parse_args
 from .data import datasets as D
 from .logging_utils import MetricLogger
@@ -114,6 +131,11 @@ def run_eval(model, val_ds, info, cfg, log=print, logger=None,
     is the JAX loop's media logger for the classification confusion
     figure, which is not ported, so the figure is not drawn."""
     del logger
+    with parallel.local():   # every process scores the whole set
+        return _run_eval(model, val_ds, info, cfg, log, generator)
+
+
+def _run_eval(model, val_ds, info, cfg, log, generator):
     lidar_scene = info.task == "segmentation" and not info.part_iou
     bs = int(cfg.get("eval_batch_size", 1 if lidar_scene else 8))
     max_b = cfg.get("eval_max_batches")
@@ -128,7 +150,8 @@ def run_eval(model, val_ds, info, cfg, log=print, logger=None,
     return T.evaluate_segmentation(
         model, val_ds, info, batch_size=bs, max_batches=max_b,
         use_tta=cfg.get("use_tta"), log=log,
-        test_mode=_flag(cfg, "only_test"), outdir=cfg.get("outdir"),
+        test_mode=_flag(cfg, "only_test"),
+        outdir=cfg.get("outdir") if parallel.is_primary() else None,
         generator=generator)
 
 
@@ -148,12 +171,44 @@ def _flag(cfg: dict, key: str) -> bool:
 
 
 def device_of(cfg: dict) -> torch.device:
-    """The config's device; a CUDA device must be present."""
+    """The config's device (a process's own CUDA device with more than one
+    process); a CUDA device must be present."""
     device = torch.device(cfg.get("device") or DEFAULT_DEVICE)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is available "
                            "(pass --device=cpu to run on the CPU)")
+    if parallel.process_count() > 1:
+        return parallel.local_device(device, parallel.process_index())
     return device
+
+
+def _process_id(dist_cfg: dict) -> int:
+    pid = dist_cfg.get("process_id")
+    return int(os.environ.get("CCN_PROCESS_ID", 0) if pid is None else pid)
+
+
+def init_distributed_from_config(cfg: dict) -> int:
+    """Join the run's process group from the config's block (the JAX
+    entry's ``init_distributed_from_config``)::
+
+        distributed:
+          coordinator_address: host0:29500
+          num_processes: 2
+          process_id: 0        # or the environment's CCN_PROCESS_ID
+
+    -> this process's rank; one process (no block, ``num_processes`` <= 1)
+    joins nothing."""
+    dist_cfg = cfg.get("distributed") or {}
+    n_proc = int(dist_cfg.get("num_processes") or 0)
+    if n_proc <= 1:
+        return 0
+    pid = _process_id(dist_cfg)
+    device = device_of(cfg)
+    idx = parallel.initialize_distributed(
+        dist_cfg.get("coordinator_address"), n_proc, pid, device)
+    print(f"[distributed] process {idx}/{n_proc} on "
+          f"{parallel.local_device(device, pid)}", flush=True)
+    return idx
 
 
 def _setup(cfg: dict, logger: Optional[MetricLogger] = None,
@@ -182,6 +237,8 @@ def _setup(cfg: dict, logger: Optional[MetricLogger] = None,
     model = model.to(device)
     opt = (create_optimizer(model, weight_decay=float(
         cfg.get("weight_decay", 0.0))) if with_optimizer else None)
+    # every process reads the same weights below; process 0's stand
+    broadcast = parallel.process_count() > 1
 
     outdir = cfg.get("outdir", "./out/run")
     weights = cfg.get("weights", "")
@@ -204,6 +261,8 @@ def _setup(cfg: dict, logger: Optional[MetricLogger] = None,
             # run-spanning statistics must see the entries before a resume
             logger.reload_history()
         print(f"resumed from {outdir} at epoch {resume[0]}")
+    if broadcast:
+        parallel.broadcast_state(model, opt)
     return info, train_ds, val_ds, model, opt, resume
 
 
@@ -216,8 +275,7 @@ def build(cfg: dict, logger: Optional[MetricLogger] = None):
 
 
 def train(cfg: dict, logger: MetricLogger) -> float:
-    """The epoch loop (JAX ``main.py:280-413``, one process) -> the best
-    val score.
+    """The epoch loop (JAX ``main.py:280-413``) -> the best val score.
 
     Per epoch: the BN momentum ``bn_momentum_for_epoch(epoch,
     bn_momentum_decay)``; the train set shuffled and augmented from
@@ -231,12 +289,11 @@ def train(cfg: dict, logger: MetricLogger) -> float:
     the epoch's mean loss.  Every ``val_every`` epochs ``run_eval``, the
     score and the median of the top five, and ``best_epoch{E}`` on a new
     best; ``epoch{E}`` every ``save_every`` epochs; ``latest`` and
-    ``latest_state.json`` after every epoch."""
+    ``latest_state.json`` after every epoch.  With more than one process
+    each trains on its shard (``PrefetchLoader``), the schedule counting
+    the shard's steps, and every step is the global batch's."""
     from .data.loader import PrefetchLoader
 
-    if int(cfg.get("data_parallel_devices") or 1) > 1:
-        raise NotImplementedError("data_parallel_devices > 1: scale-out is "
-                                  "not ported (ROADMAP.md)")
     info, train_ds, val_ds, model, opt, resume = _setup(cfg, logger, True)
     start_epoch, max_score, step = resume
     device = next(model.parameters()).device
@@ -244,7 +301,9 @@ def train(cfg: dict, logger: MetricLogger) -> float:
     loss_cfg = T.loss_for(cfg)
     batch_size = int(cfg.get("batch_size", 4))
     seed = int(cfg.get("seed", 0))
-    steps_per_epoch = max(1, -(-len(train_ds) // batch_size))
+    # a process's steps: ceil(n / processes) items of each epoch
+    shard_len = -(-len(train_ds) // parallel.process_count())
+    steps_per_epoch = max(1, -(-shard_len // batch_size))
     schedule = make_schedule(cfg.get("scheduler"), float(cfg.get("lr", 1e-3)),
                              steps_per_epoch)
     epochs = int(cfg.get("epochs", 10))
@@ -277,7 +336,9 @@ def train(cfg: dict, logger: MetricLogger) -> float:
               f"({time.time() - t_ep:.1f}s)")
 
         if (epoch + 1) % val_every == 0:
-            score = score_of(run_eval(model, val_ds, info, cfg))
+            # every process scores the val set; process 0's score decides
+            score = parallel.agree(score_of(run_eval(model, val_ds, info,
+                                                     cfg)))
             logger.log({"score": score, "epoch": epoch}, step=step)
             # the reference's 'Median Top 5 IOU' (nuscenes_seg.py:159-161)
             logger.log({"median_top5_score": logger.median_top_k("score")},
@@ -294,16 +355,60 @@ def train(cfg: dict, logger: MetricLogger) -> float:
     return max_score
 
 
+def _spawned(i: int, cfg: dict, n: int, address: str, out) -> None:
+    """Process i of ``data_parallel_devices``: ``main`` with its block."""
+    score = main(dict(cfg, data_parallel_devices=1, distributed={
+        "num_processes": n, "coordinator_address": address,
+        "process_id": i}))
+    if i == 0:
+        out.put(score)
+
+
+def _data_parallel(cfg: dict) -> Optional[int]:
+    """The processes ``data_parallel_devices: n`` asks for: n when n CUDA
+    devices are visible (a process each), else None (one process, as the
+    JAX entry runs one device when fewer are present)."""
+    n = int(cfg.get("data_parallel_devices") or 1)
+    dist_cfg = cfg.get("distributed") or {}
+    if n <= 1 or int(dist_cfg.get("num_processes") or 0) > 1:
+        return None
+    device = torch.device(cfg.get("device") or DEFAULT_DEVICE)
+    have = torch.cuda.device_count() if device.type == "cuda" else 0
+    if have >= n:
+        return n
+    print(f"[distributed] data_parallel_devices {n}: {have} CUDA devices "
+          "visible on the config's device; running one process", flush=True)
+    return None
+
+
 def main(cfg: dict) -> Optional[float]:
     """Train (the best val score), or with ``only_val`` / ``only_test``
-    score the val set (mIoU, instance part mIoU or accuracy)."""
-    dist = cfg.get("distributed") or {}
-    if int(dist.get("num_processes") or 0) > 1:
-        raise NotImplementedError("distributed.num_processes > 1: scale-out "
-                                  "is not ported (ROADMAP.md queue 1, item 6)")
+    score the val set (mIoU, instance part mIoU or accuracy); with
+    ``distributed.num_processes`` > 1 as one process of the run, with
+    ``data_parallel_devices`` as n spawned processes."""
     if _flag(cfg, "only_viz"):
         raise NotImplementedError("only_viz: visualization/ is not ported "
                                   "(ROADMAP.md queue 1, item 7)")
+    n_spawn = _data_parallel(cfg)
+    if n_spawn:
+        import torch.multiprocessing as mp
+
+        from .parallel.dryrun import free_port
+
+        out = mp.get_context("spawn").SimpleQueue()
+        mp.spawn(_spawned, args=(cfg, n_spawn, f"127.0.0.1:{free_port()}",
+                                 out), nprocs=n_spawn, join=True)
+        return out.get()
+    joined = parallel.process_count() > 1   # by the caller: left joined
+    init_distributed_from_config(cfg)
+    try:
+        return _main(cfg)
+    finally:
+        if not joined:
+            parallel.shutdown()
+
+
+def _main(cfg: dict) -> Optional[float]:
     outdir = cfg.get("outdir", "./out/run")
     os.makedirs(outdir, exist_ok=True)
     logger = MetricLogger(outdir, use_wandb=_flag(cfg, "use_wandb"),

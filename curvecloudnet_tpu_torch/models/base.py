@@ -16,6 +16,7 @@ import math
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import neighbors
 from ..ops.conv1d_train import fused_reduce
 from ..ops.neighbors import TABLE_K, TableCache
@@ -325,8 +326,9 @@ class CurveCloudNet(nn.Module):
                 else step.downsample_type)
         shape = {"curve-fps": (), "voxel": (b, n), "random": (b, n)}.get(
             kind, (b,))
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(cloud.pos.device)
+        # a data-parallel step draws the global batch's and keeps its rows
+        return parallel.rand_rows(shape, generator,
+                                  generator.device).to(cloud.pos.device)
 
     def forward(self, cloud: Cloud, categories: torch.Tensor | None = None,
                 train: bool = False, bn_momentum=0.1,

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
+
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
@@ -46,9 +48,13 @@ class MaskedBatchNorm(nn.Module):
         return s, self.bias - self.running_mean * s
 
     def batch_stats(self, x: torch.Tensor, mask=None):
-        """(mean, biased var, count) over the masked rows of x (..., C)."""
+        """(mean, biased var, count) over the masked rows of x (..., C);
+        over every process's rows in a data-parallel step."""
         c = x.shape[-1]
         xf = x.reshape(-1, c).float()
+        if parallel.world() > 1:
+            return parallel.moments(xf, None if mask is None
+                                    else mask.reshape(-1, 1).float())
         if mask is None:
             cnt = xf.new_full((), float(xf.shape[0]))  # no host copy
             mean = xf.mean(dim=0)
@@ -154,7 +160,7 @@ class MLP(nn.Module):
                 kept = next(masks)
             else:
                 dev = x.device if generator is None else generator.device
-                kept = (torch.rand(x.shape, generator=generator, device=dev)
+                kept = (parallel.rand_rows(x.shape, generator, dev)
                         < keep).to(x.device)
             return torch.where(kept, x / keep, torch.zeros_like(x))
 

@@ -54,12 +54,22 @@ kernels, ``conv1d_train_fwd_layer_bf16`` and ``conv1d_train_bwd_t_bf16``);
 on the CPU the bfloat16 chain runs :class:`_Conv1dChainTrain` over the
 plain passes, since torch autograd of the plain chain would round its
 backward elsewhere than the kernels.
+
+In a data-parallel step (``parallel``, more than one process) the count
+and each layer's statistics cover every process's live slots: the
+forward merges the processes' (count, mean, variance) of a layer
+(``parallel.merge_moments``) before the next layer's pass applies them,
+and the backward sums the reduce sums (standalone, or a t pass's
+``prev_sums``) over the processes before the next t pass divides them by
+n; dW, db, dgamma and dbeta stay this process's sums.  The plain chain
+sums its moments over the processes under torch autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import parallel
 from . import _build
 from .conv1d_chain import MAX_N, ROWS
 from .curve1d import window_concat_nomask
@@ -81,11 +91,27 @@ def _count(used) -> torch.Tensor:
     return torch.clamp(used.sum().to(torch.float32), min=1.0)
 
 
+def _global_count(used) -> torch.Tensor:
+    """n over every process's live slots in a data-parallel step."""
+    return torch.clamp(parallel.reduce_sum(used.sum()).to(torch.float32),
+                       min=1.0)
+
+
 def _masked_moments(z, live, n):
     """Mean and biased variance of z over the live slots (two passes, as
     ``MaskedBatchNorm``)."""
     mean = (z * live).sum(dim=(0, 1)) / n
     return mean, ((z - mean) ** 2 * live).sum(dim=(0, 1)) / n
+
+
+def _chain_moments(z, live, n):
+    """The plain chain's moments: over every process's live slots in a
+    data-parallel step (differentiable through the sums)."""
+    if parallel.world() == 1:
+        return _masked_moments(z, live, n)
+    c = z.shape[-1]
+    mean, var, _ = parallel.moments(z.reshape(-1, c), live.reshape(-1, 1))
+    return mean, var
 
 
 def _leaky(y):
@@ -132,12 +158,12 @@ def conv1d_chain_train_ref(xe, params, used, half_k: int):
     used (B,).  Returns (u_L (B, n_exp, C_L) in xe's dtype, ((mean, var,
     n), ...))."""
     live = _live(used, xe.shape[1], xe.device)
-    n = _count(used)
+    n = _global_count(used)
     bf = xe.dtype == torch.bfloat16
     u, stats = _wide(xe), []
     for w, b, gam, bet in params:
         z = _window_mm(u, w, half_k, bf) + b
-        mean, var = _masked_moments(z, live, n)
+        mean, var = _chain_moments(z, live, n)
         u = _leaky((z - mean) * torch.rsqrt(var + EPS) * gam + bet) * live
         stats.append((mean, var, n))
     return u.to(xe.dtype), tuple(stats)
@@ -508,19 +534,23 @@ class _Conv1dChainTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, half_k, xe, used, *flat):
         params = [flat[i:i + 4] for i in range(0, len(flat), 4)]
-        n = _count(used)
+        n = _global_count(used)
         bf = xe.dtype == torch.bfloat16
+        dp = parallel.world() > 1
         zs, stats = [], []
         z_prev, bn_prev = xe, None
         for li, (w, b, _, _) in enumerate(params):
             z, mean, var = conv1d_train_fwd_layer(z_prev, bn_prev, w, b, used,
                                                   half_k, bf)
+            if dp:  # the next pass applies the global statistics
+                mean, var, _ = parallel.merge_moments(mean, var, used.sum())
             zs.append(z)
             stats += [mean, var]
             z_prev, bn_prev = z, _bn_of(stats, params, li)
         out = _u_of(z_prev, bn_prev, _live(used, xe.shape[1], xe.device))
         out = out.to(xe.dtype)
         ctx.half_k, ctx.n_layers, ctx.bf = half_k, len(params), bf
+        ctx.dp = dp
         ctx.save_for_backward(xe, used, n, *flat, *zs, *stats)
         ctx.mark_non_differentiable(n, *stats)
         return (out, n, *stats)
@@ -540,7 +570,10 @@ class _Conv1dChainTrain(torch.autograd.Function):
                                if li > 0 else (xe, None))
             if sums is None:
                 sums = conv1d_train_bwd_reduce(d_u, zs[li], bn, used)
-            s_dxh, s_dxh_xh, s_da, s_da_xh = sums
+            _, _, s_da, s_da_xh = sums   # the gradients: this process's
+            if ctx.dp:   # the BN backward's sums over every process's slots
+                sums = parallel.reduce_sum(torch.stack(sums)).unbind(0)
+            s_dxh, s_dxh_xh = sums[:2]
             fuse = li > 0 and fused_reduce(z_prev.shape[-1])
             d_u, dw, db, *rest = conv1d_train_bwd_t(
                 d_u, zs[li], z_prev, bn, bn_prev, params[li][0], s_dxh / n,

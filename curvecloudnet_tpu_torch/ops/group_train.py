@@ -55,6 +55,16 @@ values and junk gradients, as in the JAX package; every consumer masks
 them by row validity, so their cotangents are zero in any real loss, and
 the cotangents at masked slots are exactly zero: the kernels drop both
 (the max fill -100, or 0 under attend, at queries with no live slot).
+
+In a data-parallel step (``parallel``, more than one process) every BN
+takes the statistics of every process's live rows: the forward finalizes
+each BN's partials to raw sums, sums them and the row count over the
+processes, and forms mean, variance and inverse deviation before the
+next GEMM applies them; the backward sums each level's BN sums (of T and
+T x-hat) over the processes before the next level uses them.  The
+parameter gradients stay this process's sums (the trainer sums them).
+The plain versions do the same.  A process with no live row still joins
+every sum.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import dataclasses
 
 import torch
 
+from .. import parallel
 from . import _build
 from .aggregate import ATTEND_FILL, MAX_FILL
 from .group_reduce import _sm_count
@@ -156,12 +167,21 @@ def _bn(v, mu, var, g, b, eps):
     return xhat, xhat * g + b
 
 
+def _global(*sums):
+    """Column sums summed over the processes of a data-parallel step (one
+    all-reduce); themselves in one process."""
+    if parallel.world() == 1:
+        return sums
+    return parallel.reduce_sum(torch.stack(sums)).unbind(0)
+
+
 def _masked_stats(v, mk, n):
-    """(mean, biased var) over the masked rows: E[x^2] - mean^2, as the
-    kernel's stats passes."""
+    """(mean, biased var) over the masked rows (every process's): E[x^2] -
+    mean^2, as the kernel's stats passes."""
     vm = v * mk
-    mu = vm.sum(dim=(0, 1, 2)) / n
-    var = torch.clamp((vm * v).sum(dim=(0, 1, 2)) / n - mu * mu, min=0.0)
+    s, ss = _global(vm.sum(dim=(0, 1, 2)), (vm * v).sum(dim=(0, 1, 2)))
+    mu = s / n
+    var = torch.clamp(ss / n - mu * mu, min=0.0)
     return mu, var
 
 
@@ -209,7 +229,7 @@ def group_train_fwd_ref(h1, mask, cfg: TrainCfg, params):
     """-> (out (B, M, CL), stats [(mean, var)] per BN (attend last), n,
     extras: (out, mx, den) for attend, (mx, cnt) for max)."""
     wdt = _wdt(h1)
-    n = torch.clamp(mask.sum().to(wdt), min=1.0)
+    n = torch.clamp(parallel.reduce_sum(mask.sum()).to(wdt), min=1.0)
     mk = _plane_mask(mask, wdt)
     keep, stats = _chain_ref(h1, mk, n, cfg, params,
                              bf=h1.dtype == torch.bfloat16)
@@ -260,8 +280,9 @@ def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
         ta = _mm(dlogit, wa1.t(), bf).mul_(_dact(a_y, cfg.attend_act)).mul_(
             mk)
         rsa, rpa = _colsum(ta), _colsum(ta * a_xhat)
+        gsa, gpa = _global(rsa, rpa)
         inva = torch.rsqrt(stats[cfg.n_loc][1] + cfg.eps)
-        dg1 = (a_xhat * (rpa / n)).add_(rsa / n).mul_(mk)
+        dg1 = (a_xhat * (gpa / n)).add_(gsa / n).mul_(mk)
         dg1 = torch.sub(ta, dg1, out=dg1).mul_(ga * inva)
         del ta, a_xhat
         k = 4 * cfg.n_loc
@@ -284,9 +305,10 @@ def group_train_bwd_ref(h1, mask, cfg: TrainCfg, params, stats, n, extras,
         dw, db = _wgrad(_act(y, cfg.act), dv, bf), _colsum(dv)
         t = _mm(dv, w_l.t(), bf) * _dact(y, cfg.act) * mk
         rs, rp = _colsum(t), _colsum(t * xhat)
+        gs, gp = _global(rs, rp)
         t = _rnd(t, bf)      # kept in h1's dtype between levels
         inv = torch.rsqrt(stats[li][1] + cfg.eps)
-        dv = g * inv * (t - mk * (rs / n + xhat * (rp / n)))
+        dv = g * inv * (t - mk * (gs / n + xhat * (gp / n)))
         grads[4 * li:4 * li + 4] = [rp, rs, dw, db]
     return dv.to(h1.dtype), tuple(grads)
 
@@ -463,6 +485,13 @@ def _kernel_wgrad(counter, dev, x, d, c_in, c_out, rows, xidx=None,
     return out[:c_in], out[c_in]
 
 
+def _global_rows(r: int, dev) -> float:
+    """max(live rows summed over the processes, 1) (a host sync)."""
+    total = parallel.reduce_sum(torch.tensor([r], dtype=torch.int64,
+                                             device=dev))
+    return float(max(int(total), 1))
+
+
 def _check_inputs(h1, mask, cfg):
     b, k, m, c0 = h1.shape
     if (h1.dtype not in (torch.float32, torch.bfloat16)
@@ -513,13 +542,22 @@ def _kernel_fwd(h1, mask, cfg, params, cnt=None):
     rows, qry, start = row_list(mask)
     r = rows.numel()
     n_rows = float(max(r, 1))
+    # a data-parallel step: the count and each BN's sums over every
+    # process's rows (the kernels' partials finalized to raw sums here)
+    dp = parallel.world() > 1
+    n_all = _global_rows(r, dev) if dp else n_rows
     tiles = max(1, -(-r // TILE))
     stream = _build.stream_ptr(dev)
     stats, invs, vals = [], [], []
 
     def statistics(part, c):
-        _, (mu, var, inv) = _finalize(cnt, dev, part, c, True, 1, n_rows,
-                                      cfg.eps)
+        sums, (mu, var, inv) = _finalize(cnt, dev, part, c, True, 1, n_rows,
+                                         cfg.eps)
+        if dp:
+            s = parallel.reduce_sum(sums)
+            mu = s[:c] / n_all
+            var = torch.clamp(s[c:] / n_all - mu * mu, min=0.0)
+            inv = torch.rsqrt(var + cfg.eps)
         stats.append((mu, var))
         invs.append(inv)
 
@@ -565,7 +603,7 @@ def _kernel_fwd(h1, mask, cfg, params, cnt=None):
     _launch(cnt, "aggregate", "ccn_gt_aggregate", _dptr(msg), _dptr(lg),
             _dptr(start), b * m, cl, k, int(cfg.attend), _dptr(out),
             _dptr(mx), _dptr(aux), stream)
-    n = torch.full((), n_rows, device=dev)
+    n = torch.full((), n_all, device=dev)
     return out, stats, n, (rows, qry, out, mx, aux, *vals, *invs)
 
 
@@ -581,7 +619,7 @@ def group_train_bwd(h1, mask, cfg: TrainCfg, params, stats, n, extras,
         return group_train_bwd_bf16(h1, mask, cfg, params, stats, n, extras,
                                     dout)
     return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout,
-                       group_train_bwd)
+                       group_train_bwd, n)
 
 
 def group_train_bwd_bf16(h1, mask, cfg: TrainCfg, params, stats, n, extras,
@@ -591,12 +629,14 @@ def group_train_bwd_bf16(h1, mask, cfg: TrainCfg, params, stats, n, extras,
     if h1.dtype != torch.bfloat16:
         raise ValueError(f"group_train_bwd_bf16: h1 {h1.dtype}")
     return _kernel_bwd(h1, mask, cfg, params, stats, extras, dout,
-                       group_train_bwd_bf16)
+                       group_train_bwd_bf16, n)
 
 
-def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None):
+def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None,
+                n=None):
     """The backward's launches, each counted on ``cnt`` (the wrapper of
-    h1's dtype by default)."""
+    h1's dtype by default); ``n`` the forward's count, which a
+    data-parallel step's BN backward divides its global sums by."""
     h1, mask = _check_inputs(h1, mask, cfg)
     _label(h1, cfg)
     c0 = h1.shape[-1]
@@ -608,6 +648,8 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None):
     invs = extras[5 + L + 2 * cfg.attend:]
     r = rows.numel()
     n_rows = float(max(r, 1))
+    dp = parallel.world() > 1
+    n_all = float(n) if dp else n_rows
     tiles = max(1, -(-r // TILE))
     dout = dout.float().contiguous()
     v = [h1] + list(vals[:L])          # v_0 through the row index
@@ -629,6 +671,10 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None):
               rnd=int(rnd), **kw)
         sums, coef = _finalize(cnt, dev, part, cin, True, 2, n_rows,
                                gam=bn_e["gam"], inv=bn_e["inv"])
+        if dp:  # the gradients stay this process's sums
+            s = parallel.reduce_sum(sums)
+            coef = [bn_e["gam"] * bn_e["inv"], s[:cin] / n_all,
+                    s[cin:] / n_all]
         return t, [sums[cin:], sums[:cin]], coef
 
     if cfg.attend:

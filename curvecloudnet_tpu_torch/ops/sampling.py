@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import parallel
 from . import fps as _k6
 from . import segments, telemetry
 from .segments import norm3
@@ -59,10 +60,11 @@ def random_downsample(valid, ratio: float, budget: int, u=None):
     the valid points of the smallest draws ``u`` (B, N), ties to the lower
     index.  ``u=None`` draws them from a CPU ``torch.Generator`` seeded 0
     (the JAX package's ``key=None`` draws from ``PRNGKey(0)``, which torch
-    cannot reproduce)."""
+    cannot reproduce; a data-parallel step's rows of the global batch's
+    draws)."""
     b, n = valid.shape
     if u is None:
-        u = torch.rand((b, n), generator=torch.Generator().manual_seed(0))
+        u = parallel.rand_rows((b, n), torch.Generator().manual_seed(0))
         u = u.to(valid.device)
     scores = torch.where(valid, u.float(), torch.full_like(u.float(), 1e30))
     order = torch.argsort(scores, dim=-1, stable=True)

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
+
 
 def _shifted(x):
     return x - x.amax(dim=-1, keepdim=True).detach()
@@ -56,7 +58,14 @@ def nll_loss(log_probs, labels, valid, ignore_index: Optional[int] = None,
     w = (class_weights[safe] if class_weights is not None
          else torch.ones_like(picked))
     w = torch.where(counted, w, torch.zeros_like(w))
-    num = -torch.where(counted, picked * w, torch.zeros_like(picked)).sum()
+    terms = -torch.where(counted, picked * w, torch.zeros_like(picked))
+    if parallel.world() > 1:
+        if mean_over_all:
+            return _global_ratio(terms, valid, lambda d: torch.clamp(
+                d.long(), min=1).to(terms.dtype))
+        return _global_ratio(terms, w, lambda d: torch.clamp(
+            d.to(w.dtype), min=1e-12))
+    num = terms.sum()
     if mean_over_all:
         den = torch.clamp(valid.sum(), min=1).to(num.dtype)
     else:
@@ -64,10 +73,32 @@ def nll_loss(log_probs, labels, valid, ignore_index: Optional[int] = None,
     return num / den
 
 
+def _global_ratio(terms, weights, finish):
+    """sum(terms) / sum(weights) over every process's rows, in a
+    data-parallel step: the value is the global sums' ratio, each sum
+    accumulated in float32 and rounded once (``finish`` gives the
+    denominator the single-process form: its clamp and dtype), as one
+    process rounds its sums; the gradient is this process's terms over the
+    global denominator."""
+    num_g, den_g = parallel.reduce_sum(torch.stack(
+        [terms.detach().float().sum(), weights.detach().float().sum()]
+    )).unbind(0)
+    den_g = finish(den_g)
+    return parallel.with_value(terms.sum() / den_g,
+                               num_g.to(terms.dtype) / den_g)
+
+
 def lovasz_softmax(probs, labels, valid):
     """Multi-class Lovász-Softmax over the present classes.  probs (N, C),
     labels (N,), valid (N,) with ignored rows already masked out; float32
-    whatever the dtype of probs."""
+    whatever the dtype of probs.  In a data-parallel step it sorts every
+    process's rows (in rank order, the single-process order of the global
+    batch); the gradient reaches this process's rows."""
+    if parallel.world() > 1:
+        probs = parallel.global_rows(probs)
+        meta = parallel.all_gather_rows(torch.stack(
+            [labels.long(), valid.long()], dim=1))
+        labels, valid = meta[:, 0], meta[:, 1] > 0
     n, c = probs.shape
     fg = (labels.long()[:, None] == torch.arange(c, device=probs.device)) \
         & valid[:, None]
@@ -116,4 +147,8 @@ def classification_loss(logits, labels):
     """Cross-entropy of per-sample logits (B, C) at the labels (B,): the
     mean NLL of ``log_softmax`` (the reference's shape classification)."""
     logp = log_softmax(logits)
-    return -torch.gather(logp, -1, labels.long()[:, None]).mean()
+    picked = torch.gather(logp, -1, labels.long()[:, None])
+    if parallel.world() > 1:
+        return _global_ratio(-picked, torch.ones_like(picked),
+                             lambda d: d.to(picked.dtype))
+    return -picked.mean()

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
 from ..models.cloud import Cloud
 from ..run import losses as losses_lib
 
@@ -107,26 +108,43 @@ def _categories(model, batch: Batch):
 def train_step(model, optimizer, lr: float, batch: Batch, generator=None,
                bn_momentum: float = 0.1, loss_cfg: LossConfig = LossConfig()):
     """One optimizer step; returns {"loss": detached scalar} and, for
-    classification, {"acc": the batch's accuracy}, on the device."""
+    classification, {"acc": the batch's accuracy}, on the device.
+
+    In a data-parallel step (``parallel``: a process group of R processes,
+    ``batch`` this process's B / R samples of the global batch) it is the
+    step on the global batch: the statistics and loss terms are summed
+    over the processes as the forward forms them, the gradients after the
+    backward (one all-reduce a dtype), and the loss and accuracy returned
+    are the global batch's on every process."""
     optimizer.zero_grad(set_to_none=True)
     logits, out_valid = model(batch.cloud, _categories(model, batch),
                               train=True, bn_momentum=bn_momentum,
                               generator=generator)
     loss = compute_loss(logits, out_valid, batch, loss_cfg)
     loss.backward()
+    parallel.sum_gradients(model.parameters())
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
     metrics = {"loss": loss.detach()}
     if loss_cfg.task == "classification":
         pred = logits[:, 0, :].detach().argmax(dim=-1)
-        metrics["acc"] = (pred == batch.labels.long()).float().mean()
+        hit = (pred == batch.labels.long()).float()
+        if parallel.world() > 1:
+            right, n = parallel.reduce_sum(torch.stack(
+                [hit.sum(), hit.new_tensor(float(hit.numel()))])).unbind(0)
+            metrics["acc"] = right / n
+        else:
+            metrics["acc"] = hit.mean()
     return metrics
 
 
 @torch.no_grad()
 def eval_step(model, batch: Batch, loss_cfg: LossConfig = LossConfig()):
-    """(logits, out_valid, loss) of the eval forward."""
-    logits, out_valid = model(batch.cloud, _categories(model, batch))
-    return logits, out_valid, compute_loss(logits, out_valid, batch,
-                                           loss_cfg)
+    """(logits, out_valid, loss) of the eval forward of ``batch`` (this
+    process's alone: ``parallel.sharded_eval_step`` takes a global
+    batch's shard)."""
+    with parallel.local():
+        logits, out_valid = model(batch.cloud, _categories(model, batch))
+        return logits, out_valid, compute_loss(logits, out_valid, batch,
+                                               loss_cfg)

@@ -170,10 +170,20 @@ def test_loader_bounds_prefetch_and_raises_worker_errors(monkeypatch):
     bad = _Counting(fail_at=5, n_samples=12, n_pad=32, task="classification")
     with pytest.raises(ValueError, match="sample 5 is broken"):
         list(TL.PrefetchLoader(bad, 2, num_workers=2).epoch(0))
-    # the JAX loader's own sharding needs more than one process: refused
-    monkeypatch.setattr(TL, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError):
-        list(TL.PrefetchLoader(ds, 2).epoch(0))
+    # more than one process: each reads its lockstep shard of the JAX
+    # loader's order (process 1 of 2: 20 of the 40 items)
+    import jax
+
+    from curvecloudnet_tpu_torch.parallel import mesh as tmesh
+
+    for mod in (tmesh, jax):
+        monkeypatch.setattr(mod, "process_count", lambda: 2)
+        monkeypatch.setattr(mod, "process_index", lambda: 1)
+    assert len(list(TL.PrefetchLoader(ds, 2).epoch(0))) == 10
+    want = [list(b) for b in
+            JL.PrefetchLoader(ds, 2, shuffle=True)._batch_indices(3)]
+    assert [list(b) for b in TL.PrefetchLoader(
+        ds, 2, shuffle=True)._batch_indices(3)] == want
     assert len(list(TL.PrefetchLoader(ds, 2, shard_by_process=False)
                     .epoch(0))) == 20
 
@@ -506,7 +516,7 @@ def test_main_raises(tmp_path, monkeypatch):
     cfg = _narrow_cfg("shapenet-class", tmp_path, n_pad=128, n_val=2)
     with pytest.raises(NotImplementedError, match="only_viz"):
         tmain.main(dict(cfg, only_viz=True))
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    with pytest.raises(ValueError, match="coordinator_address"):
         tmain.main(dict(cfg, only_val=True,
                         distributed={"num_processes": 2}))
     # wandb is not installed: main goes on with metrics.jsonl alone
