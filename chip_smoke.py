@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Proof that the PyTorch port serves and trains on one NVIDIA GPU, from
-dataset files on disk too, with every step option of the model DSL.
+dataset files on disk too, with every step option of the model DSL, and
+that its offline layer (the scan simulator, ``main --only_viz``) runs
+there.
 
 Run from the repository root with no arguments::
 
@@ -250,7 +252,30 @@ Phases (any failure raises and exits non-zero before the result line):
      memory; then ``main`` in two processes (``distributed.num_processes
      2``, ``CCN_PROCESS_ID``) on nuScenes files: an epoch of 2 steps a
      process, a TTA val scan, process 0's checkpoint, resumed for a
-     second epoch (under ``build/phase22``).
+     second epoch (under ``build/phase22``);
+ 23. the offline layer (``run_offline``, under ``build/phase23``): the
+     generator (``simulator.generate_dataset`` on the card) at
+     shapenet-seg's published settings (res 2048, 2048 points, density
+     0.25, grid; 24 scans) and at kortx's (density 0.1666, random, a
+     random SO(3) orientation; 4 scans), once with K11's calls and the
+     anti-aliasing filter's inputs recorded and once counted (launch
+     counters set to 0: one K11 launch a scan, the two shards equal);
+     every K11 call held against ``rasterize_plain`` on the card (mask
+     equal, coords and normals bit-equal: 0 differing pixels) and timed
+     (kernel and plain ms, the bound: the mesh read once and the
+     outputs written once, and the same with the key buffer), the host's
+     scan lines timed a scan, the filter on the card within 1e-6 of its
+     CPU run; the shapenet-seg shard read by ``KortxNpzDataset`` through
+     the shapenet-seg model at B=24 (launches equal to the spec's, each
+     K2 / K3 / K6 / K4 call held, logits within 2e-3 of the plain
+     path's); ``main --only_viz`` on nuScenes at n_pad 36864 with one
+     val scan (launches: the spec's plus the edge figure's kNN), each
+     sample's prediction equal to ``predict``'s argmax on the same scan,
+     its K3 edge table equal to the plain version's, its splat panels
+     finite, and its figure files where matplotlib is installed (where it
+     is not, a line says the files were not written).  Phase 16's
+     shapenet-class ``--only_val`` run also checks the confusion figure
+     under its ``media/`` (``check_confusion``, the same rule).
 
 Every captured train step (phases 6, 17, 18, 19) counts K7's slope flips
 at every site (``k7_flips``, a float64 chain a level at a time): each
@@ -267,7 +292,8 @@ line; no check reads them.
 Prints per-phase lines, then a JSON line of the kernels (each with its
 launches on every path: nuScenes eval and train, KITTI, the fused routes,
 A2D2 and the object configs, the loops, the paths from disk, the options
-bfloat16 serving and training, and the data-parallel ranks (summed);
+bfloat16 serving and training, the data-parallel ranks (summed), and the
+offline layer: the generator (K11), its shard and ``only_viz``;
 the bfloat16 variants as entries of their own), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -378,6 +404,22 @@ DP_WALL_STEPS = 3
 DP_LOOP_FILES = {"train": 4, "val": 1}
 # the JAX package's own DP bar on gradients (tests/test_train_e2e.py)
 DP_GRAD_RTOL, DP_GRAD_ATOL = 5e-2, 1e-5
+# phase 23: the offline layer (build/phase23).  The generator at
+# shapenet-seg's published settings (configs/shapenet-seg.yaml:17: res 2048,
+# 2048 points, density 0.25, grid; one batch of 24 scans) and at kortx's
+# (configs/kortx-testsplit.yaml:17: density 0.1666, random, a random SO(3)
+# orientation; 4 scans): (label, config, scans, random SO(3))
+OUT23 = os.path.join(REPO, "build", "phase23")
+GEN23 = [("generate_shapenet_seg", "shapenet-seg", 24, False),
+         ("generate_kortx", "kortx-testsplit", 4, True)]
+AA_TOL = 1e-6        # anti_alias on the card against its CPU run
+VIZ23_N_VAL = 1
+# K11 replaces no pallas_call: the JAX package's native C++ z-buffer
+RASTER_KERNELS = [
+    ("rasterize", "rasterizer", "rasterize", "rasterize_plain",
+     "curvecloudnet_tpu_torch/csrc/rasterize.cu",
+     "curvecloudnet_tpu/simulator/native/rasterizer.cpp:25", 0.0)]
+
 RESULT_KEYS = {"miou", "per_class_iou", "class_names", "mean_forward_s",
                "points_per_sec", "peak_device_memory_gb", "overflow",
                "scan_wall_s"}
@@ -2375,6 +2417,8 @@ def run_eval_entry(P, mods, dev, kernel_launches):
                        kernel_launches(model.spec, val_ds.n_pad), batches)
         if not all(np.isfinite(logged.get(k, np.nan)) for k in keys):
             raise AssertionError(f"{label}: logged {logged}")
+        if name == "shapenet-class":
+            check_confusion(cfg["outdir"])
         # the kernel calls of one batch of the loop's forward
         batch = D.to_device_batch(next(D.batch_iterator(val_ds,
                                                         OBJECT_BATCH)),
@@ -2415,6 +2459,24 @@ def run_eval_entry(P, mods, dev, kernel_launches):
         f"(the scan's valid points), classes {pred.min()}-{pred.max()}")
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return errs, by_path
+
+
+def check_confusion(outdir):
+    """Phase 16's shapenet-class run logged the classification loop's
+    confusion figure under ``outdir/media``, or, where matplotlib is
+    missing, no figure (the loop prints a line)."""
+    import importlib.util
+
+    path = os.path.join(outdir, "media", "eval_confusion.png")
+    if importlib.util.find_spec("matplotlib") is None:
+        if os.path.exists(path):
+            raise AssertionError(f"{path} written without matplotlib")
+        log("main --only_val shapenet-class: matplotlib is not installed, "
+            "so the confusion figure was not written (the loop said so)")
+        return
+    if not os.path.exists(path) or not os.path.getsize(path):
+        raise AssertionError(f"main --only_val shapenet-class: no {path}")
+    log(f"main --only_val shapenet-class: the confusion figure {path}")
 
 
 def step_runner(model, state0, batch, loss_cfg, mods, dev):
@@ -4372,6 +4434,267 @@ def run_dp(P, mods, dev, kernel_launches, smi):
     return by_path
 
 
+def raster_diff(out, ref):
+    """Pixels where K11's mask, coords or normals differ from its plain
+    version's, floats compared bit for bit."""
+    import torch
+
+    (c, n, m), (c_r, n_r, m_r) = out, ref
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    return int(((m != m_r) | (bits(c) != bits(c_r)).any(-1)
+                | (bits(n) != bits(n_r)).any(-1)).sum())
+
+
+def raster_bytes(args):
+    """(the function's bytes, the same with K11's key buffer written and
+    read): the mesh read once, coords, normals and mask written once."""
+    verts, faces, pin = args[:3]
+    hw = pin.h * pin.w
+    need = 12 * (len(verts) + len(faces)) + hw * (12 + 12 + 1)
+    return need, need + 2 * 8 * hw
+
+
+def run_offline(P, mods, dev, kernel_launches):
+    """Phase 23 -> (K11's report row, launches by path, {kernel: worst
+    error of the generated batch's calls})."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from curvecloudnet_tpu_torch import main as M
+    from curvecloudnet_tpu_torch.config import load_config
+    from curvecloudnet_tpu_torch.data import datasets as D
+    from curvecloudnet_tpu_torch.data.kortx import KortxNpzDataset
+    from curvecloudnet_tpu_torch.ops import neighbors
+    from curvecloudnet_tpu_torch.simulator import curve_cloud as CC
+    from curvecloudnet_tpu_torch.simulator import generate as G
+    from curvecloudnet_tpu_torch.simulator import scanlines as SL
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OUT23, ignore_errors=True)
+    R = mods["rasterizer"]
+    _, _, _, _, source, replaces, _ = RASTER_KERNELS[0]
+    row = {"name": "rasterize", "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+           "library_ms": None}
+    by_path, shards = {}, {}
+
+    # (a) the generator: a capture run recording K11's calls and the
+    # filter's inputs, then the main path with the counts set to 0
+    for label, name, n_scans, so3 in GEN23:
+        gen = load_config(os.path.join(REPO, "configs",
+                                       f"{name}.yaml"))["data_generation"]
+        kw = dict(n_samples=n_scans, n_points=gen["num_points"],
+                  resolution=gen["resolution"], pattern=gen["laser_motion"],
+                  density=gen["line_density"], random_so3=so3, seed=0,
+                  device=dev)
+        filtered = []
+        smooth = CC.anti_alias
+
+        def recorded(x, curve_id, valid):
+            out = smooth(x, curve_id, valid)
+            filtered.append((x, curve_id, valid, out))
+            return out
+
+        with replaced(CC, "anti_alias", recorded):
+            calls, first = capture(RASTER_KERNELS, mods, lambda: (
+                G.generate_dataset(os.path.join(OUT23, label + "_capture"),
+                                   **kw)))
+        lines = SL.generate_scan_lines
+        line_s = []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = lines(*args, **kwargs)
+            line_s.append(time.perf_counter() - t0)
+            return out
+
+        with replaced(SL, "generate_scan_lines", timed):
+            R.rasterize.launches = 0
+            t0 = time.perf_counter()
+            path = G.generate_dataset(os.path.join(OUT23, label), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_path[label] = {"rasterize": R.rasterize.launches}
+        got = by_path[label]["rasterize"]
+        if not got or got != len(calls["rasterize"]):
+            raise AssertionError(f"{label}: {got} K11 launches, the capture "
+                                 f"run {len(calls['rasterize'])}")
+        blob, again = np.load(path), np.load(first)
+        res, n_pts = kw["resolution"], kw["n_points"]
+        for k in blob.files:
+            if not np.array_equal(blob[k], again[k]):
+                raise AssertionError(f"{label}: {k} differs between two runs")
+        v = blob["valid"]
+        cid = np.where(v, blob["curve_id"], np.iinfo(np.int32).max)
+        if (blob["pos"].shape != (n_scans, n_pts, 3) or not v.all()
+                or not np.isfinite(blob["pos"]).all()
+                or (np.diff(cid, axis=1) < 0).any()
+                or not set(np.unique(blob["labels"])) <= set(range(4))
+                or not set(np.unique(blob["category"])) <= {0, 1, 2}):
+            raise AssertionError(f"{label}: bad shard {path}")
+        shards[label] = path
+
+        diffs, k_ms, p_ms, bounds, keyed = [], [], [], [], []
+        for args, kwargs, out in calls["rasterize"]:
+            cam, faces, pin = args[:3]
+            # the mesh on the card first: the times are the rasterizer's
+            cam = torch.as_tensor(cam, dtype=torch.float32).to(dev)
+            faces = torch.as_tensor(faces).to(dev)
+            ref = R.rasterize_plain(cam, faces, pin, dev)
+            diffs.append(raster_diff(out, ref))
+            k_ms.append(cuda_ms(lambda: R.rasterize(cam, faces, pin, dev)))
+            p_ms.append(cuda_ms(lambda: R.rasterize_plain(cam, faces, pin,
+                                                          dev), reps=1))
+            need, with_keys = raster_bytes(args)
+            bounds.append(need / PEAK_BYTES * 1e3)
+            keyed.append(with_keys / PEAK_BYTES * 1e3)
+        del calls
+        if any(diffs):
+            raise AssertionError(f"{label}: K11 differs from its plain "
+                                 f"version in {sum(diffs)} pixels {diffs}")
+        aa_err = 0.0
+        for x, curve_id, valid, out in filtered:
+            ref = CC.anti_alias(x.cpu(), curve_id.cpu(), valid.cpu())
+            aa_err = max(aa_err, float((out.cpu() - ref).abs().max()))
+        if not aa_err <= AA_TOL:
+            raise AssertionError(f"{label}: anti_alias on the card {aa_err} "
+                                 f"from its CPU run")
+        row["ms"] += sum(k_ms)
+        row["plain_ms"] += sum(p_ms)
+        row["bound_ms"] += sum(bounds)
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        log(f"{label} (res {res}, {n_pts} points, {kw['pattern']}, density "
+            f"{kw['density']}, random SO(3) {so3}): {n_scans} scans in "
+            f"{wall:.2f} s, {got} K11 calls, differing pixels "
+            f"{sum(diffs)} (bound 0); K11 {med(k_ms):.3f} ms a call "
+            f"({min(k_ms):.3f}-{max(k_ms):.3f}), plain {med(p_ms):.3f} ms, "
+            f"bound {med(bounds):.4f} ms (outputs and mesh; "
+            f"{med(keyed):.4f} with the key buffer's write and read), "
+            f"host scan lines {1e3 * med(line_s):.2f} ms a scan "
+            f"({len(line_s)} scans); anti_alias card vs CPU max abs err "
+            f"{aa_err:.3g} over {len(filtered)} scans (tolerance {AA_TOL:g})")
+    log(f"compare rasterize: {sum(n for p in by_path.values() for n in p.values())}"
+        f" calls, bit-equal, kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms (bytes)")
+
+    # (b) the shapenet-seg shard through the model at B=24
+    config = os.path.join(REPO, "configs", "shapenet-seg.yaml")
+    ds = KortxNpzDataset(shards["generate_shapenet_seg"])
+    batch = D.to_device_batch(D.collate(ds, [ds.get(i)
+                                             for i in range(len(ds))]),
+                              "segmentation", dev)
+    inputs = (batch.cloud.pos, None, batch.cloud.curve_id, batch.cloud.valid,
+              batch.categories)
+    model = P.build_model(config, ds.n_pad, dev)
+    (logits, valid, _), launched = counted(
+        mods, EVAL_KERNELS, lambda: P.predict(model, *inputs))
+    by_path["offline_shard"] = launched
+    want = kernel_launches(model.spec, ds.n_pad)
+    log("generated shard launches:", launched, "spec:", want)
+    for name, n in launched.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name}: {n} launches on the generated "
+                                 f"shard, want {want.get(name, 0)}")
+    calls, _ = capture(V1_KERNELS, mods, lambda: P.predict(model, *inputs))
+    errs = hold("generated shard", V1_KERNELS, mods, calls)
+    del calls
+    with plain_path(mods, EVAL_KERNELS):
+        plain = P.predict(model, *inputs)[0]
+    err = float((logits - plain)[valid].abs().max())
+    log(f"generated shard (B={len(ds)}, n_pad {ds.n_pad}) through "
+        f"shapenet-seg: logits kernel path vs plain path max abs err "
+        f"{err:.3g} (tolerance {LOGIT_TOL:g})")
+    if not (err <= LOGIT_TOL and bool(torch.isfinite(logits[valid]).all())):
+        raise AssertionError(f"generated shard: logits differ from the plain "
+                             f"path by {err}")
+    del model, plain, logits, batch
+
+    # (c) main --only_viz on nuScenes, or where matplotlib is missing the
+    # arrays behind its figures (forward, edge tables, splat panels)
+    cfg = load_config(CONFIG)
+    cfg.update(device=str(dev), n_pad=N_PAD, n_val=VIZ23_N_VAL,
+               only_viz=True, outdir=os.path.join(OUT23, "viz"))
+    info, val_ds, model = M.build(cfg)
+    samples = []
+    viz = M.viz_samples
+
+    def recorded_viz(*args, **kwargs):
+        for s in viz(*args, **kwargs):
+            samples.append(s)
+            yield s
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    t0 = time.perf_counter()
+    with replaced(M, "viz_samples", recorded_viz):
+        if have_mpl:
+            _, launched = counted(mods, EVAL_KERNELS, lambda: M.main(cfg))
+        else:
+            _, launched = counted(mods, EVAL_KERNELS, lambda: list(
+                M.viz_samples(model, val_ds, info, cfg, VIZ23_N_VAL)))
+    wall = time.perf_counter() - t0
+    by_path["viz"] = launched
+    want = kernel_launches(model.spec, N_PAD)
+    want["knn"] = want.get("knn", 0) + 1    # the edge figure's kNN
+    log("only_viz launches:", launched, f"spec + the edge kNN x "
+        f"{len(samples)}:", want)
+    if not samples:
+        raise AssertionError("only_viz drew no sample")
+    for name, n in launched.items():
+        if n != len(samples) * want.get(name, 0):
+            raise AssertionError(f"{name}: {n} launches on only_viz, want "
+                                 f"{len(samples)} x {want.get(name, 0)}")
+    for i, s in enumerate(samples):
+        one = D.pad_sample(val_ds.get(s["index"], rng=np.random.default_rng(
+            0), augment=False), val_ds.n_pad)
+        cloud = D.to_device_batch({k: v[None] for k, v in one.items()},
+                                  info.task, dev).cloud
+        pred = P.predict(model, cloud.pos, cloud.x, cloud.curve_id,
+                         cloud.valid)[2][0].cpu().numpy()
+        live = s["valid"].astype(bool)
+        if not np.array_equal(pred[live], s["pred"][live]):
+            raise AssertionError(f"only_viz sample {i}: the prediction "
+                                 f"differs from predict's argmax at "
+                                 f"{int((pred != s['pred'])[live].sum())} "
+                                 "points")
+        table = neighbors.same_set_knn(cloud.pos, cloud.valid, M.VIZ_K)
+        compare("knn", table, mods["knn"].knn_search_ref(
+            cloud.pos, cloud.pos, cloud.valid, cloud.valid, M.VIZ_K), 0.0)
+        panels = s["panels"]
+        if (not np.array_equal(table[0][0].cpu().numpy(), s["edges"])
+                or panels is None or panels.ndim != 3
+                or panels.shape[1] != 2 * panels.shape[0]
+                or not np.isfinite(panels).all() or panels.std() == 0
+                or not np.isfinite(s["tangents"]).all()):
+            raise AssertionError(f"only_viz sample {i}: bad edges or panels")
+        log(f"only_viz sample {i} (scan {s['index']}, {int(live.sum())} "
+            f"points): prediction equal to predict's argmax, "
+            f"{int((s['edges'] >= 0).sum())} grouping edges (K3 table equal "
+            f"to its plain version), panels {panels.shape}, "
+            f"{int(s['along'].sum())} curve tangents")
+    if have_mpl:
+        for i in range(len(samples)):
+            for f in ([os.path.join("viz", f"{k}_{i}.png") for k in
+                       ("curves", "seg", "edges", "tangents")]
+                      + [os.path.join("media", f"viz_{k}_{i}.png") for k in
+                         ("curves", "seg", "groupings", "tangents",
+                          "panels")]):
+                if not os.path.getsize(os.path.join(cfg["outdir"], f)):
+                    raise AssertionError(f"only_viz: {f} is empty")
+        log(f"main --only_viz nuScenes (n_pad {N_PAD}): {wall:.2f} s, "
+            f"figures under {cfg['outdir']}")
+    else:
+        log(f"main --only_viz nuScenes (n_pad {N_PAD}): matplotlib is not "
+            "installed, so the figure files were not written; the forward, "
+            "the edge tables and the splat panels behind them ran on the "
+            f"card and were checked ({wall:.2f} s)")
+    del model
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return row, by_path, errs
+
+
 def grads_and_stats(model):
     return ({k: p.grad.detach().clone() for k, p in model.named_parameters()
              if p.grad is not None},
@@ -4392,6 +4715,7 @@ def main():
                                              edge_mlp, fps, gather,
                                              grid_topk, group_reduce,
                                              group_train, knn)
+    from curvecloudnet_tpu_torch.simulator import rasterizer
     from curvecloudnet_tpu_torch.train import LossConfig, train_step
     from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
     from curvecloudnet_tpu_torch.train.trainer import create_optimizer
@@ -4401,7 +4725,8 @@ def main():
     mods = {"conv1d_chain": conv1d_chain, "group_reduce": group_reduce,
             "knn": knn, "fps": fps, "gather": gather,
             "group_train": group_train, "grid_topk": grid_topk,
-            "conv1d_train": conv1d_train, "edge_mlp": edge_mlp}
+            "conv1d_train": conv1d_train, "edge_mlp": edge_mlp,
+            "rasterizer": rasterizer}
     dev = torch.device("cuda", 0)
 
     # 1. the card
@@ -4613,6 +4938,12 @@ def main():
     # 22. data parallelism over processes
     dp_launched = run_dp(P, mods, dev, kernel_launches, smi)
 
+    stamp(t_start, "22")
+    # 23. the offline layer: the generator on K11, its shard through the
+    # model, main --only_viz
+    k11_row, offline_launched, offline_errs = run_offline(P, mods, dev,
+                                                          kernel_launches)
+
     reference = [m for m in sys.modules
                  if m.split(".")[0] in ("jax", "flax", "curvecloudnet_tpu")]
     if reference:
@@ -4639,10 +4970,12 @@ def main():
                                               row["max_abs_err"])
     for name, err in (list(eval16_errs.items()) + list(train17_errs.items())
                       + list(disk_errs.items()) + list(opt_errs.items())
+                      + list(offline_errs.items())
                       + [(k, r["max_abs_err"]) for k, r in opt_report.items()]):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     report.update(bf16_report)   # K1, K2, K4 and K9 in bfloat16
     report.update(bf16t_report)  # K7, K8 and K4b in bfloat16
+    report["rasterize"] = k11_row   # K11
     for name, row in report.items():
         by_path = {"eval": eval_launched.get(name, 0),
                    "train": train_launched.get(name, 0),
@@ -4655,11 +4988,12 @@ def main():
                              + list(opt_launched.items())
                              + list(bf16_launched.items())
                              + list(bf16t_launched.items())
-                             + list(dp_launched.items())):
+                             + list(dp_launched.items())
+                             + list(offline_launched.items())):
             by_path[path] = counts.get(name, 0)
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-    log(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     for entry in PLAIN_FLIPS:
         log("K7 flips at a BN wider than {4}: {0} call {1} BN {2} ({3} "
             "wide), {5} live rows: plain float32 {6} rows ({7} elements), "

@@ -42,7 +42,9 @@ validation over the whole val set, and process 0 writes the checkpoints,
 ``cuda:{LOCAL_RANK or rank % device count}``; the backend ``nccl`` when
 every process has a card of its own, else ``gloo``.
 
-Not ported yet, and raising ``NotImplementedError``: ``only_viz``.
+``--only_viz`` (:func:`run_viz`) draws figures of a few val samples
+under ``outdir/viz`` and ``outdir/media`` (matplotlib is needed for the
+figure files).
 """
 
 from __future__ import annotations
@@ -128,20 +130,20 @@ def run_eval(model, val_ds, info, cfg, log=print, logger=None,
              generator: torch.Generator | None = None):
     """The task's eval loop on the val set.  Lidar scenes evaluate at
     batch 1 (reference main.py:32), objects in batches of 8.  ``logger``
-    is the JAX loop's media logger for the classification confusion
-    figure, which is not ported, so the figure is not drawn."""
-    del logger
+    (a ``MetricLogger``) takes the classification loop's confusion
+    figure."""
     with parallel.local():   # every process scores the whole set
-        return _run_eval(model, val_ds, info, cfg, log, generator)
+        return _run_eval(model, val_ds, info, cfg, log, generator, logger)
 
 
-def _run_eval(model, val_ds, info, cfg, log, generator):
+def _run_eval(model, val_ds, info, cfg, log, generator, logger):
     lidar_scene = info.task == "segmentation" and not info.part_iou
     bs = int(cfg.get("eval_batch_size", 1 if lidar_scene else 8))
     max_b = cfg.get("eval_max_batches")
     if info.task == "classification":
         return T.evaluate_classification(model, val_ds, info, batch_size=bs,
                                          max_batches=max_b, log=log,
+                                         media_logger=logger,
                                          generator=generator)
     if info.part_iou:
         return T.evaluate_part_segmentation(model, val_ds, info,
@@ -153,6 +155,126 @@ def _run_eval(model, val_ds, info, cfg, log, generator):
         test_mode=_flag(cfg, "only_test"),
         outdir=cfg.get("outdir") if parallel.is_primary() else None,
         generator=generator)
+
+
+VIZ_K = 8   # neighbors a point of the grouping-edge figure
+
+
+def viz_samples(model, val_ds, info, cfg, n_samples: int = 4):
+    """The arrays behind :func:`run_viz`'s figures, a dict a sample (host
+    NumPy arrays).  The samples are the curated ``viz_idxs`` (the
+    config's, else the dataset's, src/run/globals.py:9-14,52-60) that the
+    val set holds, filled up with its first samples; each goes through
+    the TTA view-0 forward on the model's device.  Keys: ``index``,
+    ``pos``, ``curve_id``, ``valid`` (the forward's), ``pred`` (the
+    argmax, per point or the sample's class), ``gt`` (per-point labels or
+    None), ``cmap``, ``edges`` (the (N, ``VIZ_K``) ``same_set_knn`` table,
+    -1 fill), ``tangents`` and ``along`` (unit next-on-curve deltas, and
+    where a next point on the curve exists) and ``panels`` (the numpy
+    splat render of prediction | ground truth for segmentation, else
+    None)."""
+    from .ops import neighbors
+    from .run.globals import dataset_cmap, dataset_viz_idxs
+    from .visualization import label_colormap, render_segmentation_panels
+
+    device = next(model.parameters()).device
+    preset = {"kitti": "kitti", "nuscenes": "kitti", "audi": "audi"}.get(
+        info.name, "shapenet")
+    curated = cfg.get("viz_idxs") or dataset_viz_idxs(info.name) or []
+    idxs = [i for i in curated if i < len(val_ds)][:n_samples]
+    if len(idxs) < n_samples:
+        seen = set(idxs)
+        idxs += [i for i in range(len(val_ds)) if i not in seen][
+            : n_samples - len(idxs)]
+    cm = dataset_cmap(info.name)
+    if cm is None or len(cm) < info.n_out:
+        cm = label_colormap(info.n_out)
+    fwd = T.make_tta_eval(model)
+    flip = torch.from_numpy(T.TTA_FLIPS[0]).to(device)
+    scale = torch.tensor(T.TTA_SCALES[0], device=device)
+    rng_v = np.random.default_rng(0)
+    for idx in idxs:
+        sample = D.pad_sample(val_ds.get(int(idx), rng=rng_v, augment=False),
+                              val_ds.n_pad)
+        np_batch = {k: v[None] for k, v in sample.items() if k != "_meta"}
+        batch = D.to_device_batch(np_batch, info.task, device)
+        logits, out_valid = fwd(batch.cloud, flip, scale, batch.categories)
+        with torch.inference_mode():
+            nbr, _ = neighbors.same_set_knn(batch.cloud.pos,
+                                            batch.cloud.valid, VIZ_K)
+        pred, valid, pos, cid, edges = (t[0].cpu().numpy() for t in (
+            torch.argmax(logits, -1), out_valid, batch.cloud.pos,
+            batch.cloud.curve_id, nbr))
+        labels = np_batch["labels"]
+        gt = labels[0] if np.ndim(labels) > 1 else None
+        # curve directions (reference visualize_plotly.py:19-49,195-199):
+        # the tangent is the next-on-curve delta
+        tan = np.zeros_like(pos)
+        tan[:-1] = pos[1:] - pos[:-1]
+        along = np.zeros(len(pos), bool)
+        along[:-1] = (cid[1:] == cid[:-1]) & valid[1:].astype(bool)
+        tan = np.where(along[:, None], tan, 0.0)
+        norm = np.linalg.norm(tan, axis=-1, keepdims=True)
+        tan = np.divide(tan, norm, out=np.zeros_like(tan), where=norm > 0)
+        panels = (render_segmentation_panels(pos, pred, gt, cm,
+                                             preset=preset, valid=valid)
+                  if info.task == "segmentation" and gt is not None
+                  else None)
+        yield dict(index=int(idx), pos=pos, curve_id=cid, valid=valid,
+                   pred=pred, gt=gt, cmap=cm, edges=edges, tangents=tan,
+                   along=along, panels=panels)
+
+
+def run_viz(model, val_ds, info, cfg, outdir, n_samples: int = 4,
+            logger: Optional[MetricLogger] = None) -> str:
+    """Figures of a few val samples (the JAX entry's ``run_viz``; the
+    reference's viz_seg paths, e.g. nuscenes_seg.py:168-226), from
+    :func:`viz_samples`: per sample ``i`` the curve plot
+    (``viz/curves_i.png``), the pred / GT scatter (``seg_i.png``, per-point
+    tasks) with its plotly figure where plotly is installed, the
+    grouping-edge graph (``edges_i.png``), the curve-tangent cones
+    (``tangents_i.png``) and the rendered pred | GT panels (segmentation),
+    each through ``logger.log_media`` (wandb where available, else
+    ``outdir/media/``).  Needs matplotlib.  Returns the figure folder."""
+    from .visualization import (grouping_edges_figure, plot_curve_cloud,
+                                plot_segmentation, to_plotly_figure,
+                                vector_cones_figure)
+
+    if logger is None:
+        logger = MetricLogger(outdir, use_wandb=_flag(cfg, "use_wandb"),
+                              config=cfg)
+    viz_dir = os.path.join(outdir, "viz")
+    os.makedirs(viz_dir, exist_ok=True)
+    for i, s in enumerate(viz_samples(model, val_ds, info, cfg, n_samples)):
+        pos, valid = s["pos"], s["valid"]
+        curves_png = os.path.join(viz_dir, f"curves_{i}.png")
+        plot_curve_cloud(pos, s["curve_id"], valid, curves_png)
+        logger.log_media(f"viz/curves_{i}", curves_png)
+        if len(s["pred"]) == len(pos):   # a class prediction has no map
+            seg_png = os.path.join(viz_dir, f"seg_{i}.png")
+            plot_segmentation(pos, s["pred"], s["gt"], valid, cmap=s["cmap"],
+                              path=seg_png)
+            logger.log_media(f"viz/seg_{i}", seg_png)
+            # the interactive figure beside the PNG, as the reference logs
+            # plotly figures (visualize_plotly.py:19-331): wandb.Plotly
+            # online, an .html under media/ offline
+            pfig = to_plotly_figure(pos, s["pred"], valid)
+            if pfig is not None:
+                logger.log_media(f"viz/seg_interactive_{i}", pfig)
+        # grouping edges (reference visualize_plotly.py:284-306)
+        fig = grouping_edges_figure(
+            pos, s["edges"], valid=valid,
+            path=os.path.join(viz_dir, f"edges_{i}.png"))
+        logger.log_media(f"viz/groupings_{i}", fig)
+        cones = vector_cones_figure(
+            pos, s["tangents"], valid=valid & s["along"],
+            title="curve tangents",
+            path=os.path.join(viz_dir, f"tangents_{i}.png"))
+        logger.log_media(f"viz/tangents_{i}", cones)
+        if s["panels"] is not None:
+            logger.log_media(f"viz/panels_{i}", s["panels"])
+    print(f"wrote figures to {viz_dir}")
+    return viz_dir
 
 
 def score_of(result: dict) -> float:
@@ -383,12 +505,10 @@ def _data_parallel(cfg: dict) -> Optional[int]:
 
 def main(cfg: dict) -> Optional[float]:
     """Train (the best val score), or with ``only_val`` / ``only_test``
-    score the val set (mIoU, instance part mIoU or accuracy); with
+    score the val set (mIoU, instance part mIoU or accuracy), or with
+    ``only_viz`` draw :func:`run_viz`'s figures (None); with
     ``distributed.num_processes`` > 1 as one process of the run, with
     ``data_parallel_devices`` as n spawned processes."""
-    if _flag(cfg, "only_viz"):
-        raise NotImplementedError("only_viz: visualization/ is not ported "
-                                  "(ROADMAP.md queue 1, item 7)")
     n_spawn = _data_parallel(cfg)
     if n_spawn:
         import torch.multiprocessing as mp
@@ -414,6 +534,11 @@ def _main(cfg: dict) -> Optional[float]:
     logger = MetricLogger(outdir, use_wandb=_flag(cfg, "use_wandb"),
                           config=cfg)
     try:
+        if _flag(cfg, "only_viz"):
+            info, val_ds, model = build(cfg, logger)
+            with parallel.local():
+                run_viz(model, val_ds, info, cfg, outdir, logger=logger)
+            return None
         if not (_flag(cfg, "only_val") or _flag(cfg, "only_test")):
             return train(cfg, logger)
         info, val_ds, model = build(cfg, logger)

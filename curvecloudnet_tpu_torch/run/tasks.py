@@ -21,6 +21,7 @@ reach the host through pinned buffers copied without blocking.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -541,15 +542,12 @@ def evaluate_classification(model, dataset, task_info: TaskInfo,
                             log: Callable = print, media_logger=None,
                             generator: torch.Generator | None = None):
     """Classification metrics (reference shapenet_classification.py:96-151),
-    one batch in flight behind the one scored.  The confusion figure
-    (``media_logger``) needs the visualization package, not ported yet."""
+    one batch in flight behind the one scored; with ``media_logger`` (a
+    ``MetricLogger``) the row-normalized confusion figure is logged as
+    ``eval/confusion`` where matplotlib is installed (a line says so where
+    it is not)."""
     from ..data.datasets import to_device_batch
 
-    if media_logger is not None:
-        raise NotImplementedError(
-            "evaluate_classification: the confusion figure needs "
-            "visualization/, which is not ported (ROADMAP.md queue 1, "
-            "item 7)")
     device = _device_of(model)
     n_cls = task_info.n_out
     fwd = make_tta_eval(model, generator=generator)
@@ -579,6 +577,18 @@ def evaluate_classification(model, dataset, task_info: TaskInfo,
     acc, bal = M.confmat2acc(confmat)
     prec, rec, f1 = M.confmat2precrec(confmat)
     log(f"accuracy: {acc:.4f}  balanced: {bal:.4f}")
+    if media_logger is not None:
+        # the reference logs the figure as wandb media
+        # (shapenet_classification.py:109)
+        if importlib.util.find_spec("matplotlib") is None:
+            log("confusion figure not drawn: matplotlib is not installed")
+        else:
+            from ..visualization import plot_confusion
+
+            media_logger.log_media(
+                "eval/confusion",
+                plot_confusion(confmat, class_names=task_info.class_names,
+                               path=None))
     return {"accuracy": acc, "balanced_accuracy": bal,
             "precision": prec.tolist(), "recall": rec.tolist(),
             "f1": f1.tolist(), "confmat": confmat.tolist()}

@@ -33,6 +33,9 @@ sweep's size.  K9 projects layer 0 once a point (x_j (Wt - Wb) + x_i Wb,
 rounded otherwise than [x_j, x_i - x_j] W_0) and multiplies in 3xTF32:
 1e-4 relative to the largest value other than the -100 fill, -100 exactly
 at queries with no live slot, a repeat run bit-equal.
+K11 (the mesh rasterizer) rounds every operation once in the C++
+z-buffer's order and takes its winner of a pixel: coords, normals and mask
+bit-equal to the plain version.
 K4 copies rows (exact);
 K4b adds with atomics (1e-5).  K5 and K10 compute squared distances in the
 plain versions' order and break ties alike (the earlier column): equal,
@@ -55,6 +58,8 @@ from curvecloudnet_tpu_torch.ops import (conv1d_chain, conv1d_train,
                                          edge_mlp, fps, gather, grid_knn,
                                          grid_topk, group_reduce,
                                          group_train, knn)
+from curvecloudnet_tpu_torch.simulator import generate as sim_generate
+from curvecloudnet_tpu_torch.simulator import rasterizer
 from curvecloudnet_tpu_torch.train.__main__ import synthetic_batch
 from curvecloudnet_tpu_torch.train.trainer import (LossConfig,
                                                    create_optimizer,
@@ -875,3 +880,22 @@ def test_edge_mlp_kernel_at_flagship_steps(dev, n, c, widths):
     err = float((got - want).abs().max())
     assert err <= 1e-4 * max(1.0, float(rest.abs().max()))
     assert torch.equal(edge_mlp.fused_edge_mlp_max(*args), got)
+
+
+@pytest.mark.parametrize("mesh", sorted(sim_generate.PRIMITIVES))
+def test_rasterize_kernel(dev, mesh):
+    verts, faces = sim_generate.PRIMITIVES[mesh]()
+    verts = verts - verts.mean(0)
+    verts = verts / np.linalg.norm(verts, axis=1).max()
+    pin = rasterizer.Pinhole(921.6, 921.6, 256.0, 256.0, 512, 512)
+    for dist, elev, azim in [(2.2, 20.0, 30.0), (3.0, -25.0, 200.0)]:
+        cam = rasterizer.look_at_camera(verts, distance=dist, elev_deg=elev,
+                                        azim_deg=azim)
+        got = rasterizer.rasterize(cam, faces, pin, dev)
+        want = rasterizer.rasterize_plain(cam, faces, pin, "cpu")
+        assert int(want[2].sum()) > 10000
+        for g, w in zip(got, want):   # bit for bit: floats as int32 bits
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w)

@@ -19,10 +19,11 @@ the JAX package on the CPU.
   2e-3; scores equal unless an argmax is a near-tie);
 * the entry point: ``main.main`` with ``only_val`` returns the score of
   ``run_eval`` on the model it builds, with ``use_wandb`` too (no wandb
-  to import: JSONL alone); ``only_viz``, more than one
-  process, an empty dataset split, a missing card and the
-  confusion figure raise (the epoch loop: ``test_torch_port_main_train.py``;
-  reading dataset files: ``test_torch_port_data*.py``).
+  to import: JSONL alone); more than one process without an address, an
+  empty dataset split and a missing card raise; the classification loop
+  logs its confusion figure (the epoch loop:
+  ``test_torch_port_main_train.py``; reading dataset files:
+  ``test_torch_port_data*.py``; ``only_viz``: ``test_torch_port_viz.py``).
 """
 
 import os
@@ -514,8 +515,6 @@ def test_main_only_val_returns_run_eval(name, extra, tmp_path):
 
 def test_main_raises(tmp_path, monkeypatch):
     cfg = _narrow_cfg("shapenet-class", tmp_path, n_pad=128, n_val=2)
-    with pytest.raises(NotImplementedError, match="only_viz"):
-        tmain.main(dict(cfg, only_viz=True))
     with pytest.raises(ValueError, match="coordinator_address"):
         tmain.main(dict(cfg, only_val=True,
                         distributed={"num_processes": 2}))
@@ -536,9 +535,12 @@ def test_main_raises(tmp_path, monkeypatch):
     assert tconfig.parse_args(["--config", _config("kitti")])["device"] == \
         "cuda"
     _, val_ds, model = tmain.build(cfg)
-    with pytest.raises(NotImplementedError, match="visualization"):
-        TT.evaluate_classification(model, val_ds, TT.TASKS["shapenet-class"],
-                                   media_logger=object(), **QUIET)
+    logger = tlog.MetricLogger(str(tmp_path / "media_run"))
+    TT.evaluate_classification(model, val_ds, TT.TASKS["shapenet-class"],
+                               media_logger=logger, **QUIET)
+    logger.close()
+    assert os.path.exists(tmp_path / "media_run" / "media" /
+                          "eval_confusion.png")
 
 
 def test_load_datasets_match_jax():
