@@ -562,7 +562,7 @@ BF16_KERNELS = [
      "conv1d_chain_eval_ref", "curvecloudnet_tpu_torch/csrc/conv1d_chain.cu",
      "curvecloudnet_tpu/ops/pallas_conv1d.py:128", 1.0),
     ("group_reduce_bf16", "group_reduce", "group_reduce_bf16",
-     "group_reduce_ref", "curvecloudnet_tpu_torch/csrc/group_reduce.cu",
+     "group_reduce_ref", "curvecloudnet_tpu_torch/csrc/group_wgmma.cuh",
      "curvecloudnet_tpu/ops/pallas_group.py:264", 2.0 ** -8),
     ("gather_bf16", "gather", "gather_km_bf16", "gather_km_ref",
      "curvecloudnet_tpu_torch/csrc/gather.cu",
@@ -1507,9 +1507,10 @@ def grouped_steps(spec, train=False):
 def k2_sites(label, spec, calls, per_call, floor_of=None):
     """Phases 3, 9 and 20: one line per K2 call of the captured forward
     (the grouping steps, in order; batch row 0's queries with no live
-    slot, and how many of those have K equal h1 planes), and their sums
-    with the 3xTF32 floor (3x the FP32 operations at the TF32 tensor-core
-    peak; ``floor_of``: (name, seconds a FLOP) of another floor)."""
+    slot, and how many of those have K equal h1 planes; the kernel's
+    share of its bound), and their sums with the 3xTF32 floor (3x the
+    FP32 operations at the TF32 tensor-core peak; ``floor_of``: (name,
+    seconds a FLOP) of another floor)."""
     floor_name, per_flop = floor_of or ("3xTF32 floor", 3 / PEAK_TF32)
     steps = grouped_steps(spec)
     sums = dict.fromkeys(("ms", "plain_ms", "bound_ms", "floor_ms"), 0.0)
@@ -1527,12 +1528,14 @@ def k2_sites(label, spec, calls, per_call, floor_of=None):
             f"queries with no live slot ({int(equal.sum())} with K equal "
             f"planes), kernel "
             f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.3f} ms, {floor_name} {floor:.3f} ms")
+            f"{t['bound_ms']:.3f} ms ({t['bound_ms'] / t['ms']:.1%} of it), "
+            f"{floor_name} {floor:.3f} ms")
         for key in ("ms", "plain_ms", "bound_ms"):
             sums[key] += t[key]
         sums["floor_ms"] += floor
     log(f"K2 {label}, {len(calls)} calls: kernel {sums['ms']:.3f} ms, plain "
-        f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms, "
+        f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms "
+        f"({sums['bound_ms'] / max(sums['ms'], 1e-9):.1%} of it), "
         f"{floor_name} {sums['floor_ms']:.3f} ms")
 
 

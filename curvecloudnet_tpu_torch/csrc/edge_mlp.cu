@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(GR_THREADS, EP_BLOCKS)
   }
   __syncthreads();
   int buf = 0;
-  dense_mma<EP_ROWS, EP_COLS / 64, float>(X, ldx, X, ldx, L, bias + c0, 2,
+  dense_mma<EP_ROWS, EP_COLS / 64>(X, ldx, X, ldx, L, bias + c0, 2,
                                           false, Ws, ldw, kc, buf, nullptr);
   float* Pt = P + (size_t)r0 * H2 + c0;
   if ((nc & 3) == 0 && (H2 & 3) == 0) {
@@ -185,7 +185,7 @@ static int edge_mlp(const TIn* x, const int* nbr, const float* wproj,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const EdgeSrc src = {P, nbr, H0, K, N, n_rest > 0 ? 0 : 2};
-  return run_chain(src, wp, wp, n_rest, 0, dims, woff, boff, 0, 0, 0, B, K,
+  return run_chain(src, wp, n_rest, 0, dims, woff, boff, 0, 0, 0, B, K,
                    N, rows, tq, kc, per_sm, out, st);
 }
 

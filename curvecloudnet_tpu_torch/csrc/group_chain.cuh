@@ -32,20 +32,15 @@
 // the version-1.0 sa steps) and at most 511 queries a block
 #define GR_QBITS 7
 
-#include <type_traits>
-
 struct GroupMeta {
   int n_local, n_attend;
   int dims[2 * GR_MAX_LAYERS + 1];
-  long long woff[2 * GR_MAX_LAYERS];  // in elements of the weights' type
-  long long boff[2 * GR_MAX_LAYERS];  // in floats of the biases
+  long long woff[2 * GR_MAX_LAYERS];  // in floats
+  long long boff[2 * GR_MAX_LAYERS];
 };
 
-// out (R, cout) = act(in (R, cin) @ W + b) on the tensor cores, with
-// operands of type T: float, in 3xTF32 (mma.sync m16n8k8, f32 accuracy);
-// __nv_bfloat16, in rounded to bfloat16 as its fragments load, W staged
-// as bfloat16, one mma.sync m16n8k16 a product, f32 sums.  in and out lie
-// in shared memory
+// out (R, cout) = act(in (R, cin) @ W + b) on the tensor cores in 3xTF32
+// (mma.sync m16n8k8, f32 accuracy).  in and out lie in shared memory
 // (row strides ldi, ldo = 4 mod 32, so the fragment loads are free of bank
 // conflicts) and may be the same buffer:
 // the whole output stays in the warps' accumulators until every warp has
@@ -57,20 +52,17 @@ struct GroupMeta {
 // already in flight in buffer buf, and the last stage's copy time fetches
 // stage 0 of the next layer (next, or none) into the other buffer; buf
 // returns where that went.  Columns of out up to cout rounded to 8 are
-// written (0 past cout); in must hold 0 from cin up to cin rounded to 8
-// (bfloat16: its columns from cin on are read as 0; kc a multiple of 16).
-template <int R, int NTW, class T = float>
+// written (0 past cout); in must hold 0 from cin up to cin rounded to 8.
+template <int R, int NTW>
 __device__ void dense_mma(const float* in, int ldi, float* outp, int ldo,
-                          const WLayerT<T>& L, const float* __restrict__ bias,
-                          int act, bool do_act, T* Ws, int ldw, int kc,
-                          int& buf, const WLayerT<T>* next) {
+                          const WLayer& L, const float* __restrict__ bias,
+                          int act, bool do_act, float* Ws, int ldw, int kc,
+                          int& buf, const WLayer* next) {
   constexpr int MT = R / 16;
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int KSTEP = BF16 ? 16 : 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int cin = L.cin, cout = L.cout;
-  const int cinr = (cin + KSTEP - 1) & ~(KSTEP - 1);
+  const int cinr = (cin + 7) & ~7;
   const int ntiles = ((cout + 7) & ~7) >> 3;
   float acc[MT][NTW][4];
 #pragma unroll
@@ -81,7 +73,7 @@ __device__ void dense_mma(const float* in, int ldi, float* outp, int ldo,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   const int nst = (cinr + kc - 1) / kc;
   for (int s = 0; s < nst; ++s) {
-    T* other = Ws + ((buf + s + 1) & 1) * kc * ldw;
+    float* other = Ws + ((buf + s + 1) & 1) * kc * ldw;
     if (s + 1 < nst || next != nullptr) {
       if (s + 1 < nst)
         stage_w(other, ldw, L, (s + 1) * kc, kc);
@@ -93,74 +85,35 @@ __device__ void dense_mma(const float* in, int ldi, float* outp, int ldo,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* ws = Ws + ((buf + s) & 1) * kc * ldw;
+    const float* ws = Ws + ((buf + s) & 1) * kc * ldw;
     const int kend = min(kc, cinr - s * kc);
-    if constexpr (BF16) {
-      for (int kk = 0; kk < kend; kk += 16) {
-        const int k0 = s * kc + kk, c = k0 + 2 * t;
-        const bool tail = k0 + 16 > cin;  // the same for the whole warp
-        uint32_t a[MT][4];
+    for (int kk = 0; kk < kend; kk += 8) {
+      const int k0 = s * kc + kk;
+      uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float* p = in + (i * 16 + g) * ldi + c;
-          float2 v[4] = {*reinterpret_cast<const float2*>(p),
-                         *reinterpret_cast<const float2*>(p + 8 * ldi),
-                         *reinterpret_cast<const float2*>(p + 8),
-                         *reinterpret_cast<const float2*>(p + 8 * ldi + 8)};
-          if (tail) {
+      for (int i = 0; i < MT; ++i) {
+        const float* a = in + (i * 16 + g) * ldi + k0 + t;
+        const float v[4] = {a[0], a[8 * ldi], a[4], a[8 * ldi + 4]};
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int ce = c + (e >> 1) * 8;
-              v[e].x = ce < cin ? v[e].x : 0.f;
-              v[e].y = ce + 1 < cin ? v[e].y : 0.f;
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[i][e] = pack_bf16(v[e].x, v[e].y);
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int tile = warp + j * GR_WARPS;
-          if (tile < ntiles) {
-            const unsigned short* wb =
-                reinterpret_cast<const unsigned short*>(ws) +
-                (kk + 2 * t) * ldw + tile * 8 + g;
-            const uint32_t b0 = pack_bf16_bits(wb[0], wb[ldw]);
-            const uint32_t b1 = pack_bf16_bits(wb[8 * ldw], wb[9 * ldw]);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-          }
+        for (int e = 0; e < 4; ++e) {
+          ahi[i][e] = tf32_rna(v[e]);
+          alo[i][e] = tf32_rna(v[e] - __uint_as_float(ahi[i][e]));
         }
       }
-    } else {
-      for (int kk = 0; kk < kend; kk += 8) {
-        const int k0 = s * kc + kk;
-        uint32_t ahi[MT][4], alo[MT][4];
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float* a = in + (i * 16 + g) * ldi + k0 + t;
-          const float v[4] = {a[0], a[8 * ldi], a[4], a[8 * ldi + 4]};
+      for (int j = 0; j < NTW; ++j) {
+        const int tile = warp + j * GR_WARPS;
+        if (tile < ntiles) {
+          const float* wb = ws + (kk + t) * ldw + tile * 8 + g;
+          const float w0 = wb[0], w1 = wb[4 * ldw];
+          const uint32_t bh0 = tf32_rna(w0), bh1 = tf32_rna(w1);
+          const uint32_t bl0 = tf32_rna(w0 - __uint_as_float(bh0));
+          const uint32_t bl1 = tf32_rna(w1 - __uint_as_float(bh1));
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            ahi[i][e] = tf32_rna(v[e]);
-            alo[i][e] = tf32_rna(v[e] - __uint_as_float(ahi[i][e]));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int tile = warp + j * GR_WARPS;
-          if (tile < ntiles) {
-            const float* wb = ws + (kk + t) * ldw + tile * 8 + g;
-            const float w0 = wb[0], w1 = wb[4 * ldw];
-            const uint32_t bh0 = tf32_rna(w0), bh1 = tf32_rna(w1);
-            const uint32_t bl0 = tf32_rna(w0 - __uint_as_float(bh0));
-            const uint32_t bl1 = tf32_rna(w1 - __uint_as_float(bh1));
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              mma_tf32(acc[i][j], alo[i], bh0, bh1);
-              mma_tf32(acc[i][j], ahi[i], bl0, bl1);
-              mma_tf32(acc[i][j], ahi[i], bh0, bh1);
-            }
+          for (int i = 0; i < MT; ++i) {
+            mma_tf32(acc[i][j], alo[i], bh0, bh1);
+            mma_tf32(acc[i][j], ahi[i], bl0, bl1);
+            mma_tf32(acc[i][j], ahi[i], bh0, bh1);
           }
         }
       }
@@ -191,12 +144,10 @@ __device__ void dense_mma(const float* in, int ldi, float* outp, int ldo,
   __syncthreads();
 }
 
-// NTW: output tiles a warp (layers up to 64 NTW wide); MINB: blocks an SM;
-// T: the dense layers' operand type (dense_mma)
-template <int R, int NTW, int MINB, class Src, class T>
+// NTW: output tiles a warp (layers up to 64 NTW wide); MINB: blocks an SM
+template <int R, int NTW, int MINB, class Src>
 __global__ void __launch_bounds__(GR_THREADS, MINB)
-    group_chain_kernel(const Src src, const T* __restrict__ wp,
-                       const float* __restrict__ bp,
+    group_chain_kernel(const Src src, const float* __restrict__ wp,
                        float* __restrict__ out, int K, int M, int tq,
                        int aggr, int act, int attend_act, int ldx, int ldm,
                        int ldw, int kc, GroupMeta g) {
@@ -205,8 +156,8 @@ __global__ void __launch_bounds__(GR_THREADS, MINB)
   const int c1 = g.dims[0];
   const int cout = g.dims[g.n_local];
   const int fields = aggr == 1 ? 3 : 1;  // max; or running max, sum, acc
-  T* Ws = reinterpret_cast<T*>(sm);      // two stages of kc weight rows
-  float* X = reinterpret_cast<float*>(Ws + 2 * kc * ldw);  // activations
+  float* Ws = sm;                        // two stages of kc weight rows
+  float* X = Ws + 2 * kc * ldw;          // activations
   float* MSG = X + R * ldx;              // attend: the messages
   float* CARRY = MSG + (aggr == 1 ? R * ldm : 0);  // 2 parities x fields
   int* qcnt = reinterpret_cast<int*>(CARRY + 2 * fields * cout);
@@ -277,11 +228,10 @@ __global__ void __launch_bounds__(GR_THREADS, MINB)
   // 2. the rows in chunks of R
   const int total = qstart[nq];
   const int n_layers = g.n_local + (aggr == 1 ? g.n_attend : 0);
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy
   auto layer = [&](int li) {
-    const WLayerT<T> L = {wp + g.woff[li], g.dims[li], g.dims[li + 1],
-                          g.dims[li + 1],
-                          g.dims[li + 1] % V == 0 && g.woff[li] % V == 0};
+    const WLayer L = {wp + g.woff[li], g.dims[li], g.dims[li + 1],
+                      g.dims[li + 1],
+                      g.dims[li + 1] % 4 == 0 && g.woff[li] % 4 == 0};
     return L;
   };
   int buf = 0;  // the weight stage that holds the next layer's first rows
@@ -308,10 +258,10 @@ __global__ void __launch_bounds__(GR_THREADS, MINB)
       const bool local = li < g.n_local;
       const bool last = li == g.n_local - 1 || li == n_layers - 1;
       float* dst = (li == g.n_local - 1 && aggr == 1) ? MSG : X;
-      const WLayerT<T> nxt = layer(li + 1 < n_layers ? li + 1 : 0);
+      const WLayer nxt = layer(li + 1 < n_layers ? li + 1 : 0);
       const bool more = li + 1 < n_layers || r0 + R < total;
-      dense_mma<R, NTW, T>(cur, cur == MSG ? ldm : ldx, dst,
-                        dst == MSG ? ldm : ldx, layer(li), bp + g.boff[li],
+      dense_mma<R, NTW>(cur, cur == MSG ? ldm : ldx, dst,
+                        dst == MSG ? ldm : ldx, layer(li), wp + g.boff[li],
                         local ? act : attend_act, !last, Ws, ldw, kc, buf,
                         more ? &nxt : nullptr);
       cur = dst;
@@ -369,50 +319,44 @@ __global__ void __launch_bounds__(GR_THREADS, MINB)
 
 static inline int row_stride(int c) { return ((c + 31) & ~31) + 4; }
 
-// Shared memory of a launch in bytes, weights of wbytes each;
-// ops/group_reduce.py _smem_bytes repeats it.
+// Shared memory of a launch in bytes; ops/group_reduce.py _smem_bytes
+// repeats it.
 static inline size_t smem_bytes(int rows, int tq, int K, int kc, int ldx,
-                                int ldm, int ldw, int cout, int aggr,
-                                int wbytes) {
+                                int ldm, int ldw, int cout, int aggr) {
   const size_t floats = (size_t)rows * (ldx + (aggr == 1 ? ldm : 0)) +
                         2 * (aggr == 1 ? 3 : 1) * (size_t)cout;
-  return 2 * (size_t)kc * ldw * wbytes + floats * 4 +
+  return 2 * (size_t)kc * ldw * 4 + floats * 4 +
          (3 * (size_t)tq + 1) * 4 + 2 * (size_t)tq * K;
 }
 
-template <int R, int NTW, int MINB, class T, class Src>
-static cudaError_t launch_chain(const Src& src, const T* wp, const float* bp,
-                                float* out,
+template <int R, int NTW, int MINB, class Src>
+static cudaError_t launch_chain(const Src& src, const float* wp, float* out,
                                 int B, int K, int M, int tq, int aggr,
                                 int act, int attend_act, int ldx, int ldm,
                                 int ldw, int kc, const GroupMeta& g,
                                 size_t smem, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      group_chain_kernel<R, NTW, MINB, Src, T>,
+      group_chain_kernel<R, NTW, MINB, Src>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((M + tq - 1) / tq, B);
-  group_chain_kernel<R, NTW, MINB, Src, T><<<grid, GR_THREADS, smem, st>>>(
-      src, wp, bp, out, K, M, tq, aggr, act, attend_act, ldx, ldm, ldw, kc,
+  group_chain_kernel<R, NTW, MINB, Src><<<grid, GR_THREADS, smem, st>>>(
+      src, wp, out, K, M, tq, aggr, act, attend_act, ldx, ldm, ldw, kc,
       g);
   return cudaGetLastError();
 }
 
-// The chain over M queries of K slots each from src: wp packed weights
-// of type T (layer j's W (dims[j], dims[j+1]) row-major at element offset
-// woff[j]; local layers first, then attention layers), bp the biases f32
-// (layer j's at float offset boff[j]; K2's f32 variant and K9 pass one
-// buffer as both); out (B, M,
-// dims[n_local]) f32.  aggr: 0 max, 1 attend; act codes: 0 relu, 1 leaky,
+// The chain over M queries of K slots each from src: wp the packed
+// weights, f32 (layer j's W (dims[j], dims[j+1]) row-major at float offset
+// woff[j], its bias at boff[j]; local layers first, then attention
+// layers); out (B, M, dims[n_local]) f32.  aggr: 0 max, 1 attend; act codes: 0 relu, 1 leaky,
 // 2 identity.  dims/woff/boff are host arrays.  rows: 16, 32 or 64 rows a
 // chunk (every layer at most 32768 / rows wide); tq: queries a block; kc:
-// weight rows a stage (a multiple of 8; of 16 for bfloat16 operands);
-// per_sm: blocks an SM, 1 for any width, or 2 / 3 for 64-row chunks of
-// layers up to 128 / 64 wide (fewer accumulators, so the blocks' registers
-// share an SM).  T: the dense layers' operand type (dense_mma).
-template <class T = float, class Src>
-static int run_chain(const Src& src, const T* wp, const float* bp,
-                     int n_local, int n_attend, const int* dims,
+// weight rows a stage (a multiple of 8); per_sm: blocks an SM, 1 for any
+// width, or 2 / 3 for 64-row chunks of layers up to 128 / 64 wide (fewer
+// accumulators, so the blocks' registers share an SM).
+template <class Src>
+static int run_chain(const Src& src, const float* wp, int n_local, int n_attend, const int* dims,
                      const long long* woff,
                      const long long* boff, int aggr, int act, int attend_act,
                      int B, int K, int M, int rows, int tq, int kc,
@@ -420,7 +364,7 @@ static int run_chain(const Src& src, const T* wp, const float* bp,
   if (n_local < 0 || n_local > GR_MAX_LAYERS || n_attend < 0 ||
       n_attend > GR_MAX_LAYERS || (aggr == 1 && n_attend < 1) || K < 1 ||
       K > (1 << GR_QBITS) || tq < 1 || tq > (0xffff >> GR_QBITS) || M < 1 ||
-      kc < 8 || kc % (std::is_same<T, float>::value ? 8 : 16))
+      kc < 8 || kc % 8)
     return (int)cudaErrorInvalidValue;
   GroupMeta g;
   g.n_local = n_local;
@@ -444,10 +388,10 @@ static int run_chain(const Src& src, const T* wp, const float* bp,
   const int ldx = row_stride(cmax), ldm = row_stride(cout);
   const int ldw = ((wmax + 31) & ~31) + 8;
   const size_t smem =
-      smem_bytes(rows, tq, K, kc, ldx, ldm, ldw, cout, aggr, sizeof(T));
+      smem_bytes(rows, tq, K, kc, ldx, ldm, ldw, cout, aggr);
   cudaError_t e = cudaErrorInvalidValue;
 #define GR_LAUNCH(RR, NT, MB)                                                \
-  e = launch_chain<RR, NT, MB, T>(src, wp, bp, out, B, K, M, tq, aggr, act,  \
+  e = launch_chain<RR, NT, MB>(src, wp, out, B, K, M, tq, aggr, act,         \
                                attend_act, ldx, ldm, ldw, kc, g, smem, st)
   if (per_sm == 3)
     GR_LAUNCH(64, 1, 3);

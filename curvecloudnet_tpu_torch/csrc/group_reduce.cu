@@ -50,23 +50,16 @@
 // which K9 (edge_mlp.cu) shares; this file gives them K2's rows.
 //
 // The bfloat16 variant (ccn_group_reduce_bf16; the Pallas kernel with a
-// bfloat16 h1, a model computing in bfloat16): h1 is read as bfloat16 (half
-// the f32 slab's bytes) and widened on load, the layer-0 affine and
-// activation run in f32, each dense layer's input and its weights (packed
-// as bfloat16 by the wrapper, and staged so, in half the f32 stages'
-// shared memory) are bfloat16 operands of mma.sync m16n8k16 with f32 sums
-// (one product a multiply-add, where 3xTF32 takes three), and the values
-// stay f32 between layers; the live rows, the attend and the max are the
-// f32 kernel's, and the output is f32.
+// bfloat16 h1, a model computing in bfloat16) is its own kernel, on wgmma
+// with bfloat16 activations in shared memory: group_wgmma.cuh.
 
 #include "group_chain.cuh"
+#include "group_wgmma.cuh"
 
-// K2's rows: the layer-0 pre-norm planes h1 (B, K, M, c1) of type TIn
-// (float or __nv_bfloat16, widened to f32), the layer-0 BN affine (s0, t0)
-// and the activation applied on load; mask (B, M, K).
-template <class TIn>
+// K2's rows: the layer-0 pre-norm planes h1 (B, K, M, c1), the layer-0 BN
+// affine (s0, t0) and the activation applied on load; mask (B, M, K).
 struct H1Src {
-  const TIn* h1;
+  const float* h1;
   const unsigned char* mask;
   const float* s0;
   const float* t0;
@@ -77,10 +70,10 @@ struct H1Src {
   }
 
   __device__ bool same_planes(int b, int m, int, int lane) const {
-    const TIn* p0 = h1 + ((size_t)b * K * M + m) * c1;
+    const float* p0 = h1 + ((size_t)b * K * M + m) * c1;
     bool same = true;
     for (int k = 1; k < K && same; ++k) {
-      const TIn* pk = p0 + (size_t)k * M * c1;
+      const float* pk = p0 + (size_t)k * M * c1;
       bool eq = true;
       for (int c = lane; c < c1; c += 32)
         eq &= load_f32(pk + c) == load_f32(p0 + c);
@@ -139,29 +132,22 @@ extern "C" int ccn_group_reduce(const float* h1, const unsigned char* mask,
                                 const long long* boff, int aggr, int act,
                                 int attend_act, int B, int K, int M, int rows,
                                 int tq, int kc, float* out, void* stream) {
-  const H1Src<float> src = {h1, mask, s0, t0, dims[0], K, M, act};
-  return run_chain<float>(src, wp, wp, n_local, n_attend, dims, woff, boff,
-                          aggr, act, attend_act, B, K, M, rows, tq, kc, 1, out,
-                          (cudaStream_t)stream);
+  const H1Src src = {h1, mask, s0, t0, dims[0], K, M, act};
+  return run_chain(src, wp, n_local, n_attend, dims, woff, boff, aggr, act,
+                   attend_act, B, K, M, rows, tq, kc, 1, out,
+                   (cudaStream_t)stream);
 }
 
-// The bfloat16 variant: h1 bfloat16; wp the layers' W bfloat16 (woff in
-// elements, each a multiple of 8 for 16-byte copies where the width
-// allows) and bp their biases f32 (boff in floats); kc a multiple of 16;
-// the rest as ccn_group_reduce.
+// The bfloat16 variant: h1 bfloat16; wimg the packed weight stages and
+// bias the padded biases (ops/group_reduce.py pack_bf16), scratch the
+// per-block f32 scratch, plan the launch (GwMeta's nplan ints, plan_bf16);
+// out (B, M, cout) f32.
 extern "C" int ccn_group_reduce_bf16(const __nv_bfloat16* h1,
                                      const unsigned char* mask,
                                      const float* s0, const float* t0,
-                                     const __nv_bfloat16* wp,
-                                     const float* bp, int n_local,
-                                     int n_attend, const int* dims,
-                                     const long long* woff,
-                                     const long long* boff, int aggr,
-                                     int act, int attend_act, int B, int K,
-                                     int M, int rows, int tq, int kc,
-                                     float* out, void* stream) {
-  const H1Src<__nv_bfloat16> src = {h1, mask, s0, t0, dims[0], K, M, act};
-  return run_chain<__nv_bfloat16>(src, wp, bp, n_local, n_attend, dims, woff,
-                                  boff, aggr, act, attend_act, B, K, M, rows,
-                                  tq, kc, 1, out, (cudaStream_t)stream);
+                                     const void* wimg, const float* bias,
+                                     float* scratch, const int* plan,
+                                     int nplan, float* out, void* stream) {
+  return run_group_wgmma(h1, mask, s0, t0, wimg, bias, scratch, plan, nplan,
+                         out, (cudaStream_t)stream);
 }

@@ -1,8 +1,9 @@
 // Device helpers of the tensor-core kernels K2 (group_reduce.cu) and K7
 // (group_train.cu): 3xTF32 operand splits, mma.sync m16n8k8 in TF32, the
-// bfloat16 operands of mma.sync m16n8k16 (K1's and K2's bfloat16
-// variants), the activations, and cp.async staging of a weight (or row)
-// tile into shared memory.
+// bfloat16 operands of mma.sync m16n8k16 (K1's, K7's and K8's bfloat16
+// variants; K2-bf16 rounds its epilogues with pack_bf16), the
+// activations, and cp.async staging of a weight (or row) tile into shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,44 +100,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A row-major matrix W (cin rows, cout columns, row stride ld) of float or
-// __nv_bfloat16 values (T) in device memory; vec when ld and W's offset
-// are multiples of 16 bytes (16-byte copies).
-template <class T>
-struct WLayerT {
-  const T* W;
+// A row-major matrix W (cin rows, cout columns, row stride ld) in device
+// memory; vec when ld and W's offset are multiples of 4 floats (16-byte
+// copies).
+struct WLayer {
+  const float* W;
   int cin, cout, ld;
   bool vec;
 };
-using WLayer = WLayerT<float>;
 
 // Rows k0 .. k0 + kc - 1 of L.W, columns up to cout rounded to 8, into a
-// stage of kc rows with row stride ldw (elements), by cp.async (bfloat16
-// elements one at a time by plain copies where not vec); 0 past cin and
-// cout.
-template <class T>
-static __device__ inline void stage_w(T* dst, int ldw, const WLayerT<T>& L,
+// stage of kc rows with row stride ldw (floats), by cp.async; 0 past cin
+// and cout.
+static __device__ inline void stage_w(float* dst, int ldw, const WLayer& L,
                                       int k0, int kc) {
-  constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy
   const int cout8 = (L.cout + 7) & ~7;
-  const int per = L.vec ? cout8 / V : cout8;  // copies a row
+  const int per = L.vec ? cout8 / 4 : cout8;  // copies a row
   const int sh = (per & (per - 1)) == 0 ? __ffs(per) - 1 : -1;
   for (int i = threadIdx.x; i < kc * per; i += blockDim.x) {
     const int kr = sh >= 0 ? i >> sh : i / per;
-    const int c = (i - kr * per) * (L.vec ? V : 1), k = k0 + kr;
-    T* d = dst + kr * ldw + c;
+    const int c = (i - kr * per) * (L.vec ? 4 : 1), k = k0 + kr;
+    float* d = dst + kr * ldw + c;
     if (L.vec) {
       if (k < L.cin && c < L.cout)
         cp_async16(d, L.W + (size_t)k * L.ld + c);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     } else if (k < L.cin && c < L.cout) {
-      if constexpr (sizeof(T) == 4)
-        cp_async4(d, L.W + (size_t)k * L.ld + c);
-      else
-        *d = L.W[(size_t)k * L.ld + c];
+      cp_async4(d, L.W + (size_t)k * L.ld + c);
     } else {
-      *d = T(0.f);
+      *d = 0.f;
     }
   }
 }

@@ -14,7 +14,7 @@ Run::
     python -m curvecloudnet_tpu_torch.tools.profile_scan --config configs/audi.yaml
     python -m curvecloudnet_tpu_torch.tools.profile_scan --edge-kernel fused
 
-Prints the busy time by group (K1-K6, K9, cuBLAS gemm, other), the
+Prints the busy time by group (K1-K6, K2-bf16, K9, cuBLAS gemm, other), the
 profiled wall and its idle share (measured, profiler on), the unprofiled
 wall and the idle share it implies (an estimate: busy time comes from the
 profiled scan), then the top device kernels and host ops.
@@ -33,10 +33,12 @@ from torch.profiler import ProfilerActivity, profile
 from .. import predict as P
 
 # K2 and K9 share the chain kernel (csrc/group_chain.cuh), told apart by
-# its row source
-GROUPS = (("K2", "H1Src"), ("K9", "EdgeSrc"), ("K9", "edge_project"),
-          ("K3", "knn_"), ("K1", "conv1d_chain"), ("K6", "fps_kernel"),
-          ("K4", "gather_km"), ("K5", "grid_topk"), ("gemm", "gemm"))
+# its row source; K2's bfloat16 variant is its own kernel
+# (csrc/group_wgmma.cuh), reported apart
+GROUPS = (("K2", "H1Src"), ("K2-bf16", "group_wgmma"), ("K9", "EdgeSrc"),
+          ("K9", "edge_project"), ("K3", "knn_"), ("K1", "conv1d_chain"),
+          ("K6", "fps_kernel"), ("K4", "gather_km"), ("K5", "grid_topk"),
+          ("gemm", "gemm"))
 
 
 def scan_ms(model, scan) -> float:

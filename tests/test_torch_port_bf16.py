@@ -395,9 +395,10 @@ def test_flagship_full_width_bf16_matches_jax(monkeypatch):
                                   "kortx-testsplit", "shapenet-class"])
 def test_k2_bf16_launch_shape_fits(name):
     """Every grouping site of a shipped config (its K planes) has a launch
-    shape for K2-bf16: weight stages of 16 or 32 rows (the k-depth of the
-    bfloat16 mma.sync), staged as bfloat16, within a block's shared
-    memory."""
+    plan for K2-bf16 (``group_reduce.plan_bf16``): its chunk slots, spill
+    tiles, weight ring and barriers within a block's shared memory, a
+    ring of two stages or more (or the whole image resident), and a
+    stage table that covers the packed image."""
     from curvecloudnet_tpu_torch.ops import _build
     from curvecloudnet_tpu_torch.models import modules as tmod
 
@@ -420,11 +421,14 @@ def test_k2_bf16_launch_shape_fits(name):
             k = 128
         else:
             k = st.knn + (st.name == "sgcnn" and not st.use_sparse_feat_agg)
-        rows, tq, kc = group_reduce._launch_shape(
-            chain, local[-1], bool(att), k, 36864, 132,
-            group_reduce._STAGE_ROWS_BF16, 2)
-        assert kc in (16, 32)
-        assert group_reduce._smem_bytes(rows, tq, kc, k, chain, local[-1],
-                                        bool(att), 2) <= _build.MAX_SMEM
+        plan = group_reduce.plan_bf16(chain, len(local) - 1, bool(att), k, 1,
+                                      36864, 132)
+        assert plan["smem"] <= _build.MAX_SMEM
+        assert plan["nst"] >= 2 or plan["resident"]
+        table = group_reduce.stage_table(chain)
+        assert all(nb <= group_reduce.GW_STAGE for *_, nb in table)
+        assert sum(nb for *_, nb in table) == 2 * sum(
+            group_reduce._round(a, 16) * n
+            for a, n in zip(chain[:-1], plan["npad"]))
         sites += 1
     assert sites

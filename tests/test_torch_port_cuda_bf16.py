@@ -85,6 +85,10 @@ def test_conv1d_chain_bf16_kernel(dev, c0, dims, h, n_exp, used):
         assert bool((got[b, u:] == 0).all())
 
 
+# (aggregation, K, local widths, attention widths, live share, M or (B,
+# M)): the flagship's sites, ragged widths, a one-layer MLP, 128 planes; a
+# query's 128 live rows across three 64-row chunks, fewer queries than
+# SMs, shapenet-seg's 1024-wide attend site at its batch
 GROUP_CASES = [
     ("max", 21, (64, 64, 64), None, 0.6, 3001),
     ("attend", 25, (64, 128, 192, 256), (256, 256, 256), 0.15, 2999),
@@ -93,6 +97,10 @@ GROUP_CASES = [
     ("max", 21, (36, 20, 44), None, 0.7, 517),
     ("attend", 25, (128,), (128, 64, 128), 0.3, 517),
     ("attend", 128, (128, 128, 128), (128, 128, 128), 0.3, 2017),
+    ("max", 128, (64, 128, 64), None, 1.0, 301),
+    ("attend", 25, (64, 128, 256), (256, 64, 256), 0.5, 37),
+    ("attend", 65, (64, 128, 256, 512, 1024), (1024, 1024, 1024), 0.04,
+     (24, 1024)),
 ]
 
 
@@ -100,11 +108,13 @@ GROUP_CASES = [
 def test_group_reduce_bf16_kernel(dev, aggr, k, widths, att, live, m):
     g = torch.Generator().manual_seed(1)
     c1 = widths[0]
-    h1 = torch.randn(1, k, m, c1, generator=g)
-    mask = torch.rand(1, m, k, generator=g) < live
-    mask[:, torch.rand(m, generator=g) < 0.05] = False
-    padded = torch.nonzero(~mask[0].any(-1))[::2, 0]
-    h1[0, :, padded] = h1[0, :1, padded]
+    b, m = m if isinstance(m, tuple) else (1, m)
+    h1 = torch.randn(b, k, m, c1, generator=g)
+    mask = torch.rand(b, m, k, generator=g) < live
+    mask[torch.rand(b, m, generator=g) < 0.05] = False
+    for i in range(b):
+        padded = torch.nonzero(~mask[i].any(-1))[::2, 0]
+        h1[i, :, padded] = h1[i, :1, padded]
     layers = lambda ws: tuple(  # noqa: E731
         (torch.randn(a, b, generator=g) / a ** 0.5,
          0.1 * torch.randn(b, generator=g)) for a, b in zip(ws[:-1], ws[1:]))
