@@ -594,10 +594,12 @@ BF16_TRAIN_KERNELS = [
      "conv1d_train_bwd_t_ref", "curvecloudnet_tpu_torch/csrc/conv1d_train.cu",
      "curvecloudnet_tpu/ops/pallas_conv1d.py:477", 2.0 ** -7),
     ("group_train_fwd_bf16", "group_train", "group_train_fwd_bf16",
-     "group_train_fwd_ref", "curvecloudnet_tpu_torch/csrc/group_train.cu",
+     "group_train_fwd_ref",
+     "curvecloudnet_tpu_torch/csrc/group_train_wgmma.cuh",
      "curvecloudnet_tpu/ops/pallas_group_train.py:591", 2.0 ** -8),
     ("group_train_bwd_bf16", "group_train", "group_train_bwd_bf16",
-     "group_train_bwd_ref", "curvecloudnet_tpu_torch/csrc/group_train.cu",
+     "group_train_bwd_ref",
+     "curvecloudnet_tpu_torch/csrc/group_train_wgmma.cuh",
      "curvecloudnet_tpu/ops/pallas_group_train.py:591", 2.0 ** -7),
     ("scatter_bf16", "gather", "scatter_km_bf16", "scatter_km_ref",
      "curvecloudnet_tpu_torch/csrc/gather.cu",
@@ -1207,6 +1209,7 @@ def work(name, args, out):
     bfloat16 variant does its float32 twin's operations on its own bytes."""
     import torch
 
+    peak = OPS_PEAK.get(name, PEAK_FP32)
     name = name.removesuffix("_bf16")
 
     def nbytes(*ts):
@@ -1293,21 +1296,27 @@ def work(name, args, out):
         edges = int(live.sum())
         return (nbytes(args[:4], out),
                 2 * points * c * h1 + edges * (h1 + 2 * later))
-    cfg = args[2]
-    rows = int(args[1].sum())
+    h1, mask, cfg, params = args[:4]
+    rows = int(mask.sum())
     macs = sum(a * b for a, b in zip(cfg.dims[:-1], cfg.dims[1:]))
+    widths = sum(cfg.dims[1:])
     if cfg.attend:
         macs += 2 * cfg.dims[-1] * cfg.att_dim
+        widths += cfg.att_dim + cfg.dims[-1]
+    # h1's live rows (a masked row is never read), the mask, the params
+    need = rows * h1.shape[-1] * h1.element_size() + nbytes(mask, params)
     if name == "group_train_fwd":
         # out, stats and n: the kernel's residuals (its extras) are a
         # design's choice, not the function's output
-        return nbytes(args, out[:3]), 2 * rows * macs
-    # two products per dense (data and weight gradient) from the chain
-    # that K7's forward stored in its extras (int32 row list first); a
-    # backward whose inputs hold no activation (the plain version's
-    # extras) recomputes the chain too: 3x the forward's multiply-adds
-    stored = args[6][0].dtype == torch.int32
-    return nbytes(args, out), (4 if stored else 6) * rows * macs
+        return need + nbytes(out[:3]), 2 * rows * macs
+    # two products per dense (data and weight gradient), the statistics,
+    # dout and the outputs; and the forward's chain (v_1..v_L, and g and
+    # the logits under attend): read back in float32 or recomputed (the
+    # forward's products again), whichever bound is the lower
+    need += nbytes(args[4], args[5], args[7], out)
+    return min(((need + 4 * rows * widths, 4 * rows * macs),
+                (need, 6 * rows * macs)),
+               key=lambda w: max(w[0] / PEAK_BYTES, w[1] / peak))
 
 
 def knn_needed_pairs(query, points, q_valid, p_valid, k, radius, idx,
@@ -1776,7 +1785,8 @@ def k7_sites(spec, calls, per_call, G, label="nuScenes",
             per = ", ".join(f"{k} {v:.3f}" for k, v in pt.items())
             line.append(f"{d} kernel {t['ms']:.3f} ms, plain "
                         f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f}"
-                        f" ms, {floor_of[0]} {floor:.3f} ms ({per})")
+                        f" ms ({t['bound_ms'] / t['ms']:.1%} of the kernel"
+                        f" ms), {floor_of[0]} {floor:.3f} ms ({per})")
         log(f"K7 site {label} step_{step}: B {h1.shape[0]}, M {h1.shape[2]},"
             f" K {h1.shape[1]}, widths {list(cfg.dims)}, attend "
             f"{cfg.att_dim}, {cfg.aggr}, live rows {int(mask.sum())} of "

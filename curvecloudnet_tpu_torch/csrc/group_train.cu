@@ -46,18 +46,15 @@
 //    backward's sums) is written as one partial per block and summed in a
 //    fixed order by gt_finalize, so gradients repeat bit for bit.
 //
-// The bfloat16 variant (j.bf16; a model computing in bfloat16, the JAX
-// package's cdt = h1's dtype: _dot, _dot_t and _dot_wgrad cast both
-// operands to bfloat16 and accumulate in f32) is the same kernels with
-// each product one mma.sync m16n8k16 on bfloat16 operands in place of
-// three TF32 ones: the A operand (the transformed activations or deltas,
-// kept raw f32 in shared memory) and B (the weights, or a cotangent's
-// rows) are rounded to bfloat16, to nearest even, as their fragments are
-// packed; everything else (transforms, epilogues, statistics, finalize,
-// aggregation) stays f32.  h1 is read as bfloat16 (j.xbf, j.exbf;
-// gt_rowstats' bfloat16 twin), and the local levels' BN-output cotangents
-// T are stored rounded to bfloat16 (j.rnd: the JAX package keeps them in
-// h1's dtype between its backward passes) after their sums are taken.
+// The bfloat16 variant (a model computing in bfloat16, the JAX package's
+// cdt = h1's dtype: _dot, _dot_t and _dot_wgrad cast both operands to
+// bfloat16 and accumulate in f32) runs its products on its own wgmma
+// kernels (group_train_wgmma.cuh, ccn_gtw_gemm) with the transforms and
+// epilogue modes below; the statistics (gt_rowstats' bfloat16 twin for
+// h1), finalize and aggregation are the kernels below.  The local levels'
+// BN-output cotangents T are stored in bfloat16 (the JAX package keeps
+// them in h1's dtype between its backward passes) after their sums are
+// taken.
 
 #include "tf32_mma.cuh"
 
@@ -97,20 +94,7 @@ struct GJob {
   const float *emu, *einv, *egam, *ebet;
   const float* elg;  // EP_ATT: the logits (R, N)
   int ldx, tr, act, R, K, N, ep, stats, ldex, eact, rps;
-  // bfloat16 products; x, ex hold bfloat16 (h1); round the stored y
-  int bf16, xbf, exbf, rnd;
 };
-
-// f32 of x's element i (x bfloat16 when bf)
-__device__ __forceinline__ float elem(const float* x, size_t i, int bf) {
-  return bf ? load_f32(reinterpret_cast<const __nv_bfloat16*>(x) + i)
-            : __ldg(x + i);
-}
-
-// y rounded to bfloat16 (nearest even) and back
-__device__ __forceinline__ float bf16_round(float y) {
-  return __bfloat162float(__float2bfloat16_rn(y));
-}
 
 __device__ __forceinline__ float dact_fn(float y, int kind) {
   if (kind == 0) return y > 0.f ? 1.f : 0.f;
@@ -184,16 +168,13 @@ __device__ __forceinline__ void load_a(const GJob& j, ATile& a, int m0,
     if (r >= rend) continue;
     const size_t base = (size_t)(j.xidx ? j.xidx[r] : r) * j.ldx;
     const size_t al = reinterpret_cast<size_t>(j.x);
-    if ((j.ldx & 3) == 0 && (al & (j.xbf ? 7 : 15)) == 0 && c + 3 < ncol) {
-      const float4 q =
-          j.xbf ? load4_f32(reinterpret_cast<const __nv_bfloat16*>(j.x) +
-                            base + c)
-                : load4_f32(j.x + base + c);
+    if ((j.ldx & 3) == 0 && (al & 15) == 0 && c + 3 < ncol) {
+      const float4 q = load4_f32(j.x + base + c);
       a.v[i][0] = q.x; a.v[i][1] = q.y; a.v[i][2] = q.z; a.v[i][3] = q.w;
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (c + e < ncol) a.v[i][e] = elem(j.x, base + c + e, j.xbf);
+        if (c + e < ncol) a.v[i][e] = __ldg(j.x + base + c + e);
     }
     if (two) {  // x2 has x's layout, never gathered
       const float* p2 = j.x2 + (size_t)r * j.ldx + c;
@@ -204,9 +185,8 @@ __device__ __forceinline__ void load_a(const GJob& j, ATile& a, int m0,
   }
 }
 
-// Transform, (non-WG, column tile 0) save, split and store a loaded tile
-// (BF: stored raw into hi, rounded to bfloat16 as mma_stage packs it).
-template <bool WG, bool BF>
+// Transform, (non-WG, column tile 0) save, split and store a loaded tile.
+template <bool WG>
 __device__ __forceinline__ void store_a(const GJob& j, const ATile& a,
                                         uint32_t* hi, uint32_t* lo,
                                         bool save) {
@@ -230,10 +210,6 @@ __device__ __forceinline__ void store_a(const GJob& j, const ATile& a,
         if (a.col[i] + e < j.K) d[e] = t[e];
     }
     const int o = WG ? tr * GT_SAT + tc : tr * GT_SA + tc;
-    if constexpr (BF) {
-      *reinterpret_cast<float4*>(hi + o) = make_float4(t[0], t[1], t[2], t[3]);
-      continue;
-    }
     uint4 h, l;
     h.x = tf32_rna(t[0]); h.y = tf32_rna(t[1]);
     h.z = tf32_rna(t[2]); h.w = tf32_rna(t[3]);
@@ -245,39 +221,12 @@ __device__ __forceinline__ void store_a(const GJob& j, const ATile& a,
 }
 
 // One stage's products: acc[i][jn] (rows wm*32 + i*16.., columns
-// wn*32 + jn*8..) += A (hi, lo) x B (split here), 3xTF32; BF: A (raw f32
-// in Ahi) and B rounded to bfloat16 as they are packed, one m16n8k16
-// product a 16-deep step.
-template <bool WG, bool BF>
+// wn*32 + jn*8..) += A (hi, lo) x B (split here), 3xTF32.
+template <bool WG>
 __device__ __forceinline__ void mma_stage(const uint32_t* Ahi,
                                           const uint32_t* Alo, const float* Bs,
                                           float (&acc)[2][4][4], int wm,
                                           int wn, int g, int t) {
-  if constexpr (BF) {
-    const float* A = reinterpret_cast<const float*>(Ahi);
-#pragma unroll
-    for (int kk = 0; kk < GT_BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // row m (+8 for odd e), k (+8 e >= 2)
-          const int m = wm * 32 + i * 16 + g + (e & 1) * 8;
-          const int k = kk + 2 * t + (e >> 1) * 8;
-          a[i][e] = WG ? pack_bf16(A[k * GT_SAT + m], A[(k + 1) * GT_SAT + m])
-                       : pack_bf16(A[m * GT_SA + k], A[m * GT_SA + k + 1]);
-        }
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        const float* b = Bs + (kk + 2 * t) * GT_SB + wn * 32 + jn * 8 + g;
-        const uint32_t b0 = pack_bf16(b[0], b[GT_SB]);
-        const uint32_t b1 = pack_bf16(b[8 * GT_SB], b[9 * GT_SB]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][jn], a[i], b0, b1);
-      }
-    }
-    return;
-  }
 #pragma unroll
   for (int kk = 0; kk < GT_BK; kk += 8) {
     uint32_t ah[2][4], al[2][4];
@@ -359,8 +308,8 @@ __device__ __forceinline__ void epilogue(const GJob& j,
             v = __fadd_rn(a, j.bias[n]);
             u = __fmul_rn(v, v);
           } else if (j.ep == EP_DGRAD) {
-            const float xh =
-                bn_xhat(elem(j.ex, erow + n, j.exbf), j.emu[n], j.einv[n]);
+            const float xh = bn_xhat(__ldg(j.ex + erow + n), j.emu[n],
+                                     j.einv[n]);
             v = __fmul_rn(a, dact_fn(bn_y(xh, j.egam[n], j.ebet[n]), j.eact));
             u = __fmul_rn(v, xh);
           } else {  // EP_ATT: msg's cotangent w dout + dg1 @ Wa0^T
@@ -369,7 +318,7 @@ __device__ __forceinline__ void epilogue(const GJob& j,
                 expf(j.elg[(size_t)r * j.N + n] - j.qmx[o]), j.qaux[o]);
             v = __fadd_rn(__fmul_rn(w, j.qd[o]), a);
           }
-          j.y[(size_t)r * j.N + n] = j.rnd ? bf16_round(v) : v;
+          j.y[(size_t)r * j.N + n] = v;
           sa[jn][p] += v;
           sb[jn][p] += u;
         }
@@ -404,7 +353,7 @@ __device__ __forceinline__ void epilogue(const GJob& j,
 // column sums into part (gridDim.x, 2N) when j.stats.  WG: part
 // (gridDim.z, K + 1, N) = per row split, T(A)^T (K, rows) @ B (rows, N)
 // and, in blocks of the first channel tile, row K: the column sums of B.
-template <bool WG, bool BF>
+template <bool WG>
 __global__ void __launch_bounds__(GT_THREADS)
     gt_gemm(const GJob j) {
   extern __shared__ float4 sm4[];
@@ -439,7 +388,7 @@ __global__ void __launch_bounds__(GT_THREADS)
     stage_w(Bs, GT_SB, B, kbeg, GT_BK);
     cp_async_commit();
     load_a<WG>(j, at, m0, kbeg, WG ? kend : j.R);
-    store_a<WG, BF>(j, at, Ahi, Alo, save);
+    store_a<WG>(j, at, Ahi, Alo, save);
   }
   for (int s = 0; s < nst; ++s) {
     const int cur = s & 1, nxt = cur ^ 1;
@@ -457,11 +406,11 @@ __global__ void __launch_bounds__(GT_THREADS)
       const int half = tid >> 6;
       for (int r = 0; r < 16; ++r) db += bs[(half * 16 + r) * GT_SB + (tid & 63)];
     }
-    mma_stage<WG, BF>(Ahi + cur * GT_A_WORDS, Alo + cur * GT_A_WORDS, bs,
-                      acc, wm, wn, g, t);
+    mma_stage<WG>(Ahi + cur * GT_A_WORDS, Alo + cur * GT_A_WORDS, bs, acc, wm,
+                  wn, g, t);
     if (more)
-      store_a<WG, BF>(j, at, Ahi + nxt * GT_A_WORDS, Alo + nxt * GT_A_WORDS,
-                      save);
+      store_a<WG>(j, at, Ahi + nxt * GT_A_WORDS, Alo + nxt * GT_A_WORDS,
+                  save);
   }
 
   if constexpr (WG) {
@@ -603,27 +552,25 @@ static size_t gemm_smem() {
   return (4 * (size_t)GT_A_WORDS + 2 * GT_BK * GT_SB + 4 * 64) * 4;
 }
 
-template <bool WG, bool BF>
+#include "group_train_wgmma.cuh"
+
+template <bool WG>
 static cudaError_t launch_gemm(const GJob& j, int splits, cudaStream_t st) {
   const size_t smem = gemm_smem();
   cudaError_t e = cudaFuncSetAttribute(
-      gt_gemm<WG, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gt_gemm<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int rows = WG ? j.K : j.R;  // WG: the tile's rows are channels
   dim3 grid(max(1, (rows + GT_BM - 1) / GT_BM), (j.N + GT_BN - 1) / GT_BN,
             WG ? splits : 1);
-  gt_gemm<WG, BF><<<grid, GT_THREADS, smem, st>>>(j);
+  gt_gemm<WG><<<grid, GT_THREADS, smem, st>>>(j);
   return cudaGetLastError();
 }
 
-// One product over the row list.  ptrs: device pointers in the order of
+// A product's job: ptrs, device pointers in the order of
 // ops/group_train._GEMM_PTRS; ints: ldx, tr, act, R, K, N, ep, stats,
-// ldex, eact, rps, bf16, xbf, exbf, rnd.  wg = 1: the weight gradient,
-// splits row splits of rps rows.  Outputs (y, part, asave) need no
-// zeroing.
-extern "C" int ccn_gt_gemm(int wg, void* const* ptrs, const int* ints,
-                           int splits, void* stream) {
+// ldex, eact, rps.
+static GJob gt_job(void* const* ptrs, const int* ints) {
   GJob j;
   const float** f[] = {&j.x, &j.x2, &j.mu, &j.inv, &j.gam, &j.bet, &j.c0,
                        &j.c1, &j.c2, &j.qd, &j.qmx, &j.qaux, &j.qout, &j.w,
@@ -648,20 +595,37 @@ extern "C" int ccn_gt_gemm(int wg, void* const* ptrs, const int* ints,
   j.ldex = ints[8];
   j.eact = ints[9];
   j.rps = ints[10];
-  j.bf16 = ints[11];
-  j.xbf = ints[12];
-  j.exbf = ints[13];
-  j.rnd = ints[14];
-  if (j.R < 0 || j.K < 1 || j.N < 1 || j.tr < 0 || j.tr > TR_DLOGIT ||
-      (wg && (splits < 1 || j.rps < 1 || j.rps % GT_BK)) ||
-      ((j.xbf || j.exbf || j.rnd) && !j.bf16))
+  return j;
+}
+
+static bool gt_job_ok(const GJob& j) {
+  return j.R >= 0 && j.K >= 1 && j.N >= 1 && j.tr >= 0 && j.tr <= TR_DLOGIT;
+}
+
+// One float32 product over the row list (job as gt_job reads it).  wg = 1:
+// the weight gradient, splits row splits of rps rows.  Outputs (y, part,
+// asave) need no zeroing.
+extern "C" int ccn_gt_gemm(int wg, void* const* ptrs, const int* ints,
+                           int splits, void* stream) {
+  const GJob j = gt_job(ptrs, ints);
+  if (!gt_job_ok(j) || (wg && (splits < 1 || j.rps < 1 || j.rps % GT_BK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (j.bf16)
-    return (int)(wg ? launch_gemm<true, true>(j, splits, st)
-                    : launch_gemm<false, true>(j, 1, st));
-  return (int)(wg ? launch_gemm<true, false>(j, splits, st)
-                  : launch_gemm<false, false>(j, 1, st));
+  return (int)(wg ? launch_gemm<true>(j, splits, st)
+                  : launch_gemm<false>(j, 1, st));
+}
+
+// One bfloat16 product (K7-bf16): the job as gt_job reads it, its launch
+// plan (GtwPlan's nplan ints, ops/group_train.py plan_rows / plan_wgrad);
+// j.w the packed weight image, or d for the weight gradient.
+extern "C" int ccn_gtw_gemm(void* const* ptrs, const int* ints,
+                            const int* plan, int nplan, void* stream) {
+  const GJob j = gt_job(ptrs, ints);
+  GtwPlan p;
+  if (nplan != (int)(sizeof(GtwPlan) / sizeof(int)) || !gt_job_ok(j))
+    return (int)cudaErrorInvalidValue;
+  memcpy(&p, plan, sizeof p);
+  return run_gtw(j, p, (cudaStream_t)stream);
 }
 
 extern "C" int ccn_gt_rowstats(const float* x, const int* idx, int ldx, int R,

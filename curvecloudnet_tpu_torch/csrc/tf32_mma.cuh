@@ -1,7 +1,7 @@
 // Device helpers of the tensor-core kernels K2 (group_reduce.cu) and K7
 // (group_train.cu): 3xTF32 operand splits, mma.sync m16n8k8 in TF32, the
-// bfloat16 operands of mma.sync m16n8k16 (K1's, K7's and K8's bfloat16
-// variants; K2-bf16 rounds its epilogues with pack_bf16), the
+// bfloat16 operands of mma.sync m16n8k16 (K1's and K8's bfloat16
+// variants; K2-bf16 and K7-bf16 round with pack_bf16), the
 // activations, and cp.async staging of a weight (or row) tile into shared
 // memory.
 #pragma once

@@ -111,6 +111,7 @@ _SIGNATURES = {
     "ccn_gather_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_scatter_km": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "ccn_gt_gemm": [_I, _P, _P, _I, _P],
+    "ccn_gtw_gemm": [_P, _P, _P, _I, _P],
     "ccn_gt_rowstats": [_P, _P, _I, _I, _I, _P, _P],
     "ccn_gt_finalize": [_P, _I, _L, _L, _I, _P, _I, _F, _F] + [_P] * 6,
     "ccn_gt_aggregate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],

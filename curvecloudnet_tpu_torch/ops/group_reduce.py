@@ -312,15 +312,16 @@ def _ns(dims) -> int:
                       for c in dims[1:]))
 
 
-def _stored_cols(dims):
-    """Each layer's stored columns: its width rounded to whole passes."""
-    return [_round(c, 64 * _ns(dims)) for c in dims[1:]]
+def _stored_cols(dims, ns=None):
+    """Each layer's stored columns: its width rounded to whole passes (of
+    64 ``ns`` columns; the chain's own ns by default)."""
+    return [_round(c, 64 * (ns or _ns(dims))) for c in dims[1:]]
 
 
-def _passes(npad: int, dims):
+def _passes(npad: int, dims, ns=None):
     """(first column, width) of each pass over a layer of ``npad`` stored
     columns."""
-    pw = 64 * _ns(dims)
+    pw = 64 * (ns or _ns(dims))
     return [(p, pw) for p in range(0, npad, pw)]
 
 
@@ -461,19 +462,20 @@ def _swizzle32(x, pw: int):
 
 
 @functools.lru_cache(maxsize=256)
-def _pack_index(dims, device):
+def _pack_index(dims, device, ns=None):
     """:func:`pack_bf16`'s gathers, cached by chain: for each weight-image
     element and each padded bias, its place in [every layer's W (C_in,
-    C_out) row-major, every bias, 0]; padding takes the trailing 0."""
+    C_out) row-major, every bias, 0]; padding takes the trailing 0.
+    ``ns``: passes of 64 ns columns (the chain's own by default)."""
     n_w = sum(a * c for a, c in zip(dims[:-1], dims[1:]))
     zero = n_w + sum(dims[1:])
     w_parts, b_parts, base, bbase = [], [], 0, n_w
-    for cin, cout, npad in zip(dims[:-1], dims[1:], _stored_cols(dims)):
+    for cin, cout, npad in zip(dims[:-1], dims[1:], _stored_cols(dims, ns)):
         k16 = _round(cin, 16)
         n = torch.arange(npad)[:, None]
         k = torch.arange(k16)[None, :]
         at = torch.where((n < cout) & (k < cin), base + k * cout + n, zero)
-        for p0, pw in _passes(npad, dims):
+        for p0, pw in _passes(npad, dims, ns):
             slabs = at[p0:p0 + pw].reshape(pw, k16 // 16, 2, 8).transpose(0, 1)
             w_parts.append(_swizzle32(slabs, pw).reshape(-1))
         col = torch.arange(npad)

@@ -46,8 +46,14 @@ float32 deltas too) and sums in float32; the values between layers, the
 BN statistics and backward, the softmax and the aggregation stay float32,
 the output is float32; each local level's BN-output cotangent T is kept
 in bfloat16 between backward levels (its BN sums taken before the
-rounding), and d_h1 is bfloat16.  The kernels take the contract with one
-bfloat16 ``mma.sync`` a product in place of 3xTF32.
+rounding), and d_h1 is bfloat16.  The kernels take the contract with
+every product on K7-bf16's own ``wgmma`` kernels
+(``csrc/group_train_wgmma.cuh``): a block transforms its 64 live rows once
+and computes every output column;
+the weights come from an image packed once a call (:func:`pack_images`, the
+layout of ``group_reduce.pack_bf16``), :func:`plan_rows` and
+:func:`plan_wgrad` lay out its launches.  The local levels' T, already
+rounded, is stored in bfloat16.
 
 Layouts: h1 (B, K, M, C0) k-major, mask (B, M, K) bool query-major with its
 columns in h1's plane order.  Rows of fully masked queries carry junk
@@ -72,11 +78,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
 from .. import parallel
 from . import _build
+from . import group_reduce as GR
 from .aggregate import ATTEND_FILL, MAX_FILL
 from .group_reduce import _sm_count
 
@@ -325,7 +333,7 @@ _GEMM_PTRS = ("x", "x2", "mu", "inv", "gam", "bet", "c0", "c1", "c2", "qd",
               "qmx", "qaux", "qout", "w", "bias", "ex", "emu", "einv", "egam",
               "ebet", "elg", "xidx", "qry", "exidx", "asave", "y", "part")
 _GEMM_INTS = ("ldx", "tr", "act", "R", "K", "N", "ep", "stats", "ldex",
-              "eact", "rps", "bf16", "xbf", "exbf", "rnd")
+              "eact", "rps")
 # rows (and output columns) of a GEMM tile; rows of an inner stage
 TILE = 64
 STAGE = 32
@@ -361,6 +369,199 @@ def wgrad_split(rows: int, c_in: int, c_out: int, sms: int):
     rps = -(-max(rows, 1) // splits)
     rps = -(-rps // STAGE) * STAGE
     return max(1, -(-rows // rps)), rps
+
+
+# K7-bf16's launch plan (csrc/group_train_wgmma.cuh GtwPlan, in order)
+GTW_FIELDS = ("kind", "ns", "npass", "nslab", "per", "nst", "resident",
+              "sb", "atiles", "w_off", "red_off", "bar_off", "smem",
+              "splits", "rps", "xbf", "exbf", "ybf")
+# its kinds: the products over the rows on two warpgroups (N past 256
+# columns), the weight gradient, the products over the rows on one
+GTW_ROWS2, GTW_WGRAD, GTW_ROWS1 = 0, 1, 2
+# rows of a tile (a weight-gradient chunk), the widest A a tile holds, the
+# weight ring's slots; a weight-gradient block's channels and the blocks
+# an SM worth aiming at, each over at least GTW_WG_MIN_ROWS rows
+GTW_ROWS = 64
+GTW_MAX_K = 1024
+GTW_MAXST = 16
+GTW_WG_CH = 128
+GTW_WG_BLOCKS_PER_SM = 2
+GTW_WG_MIN_ROWS = 256
+
+
+def _ns(k: int, n: int) -> int:
+    """A k x n product's passes, of 64 ns columns: ``group_reduce._ns`` of
+    the layer up to 256 columns, else 8 (passes of 512, zero-padded past n;
+    the two-warpgroup kernel is built for ns 8 only)."""
+    ns = GR._ns((k, n))
+    return ns if ns <= 4 else 8
+
+
+def plan_rows(k: int, n: int, xbf=0, exbf=0, ybf=0):
+    """K7-bf16's launch of a product over the rows, y (R, n) = T(x) (R, k)
+    @ B (k, n) -> {GTW_FIELDS: value}.  A block a 64-row tile holds its A
+    (k to 16, in 64-column tiles) and takes every output column in passes
+    of 64 ns columns (:func:`_ns`: ``pack_bf16``'s passes of the layer up
+    to 256 columns, else 512), each over slabs of 16 k, as many a stage as
+    ``GW_STAGE`` bytes hold.  Up to 256 columns (ns <= 4) one warpgroup
+    takes a whole pass (GTW_ROWS1), the image whole where it is up to 2
+    stages, else through a ring of 2 (a slot is refilled once the next
+    stage's products are issued), so that several blocks share an SM;
+    wider, two warpgroups split it (GTW_ROWS2) and a weight warp streams
+    the image, resident
+    where it fits (up to GTW_MAXST stages), else through the deepest ring
+    of up to 8 stages.  Raises where k is past GTW_MAX_K or n past the
+    image's widest layer."""
+    if not (1 <= k <= GTW_MAX_K and 1 <= n <= GR.GW_MAX_WIDTH):
+        raise ValueError(f"group train kernel (bfloat16): a {k} x {n} "
+                         "product is past its limits")
+    ns = _ns(k, n)
+    pw = 64 * ns
+    npass, nslab = -(-n // pw), -(-k // 16)
+    per = max(1, GR.GW_STAGE // (pw * 32))
+    stages = npass * -(-nslab // per)
+    sb = min(per, nslab) * pw * 32
+    atiles = -(-k // 64)
+    one = ns <= 4
+    # the column sums of 64 ns columns, and two 64 x 32 f32 staging tiles
+    # a consumer warpgroup
+    red = 2 * 2 * 4 * 32 * ns * 4 + (1 if one else 2) * 2 * GR.GW_TILE
+
+    def smem(nst):
+        return (1024 + atiles * GR.GW_TILE + nst * sb + red
+                + 8 * nst * (1 if one else 2))
+
+    if one:
+        layouts = [(stages, 1)] if stages <= 2 else [(2, 0)]
+    else:
+        layouts = ([(stages, 1)] if stages <= GTW_MAXST else []) + [
+            (st, 0) for st in range(min(8, stages), 0, -1)]
+    layout = next((lay for lay in layouts if smem(lay[0]) <= _build.MAX_SMEM),
+                  None)
+    if layout is None:
+        raise ValueError(f"group train kernel (bfloat16): a {k} x {n} "
+                         "product does not fit a block's shared memory")
+    nst, resident = layout
+    w_off = atiles * GR.GW_TILE
+    red_off = w_off + nst * sb
+    return dict(kind=GTW_ROWS1 if one else GTW_ROWS2, ns=ns, npass=npass,
+                nslab=nslab, per=per, nst=nst, resident=resident, sb=sb,
+                atiles=atiles, w_off=w_off, red_off=red_off,
+                bar_off=red_off + red, smem=smem(nst), splits=1, rps=0,
+                xbf=int(xbf), exbf=int(exbf), ybf=int(ybf))
+
+
+def plan_wgrad(rows: int, k: int, n: int, sms: int, xbf=0):
+    """K7-bf16's weight gradient dW (k, n) = T(x)^T d over ``rows`` rows ->
+    {GTW_FIELDS: value}: blocks of GTW_WG_CH channels x 32 ns columns (ns
+    2, 4 or 8: n to 64, 128, wider), enough row splits for
+    GTW_WG_BLOCKS_PER_SM blocks an SM, each over at least GTW_WG_MIN_ROWS
+    rows, a multiple of the 64-row chunk; shared memory two chunk buffers
+    (T(x) and d, bfloat16) and the bias gradient's sums."""
+    if not (1 <= k <= GTW_MAX_K and 1 <= n <= GR.GW_MAX_WIDTH):
+        raise ValueError(f"group train kernel (bfloat16): a {k} x {n} "
+                         "weight gradient is past its limits")
+    ns = 2 if n <= 64 else 4 if n <= 128 else 8
+    tiles = -(-k // GTW_WG_CH) * -(-n // (32 * ns))
+    splits = max(1, min(-(-GTW_WG_BLOCKS_PER_SM * sms // tiles),
+                        -(-rows // GTW_WG_MIN_ROWS)))
+    rps = -(-max(rows, 1) // splits)
+    rps = -(-rps // GTW_ROWS) * GTW_ROWS
+    buf = (2 + ns // 2) * GR.GW_TILE
+    return dict(kind=GTW_WGRAD, ns=ns, npass=0, nslab=0, per=0, nst=0,
+                resident=0, sb=0, atiles=0, w_off=0, red_off=2 * buf,
+                bar_off=0, smem=1024 + 2 * buf + 8192,
+                splits=max(1, -(-rows // rps)), rps=rps, xbf=int(xbf),
+                exbf=0, ybf=0)
+
+
+def plan_ints(plan):
+    """The plan as the kernel's GtwPlan ints, in order."""
+    return [int(plan[f]) for f in GTW_FIELDS]
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(wg: bool, *args):
+    """A product's plan (``plan_wgrad(*args)`` or ``plan_rows(*args)``) and
+    its ints as a ctypes array, cached by shape."""
+    plan = plan_wgrad(*args) if wg else plan_rows(*args)
+    return plan, _build.host_array(ctypes.c_int, plan_ints(plan))
+
+
+def _layer_index(a: int, b: int, transposed: bool, colmajor: bool):
+    """One layer's gathers of :func:`pack_images`, for W (a, b) stored
+    row-major (or column-major: its transpose contiguous): the product's
+    B (K, N) is W, or W^T where ``transposed``; ``pack_bf16``'s layout of
+    B (``group_reduce._pack_index`` at :func:`_ns`) with its positions moved from B
+    row-major to where W holds them -> (image gathers, bias gathers), in
+    [W's elements, the biases (N,), 0]."""
+    kk, nn = (b, a) if transposed else (a, b)
+    iw, ib = GR._pack_index((kk, nn), torch.device("cpu"), _ns(kk, nn))
+    n_w = kk * nn
+    pos = iw.clone()
+    w = iw < n_w
+    k, n = iw[w] // nn, iw[w] % nn
+    i, j = (n, k) if transposed else (k, n)
+    pos[w] = j * a + i if colmajor else i * b + j
+    return pos, ib
+
+
+@functools.lru_cache(maxsize=256)
+def _image_index(shapes, transposed: bool, device):
+    """:func:`pack_images`' gathers, cached by the layers' (a, b,
+    column-major): each layer's image elements and biases as positions in
+    [every W as stored, every layer's biases, 0] -> (image gathers, bias
+    gathers, [(image offset, image size, bias offset, bias size)])."""
+    n_w = sum(a * b for a, b, _ in shapes)
+    n_b = sum(a if transposed else b for a, b, _ in shapes)
+    zero = n_w + n_b
+    iws, ibs, offs = [], [], []
+    wbase, bbase, io, bo = 0, n_w, 0, 0
+    for a, b, colmajor in shapes:
+        iw, ib = _layer_index(a, b, transposed, colmajor)
+        nb = a if transposed else b
+        kk = b if transposed else a
+
+        def moved(x):
+            return torch.where(x < kk * nb, wbase + x,
+                               torch.where(x < kk * nb + nb,
+                                           bbase + x - kk * nb,
+                                           torch.full_like(x, zero)))
+
+        iws.append(moved(iw))
+        ibs.append(moved(ib))
+        offs.append((io, iw.numel(), bo, ib.numel()))
+        io, bo = io + iw.numel(), bo + ib.numel()
+        wbase, bbase = wbase + a * b, bbase + nb
+    return (torch.cat(iws).to(device), torch.cat(ibs).to(device), offs)
+
+
+def pack_images(ws, biases, transposed: bool, device):
+    """The layers' weight images of K7-bf16, packed once a call: W (a, b)
+    each (or W^T where ``transposed``: the data gradient's B) rounded to
+    bfloat16 in ``group_reduce.pack_bf16``'s layout (K-major slabs of 16 k
+    of a pass's columns, 32-byte swizzle, zero-padded, passes of 64
+    :func:`_ns` columns) read from W where it lies (no
+    transposed copy), and the biases float32 zero-padded to the stored
+    columns (zeros where ``transposed``) -> [(image, biases)] a layer,
+    views of one bfloat16 and one float32 tensor.  One concatenation and
+    two gathers."""
+    device = torch.device(device)
+    srcs, shapes = [], []
+    for w in ws:
+        w = w.detach()
+        colmajor = not w.is_contiguous() and w.t().is_contiguous()
+        srcs.append((w.t() if colmajor else w.contiguous()).reshape(-1))
+        shapes.append((w.shape[0], w.shape[1], colmajor))
+    iw, ib, offs = _image_index(tuple(shapes), transposed, device)
+    if transposed:
+        bparts = [torch.zeros(a, device=device) for a, _, _ in shapes]
+    else:
+        bparts = [b.detach().reshape(-1) for b in biases]
+    flat = torch.cat([t.float() for t in srcs + bparts]
+                     + [GR._zero(device)])
+    img, bias = flat[iw].to(torch.bfloat16), flat[ib]
+    return [(img[o:o + n], bias[bo:bo + nb]) for o, n, bo, nb in offs]
 
 
 def finalize_ref(part):
@@ -441,12 +642,18 @@ def _launch(counter, pass_: str, fn: str, *args):
         timing.events.append(((pass_, timing.site), a, b))
 
 
-def _gemm(counter, pass_: str, wg: bool, dev, splits=1, **kw):
+def _gemm(counter, pass_: str, wg: bool, dev, splits=1, plan=None, **kw):
+    """One product: float32 (``ccn_gt_gemm``), or with a K7-bf16 ``plan``
+    (:func:`_plan`'s ctypes ints) ``ccn_gtw_gemm``."""
     ptrs = (ctypes.c_void_p * len(_GEMM_PTRS))(
         *[_dptr(kw.get(s)) for s in _GEMM_PTRS])
     ints = _build.host_array(ctypes.c_int, [kw.get(s, 0) for s in _GEMM_INTS])
-    _launch(counter, pass_, "ccn_gt_gemm", int(wg), ptrs, ints, splits,
-            _build.stream_ptr(dev))
+    if plan is None:
+        _launch(counter, pass_, "ccn_gt_gemm", int(wg), ptrs, ints, splits,
+                _build.stream_ptr(dev))
+    else:
+        _launch(counter, pass_, "ccn_gtw_gemm", ptrs, ints, plan, len(plan),
+                _build.stream_ptr(dev))
 
 
 def _finalize(counter, dev, part, ncol: int, pair: bool, mode=0, n=1.0,
@@ -473,13 +680,19 @@ def _kernel_wgrad(counter, dev, x, d, c_in, c_out, rows, xidx=None,
                   tr="none", bf=False, **bn):
     """(dW (c_in, c_out), db (c_out,)) = sum over the rows of
     T(x)^T d and of d: per-split partials, then the fixed-order sum.
-    ``bf``: the products' operands rounded to bfloat16 (x read as
-    bfloat16 where it is h1)."""
-    splits, rps = wgrad_split(rows, c_in, c_out, _sm_count(dev))
+    ``bf``: K7-bf16 (the products' operands rounded to bfloat16, x read
+    as bfloat16 where it is h1)."""
+    plan = None
+    if bf:
+        pl, plan = _plan(True, rows, c_in, c_out, _sm_count(dev),
+                         int(x.dtype == torch.bfloat16))
+        splits, rps = pl["splits"], pl["rps"]
+    else:
+        splits, rps = wgrad_split(rows, c_in, c_out, _sm_count(dev))
     part = torch.empty(splits, c_in + 1, c_out, device=dev)
-    _gemm(counter, "wgrad", True, dev, splits, x=x, xidx=xidx, ldx=c_in,
-          tr=_TR[tr], w=d, R=rows, K=c_in, N=c_out, rps=rps, part=part,
-          bf16=int(bf), xbf=int(x.dtype == torch.bfloat16), **bn)
+    _gemm(counter, "wgrad", True, dev, splits, plan, x=x, xidx=xidx,
+          ldx=c_in, tr=_TR[tr], w=d, R=rows, K=c_in, N=c_out, rps=rps,
+          part=part, **bn)
     out, _ = _finalize(counter, dev, part, (c_in + 1) * c_out, False)
     out = out.view(c_in + 1, c_out)
     return out[:c_in], out[c_in]
@@ -561,41 +774,57 @@ def _kernel_fwd(h1, mask, cfg, params, cnt=None):
         stats.append((mu, var))
         invs.append(inv)
 
+    # K7-bf16: every layer's weight image, packed once
+    layers = [_local(cfg, params, lv)[2:] for lv in range(L)]
+    if cfg.attend:
+        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
+        layers += [(wa0, ba0), (wa1, ba1)]
+    if bf:
+        wts = pack_images([w for w, _ in layers], [b for _, b in layers],
+                          False, dev)
+    else:
+        wts = [(_w(w), _w(b)) for w, b in layers]
+
+    def weights(i, k_, n_, xbf=0):
+        """Layer i's operands (and K7-bf16's plan)."""
+        w, b = wts[i]
+        plan = _plan(False, k_, n_, xbf)[1] if bf else None
+        return dict(w=w, bias=b, plan=plan)
+
     part = torch.empty(tiles, 2 * c0, device=dev)
     _launch(cnt, "stats", "ccn_gt_rowstats" + ("_bf16" if bf else ""),
             _dptr(h1), _dptr(rows), c0, r, c0, _dptr(part), stream)
     statistics(part, c0)
     x, xidx = h1, rows
     for lv in range(L):
-        g, bt, w, bias = _local(cfg, params, lv)
+        g, bt = _local(cfg, params, lv)[:2]
         cout, more = dims[lv + 1], lv + 1 < L
         y = torch.empty(r, cout, device=dev)
         part = torch.empty(tiles, 2 * cout, device=dev) if more else None
         _gemm(cnt, "dense", False, dev, x=x, xidx=xidx, ldx=dims[lv],
               tr=_TR["bn_act"],
               **_bn_args(g, bt, stats[lv][0], invs[lv], cfg.act),
-              w=_w(w), bias=_w(bias), y=y, part=part, R=r, K=dims[lv],
-              N=cout, ep=_EP["fwd"], stats=int(more), bf16=bf,
-              xbf=int(x.dtype == torch.bfloat16))
+              **weights(lv, dims[lv], cout, int(x.dtype == torch.bfloat16)),
+              y=y, part=part, R=r, K=dims[lv], N=cout, ep=_EP["fwd"],
+              stats=int(more))
         if more:
             statistics(part, cout)
         vals.append(y)
         x, xidx = y, None
     msg, cl, lg = x, dims[L], None
     if cfg.attend:
-        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
         a = cfg.att_dim
         gv = torch.empty(r, a, device=dev)
         part = torch.empty(tiles, 2 * a, device=dev)
         _gemm(cnt, "dense", False, dev, x=msg, ldx=cl, tr=_TR["none"],
-              w=_w(wa0), bias=_w(ba0), y=gv, part=part, R=r, K=cl, N=a,
-              ep=_EP["fwd"], stats=1, bf16=bf)
+              **weights(L, cl, a), y=gv, part=part, R=r, K=cl, N=a,
+              ep=_EP["fwd"], stats=1)
         statistics(part, a)
         lg = torch.empty(r, cl, device=dev)
         _gemm(cnt, "dense", False, dev, x=gv, ldx=a, tr=_TR["bn_act"],
               **_bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act),
-              w=_w(wa1), bias=_w(ba1), y=lg, R=r, K=a, N=cl, ep=_EP["fwd"],
-              bf16=bf)
+              **weights(L + 1, a, cl), y=lg, R=r, K=a, N=cl,
+              ep=_EP["fwd"])
         vals += [gv, lg]
     out = torch.empty((b, m, cl), device=dev)
     mx = torch.empty((b, m, cl), device=dev) if cfg.attend else out
@@ -655,20 +884,37 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None,
     v = [h1] + list(vals[:L])          # v_0 through the row index
     grads = [None] * cfg.n_params
     per_query = dict(qry=qry, qd=dout, qmx=mx, qaux=aux, qout=out)
+    # the data gradients' B = W^T of every layer: K7-bf16's images, packed
+    # once (read from W as it lies)
+    ws = [_local(cfg, params, lv)[2] for lv in range(L)]
+    if cfg.attend:
+        ws += _att(cfg, params)[0:5:4]           # Wa0, Wa1
+    wts = (pack_images(ws, None, True, dev) if bf
+           else [(w.detach().t().contiguous(), None) for w in ws])
 
-    def dgrad(x, tr, save, w, cout, cin, ex, exidx, bn_e, act, rnd, **kw):
-        """T (rows, cin) = (T(x) @ w^T) * act'(y) of the level below, and
-        its BN backward's sums -> (T, (gamma, beta) grads, coef); ``rnd``
-        keeps T rounded to bfloat16 (its sums taken before)."""
-        t = torch.empty(r, cin, device=dev)
+    def wt(i, k_, n_, x, ybf=0, ex=None):
+        """Layer i's W^T (and K7-bf16's plan of the product)."""
+        plan = None
+        if bf:
+            plan = _plan(False, k_, n_, int(x.dtype == torch.bfloat16),
+                         int(ex is not None and ex.dtype == torch.bfloat16),
+                         ybf)[1]
+        return dict(w=wts[i][0], plan=plan)
+
+    def dgrad(x, tr, save, li, cout, cin, ex, exidx, bn_e, act, rnd, **kw):
+        """T (rows, cin) = (T(x) @ W_li^T) * act'(y) of the level below,
+        and its BN backward's sums -> (T, (gamma, beta) grads, coef);
+        ``rnd``: T is kept in bfloat16 (its sums taken before the
+        rounding)."""
+        t = torch.empty(r, cin, device=dev,
+                        dtype=torch.bfloat16 if rnd else torch.float32)
         part = torch.empty(tiles, 2 * cin, device=dev)
         _gemm(cnt, "dgrad", False, dev, x=x, ldx=cout, tr=_TR[tr],
-              asave=save, w=w.detach().t().contiguous(), y=t, part=part,
-              R=r, K=cout, N=cin, ep=_EP["dgrad"], stats=1, ex=ex,
-              exidx=exidx, ldex=cin, emu=bn_e["mu"], einv=bn_e["inv"],
-              egam=bn_e["gam"], ebet=bn_e["bet"], eact=_ACT_CODES[act],
-              bf16=int(bf), exbf=int(ex.dtype == torch.bfloat16),
-              rnd=int(rnd), **kw)
+              asave=save, **wt(li, cout, cin, x, int(rnd), ex), y=t,
+              part=part, R=r, K=cout, N=cin, ep=_EP["dgrad"], stats=1,
+              ex=ex, exidx=exidx, ldex=cin, emu=bn_e["mu"],
+              einv=bn_e["inv"], egam=bn_e["gam"], ebet=bn_e["bet"],
+              eact=_ACT_CODES[act], **kw)
         sums, coef = _finalize(cnt, dev, part, cin, True, 2, n_rows,
                                gam=bn_e["gam"], inv=bn_e["inv"])
         if dp:  # the gradients stay this process's sums
@@ -678,34 +924,34 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None,
         return t, [sums[cin:], sums[:cin]], coef
 
     if cfg.attend:
-        wa0, ba0, ga, bta, wa1, ba1 = _att(cfg, params)
+        ga, bta = _att(cfg, params)[2:4]
         a, cl = cfg.att_dim, dims[L]
         gv, lg = vals[L], vals[L + 1]
         bn_a = _bn_args(ga, bta, stats[L][0], invs[L], cfg.attend_act)
         dl = torch.empty(r, cl, device=dev)
-        ta, g_a, coef_a = dgrad(lg, "dlogit", dl, wa1, cl, a, gv, None, bn_a,
-                                cfg.attend_act, False, x2=v[L], **per_query)
+        ta, g_a, coef_a = dgrad(lg, "dlogit", dl, L + 1, cl, a, gv, None,
+                                bn_a, cfg.attend_act, False, x2=v[L],
+                                **per_query)
         dwa1, dba1 = _kernel_wgrad(cnt, dev, gv, dl, a, cl, r, tr="bn_act",
                                    bf=bf, **bn_a)
         dg1 = torch.empty(r, a, device=dev)
         dv = torch.empty(r, cl, device=dev)
         _gemm(cnt, "dgrad", False, dev, x=ta, x2=gv, ldx=a, tr=_TR["bnb"],
               mu=bn_a["mu"], inv=bn_a["inv"], c0=coef_a[0], c1=coef_a[1],
-              c2=coef_a[2], asave=dg1, w=wa0.detach().t().contiguous(),
-              y=dv, R=r, K=a, N=cl, ep=_EP["att"], elg=lg, bf16=int(bf),
-              **per_query)
+              c2=coef_a[2], asave=dg1, **wt(L, a, cl, ta), y=dv, R=r, K=a,
+              N=cl, ep=_EP["att"], elg=lg, **per_query)
         dwa0, dba0 = _kernel_wgrad(cnt, dev, v[L], dg1, cl, a, r, bf=bf)
         grads[4 * L:4 * L + 6] = [dwa0, dba0, *g_a, dwa1, dba1]
         d_in, tr, kw = dv, "none", {}
     else:
         d_in, tr, kw = v[L], "maxb", per_query
     for lv in reversed(range(L)):
-        g, bt, w, _ = _local(cfg, params, lv)
+        g, bt = _local(cfg, params, lv)[:2]
         cin, cout = dims[lv], dims[lv + 1]
         bn_l = _bn_args(g, bt, stats[lv][0], invs[lv], cfg.act)
         save = None if tr == "none" else torch.empty(r, cout, device=dev)
         xe, xidx = (h1, rows) if lv == 0 else (v[lv], None)
-        t, g_l, coef = dgrad(d_in, tr, save, w, cout, cin, xe, xidx, bn_l,
+        t, g_l, coef = dgrad(d_in, tr, save, lv, cout, cin, xe, xidx, bn_l,
                              cfg.act, bf, **kw)
         dw, db = _kernel_wgrad(cnt, dev, xe, d_in if save is None else save,
                                cin, cout, r, xidx, "bn_act", bf, **bn_l)
@@ -717,7 +963,7 @@ def _kernel_bwd(h1, mask, cfg, params, stats, extras, dout, cnt=None,
     idx = rows.long()
     xhat0 = ((h1.reshape(-1, c0).index_select(0, idx).float() - stats[0][0])
              * invs[0])
-    d0 = coef[0] * (d_in - (coef[1] + xhat0 * coef[2]))
+    d0 = coef[0] * (d_in.float() - (coef[1] + xhat0 * coef[2]))
     d_h1 = torch.zeros_like(h1)
     d_h1.view(-1, c0).index_copy_(0, idx, d0.to(h1.dtype))
     return d_h1, tuple(grads)

@@ -1,5 +1,5 @@
-"""K2-bf16 of this checkout against another checkout's, in one process on
-one card (GPU).
+"""K2-bf16 (or K7-bf16, ``--kernel k7``) of this checkout against another
+checkout's, in one process on one card (GPU).
 
 The other checkout (``--against DIR``: a source tree, for example the
 parent commit unpacked with ``git archive <commit> | tar -x -C DIR``) is
@@ -12,10 +12,25 @@ device ms (``torch.profiler``, the kernel's own entries, 5 runs) and the
 host's enqueue ms (the card idle before the call, median of 5); this
 checkout's output is held against the plain version at 2^-8 of its scale
 (seeds 1 and 2 too).  Then float32 K2 and K9 (the ``fused`` route) of a
-float32 scan through both libraries, the same way.  Run from the
+float32 scan through both libraries, the same way.
+
+``--kernel k7``: the K7-bf16 calls of one nuScenes flagship train step in
+``compute_dtype: bfloat16`` (seed 0) and of shapenet-seg's at its batch
+(24), forward and backward, in turns as above (device ms: the call's K7
+kernels, and everything it launches); beside each, its bound
+(``chip_smoke.work``) and the cuBLAS bfloat16 ``torch.matmul`` of the
+call's products alone (a yardstick, never on the path); both checkouts'
+outputs held against the plain version at phase 21's tolerances (the
+forward within 2^-8 of each output's largest value, the backward within
+2^-7 in relative L2 plus twice the plain version's own bf16-vs-f32
+change; only this checkout's fail the run), and the kernel's and the
+plain version's forward outputs read against the contract with exact
+(float64) sums; the nuScenes calls of seeds 1 and 2 too, under seed 0's
+weights (phase 21's setting) and under their own.  Then the float32 K7
+calls of a float32 step through both libraries.  Run from the
 repository root::
 
-    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR
+    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR [--kernel k7]
 
 Prints a line per call and the totals.
 """
@@ -23,6 +38,7 @@ Prints a line per call and the totals.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import os
 import subprocess
@@ -36,7 +52,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import predict as P
 from ..config import load_config
-from ..ops import edge_mlp, group_reduce as G
+from ..ops import edge_mlp, group_reduce as G, group_train as GT
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -44,7 +60,7 @@ TOL = 2.0 ** -8
 
 
 def load_other(root: str):
-    """(group_reduce, edge_mlp) of the package in ``root``."""
+    """(group_reduce, edge_mlp, group_train) of the package in ``root``."""
     pkg = os.path.join(os.path.abspath(root), "curvecloudnet_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "other_ccn", os.path.join(pkg, "__init__.py"),
@@ -53,7 +69,17 @@ def load_other(root: str):
     sys.modules["other_ccn"] = mod
     spec.loader.exec_module(mod)
     from other_ccn.ops import edge_mlp as oe, group_reduce as og
-    return og, oe
+    from other_ccn.ops import group_train as ot
+    return og, oe, ot
+
+
+def smoke():
+    """The repository's ``chip_smoke`` module: its ``work`` (the bytes and
+    operations a kernel's function must move and do) and peak rates."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
 
 
 def bf16_config(name: str) -> str:
@@ -101,7 +127,10 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return sorted(times)[reps // 2]
 
 
-def device_ms(fn, key: str, reps: int = 5) -> float:
+def device_ms(fn, key, reps: int = 5) -> float:
+    """Device ms a run of ``fn`` in kernels whose names hold ``key`` (or
+    any of a tuple of keys)."""
+    keys = (key,) if isinstance(key, str) else key
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -110,8 +139,8 @@ def device_ms(fn, key: str, reps: int = 5) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key
-               ) / 1e3 / reps
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.key for k in keys)) / 1e3 / reps
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -133,12 +162,25 @@ def held(out, ref, tol=TOL) -> float:
     return err / scale
 
 
+def same(a, b) -> bool:
+    """Whether two outputs (tensors, or nested tuples of them) are equal
+    bit for bit."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape and bool(
+            torch.equal(a, b))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
 def compare(label, calls, other, this, key_other, key_this, ref=None,
             tol=TOL):
     totals = dict.fromkeys(("ko", "kt", "do", "dt"), 0.0)
     worst = 0.0
+    equal = 0
     for i, (args, kw) in enumerate(calls):
         with torch.inference_mode():
+            equal += same(other(*args, **kw), this(*args, **kw))
             if ref is not None:
                 worst = max(worst, held(this(*args, **kw), ref(*args, **kw),
                                         tol))
@@ -162,13 +204,297 @@ def compare(label, calls, other, this, key_other, key_this, ref=None,
     print(f"{label} total, {len(calls)} calls: kernel ms other "
           f"{totals['ko']:.4f} this {totals['kt']:.4f}; device ms other "
           f"{totals['do']:.4f} this {totals['dt']:.4f}; worst err / scale "
-          f"{worst:.3g}", flush=True)
+          f"{worst:.3g}; outputs bit-identical at {equal} of {len(calls)} "
+          "calls", flush=True)
+
+
+def k7_calls(config: str, seed: int, dev, bf16: bool = True,
+             weights: int = 0):
+    """The K7 calls of one train step of ``config`` (the weights and draws
+    of seed ``weights``, the synthetic batch of ``seed``; phase 21 of
+    ``chip_smoke.py`` takes seed 0's weights): [(forward args, backward's
+    dout)], the backward paired to its forward by h1."""
+    from ..train.__main__ import setup, train_batch
+    from ..train.trainer import train_step
+
+    model, opt, _, loss_cfg, batch, gen = setup(config, dev, weights)
+    if seed != weights:
+        batch = train_batch(config, seed, P.n_pad_of(config), dev)
+    names = (("group_train_fwd_bf16", "group_train_bwd_bf16") if bf16
+             else ("group_train_fwd", "group_train_bwd"))
+    calls = {n: [] for n in names}
+    saved = {n: getattr(GT, n) for n in names}
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            calls[name].append(args)
+            return saved[name](*args, **kwargs)
+        wrapped.launches = 0
+        return wrapped
+
+    for n in names:
+        setattr(GT, n, recorder(n))
+    try:
+        train_step(model, opt, 0.0, batch, gen, 0.1, loss_cfg)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(GT, n, fn)
+    douts = {(a[0].data_ptr(), tuple(a[0].shape)): a[7]
+             for a in calls[names[1]]}
+    return [(a, douts[(a[0].data_ptr(), tuple(a[0].shape))])
+            for a in calls[names[0]]]
+
+
+def _shares(got, want, scale_of=None):
+    """max |got - want| over ``TOL`` x max |scale_of| (``want`` by default);
+    inf where got is not finite."""
+    got, want = got.double(), want.double()
+    ref = want if scale_of is None else scale_of.double()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    if not got.numel():
+        return 0.0
+    bound = TOL * float(ref.abs().max())
+    err = float((got - want).abs().max())
+    return err / bound if bound else (0.0 if err == 0 else float("inf"))
+
+
+@contextlib.contextmanager
+def exact_sums():
+    """The plain K7 version with float64 sums: the contract's operands
+    rounded to bfloat16 and their products summed in float64, each BN's
+    statistics summed in float64 (its E[x^2] - mean^2 free of float32's
+    cancellation), each rounded to float32 once."""
+    mm, stats = GT._mm, GT._masked_stats
+
+    def mm64(a, w, bf):
+        return (GT._rnd(a, bf).double() @ GT._rnd(w, bf).double()).float()
+
+    def stats64(v, mk, n):
+        return tuple(t.float() for t in stats(v.double(), mk.double(),
+                                              n.double()))
+
+    GT._mm, GT._masked_stats = mm64, stats64
+    try:
+        yield
+    finally:
+        GT._mm, GT._masked_stats = mm, stats
+
+
+@torch.no_grad()
+def k7_held(args, dout, mod=GT) -> dict:
+    """A K7-bf16 call of ``mod`` (this checkout's group_train, or the other
+    checkout's) against the plain version at phase 21's tolerances -> the
+    worst error of each kind as a share of its bound: "fwd" (the output's
+    live rows and each BN's statistics within 2^-8 of their largest plain
+    value), "bwd" (each gradient within 2^-7 in relative L2 plus twice the
+    plain version's own bf16-vs-f32 change), and the forward's outputs
+    against the contract with exact sums (:func:`exact_sums`; the same
+    2^-8 of its largest value): at the worst output ("what"),
+    "kernel_f64" and "plain_f64", over every output, "kernel_f64_all" and
+    "plain_f64_all"."""
+    h1, mask, cfg, params = args
+    out, stats, n, extras = mod.group_train_fwd(*args)
+    d_h1, grads = mod.group_train_bwd(h1, mask, cfg, params, stats, n,
+                                      extras, dout)
+    r_out, r_stats, r_n, r_ex = GT.group_train_fwd_ref(*args)
+    with exact_sums():
+        x_out, x_stats, _, _ = GT.group_train_fwd_ref(*args)
+    rows = mask.any(-1)
+
+    def outputs(o, st):
+        return [o[rows]] + [t for mv in st for t in mv]
+
+    got, want, exact = (outputs(out, stats), outputs(r_out, r_stats),
+                        outputs(x_out, x_stats))
+    names = ["out"] + [f"BN {i} {w}" for i in range(len(stats))
+                       for w in ("mean", "var")]
+    fwd = [_shares(g, w) for g, w in zip(got, want)]
+    at = max(range(len(fwd)), key=fwd.__getitem__)
+    # the worst output against plain, and each against the exact sums
+    res = {"fwd": fwd[at], "what": names[at],
+           "kernel_f64": _shares(got[at], exact[at]),
+           "plain_f64": _shares(want[at], exact[at]),
+           "kernel_f64_all": max(_shares(g, x) for g, x in zip(got, exact)),
+           "plain_f64_all": max(_shares(w, x) for w, x in zip(want, exact))}
+    r_h1, r_grads = GT.group_train_bwd_ref(h1, mask, cfg, params, r_stats,
+                                           r_n, r_ex, dout)
+    h32 = h1.float()
+    _, s32, n32, e32 = GT.group_train_fwd_ref(h32, mask, cfg, params)
+    f_h1, f_grads = GT.group_train_bwd_ref(h32, mask, cfg, params, s32, n32,
+                                           e32, dout)
+    outs = [(g.float(), w.float(), w32.float()) for g, w, w32 in zip(
+        (d_h1,) + tuple(grads), (r_h1,) + tuple(r_grads),
+        (f_h1,) + tuple(f_grads))]
+    floor = TOL * max(float(w.norm()) for _, w, _ in outs)
+    res["bwd"] = 0.0
+    for g, w, w32 in outs:
+        scale = max(float(w.norm()), floor)
+        rel = float((g - w).norm()) / scale
+        bound = 2 * TOL + 2 * float((w - w32).norm()) / scale
+        res["bwd"] = max(res["bwd"], rel / bound if bool(
+            torch.isfinite(g).all()) else float("inf"))
+    return res
+
+
+def k7_hold(label, calls, other) -> bool:
+    """Hold this checkout's K7-bf16 calls and read the other checkout's the
+    same way -> whether this checkout's are within their bounds."""
+    this = [k7_held(a, d) for a, d in calls]
+    them = [k7_held(a, d, other) for a, d in calls]
+
+    def worst(runs, key):
+        return max(r[key] for r in runs)
+
+    at = max(range(len(calls)), key=lambda i: this[i]["fwd"])
+    at_them = max(range(len(calls)), key=lambda i: them[i]["fwd"])
+    w = this[at]
+    print(f"{label}: {len(calls)} K7-bf16 calls, worst error "
+          f"{max(worst(this, 'fwd'), worst(this, 'bwd')):.4g} of its bound "
+          f"(fwd {w['fwd']:.4g} at call {at}'s {w['what']}, where against "
+          f"exact sums this {w['kernel_f64']:.4g}, plain "
+          f"{w['plain_f64']:.4g}; bwd {worst(this, 'bwd'):.4g}); every "
+          f"forward output against exact sums: this "
+          f"{worst(this, 'kernel_f64_all'):.4g}, plain "
+          f"{worst(this, 'plain_f64_all'):.4g}; the other checkout: fwd "
+          f"{worst(them, 'fwd'):.4g} at call {at_them}'s "
+          f"{them[at_them]['what']}, bwd {worst(them, 'bwd'):.4g}, every "
+          f"output against exact sums {worst(them, 'kernel_f64_all'):.4g}",
+          flush=True)
+    return max(worst(this, "fwd"), worst(this, "bwd")) <= 1
+
+
+@torch.no_grad()
+def k7_products_ms(args) -> float:
+    """cuBLAS bfloat16 ``torch.matmul`` of the call's products alone, forward
+    and backward (each dense's, its data and weight gradient's), on random
+    operands of their shapes: a yardstick."""
+    h1, mask, cfg = args[:3]
+    r = int(mask.sum())
+    shapes = list(zip(cfg.dims[:-1], cfg.dims[1:]))
+    if cfg.attend:
+        shapes += [(cfg.dims[-1], cfg.att_dim), (cfg.att_dim, cfg.dims[-1])]
+    ops = []
+    for k, n in shapes:
+        x = torch.randn(r, k, device=h1.device, dtype=torch.bfloat16)
+        w = torch.randn(k, n, device=h1.device, dtype=torch.bfloat16)
+        d = torch.randn(r, n, device=h1.device, dtype=torch.bfloat16)
+        ops += [(x, w), (d, w.t()), (x.t(), d)]
+    return cuda_ms(lambda: [a @ b for a, b in ops])
+
+
+@torch.no_grad()
+def k7_compare(label, calls, other, this, bf16=True):
+    """K7's calls, the other checkout's wrappers against this one's, in
+    turns (other, this, this, other): kernel ms, device ms (the K7
+    kernels; everything launched), forward and backward apart."""
+    S = smoke()
+    names = (("group_train_fwd_bf16", "group_train_bwd_bf16") if bf16
+             else ("group_train_fwd", "group_train_bwd"))
+    this_fwd, this_bwd = (getattr(this, n) for n in names)
+    keys = ("gt_gemm", "gt_finalize", "gt_rowstats", "gt_aggregate", "gtw_")
+    tot = {"equal": 0}
+    for i, (args, dout) in enumerate(calls):
+        h1, mask, cfg, params = args
+        line = []
+        for d in ("fwd", "bwd"):
+            runs = {"o": [], "t": []}
+            for who in "otto":
+                mod = other if who == "o" else this
+                fwd, bwd = (getattr(mod, n) for n in names)
+                if d == "fwd":
+                    fn = (lambda fwd=fwd: fwd(*args))
+                else:
+                    _, st, n, ex = fwd(*args)
+                    fn = (lambda bwd=bwd, st=st, n=n, ex=ex: bwd(
+                        h1, mask, cfg, params, st, n, ex, dout))
+                with torch.no_grad():
+                    runs[who].append((cuda_ms(fn), device_ms(fn, keys),
+                                      device_ms(fn, ("",))))
+            vals = {w: [sum(x[j] for x in v) / 2 for j in range(3)]
+                    for w, v in runs.items()}
+            if d == "fwd":
+                res = this_fwd(*args)
+                byts, flops = S.work(names[0], args, res)
+            else:
+                _, st, n, ex = this_fwd(*args)
+                b_args = (h1, mask, cfg, params, st, n, ex, dout)
+                byts, flops = S.work(names[1], b_args, this_bwd(*b_args))
+            peak = S.OPS_PEAK.get(names[0], S.PEAK_FP32)
+            bound = max(byts / S.PEAK_BYTES, flops / peak) * 1e3
+            for w in "ot":
+                for j, key in enumerate(("kernel", "device", "all")):
+                    k = (d, w, key)
+                    tot[k] = tot.get(k, 0.0) + vals[w][j]
+            tot[(d, "bound")] = tot.get((d, "bound"), 0.0) + bound
+            line.append(
+                f"{d}: kernel ms other {vals['o'][0]:.3f} this "
+                f"{vals['t'][0]:.3f}; device ms (K7 kernels) other "
+                f"{vals['o'][1]:.3f} this {vals['t'][1]:.3f}, (all) other "
+                f"{vals['o'][2]:.3f} this {vals['t'][2]:.3f}; bound "
+                f"{bound:.4f} ({bound / vals['t'][1]:.1%} of this device "
+                f"ms)")
+        if not bf16:   # float32 K7 is the same kernel in both trees
+            fo, bo = (getattr(other, n) for n in names)
+            ft, bt = (getattr(this, n) for n in names)
+            ro, rt = fo(*args), ft(*args)
+            tot["equal"] += same(ro[:3], rt[:3]) and same(
+                bo(h1, mask, cfg, params, *ro[1:], dout),
+                bt(h1, mask, cfg, params, *rt[1:], dout))
+        cub = k7_products_ms(args) if bf16 else float("nan")
+        tot["cublas"] = tot.get("cublas", 0.0) + cub
+        print(f"{label} call {i} widths {list(cfg.dims)} attend "
+              f"{cfg.att_dim} K {h1.shape[1]} M {h1.shape[2]} live rows "
+              f"{int(mask.sum())}: " + "; ".join(line)
+              + f"; cuBLAS products ms {cub:.3f}", flush=True)
+    for d in ("fwd", "bwd"):
+        print(f"{label} {d} total, {len(calls)} calls: kernel ms other "
+              f"{tot[(d, 'o', 'kernel')]:.3f} this "
+              f"{tot[(d, 't', 'kernel')]:.3f}; device ms (K7 kernels) "
+              f"other {tot[(d, 'o', 'device')]:.3f} this "
+              f"{tot[(d, 't', 'device')]:.3f}; (all) other "
+              f"{tot[(d, 'o', 'all')]:.3f} this {tot[(d, 't', 'all')]:.3f};"
+              f" bound {tot[(d, 'bound')]:.4f}", flush=True)
+    print(f"{label} fwd + bwd device ms (K7 kernels): other "
+          f"{tot[('fwd', 'o', 'device')] + tot[('bwd', 'o', 'device')]:.3f}"
+          f" this {tot[('fwd', 't', 'device')] + tot[('bwd', 't', 'device')]:.3f}"
+          f"; cuBLAS products {tot['cublas']:.3f}"
+          + ("" if bf16 else f"; outputs and gradients bit-identical at "
+             f"{tot['equal']} of {len(calls)} calls"), flush=True)
+
+
+def main_k7(ot, dev) -> None:
+    """``--kernel k7``: the K7 calls of the bfloat16 train steps (and the
+    float32 step's), the other checkout's against this one's."""
+    nusc = bf16_config("nuscenes")
+    failed = []
+    for seed in (0, 1, 2):
+        for weights in sorted({0, seed}):
+            label = f"nuScenes bf16 seed {seed} (seed {weights}'s weights)"
+            calls = k7_calls(nusc, seed, dev, weights=weights)
+            if not k7_hold(label, calls, ot):
+                failed.append(label)
+            if seed == 0:
+                k7_compare("nuScenes bf16 K7-bf16", calls, ot, GT)
+            del calls
+    seg = k7_calls(bf16_config("shapenet-seg"), 0, dev)
+    if not k7_hold("shapenet-seg bf16", seg, ot):
+        failed.append("shapenet-seg bf16")
+    k7_compare("shapenet-seg bf16 K7-bf16", seg, ot, GT)
+    del seg
+    k7_compare("nuScenes f32 K7", k7_calls(os.path.join(
+        REPO, "configs", "nuscenes.yaml"), 0, dev, bf16=False), ot, GT,
+        bf16=False)
+    if failed:
+        raise SystemExit(f"K7-bf16 past its bounds: {failed}")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True,
                     help="another checkout's root (its own kernels)")
+    ap.add_argument("--kernel", default="k2", choices=("k2", "k7"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_bf16_compare: needs a CUDA device")
@@ -177,7 +503,10 @@ def main(argv=None) -> None:
                          text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    og, oe = load_other(args.against)
+    og, oe, ot = load_other(args.against)
+    if args.kernel == "k7":
+        main_k7(ot, dev)
+        return
     # the other checkout's K2-bf16: its own kernel, or (before it had one)
     # the chain kernel it shared with float32 K2
     key_other = "group_wgmma_kernel" if os.path.exists(os.path.join(

@@ -6,9 +6,11 @@ default) and its synthetic train batch (``train.__main__.setup``: a
 sweep of its sensor at B=1, or object scans at its batch size) with its
 task's loss, runs one warm-up step, times one step on the host clock,
 times every K7 launch of one step with CUDA events (by pass and by
-site), then profiles one more step with CPU and CUDA activities.  Run::
+site), then profiles one more step with CPU and CUDA activities.
+``--dtype bfloat16`` sets the model block's ``compute_dtype`` (the config
+written under ``build/``), so the step runs the bfloat16 kernels.  Run::
 
-    python -m curvecloudnet_tpu_torch.tools.profile_train [--config configs/audi.yaml]
+    python -m curvecloudnet_tpu_torch.tools.profile_train [--config configs/audi.yaml] [--dtype bfloat16]
 
 Prints one JSON line (step wall, device busy time by group, idle share,
 peak memory, K7 time by pass and by site, and the device time and
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -27,10 +30,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..ops import group_train
+from .k2_bf16_compare import bf16_config
 from ..train.__main__ import setup
 from ..train.trainer import train_step
 
-GROUPS = (("K7", "gt_gemm"), ("K7", "gt_finalize"), ("K7", "gt_aggregate"),
+GROUPS = (("K7", "gt_gemm"), ("K7", "gtw_"), ("K7", "gt_finalize"), ("K7", "gt_aggregate"),
           ("K7", "gt_rowstats"), ("K8", "conv1d_train"), ("K4", "gather_km"),
           ("K4b", "scatter_km"), ("K3", "knn_"), ("K6", "fps_kernel"),
           ("K5", "grid_topk"), ("gemm", "gemm"))
@@ -41,12 +45,17 @@ APART = ("gather_km", "scatter_km", "conv1d_train")
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="configs/nuscenes.yaml")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    model, opt, sched, loss_cfg, batch, gen = setup(args.config, dev, 0)
+    config = args.config
+    if args.dtype == "bfloat16":
+        config = bf16_config(os.path.splitext(os.path.basename(config))[0])
+    model, opt, sched, loss_cfg, batch, gen = setup(config, dev, 0)
 
     def step() -> float:
         torch.cuda.synchronize()
@@ -83,6 +92,7 @@ def main(argv=None) -> None:
         for e in kern if any(n in e.key for n in APART)}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "config": args.config,
+        "dtype": args.dtype,
         "batch": int(batch.cloud.valid.shape[0]), "step_wall_ms": wall,
         "peak_memory_gib": peak / 2 ** 30, "busy_ms": busy,
         "by_group_ms": groups, "launches": sum(e.count for e in kern),

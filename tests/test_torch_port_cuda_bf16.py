@@ -314,23 +314,44 @@ def _train_cfg_params(dims, att, g):
 
 
 # the flagship's sa-geo attend site, an sgcnn max site, shapenet-seg's
-# 1024-wide attention
-K7_CASES = [((14, 16, 24, 32), 32, 2048, 9), ((22, 64, 64), 0, 4096, 21),
-            ((259, 512, 1024), 1024, 512, 9)]
+# 1024-wide attention; 1024-wide layers; attend at shapenet-seg's sa-geo
+# widths; one live row; no live row; 65 live rows (past one 64-row tile);
+# a weight gradient over many row splits (~206k rows of 64 x 64); layers
+# of 257-448 columns (passes of 512, zero-padded).  live: the live slots
+# (None: 60% at random)
+K7_CASES = [((14, 16, 24, 32), 32, 2048, 9, None),
+            ((22, 64, 64), 0, 4096, 21, None),
+            ((259, 512, 1024), 1024, 512, 9, None),
+            ((1024, 1024, 1024), 0, 600, 9, None),
+            ((64, 128, 256, 512, 1024), 1024, 256, 65, None),
+            ((14, 16, 24, 32), 32, 300, 9, 1),
+            ((22, 64, 64), 0, 500, 21, 0),
+            ((22, 64, 64), 0, 4096, 21, 65),
+            ((32, 64, 64), 0, 16384, 21, None),
+            ((40, 384, 320), 448, 1024, 9, None)]
 
 
-@pytest.mark.parametrize("dims,att,m,k", K7_CASES)
-def test_group_train_bf16_kernel(dev, dims, att, m, k):
-    from curvecloudnet_tpu_torch.ops import group_train as G
-
-    g = torch.Generator().manual_seed(7)
+def _k7_inputs(dev, dims, att, m, k, live, seed=7):
+    g = torch.Generator().manual_seed(seed)
     cfg, params = _train_cfg_params(dims, att, g)
     h1 = (2 * torch.randn(1, k, m, dims[0], generator=g)).to(torch.bfloat16)
-    mask = torch.rand(1, m, k, generator=g) < 0.6
-    mask[0, :5] = False                      # queries with no live slot
+    if live is None:
+        mask = torch.rand(1, m, k, generator=g) < 0.6
+        mask[0, :5] = False                  # queries with no live slot
+    else:
+        mask = torch.zeros(1, m * k, dtype=torch.bool)
+        mask[0, torch.randperm(m * k, generator=g)[:live]] = True
+        mask = mask.view(1, m, k)
     dout = torch.randn(1, m, dims[-1], generator=g) * mask.any(-1)[..., None]
-    h1, mask, dout = h1.to(dev), mask.to(dev), dout.to(dev)
-    params = [p.to(dev) for p in params]
+    return (cfg, [p.to(dev) for p in params], h1.to(dev), mask.to(dev),
+            dout.to(dev))
+
+
+@pytest.mark.parametrize("dims,att,m,k,live", K7_CASES)
+def test_group_train_bf16_kernel(dev, dims, att, m, k, live):
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    cfg, params, h1, mask, dout = _k7_inputs(dev, dims, att, m, k, live)
     n0 = (G.group_train_fwd_bf16.launches, G.group_train_bwd_bf16.launches)
     out, stats, n, extras = G.group_train_fwd(h1, mask, cfg, params)
     d_h1, grads = G.group_train_bwd(h1, mask, cfg, params, stats, n, extras,
@@ -341,18 +362,42 @@ def test_group_train_bf16_kernel(dev, dims, att, m, k):
                                                           params)
     rows = mask.any(-1)
     assert out.dtype == torch.float32 and d_h1.dtype == torch.bfloat16
+    r_h1, r_grads = G.group_train_bwd_ref(h1, mask, cfg, params, r_stats,
+                                          r_n, r_extras, dout)
+    if not bool(rows.any()):
+        # no live row: zero statistics, and every gradient 0 (dout is)
+        for (mu, var), (r_mu, r_var) in zip(stats, r_stats):
+            assert torch.equal(mu, r_mu) and torch.equal(var, r_var)
+        for t in (d_h1,) + tuple(grads):
+            assert not bool(t.float().any())
+        return
     assert _max_rel(out[rows], r_out[rows]) <= BF16_REL
     for (mu, var), (r_mu, r_var) in zip(stats, r_stats):
         assert _max_rel(mu, r_mu) <= BF16_REL
         assert _max_rel(var, r_var) <= BF16_REL
-    r_h1, r_grads = G.group_train_bwd_ref(h1, mask, cfg, params, r_stats,
-                                          r_n, r_extras, dout)
     h32 = h1.float()
     _, s32, n32, e32 = G.group_train_fwd_ref(h32, mask, cfg, params)
     f_h1, f_grads = G.group_train_bwd_ref(h32, mask, cfg, params, s32, n32,
                                           e32, dout)
     _l2_all(list(zip((d_h1,) + tuple(grads), (r_h1,) + tuple(r_grads),
                      (f_h1,) + tuple(f_grads))), 2 * BF16_REL)
+
+
+@pytest.mark.parametrize("case", [K7_CASES[0], K7_CASES[3]])
+def test_group_train_bf16_repeats(dev, case):
+    """Two runs of the same call: outputs, statistics and gradients bit
+    for bit (fixed-order sums, no atomics)."""
+    from curvecloudnet_tpu_torch.ops import group_train as G
+
+    cfg, params, h1, mask, dout = _k7_inputs(dev, *case)
+    runs = []
+    for _ in range(2):
+        out, stats, n, extras = G.group_train_fwd(h1, mask, cfg, params)
+        d_h1, grads = G.group_train_bwd(h1, mask, cfg, params, stats, n,
+                                        extras, dout)
+        runs.append([out, *[t for mv in stats for t in mv], d_h1, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # the main path's step_31 (xe 262 wide in bfloat16, h 2, three layers of

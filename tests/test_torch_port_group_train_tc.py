@@ -326,14 +326,18 @@ def test_finalize_order_is_fixed():
 
 def test_gemm_slots_match_c_order():
     """``_GEMM_PTRS`` / ``_GEMM_INTS`` name the slots of ``ccn_gt_gemm``
-    in the order ``csrc/group_train.cu`` reads them: a swap would hand
-    the kernel wrong operands that only the card's tests could catch."""
+    and ``ccn_gtw_gemm`` in the order ``csrc/group_train.cu`` reads them
+    (``gt_job``, which both call): a swap would hand the kernel wrong
+    operands that only the card's tests could catch."""
     import pathlib
     import re
 
     src = (pathlib.Path(G.__file__).parents[1] / "csrc" /
            "group_train.cu").read_text()
-    body = src[src.index('extern "C" int ccn_gt_gemm'):]
+    for entry in ('extern "C" int ccn_gt_gemm', 'extern "C" int ccn_gtw_gemm'):
+        call = src[src.index(entry):]
+        assert "gt_job(ptrs, ints)" in call[:call.index("\n}\n")]
+    body = src[src.index("static GJob gt_job("):]
     body = body[:body.index("\n}\n")]
     floats = re.findall(r"&j\.(\w+)", body[:body.index("};")])
     rest = {int(i or 0): name for name, i in
