@@ -236,7 +236,8 @@ Phases (any failure raises and exits non-zero before the result line):
  21. bfloat16 training (``run_bf16_train``): the flagship's step at full
      width on a ``compute_dtype: bfloat16`` config, every K7-, K8- and
      K4b-bf16 call held against its plain bfloat16 version and timed
-     beside its float32 twin, the step against the plain bf16 and f32
+     beside its float32 twin (K8-bf16's t pass also in device ms a call,
+     and run twice bit for bit), the step against the plain bf16 and f32
      paths, launches, shapenet-seg at B=24, ``main`` in bfloat16;
  22. data parallelism over processes (``run_dp``): two rank processes
      (``dp_rank``, gloo on the one card) each take the flagship's
@@ -262,8 +263,9 @@ Phases (any failure raises and exits non-zero before the result line):
      counters set to 0: one K11 launch a scan, the two shards equal);
      every K11 call held against ``rasterize_plain`` on the card (mask
      equal, coords and normals bit-equal: 0 differing pixels) and timed
-     (kernel and plain ms, the bound: the mesh read once and the
-     outputs written once, and the same with the key buffer), the host's
+     (kernel and plain ms, device ms by events on a pre-filled stream,
+     the bound: the mesh read once and the outputs written once), the
+     host's
      scan lines timed a scan, the filter on the card within 1e-6 of its
      CPU run; the shapenet-seg shard read by ``KortxNpzDataset`` through
      the shapenet-seg model at B=24 (launches equal to the spec's, each
@@ -1564,6 +1566,36 @@ def device_ms(fn, reps=3):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+# cycles the stream is held busy before a timed call (about 2 ms at the
+# H100's clock: longer than a wrapper's host path)
+SPIN_CYCLES = 4_000_000
+
+
+def device_span_ms(fn, reps=3):
+    """Device milliseconds of one ``fn()``'s kernels: CUDA events recorded
+    around the call while the stream is still held busy by a spin kernel
+    (``torch.cuda._sleep``), so the span starts as the first kernel can
+    and holds no host time; the median of ``reps`` runs.  Late in this
+    process ``torch.profiler`` loses GPU records, more the longer the
+    process has run: a profile of one K11 or K8 t call read 0 device ms
+    in phases 21 and 23, where a fresh process reads its time, so
+    :func:`device_ms` is kept for whole forwards and steps."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
 
 
 def cdist_topk(query, points, q_valid, p_valid, k, radius):
@@ -3789,7 +3821,9 @@ def run_bf16_train(P, mods, dev, kernel_launches):
     (K8 float32 at step 0, bfloat16 at step 31; K7-bf16 at every grouping
     site; K4b-bf16): every K7-bf16, K8-bf16 and K4b-bf16 call of a step
     held against its plain bfloat16 version (seed 0 timed, with the float32
-    variant's time on the same inputs and a line per K7 site; seed 1 held),
+    variant's time on the same inputs and a line per K7 site; K8-bf16's t
+    pass also in device ms a call (:func:`device_span_ms`), beside its
+    float32 twin's, and each call run twice bit for bit; seed 1 held),
     the step's float32 calls held as phase 6 holds them; one step kernel
     path vs plain bfloat16 path vs plain float32 path from the same
     weights: the loss within 2x the plain path's own bf16-vs-f32 gap, the
@@ -3860,6 +3894,27 @@ def run_bf16_train(P, mods, dev, kernel_launches):
             f"calls, bfloat16 {report[name]['ms']:.3f} ms, float32 "
             f"{ms32:.3f} ms; bound at the bfloat16 rate "
             f"{report[name]['bound_ms']:.3f} ms")
+    # K8-bf16's t pass: device ms a call beside its float32 twin's on the
+    # same inputs; two runs of each call bit for bit (dW, db, d_u_prev and
+    # the sums: fixed-order partials, no atomics)
+    k8 = mods["conv1d_train"]
+    t16, t32 = [], []
+    with torch.no_grad():
+        for i, (args, kwargs, _) in enumerate(calls["conv1d_train_t_bf16"]):
+            fn = (lambda a=args, k=kwargs: k8.conv1d_train_bwd_t_bf16(*a,
+                                                                      **k))
+            runs = [fn(), fn()]
+            flat = [[*r[:3], *(r[3] if len(r) == 4 else ())] for r in runs]
+            if not all(torch.equal(a, b) for a, b in zip(*flat)):
+                raise AssertionError(f"conv1d_train_t_bf16 call {i}: two "
+                                     "runs differ")
+            t16.append(device_span_ms(fn))
+            t32.append(device_span_ms(f32_twin("conv1d_train_t_bf16", args,
+                                               kwargs, mods)))
+    log(f"conv1d_train_t_bf16 device ms a call {[round(t, 4) for t in t16]}"
+        f" ({sum(t16):.4f} a step), float32 t pass on the same inputs "
+        f"{[round(t, 4) for t in t32]} ({sum(t32):.4f}); two runs of each "
+        "call bit-identical")
     f32_held, f32_calls = float32_calls(TRAIN_KERNELS + TRAIN_HELD, calls)
     log("bf16_train float32 calls: "
         + str({k[0]: len(f32_calls[k[0]]) for k in f32_held}))
@@ -4459,12 +4514,11 @@ def raster_diff(out, ref):
 
 
 def raster_bytes(args):
-    """(the function's bytes, the same with K11's key buffer written and
-    read): the mesh read once, coords, normals and mask written once."""
+    """(the function's bytes,): the mesh read once, coords, normals and
+    mask written once."""
     verts, faces, pin = args[:3]
     hw = pin.h * pin.w
-    need = 12 * (len(verts) + len(faces)) + hw * (12 + 12 + 1)
-    return need, need + 2 * 8 * hw
+    return (12 * (len(verts) + len(faces)) + hw * (12 + 12 + 1),)
 
 
 def run_offline(P, mods, dev, kernel_launches):
@@ -4550,7 +4604,7 @@ def run_offline(P, mods, dev, kernel_launches):
             raise AssertionError(f"{label}: bad shard {path}")
         shards[label] = path
 
-        diffs, k_ms, p_ms, bounds, keyed = [], [], [], [], []
+        diffs, k_ms, d_ms, p_ms, bounds = [], [], [], [], []
         for args, kwargs, out in calls["rasterize"]:
             cam, faces, pin = args[:3]
             # the mesh on the card first: the times are the rasterizer's
@@ -4559,12 +4613,17 @@ def run_offline(P, mods, dev, kernel_launches):
             ref = R.rasterize_plain(cam, faces, pin, dev)
             diffs.append(raster_diff(out, ref))
             k_ms.append(cuda_ms(lambda: R.rasterize(cam, faces, pin, dev)))
+            # device ms of K11's two kernels (device_span_ms: the
+            # profiler loses short profiles' records this late)
+            d_ms.append(device_span_ms(lambda: R.rasterize(cam, faces, pin,
+                                                           dev)))
             p_ms.append(cuda_ms(lambda: R.rasterize_plain(cam, faces, pin,
                                                           dev), reps=1))
-            need, with_keys = raster_bytes(args)
-            bounds.append(need / PEAK_BYTES * 1e3)
-            keyed.append(with_keys / PEAK_BYTES * 1e3)
+            bounds.append(raster_bytes(args)[0] / PEAK_BYTES * 1e3)
         del calls
+        if not all(d > 0 for d in d_ms):
+            raise AssertionError(f"{label}: no device time read for a "
+                                 f"K11 call: {d_ms}")
         if any(diffs):
             raise AssertionError(f"{label}: K11 differs from its plain "
                                  f"version in {sum(diffs)} pixels {diffs}")
@@ -4583,10 +4642,11 @@ def run_offline(P, mods, dev, kernel_launches):
             f"{kw['density']}, random SO(3) {so3}): {n_scans} scans in "
             f"{wall:.2f} s, {got} K11 calls, differing pixels "
             f"{sum(diffs)} (bound 0); K11 {med(k_ms):.3f} ms a call "
-            f"({min(k_ms):.3f}-{max(k_ms):.3f}), plain {med(p_ms):.3f} ms, "
-            f"bound {med(bounds):.4f} ms (outputs and mesh; "
-            f"{med(keyed):.4f} with the key buffer's write and read), "
-            f"host scan lines {1e3 * med(line_s):.2f} ms a scan "
+            f"({min(k_ms):.3f}-{max(k_ms):.3f}; {sum(k_ms):.3f} summed), "
+            f"device {med(d_ms):.4f} ms a call ({min(d_ms):.4f}-"
+            f"{max(d_ms):.4f}; {sum(d_ms):.4f} summed), plain "
+            f"{med(p_ms):.3f} ms, bound {med(bounds):.4f} ms (outputs and "
+            f"mesh; {sum(bounds):.4f} summed), host scan lines {1e3 * med(line_s):.2f} ms a scan "
             f"({len(line_s)} scans); anti_alias card vs CPU max abs err "
             f"{aa_err:.3g} over {len(filtered)} scans (tolerance {AA_TOL:g})")
     log(f"compare rasterize: {sum(n for p in by_path.values() for n in p.values())}"

@@ -691,14 +691,27 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdw_kernel(
 //    halo) as bfloat16 rows in shared memory, KCH input channels at a
 //    time, times the taps packed as bfloat16 pairs; z = acc + b (f32),
 //    then the tile's (count, mean, M2) as the f32 kernel takes them;
-//  * t pass, d_u_prev: the block's dz (f32, written out for dW) rounded
-//    to bfloat16 rows, times the packed W^T taps in column chunks;
-//  * t pass, dW and db: a block a (channel chunk of TDW_M, tap d, row
-//    split, sample): u's rounded pairs (transposed A) times the rounded
-//    dz rows of the split's stages of TDW_ROWS slots; db from the f32 dz;
-//    one partial row a (sample, split), summed by colsum (no atomics);
-//  * prev_sums: the previous layer's reduce sums over d_u_prev by the
-//    reduce kernel, in the same entry.
+//  * t pass (K8-bf16 t): W^T's taps are packed once a call into
+//    bfloat16 pair images, a column chunk after another
+//    (conv1d_train_pack_wt_bf16_kernel), which blocks copy into shared
+//    memory with cp.async (no block packs weights);
+//  * t pass, inputs up to TDF_MAX wide: everything in one kernel, as the
+//    f32 twin: a block's CV_ROWS slots (a tile of CV_ROWS - 2h and its
+//    halo) stage dz (rounded to bfloat16 rows; db from the f32 values by
+//    fixed row lanes) and u (rebuilt from z_prev, rounded, z_prev kept in
+//    registers in the d_u_prev accumulators' layout); d_u_prev = the
+//    rounded dz pairs times the image; dW a tap at a time = u's rounded
+//    pairs (ldmatrix.trans, transposed A) times the tile's dz rows
+//    (ldmatrix.trans, B); prev_sums from the d_u_prev in registers; one
+//    partial row a tile (dW, db, the sums), summed by colsum;
+//  * t pass, wider inputs: the d_u_prev kernel (dz written out in f32,
+//    the image double-buffered a column chunk at a time), then one dW
+//    kernel for every tap: a block a (channel chunk of TBW_M, row split,
+//    sample) stages u's rows p - h .. p + TBW_ROWS + h once a stage with
+//    16-byte loads and the stage's dz once, rounded once, and forms each
+//    tap's pairs from shared memory; db from the staged f32 dz; one
+//    partial row a (sample, split), summed by colsum.
+// No atomics anywhere: repeated steps give bitwise-equal gradients.
 // Bound on the H100: the window products at the bfloat16 rate (989
 // TFLOP/s) and the bytes of z_prev / xe, dz and d_u_prev.
 
@@ -711,6 +724,12 @@ __host__ __device__ __forceinline__ int bf_ld(int c) {
 
 __device__ __forceinline__ unsigned short bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// an element held in registers (a 16-byte word's share), as f32
+__device__ __forceinline__ float load_el(const float* p) { return *p; }
+__device__ __forceinline__ float load_el(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
 // u at slot g, channel c of one sample's rows src (C wide, float or
@@ -801,50 +820,357 @@ __global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_fwd_bf16_kernel(
                parts + ((size_t)b * gridDim.x + blockIdx.x) * (2 * cout + 1));
 }
 
-// t, d_u_prev: dz over the block's CV_ROWS slots (f32 into dzbuf at the
-// tile's rows; 0 at dead and outside slots), rounded to bfloat16 rows, times
-// W^T's taps (wt (h+1, cout, cin)) in column chunks of 8 NT.
+// The bfloat16 t pass (K8-bf16 t).
+#define TB_PAD 4       // rows of a u stage beyond its slots each side (>= h)
+#define TF_LDU 40      // fused kernel: u's row stride in halves (80 B)
+#define TBW_M 128      // wide dW kernel: input channels a block (a warp 16)
+#define TBW_ROWS 64    // wide dW kernel: slots a stage
+#define TBW_LDU (TBW_M + 8)  // its u row stride in halves (272 B)
+
+// words of one column chunk (np columns) of the packed W^T image: (h+1)
+// kp rows of np + 8 words, kp = cout rounded to 16, halved
+__host__ __device__ __forceinline__ int timg_words(int cout, int h, int np) {
+  return (h + 1) * (((cout + 15) & ~15) / 2) * (np + 8);
+}
+
+// the smallest power of two >= c (c <= 128): a thread's fixed column of
+// a 256-thread pass over rows x cpow, with 256 / cpow row lanes
+__host__ __device__ __forceinline__ int pow2_cols(int c) {
+  return c <= 32 ? 32 : c <= 64 ? 64 : 128;
+}
+
+// W ((h+1) cin, cout) f32 -> the image cb_taps reads, column chunk nc
+// (cin columns nc np ..) after chunk nc - 1: word (d kp + k/2) (np + 8) + n
+// of a chunk holds W^T's rows k, k + 1 (k < cout) of tap d at column n as
+// bfloat16 pairs (rounded to nearest even; 0 past cout, cin and np)
+__global__ void conv1d_train_pack_wt_bf16_kernel(const float* __restrict__ w,
+                                                 uint32_t* __restrict__ img,
+                                                 int cin, int cout, int h,
+                                                 int np, int total) {
+  const int kp = ((cout + 15) & ~15) / 2, ldn = np + 8;
+  const int cw = timg_words(cout, h, np);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    const int nc = i / cw, r = i - nc * cw;
+    const int row = r / ldn, n = r - row * ldn;
+    const int d = row / kp, k = 2 * (row - d * kp), ci = nc * np + n;
+    float lo = 0.f, hi = 0.f;
+    if (n < np && ci < cin) {
+      const float* m = w + ((size_t)d * cin + ci) * cout;
+      if (k < cout) lo = __ldg(m + k);
+      if (k + 1 < cout) hi = __ldg(m + k + 1);
+    }
+    img[i] = pack_bf16(lo, hi);
+  }
+}
+
+// copies n16 16-byte words of src into dst (shared memory), cp.async
+__device__ __forceinline__ void copy_image(uint32_t* dst, const uint32_t* src,
+                                           int n16) {
+  for (int i = threadIdx.x; i < n16; i += CV_THREADS)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const unsigned short* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
+                                              const unsigned short* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// The A fragment of dW's product for tap d: channels m0 .. m0 + 15 (the
+// product's rows) by slots k0 .. k0 + 15 (its inner dimension) of the
+// pairs u(p - d) + u(p + d), summed and rounded in bfloat16 (tap 0: u(p)),
+// from U ([slot row][channel], bfloat16, stride ldu halves, 16-byte rows;
+// rows k0 - d .. k0 + 15 + d must lie in the buffer) by ldmatrix.trans.
+__device__ __forceinline__ void pair_frag(uint32_t (&a)[4],
+                                          const unsigned short* U, int ldu,
+                                          int k0, int m0, int d) {
+  const int lane = threadIdx.x & 31, mm = lane >> 3;
+  const int row = k0 + (mm >> 1) * 8 + (lane & 7), col = m0 + (mm & 1) * 8;
+  if (d == 0) {
+    ldsm_x4_trans(a, U + row * ldu + col);
+    return;
+  }
+  uint32_t lo[4], hi[4];
+  ldsm_x4_trans(lo, U + (row - d) * ldu + col);
+  ldsm_x4_trans(hi, U + (row + d) * ldu + col);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    a[e] = pack_bf16(__uint_as_float(lo[e] << 16) + __uint_as_float(hi[e] << 16),
+                     __uint_as_float(lo[e] & 0xffff0000u) +
+                         __uint_as_float(hi[e] & 0xffff0000u));
+}
+
+// dz over the block's CV_ROWS rows (slots base ..; 0 at dead and outside
+// slots) into A (bfloat16, stride lda, columns up to pow2_cols(cout) 0 past
+// cout), and into dzbuf (f32) at the tile's rows h .. h + tile - 1 when
+// dzbuf is given; thread column c = tid % cpow adds the f32 dz of its tile
+// rows, ascending, into *db (rows tid / cpow + k 256 / cpow).
+__device__ __forceinline__ void stage_dz(const float* __restrict__ du,
+                                         const float* __restrict__ z,
+                                         const float* cf, unsigned short* A,
+                                         int lda, float* __restrict__ dzbuf,
+                                         int b, int n_exp, int base, int h,
+                                         int live_end, int cout, float* db) {
+  const int cpow = pow2_cols(cout), lanes = CV_THREADS / cpow;
+  const int c = threadIdx.x & (cpow - 1), tile = CV_ROWS - 2 * h;
+  float s = 0.f;
+#pragma unroll 4
+  for (int r = threadIdx.x / cpow; r < CV_ROWS; r += lanes) {
+    const int q = base + r;
+    float v = 0.f;
+    if (c < cout && q >= 0 && q < live_end) {
+      const size_t off = ((size_t)b * n_exp + q) * cout + c;
+      v = dz_of(__ldg(du + off), __ldg(z + off), cf, c, cout);
+    }
+    const bool in_tile = r >= h && r < h + tile;
+    if (dzbuf != nullptr && c < cout && in_tile && q < n_exp)
+      dzbuf[((size_t)b * n_exp + q) * cout + c] = v;
+    if (in_tile) s += v;
+    if (c < lda) A[r * lda + c] = bf16_bits(v);
+  }
+  *db = s;
+}
+
+// dW's B fragments of one 16-slot step: dz rows k0 .. k0 + 15 of columns
+// n0 .. n0 + 7 (D: [slot row][channel], bfloat16, stride ldd)
+__device__ __forceinline__ void dz_frag(uint32_t& b0, uint32_t& b1,
+                                        const unsigned short* D, int ldd,
+                                        int k0, int n0) {
+  ldsm_x2_trans(b0, b1, D + (k0 + (threadIdx.x & 15)) * ldd + n0);
+}
+
+// t pass, inputs up to TDF_MAX wide (everything in one kernel): block
+// (tile, sample) over CV_ROWS rows, slots base = t0 - h ..; the image's one
+// column chunk (32 columns) copied in; u (from z_prev or xe, the thread's
+// z_prev at its d_u_prev fragment positions kept in zq) into U, dz into A;
+// d_u_prev by cb_taps; prev_sums from it and zq; dW a tap at a time, warp
+// w: channels 16 (w & 1) .., n-tiles NTO / 4 from (w >> 1) NTO / 4, over
+// the block's 128 rows with the halo rows' dz masked out; db by lanes.
+// The tile's partial row: dW ((h+1) cin, cout), db, [4 cin sums].
+template <int NTO, class TP>
+__global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tfused_bf16_kernel(
+    const float* __restrict__ du, const float* __restrict__ z,
+    const TP* __restrict__ zp, Vecs coef, Vecs bnp,
+    const uint32_t* __restrict__ img, const int* __restrict__ used,
+    float* __restrict__ dup, float* __restrict__ parts, int n_exp, int cin,
+    int cout, int h, int prev_sums) {
+  constexpr int NQ = NTO / 4, LDN = 40;
+  extern __shared__ float4 tf_sm4[];
+  const int kp = ((cout + 15) & ~15) / 2, lda = bf_ld(cout);
+  const int cw = timg_words(cout, h, 32);
+  uint32_t* Wt = reinterpret_cast<uint32_t*>(tf_sm4);
+  unsigned short* A = reinterpret_cast<unsigned short*>(Wt + cw);
+  unsigned short* U = A + CV_ROWS * lda;  // (CV_ROWS + 2 TB_PAD) rows
+  float* cf = reinterpret_cast<float*>(U + (CV_ROWS + 2 * TB_PAD) * TF_LDU);
+  float* dbl = cf + 6 * cout;   // CV_THREADS
+  float* red = dbl + CV_THREADS;  // 8 warps x 4 x 32
+  const int b = blockIdx.y, tile = CV_ROWS - 2 * h;
+  const int t0 = blockIdx.x * tile, base = t0 - h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int live_end = min(used[b], n_exp);
+  const bool sums = prev_sums != 0;
+  copy_image(Wt, img, cw / 4);
+  for (int i = threadIdx.x; i < 6 * cout; i += CV_THREADS)
+    cf[i] = coef.v[i / cout][i % cout];
+  for (int i = threadIdx.x; i < TB_PAD * TF_LDU; i += CV_THREADS) {
+    U[i] = 0;
+    U[(CV_ROWS + TB_PAD) * TF_LDU + i] = 0;
+  }
+  // z_prev at the thread's fragment positions (rows r0 + g, + 8; channels
+  // 8 j + 2 t, + 1), u from it into U
+  float zq[4][4];
+  const TP* src = zp + (size_t)b * n_exp * cin;
+  unsigned short* U0 = U + TB_PAD * TF_LDU;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + g + 8 * hh, q = base + row, c = 8 * j + 2 * t;
+      float u[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = c + e < cin && q >= 0 && q < n_exp;
+        const float v = in ? load_f32(src + (size_t)q * cin + c + e) : 0.f;
+        zq[j][2 * hh + e] = v;
+        u[e] = in ? u_of(v, bnp, q, c + e, live_end) : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(U0 + row * TF_LDU + c) =
+          pack_bf16(u[0], u[1]);
+    }
+  __syncthreads();  // cf
+  float db;
+  stage_dz(du, z, cf, A, lda, nullptr, b, n_exp, base, h, live_end, cout,
+           &db);
+  dbl[threadIdx.x] = db;
+  cp_async_wait<0>();
+  __syncthreads();
+  // d_u_prev
+  float acc[4][4];
+  zero_acc<4>(acc);
+  cb_taps<4>(acc, A, lda, r0, Wt, kp, LDN, cout, h, (cin + 7) >> 3);
+  const int n_out = min(tile, n_exp - t0);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1) - h, c = 8 * j + 2 * t + (e & 1);
+      if (r >= 0 && r < n_out && c < cin)
+        dup[((size_t)b * n_exp + t0 + r) * cin + c] = acc[j][e];
+    }
+  const size_t wpart = (size_t)(h + 1) * cin * cout + cout + (sums ? 4 * cin : 0);
+  float* part = parts + ((size_t)b * gridDim.x + blockIdx.x) * wpart;
+  if (sums) {
+    // the previous layer's reduce sums over the tile's live slots, as the
+    // f32 twin takes them: a thread's two rows, the 8 row lanes by a
+    // butterfly, the 8 warps in order
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 8 * j + 2 * t + c;
+        float sv[4] = {0.f, 0.f, 0.f, 0.f};
+        if (n < cin) {
+          const float mu = __ldg(bnp.v[0] + n), inv = __ldg(bnp.v[1] + n);
+          const float gam = __ldg(bnp.v[2] + n), bet = __ldg(bnp.v[3] + n);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + g + 8 * hh;
+            if (row >= h && row < h + tile && base + row < live_end) {
+              const float xh =
+                  __fmul_rn(__fsub_rn(zq[j][2 * hh + c], mu), inv);
+              const float y = __fadd_rn(__fmul_rn(xh, gam), bet);
+              const float da = __fmul_rn(acc[j][2 * hh + c], dleaky(y));
+              const float dxh = __fmul_rn(da, gam);
+              sv[0] = __fadd_rn(sv[0], dxh);
+              sv[1] = __fadd_rn(sv[1], __fmul_rn(dxh, xh));
+              sv[2] = __fadd_rn(sv[2], da);
+              sv[3] = __fadd_rn(sv[3], __fmul_rn(da, xh));
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1)
+            sv[k] = __fadd_rn(sv[k], __shfl_xor_sync(0xffffffffu, sv[k], m));
+          if (g == 0) red[(warp * 4 + k) * 32 + n] = sv[k];
+        }
+      }
+  }
+  // dW, a tap at a time: the halo rows' dz (rows < h, >= h + tile) masked
+  const int mt = warp & 1, nq0 = (warp >> 1) * NQ;
+  const int nt = (cout + 7) >> 3;
+  for (int d = 0; d <= h; ++d) {
+    float aw[NQ][4];
+    zero_acc<NQ>(aw);
+    if (16 * mt < cin) {
+#pragma unroll 2
+      for (int ks = 0; ks < CV_ROWS / 16; ++ks) {
+        uint32_t a[4];
+        pair_frag(a, U0, TF_LDU, 16 * ks, 16 * mt, d);
+        const int ra = 16 * ks + 2 * t, rb = ra + 8;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (nq0 + q >= nt) break;
+          uint32_t b0, b1;
+          dz_frag(b0, b1, A, lda, 16 * ks, 8 * (nq0 + q));
+          if (ks == 0 || ks == CV_ROWS / 16 - 1) {
+            const auto keep = [&](int r) {
+              return r >= h && r < h + tile;
+            };
+            b0 &= (keep(ra) ? 0xffffu : 0u) | (keep(ra + 1) ? 0xffff0000u : 0u);
+            b1 &= (keep(rb) ? 0xffffu : 0u) | (keep(rb + 1) ? 0xffff0000u : 0u);
+          }
+          mma_bf16(aw[q], a, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = 16 * mt + g + 8 * (e >> 1);
+        const int co = 8 * (nq0 + q) + 2 * t + (e & 1);
+        if (ci < cin && co < cout)
+          part[((size_t)d * cin + ci) * cout + co] = aw[q][e];
+      }
+  }
+  __syncthreads();  // dbl, red
+  const size_t n_dw = (size_t)(h + 1) * cin * cout;
+  const int cpow = pow2_cols(cout);
+  for (int co = threadIdx.x; co < cout; co += CV_THREADS) {
+    float v = 0.f;
+    for (int k = 0; k < CV_THREADS / cpow; ++k) v += dbl[k * cpow + co];
+    part[n_dw + co] = v;
+  }
+  if (sums)
+    for (int i = threadIdx.x; i < 4 * cin; i += CV_THREADS) {
+      const int k = i / cin, n = i - k * cin;
+      float v = 0.f;
+      for (int w = 0; w < CV_THREADS / 32; ++w)
+        v = __fadd_rn(v, red[(w * 4 + k) * 32 + n]);
+      part[n_dw + cout + i] = v;
+    }
+}
+
+// t, d_u_prev for wider inputs: dz over the block's CV_ROWS slots (f32
+// into dzbuf at the tile's rows), rounded to bfloat16 rows, times the
+// image's column chunks of 8 NT, each copied in (cp.async) while the chunk
+// before it is multiplied.
 template <int NT>
 __global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_tdup_bf16_kernel(
     const float* __restrict__ du, const float* __restrict__ z, Vecs coef,
-    const float* __restrict__ wt, const int* __restrict__ used,
+    const uint32_t* __restrict__ img, const int* __restrict__ used,
     float* __restrict__ dup, float* __restrict__ dzbuf, int n_exp, int cin,
     int cout, int h) {
   constexpr int NP = 8 * NT, LDN = NP + 8;
   extern __shared__ float4 tb_sm4[];
   const int lda = bf_ld(cout), kp = ((cout + 15) & ~15) / 2;
-  unsigned short* A = reinterpret_cast<unsigned short*>(tb_sm4);
+  const int cw = timg_words(cout, h, NP);
+  uint32_t* Wt = reinterpret_cast<uint32_t*>(tb_sm4);  // two chunks
+  unsigned short* A = reinterpret_cast<unsigned short*>(Wt + 2 * cw);
   float* cf = reinterpret_cast<float*>(A + CV_ROWS * lda);  // 6 cout
-  uint32_t* Wt = reinterpret_cast<uint32_t*>(cf + 6 * cout);
   const int b = blockIdx.y;
   const int tile = CV_ROWS - 2 * h, t0 = blockIdx.x * tile;
-  const int base = t0 - h;
   const int live_end = min(used[b], n_exp);
   const int r0 = (threadIdx.x >> 5) * 16;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int nch = (cin + NP - 1) / NP;
+  copy_image(Wt, img, cw / 4);
   for (int i = threadIdx.x; i < 6 * cout; i += CV_THREADS)
     cf[i] = coef.v[i / cout][i % cout];
   __syncthreads();
-  const int c16 = (cout + 15) & ~15;
-  for (int i = threadIdx.x; i < CV_ROWS * c16; i += CV_THREADS) {
-    const int r = i / c16, c = i - r * c16, q = base + r;
-    float v = 0.f;
-    if (c < cout && q >= 0 && q < live_end) {
-      const size_t off = ((size_t)b * n_exp + q) * cout + c;
-      v = dz_of(du[off], z[off], cf, c, cout);
-    }
-    if (c < cout && r >= h && r < h + tile && q < n_exp)
-      dzbuf[((size_t)b * n_exp + q) * cout + c] = v;
-    A[r * lda + c] = bf16_bits(v);
-  }
+  float db;
+  stage_dz(du, z, cf, A, lda, dzbuf, b, n_exp, t0 - h, h, live_end, cout,
+           &db);
   const int n_out = min(tile, n_exp - t0);
-  for (int n0 = 0; n0 < cin; n0 += NP) {
-    const int ncols = min(NP, cin - n0);
-    pack_taps(Wt, wt, cout, cin, h, 0, cout, n0, ncols, kp, LDN);
+  for (int nc = 0; nc < nch; ++nc) {
+    if (nc + 1 < nch) {
+      copy_image(Wt + ((nc + 1) & 1) * cw, img + (size_t)(nc + 1) * cw,
+                 cw / 4);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const int n0 = nc * NP, ncols = min(NP, cin - n0);
     float acc[NT][4];
     zero_acc<NT>(acc);
-    cb_taps<NT>(acc, A, lda, r0, Wt, kp, LDN, cout, h, (ncols + 7) >> 3);
+    cb_taps<NT>(acc, A, lda, r0, Wt + (nc & 1) * cw, kp, LDN, cout, h,
+                (ncols + 7) >> 3);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -853,137 +1179,131 @@ __global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_tdup_bf16_kernel(
         if (r >= 0 && r < n_out && c < ncols)
           dup[((size_t)b * n_exp + t0 + r) * cin + n0 + c] = acc[j][e];
       }
-    __syncthreads();
+    __syncthreads();  // the chunk's buffer is copied over next
   }
 }
 
-// t, dW and db: block (channel chunk mc and tap d, split s, sample b) takes
-// input channels TDW_M mc.. and the split's slots [s rps, (s+1) rps) (up to
-// live_end + h) in stages of TDW_ROWS: the pairs of u (rounded to bfloat16,
-// rebuilt from z_prev or xe, rows p - h .. of the stage) as the transposed
-// A operand, the stage's dz rounded to bfloat16 as B; warp w takes channels
-// 16 (w & 3).. and the stage's slots 16 (w >> 2)..; the two slot halves
-// are added in a fixed order.  db (mc = d = 0 blocks): thread (k, co) adds
-// the f32 dz of rows k, k + 8, .. of every stage, the 8 lanes in order.
-template <int NT, class TP>
+// t, dW and db for wider inputs, every tap: block (channel chunk mc and tap
+// group, split s, sample b) takes input channels TBW_M mc .. and taps
+// d0 .. d0 + TG - 1 over the split's live slots [s rps, (s+1) rps) in
+// stages of TBW_ROWS: u's rows p0 - TB_PAD .. p0 + TBW_ROWS + TB_PAD - 1
+// (rebuilt from z_prev or xe, rounded to bfloat16) staged once with
+// 16-byte loads of the rows, the stage's dz rows (dzbuf) rounded once;
+// warp w takes channels 16 w .. of every tap: A = the tap's pairs of u
+// (pair_frag), B = the dz rows (dz_frag, loaded once a step for every
+// tap).  db (mc = 0, first tap group): thread column c adds the f32 dz of
+// its rows, the lanes added in order.  zp must be 16-byte aligned.
+template <int NTO, int TG, class TP>
 __global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_tdw_bf16_kernel(
     const float* __restrict__ dzbuf, const TP* __restrict__ zp, Vecs bnp,
     const int* __restrict__ used, float* __restrict__ parts, int n_exp,
     int cin, int cout, int h, int rps) {
-  constexpr int LDU = TDW_M + 8;  // halves
+  constexpr int EW = 16 / sizeof(TP);  // elements a 16-byte word
   extern __shared__ float4 tw_sm4[];
-  const int ldd = ((cout + 7) & ~7) + 8;  // halves
+  const int ldd = ((cout + 15) & ~15) + 8;  // halves
   unsigned short* U = reinterpret_cast<unsigned short*>(tw_sm4);
-  unsigned short* D = U + (TDW_ROWS + 2 * h) * LDU;  // TDW_ROWS x ldd
-  float* red = reinterpret_cast<float*>(tw_sm4);     // at the end, over U, D
-  const int mc = blockIdx.x / (h + 1), d = blockIdx.x - mc * (h + 1);
+  unsigned short* D = U + (TBW_ROWS + 2 * TB_PAD) * TBW_LDU;  // TBW_ROWS x ldd
+  float* dbl = reinterpret_cast<float*>(D + TBW_ROWS * ldd);  // CV_THREADS
+  const int n_tg = (h + TG) / TG;
+  const int mc = blockIdx.x / n_tg, d0 = (blockIdx.x - mc * n_tg) * TG;
   const int s = blockIdx.y, b = blockIdx.z;
-  const int m0 = mc * TDW_M;
+  const int m0 = mc * TBW_M, nchan = min(TBW_M, cin - m0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mt = warp & 3, kh = warp >> 2;
   const int nt = (cout + 7) >> 3;
   const int live_end = min(used[b], n_exp);
   const int p_begin = s * rps;
-  const int p_end = min(min(p_begin + rps, n_exp), live_end + h);
-  const TP* src = zp + (size_t)b * n_exp * cin;
-  const bool dbb = mc == 0 && d == 0;
-  float acc[NT][4];
-  zero_acc<NT>(acc);
-  float dbacc[3] = {0.f, 0.f, 0.f};  // 8 cout <= 3 CV_THREADS
-  for (int p0 = p_begin; p0 < p_end; p0 += TDW_ROWS) {
-    for (int i = threadIdx.x; i < (TDW_ROWS + 2 * h) * TDW_M;
+  const int p_end = min(min(p_begin + rps, n_exp), live_end);
+  const bool dbb = blockIdx.x == 0;
+  const int cpow = pow2_cols(cout), lanes = CV_THREADS / cpow;
+  const int dc = threadIdx.x & (cpow - 1);
+  const int wpr = (nchan + EW - 1) / EW + 1;  // words a u row
+  const uint4* zw = reinterpret_cast<const uint4*>(zp);
+  float acc[TG][NTO][4];
+#pragma unroll
+  for (int dd = 0; dd < TG; ++dd) zero_acc<NTO>(acc[dd]);
+  float dbacc = 0.f;
+  for (int p0 = p_begin; p0 < p_end; p0 += TBW_ROWS) {
+    // u's rows: the 16-byte words over channels m0 .. m0 + nchan - 1
+    for (int i = threadIdx.x; i < (TBW_ROWS + 2 * TB_PAD) * wpr;
          i += CV_THREADS) {
-      const int r = i / TDW_M, c = i - r * TDW_M;
-      U[r * LDU + c] =
-          m0 + c < cin ? bf16_bits(u_at_t(src, bnp, p0 - h + r, m0 + c, cin,
-                                          n_exp, live_end))
-                       : (unsigned short)0;
+      const int r = i / wpr, k = i - r * wpr, q = p0 - TB_PAD + r;
+      unsigned short* dst = U + r * TBW_LDU;
+      if (q < 0 || q >= n_exp) {
+        for (int e = 0; e < EW; ++e)
+          if (k * EW + e < nchan) dst[k * EW + e] = 0;
+        continue;
+      }
+      const long long e0 = ((long long)b * n_exp + q) * cin + m0;
+      const long long wi = e0 / EW + k;
+      const int c0 = (int)(wi * EW - e0);
+      if (c0 >= nchan) continue;
+      const uint4 v = __ldg(zw + wi);
+      const TP* el = reinterpret_cast<const TP*>(&v);
+#pragma unroll
+      for (int e = 0; e < EW; ++e) {
+        const int c = c0 + e;
+        if (c >= 0 && c < nchan)
+          dst[c] = bf16_bits(u_of(load_el(el + e), bnp, q, m0 + c,
+                                  live_end));
+      }
     }
-    for (int i = threadIdx.x; i < TDW_ROWS * cout; i += CV_THREADS) {
-      const int r = i / cout, c = i - r * cout, p = p0 + r;
-      D[r * ldd + c] = p < n_exp ? bf16_bits(dzbuf[((size_t)b * n_exp + p) *
-                                                   cout + c])
-                                 : (unsigned short)0;
-    }
-    if (dbb)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int i = threadIdx.x + CV_THREADS * j;
-        if (i < 8 * cout) {
-          const int k = i / cout, co = i - k * cout;
-          for (int r = k; r < TDW_ROWS && p0 + r < n_exp; r += 8)
-            dbacc[j] += dzbuf[((size_t)b * n_exp + p0 + r) * cout + co];
-        }
-      }
-    __syncthreads();
-    if (m0 + mt * 16 < cin) {
-      uint32_t a[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // channel m, slots k, k + 1
-        const int m = mt * 16 + g + (e & 1) * 8;
-        const int k = kh * 16 + 2 * t + (e >> 1) * 8;
-        float v[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int r = k + q + h;  // U row of slot p0 + k + q
-          const auto u = [&](int row) {
-            return __uint_as_float((uint32_t)U[row * LDU + m] << 16);
-          };
-          v[q] = d == 0 ? u(r) : u(r - d) + u(r + d);
-        }
-        a[e] = pack_bf16(v[0], v[1]);
-      }
-      const int k = kh * 16 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j >= nt) break;
-        const int n = 8 * j + g;
-        const unsigned short* dn = D + k * ldd + n;
-        const uint32_t b0 = pack_bf16_bits(dn[0], dn[ldd]);
-        const uint32_t b1 = pack_bf16_bits(dn[8 * ldd], dn[9 * ldd]);
-        mma_bf16(acc[j], a, b0, b1);
-      }
+    // the stage's dz rows (0 past p_end), db by thread columns
+    for (int r = threadIdx.x / cpow; r < TBW_ROWS; r += lanes) {
+      const int p = p0 + r;
+      const float v = (dc < cout && p < p_end)
+                          ? __ldg(dzbuf + ((size_t)b * n_exp + p) * cout + dc)
+                          : 0.f;
+      dbacc += v;
+      if (dc < ldd) D[r * ldd + dc] = bf16_bits(v);
     }
     __syncthreads();
+    if (16 * warp < nchan) {
+      const unsigned short* U0 = U + TB_PAD * TBW_LDU;
+#pragma unroll 1
+      for (int ks = 0; ks < TBW_ROWS / 16; ++ks) {
+        uint32_t bf[NTO][2];
+#pragma unroll
+        for (int j = 0; j < NTO; ++j)
+          if (j < nt) dz_frag(bf[j][0], bf[j][1], D, ldd, 16 * ks, 8 * j);
+#pragma unroll
+        for (int dd = 0; dd < TG; ++dd) {
+          if (d0 + dd > h) break;
+          uint32_t a[4];
+          pair_frag(a, U0, TBW_LDU, 16 * ks, 16 * warp, d0 + dd);
+#pragma unroll
+          for (int j = 0; j < NTO; ++j)
+            if (j < nt) mma_bf16(acc[dd][j], a, bf[j][0], bf[j][1]);
+        }
+      }
+    }
+    __syncthreads();
   }
-  // the second slot half's sums (red: 64 x (8 NT + 4)), then db's lanes
-  constexpr int LDR = 8 * NT + 4;
-  float* dbl = red + TDW_M * LDR;
-  if (kh == 1) {
+  const size_t n_dw = (size_t)(h + 1) * cin * cout;
+  float* part = parts + ((size_t)b * gridDim.y + s) * (n_dw + cout);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int dd = 0; dd < TG; ++dd) {
+    if (d0 + dd > h) break;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(mt * 16 + g + 8 * (e >> 1)) * LDR + 8 * j + 2 * t + (e & 1)] =
-            acc[j][e];
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int i = threadIdx.x + CV_THREADS * j;
-    if (i < 8 * cout) dbl[i] = dbacc[j];
-  }
-  __syncthreads();
-  const size_t wpart = (size_t)(h + 1) * cin * cout + cout;
-  float* part = parts + ((size_t)b * gridDim.y + s) * wpart;
-  if (kh == 0) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NTO; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = mt * 16 + g + 8 * (e >> 1);
-        const int n = 8 * j + 2 * t + (e & 1);
-        if (m0 + m < cin && n < cout)
-          part[((size_t)d * cin + m0 + m) * cout + n] =
-              acc[j][e] + red[m * LDR + n];
+        const int ci = 16 * warp + g + 8 * (e >> 1);
+        const int co = 8 * j + 2 * t + (e & 1);
+        if (ci < nchan && co < cout)
+          part[((size_t)(d0 + dd) * cin + m0 + ci) * cout + co] =
+              acc[dd][j][e];
       }
   }
-  if (dbb)
+  if (dbb) {
+    dbl[threadIdx.x] = dbacc;
+    __syncthreads();
     for (int co = threadIdx.x; co < cout; co += CV_THREADS) {
       float v = 0.f;
-      for (int k = 0; k < 8; ++k) v += dbl[k * cout + co];
-      part[(size_t)(h + 1) * cin * cout + co] = v;
+      for (int k = 0; k < lanes; ++k) v += dbl[k * cpow + co];
+      part[n_dw + co] = v;
     }
+  }
 }
 
 static int colsum(const float* parts, int P, int W, float* out,
@@ -1237,40 +1557,78 @@ extern "C" int ccn_conv1d_train_fwd_bf16(
   return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int NTO, class TP>
+static int launch_tfused_bf16(const float* du, const float* z, const TP* zp,
+                              const Vecs& coef, const Vecs& bnp,
+                              const uint32_t* img, const int* used,
+                              float* dup, float* parts, int B, int n_exp,
+                              int cin, int cout, int h, int prev_sums,
+                              cudaStream_t s) {
+  const size_t smem = (size_t)timg_words(cout, h, 32) * 4 +
+                      (size_t)CV_ROWS * bf_ld(cout) * 2 +
+                      (size_t)(CV_ROWS + 2 * TB_PAD) * TF_LDU * 2 +
+                      (6 * cout + CV_THREADS + 8 * 4 * 32) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv1d_train_tfused_bf16_kernel<NTO, TP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((n_exp + CV_ROWS - 2 * h - 1) / (CV_ROWS - 2 * h), B);
+  conv1d_train_tfused_bf16_kernel<NTO, TP><<<grid, CV_THREADS, smem, s>>>(
+      du, z, zp, coef, bnp, img, used, dup, parts, n_exp, cin, cout, h,
+      prev_sums);
+  return (int)cudaGetLastError();
+}
+
+template <class TP>
+static int tfused_bf16(const float* du, const float* z, const TP* zp,
+                       const Vecs& coef, const Vecs& bnp, const uint32_t* img,
+                       const int* used, float* dup, float* parts, int B,
+                       int n_exp, int cin, int cout, int h, int prev_sums,
+                       cudaStream_t s) {
+  const int nt = nt_of(cout);
+  return nt == 4 ? launch_tfused_bf16<4>(du, z, zp, coef, bnp, img, used, dup,
+                                         parts, B, n_exp, cin, cout, h,
+                                         prev_sums, s)
+       : nt == 8 ? launch_tfused_bf16<8>(du, z, zp, coef, bnp, img, used, dup,
+                                         parts, B, n_exp, cin, cout, h,
+                                         prev_sums, s)
+                 : launch_tfused_bf16<12>(du, z, zp, coef, bnp, img, used,
+                                          dup, parts, B, n_exp, cin, cout, h,
+                                          prev_sums, s);
+}
+
 static int launch_tdup_bf16(const float* du, const float* z, const Vecs& coef,
-                            const float* wt, const int* used, float* dup,
+                            const uint32_t* img, const int* used, float* dup,
                             float* dzbuf, int B, int n_exp, int cin, int cout,
                             int h, cudaStream_t s) {
-  const int kp = ((cout + 15) & ~15) / 2;
-  const size_t smem = (size_t)CV_ROWS * bf_ld(cout) * 2 + 6 * cout * 4 +
-                      (size_t)(h + 1) * kp * (8 * NT + 8) * 4;
+  const size_t smem = (size_t)2 * timg_words(cout, h, 64) * 4 +
+                      (size_t)CV_ROWS * bf_ld(cout) * 2 + 6 * cout * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      conv1d_train_tdup_bf16_kernel<NT>,
+      conv1d_train_tdup_bf16_kernel<8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tile = CV_ROWS - 2 * h;
   dim3 grid((n_exp + tile - 1) / tile, B);
-  conv1d_train_tdup_bf16_kernel<NT><<<grid, CV_THREADS, smem, s>>>(
-      du, z, coef, wt, used, dup, dzbuf, n_exp, cin, cout, h);
+  conv1d_train_tdup_bf16_kernel<8><<<grid, CV_THREADS, smem, s>>>(
+      du, z, coef, img, used, dup, dzbuf, n_exp, cin, cout, h);
   return (int)cudaGetLastError();
 }
 
-template <int NT, class TP>
+template <int NTO, class TP>
 static int launch_tdw_bf16(const float* dzbuf, const TP* zp, const Vecs& bnp,
                            const int* used, float* parts, int B, int n_exp,
                            int cin, int cout, int h, int splits, int rps,
                            cudaStream_t s) {
-  const size_t stage = (size_t)(TDW_ROWS + 2 * h) * (TDW_M + 8) * 2 +
-                       (size_t)TDW_ROWS * (((cout + 7) & ~7) + 8) * 2;
-  const size_t tail = ((size_t)TDW_M * (8 * NT + 4) + 8 * cout) * 4;
-  const size_t smem = std::max(stage, tail);
+  constexpr int TG = 12 / NTO;  // taps a block: TG NTO 8-column tiles
+  const size_t smem = (size_t)(TBW_ROWS + 2 * TB_PAD) * TBW_LDU * 2 +
+                      (size_t)TBW_ROWS * (((cout + 15) & ~15) + 8) * 2 +
+                      CV_THREADS * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      conv1d_train_tdw_bf16_kernel<NT, TP>,
+      conv1d_train_tdw_bf16_kernel<NTO, TG, TP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(((cin + TDW_M - 1) / TDW_M) * (h + 1), splits, B);
-  conv1d_train_tdw_bf16_kernel<NT, TP><<<grid, CV_THREADS, smem, s>>>(
+  dim3 grid(((cin + TBW_M - 1) / TBW_M) * ((h + TG) / TG), splits, B);
+  conv1d_train_tdw_bf16_kernel<NTO, TG, TP><<<grid, CV_THREADS, smem, s>>>(
       dzbuf, zp, bnp, used, parts, n_exp, cin, cout, h, rps);
   return (int)cudaGetLastError();
 }
@@ -1289,43 +1647,64 @@ static int tdw_bf16(const float* dzbuf, const TP* zp, const Vecs& bnp,
 }
 
 // ccn_conv1d_train_t under the bfloat16 contract: z_prev bfloat16 when zbf
-// (xe, layer 1) else f32; wt f32 (h+1, cout, cin) rounded to bfloat16 as it
-// is staged; dzbuf scratch of B n_exp cout floats (dz, f32); parts scratch
-// of B * splits rows of (h+1) cin cout + cout floats (splits, rps: the
-// row splits of ops/conv1d_train.py dw_splits); with prev_sums (a previous
-// BN) rparts is scratch of B * ceil(n_exp / CV_ROWS) rows of 4 cin floats
-// and sums also holds, after db, the previous layer's reduce sums over
-// d_u_prev, as ccn_conv1d_train_t gives them; cout <= 96.
+// (xe, layer 1) else f32, 16-byte aligned; w f32 ((h+1) cin, cout), as the
+// forward takes it; img scratch of ceil(cin / np) timg_words(cout, h, np)
+// words (np = 32 for cin <= TDF_MAX, else 64): W^T's taps packed once a
+// call; h <= TB_PAD, cout <= 96.  Inputs up to TDF_MAX wide: splits, rps
+// are the tiles of CV_ROWS - 2h slots, parts scratch of B * splits rows of
+// (h+1) cin cout + cout (+ 4 cin with prev_sums) floats, dzbuf unused;
+// with prev_sums (a previous BN) sums also holds, after db, the previous
+// layer's reduce sums over d_u_prev, as ccn_conv1d_train_t gives them.
+// Wider inputs: splits, rps the row splits (rps a multiple of TBW_ROWS;
+// ops/conv1d_train.py dw_splits), parts of B * splits rows of (h+1) cin
+// cout + cout floats, dzbuf scratch of B n_exp cout floats, no prev_sums.
 extern "C" int ccn_conv1d_train_t_bf16(
     const float* du, const float* z, const void* zp, int zbf, const float* m,
     const float* i, const float* g, const float* b, const float* c1,
     const float* c2, const float* pm, const float* pi, const float* pg,
-    const float* pb, const float* wt, const int* used, float* dup,
-    float* dzbuf, float* parts, float* rparts, float* sums, int B, int n_exp,
+    const float* pb, const float* w, const int* used, float* dup,
+    float* dzbuf, void* img, float* parts, float* sums, int B, int n_exp,
     int cin, int cout, int h, int splits, int rps, int prev_sums,
     void* stream) {
-  if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 ||
-      nt_of(cout) == 0 || CV_ROWS - 2 * h < 1 || splits < 1 || rps < 1 ||
-      rps % TDW_ROWS != 0 || (long long)splits * rps < n_exp ||
-      (zbf && pm != nullptr) ||
-      (prev_sums && (pm == nullptr || zbf || rparts == nullptr)))
+  const bool fused = cin <= TDF_MAX;
+  const int tile = CV_ROWS - 2 * h;
+  if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 || h > TB_PAD ||
+      nt_of(cout) == 0 || splits < 1 || rps < 1 ||
+      (long long)splits * rps < n_exp || (zbf && pm != nullptr) ||
+      (prev_sums && (pm == nullptr || zbf || !fused)) ||
+      (fused && (rps != tile || splits != (n_exp + tile - 1) / tile)) ||
+      (!fused && (rps % TBW_ROWS != 0 || dzbuf == nullptr ||
+                  reinterpret_cast<uintptr_t>(zp) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Vecs coef = {{m, i, g, b, c1, c2}};
   const Vecs bnp = {{pm, pi, pg, pb, nullptr, nullptr}};
-  int rc = cin <= 32 ? launch_tdup_bf16<4>(du, z, coef, wt, used, dup, dzbuf,
-                                           B, n_exp, cin, cout, h, s)
-                     : launch_tdup_bf16<8>(du, z, coef, wt, used, dup, dzbuf,
-                                           B, n_exp, cin, cout, h, s);
+  const int np = fused ? 32 : 64;
+  const int total = ((cin + np - 1) / np) * timg_words(cout, h, np);
+  uint32_t* wimg = static_cast<uint32_t*>(img);
+  conv1d_train_pack_wt_bf16_kernel<<<(total + CV_THREADS - 1) / CV_THREADS,
+                                     CV_THREADS, 0, s>>>(w, wimg, cin, cout,
+                                                         h, np, total);
+  int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = zbf ? tdw_bf16(dzbuf, static_cast<const __nv_bfloat16*>(zp), bnp, used,
-                      parts, B, n_exp, cin, cout, h, splits, rps, s)
-           : tdw_bf16(dzbuf, static_cast<const float*>(zp), bnp, used, parts,
-                      B, n_exp, cin, cout, h, splits, rps, s);
+  const __nv_bfloat16* zb = static_cast<const __nv_bfloat16*>(zp);
+  const float* zf = static_cast<const float*>(zp);
+  if (fused) {
+    rc = zbf ? tfused_bf16(du, z, zb, coef, bnp, wimg, used, dup, parts, B,
+                           n_exp, cin, cout, h, prev_sums, s)
+             : tfused_bf16(du, z, zf, coef, bnp, wimg, used, dup, parts, B,
+                           n_exp, cin, cout, h, prev_sums, s);
+  } else {
+    rc = launch_tdup_bf16(du, z, coef, wimg, used, dup, dzbuf, B, n_exp, cin,
+                          cout, h, s);
+    if (rc != 0) return rc;
+    rc = zbf ? tdw_bf16(dzbuf, zb, bnp, used, parts, B, n_exp, cin, cout, h,
+                        splits, rps, s)
+             : tdw_bf16(dzbuf, zf, bnp, used, parts, B, n_exp, cin, cout, h,
+                        splits, rps, s);
+  }
   if (rc != 0) return rc;
-  const int n_dw = (h + 1) * cin * cout + cout;
-  rc = colsum(parts, B * splits, n_dw, sums, s);
-  if (rc != 0 || !prev_sums) return rc;
-  return reduce(dup, static_cast<const float*>(zp), bnp, used, rparts,
-                sums + n_dw, B, n_exp, cin, CV_ROWS, s);
+  return colsum(parts, B * splits,
+                (h + 1) * cin * cout + cout + (prev_sums ? 4 * cin : 0), sums,
+                s);
 }

@@ -121,7 +121,7 @@ _SIGNATURES = {
     "ccn_conv1d_train_reduce": [_P] * 6 + [_I] * 4 + [_P],
     "ccn_conv1d_train_t": [_P] * 19 + [_I] * 8 + [_P],
     "ccn_edge_mlp": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I] * 5 + [_P],
-    "ccn_rasterize": [_P, _L, _P, _L, _F, _F, _F, _F, _I, _I] + [_P] * 6,
+    "ccn_rasterize": [_P, _L, _P, _L, _F, _F, _F, _F, _I, _I] + [_P] * 5,
 }
 # the bfloat16 variants: K4 and K9 take their float32 twin's arguments,
 # K1 its bfloat16 weights and float32 biases apart, K2 its own plan

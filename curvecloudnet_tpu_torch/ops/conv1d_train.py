@@ -228,15 +228,24 @@ def conv1d_train_bwd_t_ref(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
 # ---------------------------------------------------------------------------
 
 
-# dW and db: inputs up to DW_FUSED channels wide are summed a ROWS-slot
-# tile a block by the d_u_prev kernel; wider ones by about DW_BLOCKS blocks
-# a call (m-chunks of DW_M input channels x row splits x samples), each its
-# split's slots in stages of DW_STAGE (csrc/conv1d_train.cu TDF_MAX,
-# TDW_M, TDW_ROWS)
+# dW and db: inputs up to DW_FUSED channels wide are summed a tile a block
+# by the d_u_prev kernel (ROWS slots; bfloat16: fwd_tile(h)); wider ones by
+# about DW_BLOCKS blocks a call (m-chunks of DW_M input channels x row
+# splits x samples), each its split's slots in stages of DW_STAGE
+# (csrc/conv1d_train.cu TDF_MAX, TDW_M, TDW_ROWS; bfloat16: DW_M_BF16 and
+# DW_STAGE_BF16, TBW_M and TBW_ROWS, every tap a block)
 DW_FUSED = 32
 DW_BLOCKS = 256
 DW_M = 64
 DW_STAGE = 32
+DW_M_BF16 = 128
+DW_STAGE_BF16 = 64
+# the bfloat16 t pass: widest half-window (csrc/conv1d_train.cu TB_PAD);
+# W^T's image a column chunk of TB_NP_FUSED (inputs up to DW_FUSED wide)
+# or TB_NP columns, packed once a call (:func:`t_image_words`)
+TB_MAX_H = 4
+TB_NP_FUSED = 32
+TB_NP = 64
 
 
 def fused_reduce(c_in: int) -> bool:
@@ -252,20 +261,33 @@ def fwd_tile(h: int) -> int:
     return ROWS - 2 * h
 
 
-def dw_splits(n_exp: int, c_in: int, bsz: int, bf16: bool = False):
-    """(splits, slots a split) of the t pass's weight gradient: the
-    ROWS-slot tiles for inputs up to DW_FUSED wide (float32), else rows of
-    a sample cut into ranges of a multiple of DW_STAGE slots, so that about
-    DW_BLOCKS blocks run (the bfloat16 t pass's separate dW kernel takes
-    these for every width); depends on the shapes only (a call's partials
-    are summed in the same order every time)."""
-    if c_in <= DW_FUSED and not bf16:
-        return -(-n_exp // ROWS), ROWS
-    m_chunks = -(-c_in // DW_M)
+def dw_splits(n_exp: int, c_in: int, bsz: int, bf16: bool = False,
+              half_k: int = 0):
+    """(splits, slots a split) of the t pass's weight gradient: for inputs
+    up to DW_FUSED wide the d_u_prev kernel's tiles (ROWS slots; bfloat16:
+    ``fwd_tile(half_k)``), else rows of a sample cut into ranges of a
+    multiple of DW_STAGE slots (bfloat16: DW_STAGE_BF16, m-chunks of
+    DW_M_BF16), so that about DW_BLOCKS blocks run; depends on the shapes
+    only (a call's partials are summed in the same order every time)."""
+    if c_in <= DW_FUSED:
+        tile = fwd_tile(half_k) if bf16 else ROWS
+        return -(-n_exp // tile), tile
+    m, stage = (DW_M_BF16, DW_STAGE_BF16) if bf16 else (DW_M, DW_STAGE)
+    m_chunks = -(-c_in // m)
     want = max(1, -(-DW_BLOCKS // (m_chunks * bsz)))
     rps = -(-n_exp // want)
-    rps = -(-rps // DW_STAGE) * DW_STAGE
+    rps = -(-rps // stage) * stage
     return -(-n_exp // rps), rps
+
+
+def t_image_words(c_in: int, c_out: int, half_k: int) -> int:
+    """32-bit words of the bfloat16 t pass's packed W^T image: a column
+    chunk of TB_NP_FUSED or TB_NP input channels after another, each (h+1)
+    x (C_out rounded to 16, halved) rows of the chunk's width + 8 words
+    (csrc/conv1d_train.cu ``timg_words``)."""
+    np_ = TB_NP_FUSED if c_in <= DW_FUSED else TB_NP
+    kp = -(-c_out // 16) * 8
+    return -(-c_in // np_) * (half_k + 1) * kp * (np_ + 8)
 
 
 def _check(z_prev, w, half_k: int):
@@ -467,32 +489,38 @@ def conv1d_train_bwd_t(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
 def conv1d_train_bwd_t_bf16(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
                             half_k: int, prev_sums: bool = False):
     """K8's t pass under the bfloat16 contract, CUDA tensors only: z_prev
-    bfloat16 (xe, layer 1) or float32; d_u_prev float32.  With
-    ``prev_sums`` the same launch also takes the previous layer's reduce
-    sums over d_u_prev (K8's reduce kernel, in the entry)."""
+    bfloat16 (xe, layer 1) or float32; d_u_prev float32.  W^T's taps are
+    packed once a call inside the launch; an input up to DW_FUSED wide runs
+    in one kernel, which with ``prev_sums`` also takes the previous layer's
+    reduce sums over d_u_prev (as the float32 t pass)."""
     _check_bf16(z_prev, w, half_k)
     h = half_k
     bsz, n_exp, c_out = z.shape
     c_in = z_prev.shape[-1]
-    if prev_sums and bn_prev is None:
-        raise ValueError("conv1d train bf16 kernel: prev_sums needs a "
-                         "previous BN")
+    if h > TB_MAX_H:
+        raise ValueError(f"conv1d train bf16 kernel: h={h} past {TB_MAX_H}")
+    if prev_sums and (bn_prev is None or not fused_reduce(c_in)):
+        raise ValueError(f"conv1d train bf16 kernel: prev_sums needs a "
+                         f"previous BN and an input at most {DW_FUSED} "
+                         f"wide, got {c_in}")
     dev = z.device
-    splits, rps = dw_splits(n_exp, c_in, bsz, bf16=True)
+    splits, rps = dw_splits(n_exp, c_in, bsz, bf16=True, half_k=h)
     zbf = z_prev.dtype == torch.bfloat16
     d_u = d_u.float().contiguous()
     z = z.float().contiguous()
     z_prev = z_prev.contiguous()
-    w_t = (w.detach().float().reshape(h + 1, c_in, c_out).transpose(1, 2)
-           .contiguous())
+    if z_prev.data_ptr() % 16:   # the dW kernel's 16-byte row loads
+        z_prev = z_prev.clone()
+    wc = w.detach().float().contiguous()
     used = used.to(torch.int32).contiguous()
     n_dw = (h + 1) * c_in * c_out
     d_u_prev = torch.empty((bsz, n_exp, c_in), device=dev)
-    dz = torch.empty((bsz, n_exp, c_out), device=dev)
+    dz = (None if fused_reduce(c_in)
+          else torch.empty((bsz, n_exp, c_out), device=dev))
+    image = torch.empty(t_image_words(c_in, c_out, h), dtype=torch.int32,
+                        device=dev)
     width = n_dw + c_out + (4 * c_in if prev_sums else 0)
-    parts = torch.empty((bsz * splits, n_dw + c_out), device=dev)
-    rparts = (torch.empty((bsz * -(-n_exp // ROWS), 4 * c_in), device=dev)
-              if prev_sums else None)
+    parts = torch.empty((bsz * splits, width), device=dev)
     sums = torch.empty(width, device=dev)
     rc = _build.library().ccn_conv1d_train_t_bf16(
         _build.ptr(d_u, torch.float32, "d_u", 3),
@@ -500,10 +528,10 @@ def conv1d_train_bwd_t_bf16(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used,
         _build.ptr(z_prev, z_prev.dtype, "z_prev", 3), int(zbf),
         *_vec_ptrs((*bn, c1, c2), c_out, "bn"),
         *_vec_ptrs(bn_prev, c_in, "bn_prev"),
-        _build.ptr(w_t, torch.float32, "w_t", 3),
+        _build.ptr(wc, torch.float32, "w", 2),
         _build.ptr(used, torch.int32, "used", 1),
-        d_u_prev.data_ptr(), dz.data_ptr(), parts.data_ptr(),
-        None if rparts is None else rparts.data_ptr(),
+        d_u_prev.data_ptr(), None if dz is None else dz.data_ptr(),
+        image.data_ptr(), parts.data_ptr(),
         sums.data_ptr(), bsz, n_exp, c_in, c_out, h, splits, rps,
         int(prev_sums), _build.stream_ptr(dev))
     _build.check(rc, "ccn_conv1d_train_t_bf16")

@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from .conv1d_chain import ROWS, tile_rows
-from .conv1d_train import (DW_FUSED, DW_STAGE, _affine, _dleaky, _live,
-                           _u_of, dw_splits, fwd_tile)
+from .conv1d_train import (DW_FUSED, DW_STAGE, DW_STAGE_BF16, _affine,
+                           _dleaky, _live, _u_of, dw_splits, fwd_tile)
 from .group_reduce import tf32_split
 
 MOMENT_THREADS = 256  # the moments kernel's block (CT_THREADS)
@@ -184,12 +184,26 @@ def colsum(parts):
     return out
 
 
-def prev_sums_model(d_u_prev, z_prev, bn_prev, used):
+def block_rows(x, tile: int, h: int):
+    """x (B, n_exp, C) as the blocks of ROWS rows that own a tile of
+    ``tile`` slots each (block row r is slot k tile - h + r): (B, tiles,
+    ROWS, C), 0 outside the tile's rows h .. h + tile - 1 and [0, n_exp)."""
+    n_tiles = -(-x.shape[1] // tile)
+    keep = torch.zeros(ROWS, 1)
+    keep[h:h + tile] = 1
+    return torch.stack([rows_of(x, k * tile - h, ROWS) * keep
+                        for k in range(n_tiles)], 1)
+
+
+def prev_sums_model(d_u_prev, z_prev, bn_prev, used, tile: int = ROWS,
+                    h: int = 0):
     """The t pass's epilogue for the previous layer's reduce sums: per
-    ROWS-slot tile, warp w (rows 16 w ..) and row lane g, a thread adds the
-    terms of rows 16 w + g and 16 w + g + 8 (0 at dead slots); the 8 lanes
-    by a butterfly ((0+1) + (2+3)) + ((4+5) + (6+7)); the 8 warps in order;
-    the tiles' rows by :func:`colsum` -> (dxh, dxh xhat, da, da xhat), each
+    block of ROWS rows (a tile of ``tile`` slots and an h-row halo, the
+    bfloat16 t pass's; the float32 one's tile is ROWS, no halo), warp w
+    (rows 16 w ..) and row lane g, a thread adds the terms of rows 16 w + g
+    and 16 w + g + 8 (0 at dead slots and halo rows); the 8 lanes by a
+    butterfly ((0+1) + (2+3)) + ((4+5) + (6+7)); the 8 warps in order; the
+    tiles' rows by :func:`colsum` -> (dxh, dxh xhat, da, da xhat), each
     (C,).  Terms: da = d_u_prev leaky'(y), dxh = da gamma, each product
     rounded once."""
     bsz, n_exp, c = d_u_prev.shape
@@ -198,9 +212,8 @@ def prev_sums_model(d_u_prev, z_prev, bn_prev, used):
     da = d_u_prev * _dleaky(y) * live
     dxh = da * bn_prev[2]
     terms = torch.cat([dxh, dxh * xhat, da, da * xhat], dim=-1)
-    n_tiles = -(-n_exp // ROWS)
-    terms = F.pad(terms, (0, 0, 0, n_tiles * ROWS - n_exp))
-    t = terms.view(bsz, n_tiles, 8, 2, 8, 4 * c)  # warp, half, lane g
+    blocks = block_rows(terms, tile, h)
+    t = blocks.view(bsz, blocks.shape[1], 8, 2, 8, 4 * c)  # warp, half, g
     a = t[:, :, :, 0] + t[:, :, :, 1]
     a = a[..., 0::2, :] + a[..., 1::2, :]
     a = a[..., 0::2, :] + a[..., 1::2, :]
@@ -266,3 +279,80 @@ def t_model(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used, h: int):
     sums = colsum(torch.stack(parts))
     n_dw = (h + 1) * c_in * c_out
     return d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:]
+
+
+def bf16_pairs(x, h: int):
+    """[x(r), x(r-1) + x(r+1), ..., x(r-h) + x(r+h)] of x rounded to
+    bfloat16, each pair summed and rounded in bfloat16, as float32, at rows
+    r in [h, R - h): (..., R - 2h, (h+1) C)."""
+    xb = x.to(torch.bfloat16)
+    r = x.shape[-2]
+    return torch.cat([xb[..., h:r - h, :]] + [
+        xb[..., h - d:r - h - d, :] + xb[..., h + d:r - h + d, :]
+        for d in range(1, h + 1)], dim=-1).float()
+
+
+def t_model_bf16(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used, h: int,
+                 prev_sums: bool = False):
+    """K8-bf16's t pass, its order of partial sums: dz as the plain version
+    forms it, rounded to bfloat16 for both products; d_u_prev = the dz
+    pairs times W^T (products exact in float32, as plain); dW and db per
+    row split (``dw_splits(bf16=True)``): for inputs up to DW_FUSED wide a
+    tile of ``fwd_tile(h)`` slots in one product of u's pairs and dz
+    (:func:`bf16_pairs`), db by the block's row lanes (thread column c of
+    pow2 C_out columns, lane k adding block rows k, k + 256 / pow2 .. of the
+    tile), and with ``prev_sums`` the previous layer's reduce sums
+    (:func:`prev_sums_model` on these tiles); for wider inputs every tap of
+    a split's stages of DW_STAGE_BF16 slots added stage by stage, db's
+    lanes running over the split's rows; the partial rows summed by
+    :func:`colsum`."""
+    bsz, n_exp, c_out = z.shape
+    c_in = z_prev.shape[-1]
+    live = _live(used, n_exp, z.device)
+    _, inv, gam, _ = bn
+    xhat, y = _affine(z, bn)
+    dz = inv * (d_u * live * _dleaky(y) * gam - live * (c1 + xhat * c2))
+    w_t = w.reshape(h + 1, c_in, c_out).transpose(1, 2).reshape(-1, c_in)
+    wb = w_t.to(torch.bfloat16).float()
+    d_u_prev = bf16_pairs(rows_of(dz, -h, n_exp + 2 * h), h) @ wb
+    u = _u_of(z_prev.float(), bn_prev, live)
+    splits, rps = dw_splits(n_exp, c_in, bsz, bf16=True, half_k=h)
+    fused = c_in <= DW_FUSED
+    step = rps if fused else DW_STAGE_BF16
+    cpow = 32 if c_out <= 32 else 64 if c_out <= 64 else 128
+    lanes = 256 // cpow
+    parts = []
+    for bi in range(bsz):
+        live_end = min(int(used[bi]), n_exp)
+        for s in range(splits):
+            lo = s * rps
+            hi = min(lo + rps, n_exp) if fused else min(lo + rps, n_exp,
+                                                        live_end)
+            acc = torch.zeros(c_in, (h + 1) * c_out)
+            lane_sum = torch.zeros(lanes, c_out)
+            for p0 in range(lo, hi, step):
+                n = min(step, hi - p0)
+                pairs = bf16_pairs(rows_of(u[bi:bi + 1], p0 - h, n + 2 * h),
+                                   h)[0]
+                dzs = rows_of(dz[bi:bi + 1], p0, n)[0]
+                dzb = dzs.to(torch.bfloat16).float()
+                acc = acc + torch.cat([pairs[:, d * c_in:(d + 1) * c_in].t()
+                                       @ dzb for d in range(h + 1)], 1)
+                # the tile's rows are block rows h.. (fused) or a stage's
+                # rows 0.. (wide): lane k takes rows k, k + lanes, ..
+                first = h if fused else 0
+                for r in range(n):
+                    k = (r + first) % lanes
+                    lane_sum[k] = lane_sum[k] + dzs[r]
+            db = lane_sum[0]
+            for k in range(1, lanes):
+                db = db + lane_sum[k]
+            dw = acc.reshape(c_in, h + 1, c_out).transpose(0, 1).reshape(-1)
+            parts.append(torch.cat([dw, db]))
+    sums = colsum(torch.stack(parts))
+    n_dw = (h + 1) * c_in * c_out
+    out = (d_u_prev, sums[:n_dw].view(-1, c_out), sums[n_dw:])
+    if prev_sums:
+        return (*out, prev_sums_model(d_u_prev, z_prev, bn_prev, used,
+                                      fwd_tile(h), h))
+    return out

@@ -21,8 +21,14 @@ from ..config import DEFAULT_DEVICE
 from ..ops import _build
 from ..ops.segments import sq_norm3, sqrt32
 
-# a K11 face-table row: 22 floats and 4 ints (``Face`` in csrc/rasterize.cu)
-FACE_BYTES = 26 * 4
+# K11's scratch (csrc/rasterize.cu): a face-table row of 22 floats
+# (``Face``), a clamped box of 4 ints a face, a chunk box a CHUNK_FACES
+# faces, each part 16-byte aligned (:func:`table_bytes`); the tile pass's
+# screen tiles are TILE x TILE pixels
+FACE_BYTES = 22 * 4
+BOX_BYTES = 16
+CHUNK_FACES = 32
+TILE = 64
 # (face, pixel) candidates the plain version holds at once; the key's
 # minimum is associative, so chunks of faces reduce to the same winner
 CHUNK = 1 << 24
@@ -167,19 +173,77 @@ def rasterize_plain(vertices, faces, pinhole: Pinhole, device=None
         keys.scatter_reduce_(0, (y * w + x)[hit], _keys_of(z[hit], fi[hit]),
                              reduce="amin", include_self=True)
         a = b
+    return resolve_keys(t, keys, h, w)
+
+
+def resolve_keys(t, keys: torch.Tensor, h: int, w: int):
+    """(coords, normals, mask) of an (h w,) int64 key image over
+    :func:`_face_table`'s faces: each keyed pixel's winner recomputed in
+    the C++ operation order; 0 and False where no face wrote."""
     mask = keys != _EMPTY
     pix = mask.nonzero()[:, 0]
     fi = keys[pix] & 0xFFFFFFFF
     l0, l1, l2, z, g = _bary_depth(t, fi, pix % w, pix // w)
     w0, w1, w2 = ((l * g[k]) * z for l, k in ((l0, "iza"), (l1, "izb"),
                                                (l2, "izc")))
-    coords = torch.zeros((h * w, 3), dtype=torch.float32, device=device)
+    coords = torch.zeros((h * w, 3), dtype=torch.float32, device=keys.device)
     normals = torch.zeros_like(coords)
     coords[pix] = ((w0[:, None] * t["A"][fi] + w1[:, None] * t["B"][fi])
                    + w2[:, None] * t["C"][fi])
     normals[pix] = t["n"][fi]
     return (coords.reshape(h, w, 3), normals.reshape(h, w, 3),
             mask.reshape(h, w))
+
+
+def table_bytes(n_faces: int) -> int:
+    """Bytes of K11's scratch for ``n_faces`` faces
+    (``ccn_rasterize_table_bytes``): the face table, the boxes and the
+    chunk boxes."""
+    return (-(-n_faces * FACE_BYTES // 16) * 16 + BOX_BYTES * n_faces
+            + BOX_BYTES * -(-n_faces // CHUNK_FACES))
+
+
+def face_boxes(t, keep) -> torch.Tensor:
+    """(F, 4) int64 clamped boxes (x0, x1, y0, y1) of :func:`_face_table`'s
+    faces, as K11's face pass stores them: a skipped face's box meets no
+    tile (x0 = y0 = INT_MAX, x1 = y1 = INT_MIN)."""
+    box = torch.stack([t["x0"], t["x1"], t["y0"], t["y1"]], -1)
+    none = torch.tensor([2 ** 31 - 1, _INT_MIN, 2 ** 31 - 1, _INT_MIN],
+                        device=box.device)
+    return torch.where(keep[:, None], box, none)
+
+
+def _meets(box, tx0: int, tx1: int, ty0: int, ty1: int) -> torch.Tensor:
+    return ((box[:, 0] <= tx1) & (box[:, 1] >= tx0) & (box[:, 2] <= ty1)
+            & (box[:, 3] >= ty0))
+
+
+def tile_lists(boxes: torch.Tensor, pinhole: Pinhole):
+    """The faces each of K11's screen tiles lists, from the clamped boxes
+    (:func:`face_boxes`): {(tile x, tile y): face indices, ascending}.  The
+    tile pass culls in two levels, as here: a chunk of CHUNK_FACES
+    consecutive faces by the union of their boxes, then each face of a
+    chunk that meets the tile by its own box.  Tiles are TILE x TILE
+    pixels from the origin, the last row and column cut at the image."""
+    n = len(boxes)
+    pad = -n % CHUNK_FACES
+    none = torch.tensor([2 ** 31 - 1, _INT_MIN, 2 ** 31 - 1, _INT_MIN],
+                        device=boxes.device)
+    per = torch.cat([boxes, none.expand(pad, 4)]).view(-1, CHUNK_FACES, 4)
+    chunk = torch.stack([per[..., 0].amin(1), per[..., 1].amax(1),
+                         per[..., 2].amin(1), per[..., 3].amax(1)], -1)
+    lists = {}
+    for ty in range(-(-pinhole.h // TILE)):
+        for tx in range(-(-pinhole.w // TILE)):
+            tx0, ty0 = tx * TILE, ty * TILE
+            tx1 = min(tx0 + TILE, pinhole.w) - 1
+            ty1 = min(ty0 + TILE, pinhole.h) - 1
+            hit = _meets(chunk, tx0, tx1, ty0, ty1).nonzero()[:, 0]
+            f = (hit[:, None] * CHUNK_FACES
+                 + torch.arange(CHUNK_FACES, device=boxes.device)).reshape(-1)
+            f = f[f < n]
+            lists[tx, ty] = f[_meets(boxes[f], tx0, tx1, ty0, ty1)]
+    return lists
 
 
 def checked_device(device=None) -> torch.device:
@@ -205,9 +269,8 @@ def rasterize(vertices, faces, pinhole: Pinhole, device=None
         return rasterize_plain(v, f, pinhole)
     v, f = v.reshape(-1, 3).contiguous(), f.reshape(-1, 3).contiguous()
     h, w = pinhole.h, pinhole.w
-    table = torch.empty(len(f) * FACE_BYTES, dtype=torch.uint8,
+    table = torch.empty(table_bytes(len(f)), dtype=torch.uint8,
                         device=device)
-    keys = torch.empty(h * w, dtype=torch.int64, device=device)
     coords = torch.empty((h, w, 3), dtype=torch.float32, device=device)
     normals = torch.empty_like(coords)
     mask = torch.empty((h, w), dtype=torch.bool, device=device)
@@ -215,7 +278,7 @@ def rasterize(vertices, faces, pinhole: Pinhole, device=None
         _build.ptr(v, torch.float32, "vertices", 2), len(v),
         _build.ptr(f, torch.int32, "faces", 2), len(f),
         *(_f32(p) for p in (pinhole.fx, pinhole.fy, pinhole.cx, pinhole.cy)),
-        h, w, table.data_ptr(), keys.data_ptr(), coords.data_ptr(),
+        h, w, table.data_ptr(), coords.data_ptr(),
         normals.data_ptr(), mask.data_ptr(), _build.stream_ptr(device))
     _build.check(rc, "ccn_rasterize")
     rasterize.launches += 1

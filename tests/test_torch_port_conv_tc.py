@@ -326,6 +326,90 @@ def test_t_model_matches_pallas(c_in, h, prev_bn):
 
 
 # ---------------------------------------------------------------------------
+# K8-bf16's t pass: its order of partial sums
+# ---------------------------------------------------------------------------
+
+
+def _bf16_scales(s, used, h):
+    """Sums of |terms| of the bfloat16 t pass's outputs: the rounded pairs
+    times the rounded weights (d_u_prev), the rounded pairs of u times the
+    rounded dz (dW), |dz| (db); float64."""
+    live = conv1d_train._live(used, N_EXP, "cpu")
+    _, inv, gam, _ = s["bn"]
+    xhat, y = conv1d_train._affine(s["z"], s["bn"])
+    dz = inv * (s["d_u"] * live * conv1d_train._dleaky(y) * gam
+                - live * (s["c1"] + xhat * s["c2"]))
+    c_in = s["z_prev"].shape[-1]
+    w_t = s["w"].reshape(h + 1, c_in, -1).transpose(1, 2).reshape(-1, c_in)
+    rb = lambda t: _d(t.to(torch.bfloat16).float()).abs()  # noqa: E731
+    u = conv1d_train._u_of(s["z_prev"].float(), s["bn_prev"], live)
+    return (window_concat_nomask(rb(dz), h) @ rb(w_t),
+            torch.einsum("bqi,bqo->io", window_concat_nomask(rb(u), h),
+                         rb(dz)),
+            _d(dz).abs().sum((0, 1)))
+
+
+@pytest.mark.parametrize("prev_bn", [False, True])
+@pytest.mark.parametrize("case", ["edges", "halo_end"])
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("c_in", C_INS)
+def test_t_model_bf16_matches_plain(c_in, h, case, prev_bn):
+    """The bfloat16 t pass's order of partial sums (a tile's partial for
+    inputs up to DW_FUSED wide, with the previous layer's reduce sums;
+    every tap of a split's stages for wider ones) against the plain
+    version: the products are exact in float32, so only the order of the
+    float32 sums differs: within 1e-6 of the sum of |terms|."""
+    s = _layer_inputs(c_in, h, prev_bn)
+    rps = conv1d_train.dw_splits(N_EXP, c_in, B, bf16=True, half_k=h)[1]
+    used = _used(case, rps)
+    sums = prev_bn and conv1d_train.fused_reduce(c_in)
+    args = _t_args(s, used, h)
+    got = M.t_model_bf16(*args, prev_sums=sums)
+    want = conv1d_train.conv1d_train_bwd_t_ref(*args, prev_sums=sums,
+                                               bf16=True)
+    for g, w_, sc in zip(got, want, _bf16_scales(s, used, h)):
+        _within(g, w_, sc)
+    if sums:  # the reduce sums over d_u_prev: 1e-6 of the sum of |terms|
+        live = conv1d_train._live(used, N_EXP, "cpu").double()
+        xhat, y = conv1d_train._affine(_d(s["z_prev"]), tuple(
+            _d(t) for t in s["bn_prev"]))
+        da = (_d(want[0]) * conv1d_train._dleaky(y) * live).abs()
+        dxh = da * _d(s["bn_prev"][2]).abs()
+        for g, w_, sc in zip(got[3], want[3], (dxh, dxh * xhat.abs(), da,
+                                               da * xhat.abs())):
+            _within(g, w_, sc.sum((0, 1)))
+    if case == "edges":
+        assert not bool(got[0][0].any())  # sample 0: dz = 0 everywhere
+
+
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("c_in", C_INS)
+def test_t_model_bf16_matches_pallas(c_in, h):
+    """On a bfloat16 xe (layer 1), against ``_run_bwd_t`` with cdt bfloat16
+    in interpret mode: within 2^-8 of each output's largest value (one
+    bfloat16 rounding: the Pallas kernel forms dz in another operation
+    order, so a dz near a rounding boundary may round the other way)."""
+    s = _layer_inputs(c_in, h, False)
+    s["z_prev"] = s["z_prev"].to(torch.bfloat16)
+    used = _used("halo_end", M.ROWS)
+    _xe_zero_past_used(s, used)
+    got = M.t_model_bf16(*_t_args(s, used, h))
+    outs = [pallas_conv1d._run_bwd_t(
+        jnp.asarray(s["d_u"][bi].numpy()), jnp.asarray(s["z"][bi].numpy()),
+        jnp.asarray(s["z_prev"][bi].float().numpy()).astype(jnp.bfloat16),
+        tuple(jnp.asarray(a.numpy()) for a in s["bn"]), None,
+        jnp.asarray(s["w"].numpy()), jnp.asarray(s["c1"].numpy()),
+        jnp.asarray(s["c2"].numpy()), int(used[bi]), TILE_N, h, True,
+        jnp.bfloat16) for bi in range(B)]
+    want = (np.stack([np.asarray(o[0], np.float32) for o in outs]),
+            sum(np.asarray(o[1]) for o in outs),
+            sum(np.asarray(o[2]) for o in outs))
+    for g, w in zip(got, want):
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= 2.0 ** -8 * float(np.abs(w).max()), err
+
+
+# ---------------------------------------------------------------------------
 # the launch shapes
 # ---------------------------------------------------------------------------
 
@@ -340,6 +424,10 @@ def test_tiles_match_the_sources():
     assert conv1d_train.DW_STAGE == _define("TDW_ROWS", "conv1d_train.cu")
     assert conv1d_train.DW_M == _define("TDW_M", "conv1d_train.cu")
     assert conv1d_train.DW_FUSED == _define("TDF_MAX", "conv1d_train.cu")
+    assert conv1d_train.DW_STAGE_BF16 == _define("TBW_ROWS",
+                                                 "conv1d_train.cu")
+    assert conv1d_train.DW_M_BF16 == _define("TBW_M", "conv1d_train.cu")
+    assert conv1d_train.TB_MAX_H == _define("TB_PAD", "conv1d_train.cu")
     assert conv1d_chain.tile_rows(2, 3) == 116
     assert conv1d_train.fwd_tile(2) == 124
     with pytest.raises(ValueError):
@@ -359,3 +447,16 @@ def test_dw_splits_cover_the_rows(n_exp, c_in, bsz):
     else:
         blocks = -(-c_in // conv1d_train.DW_M) * splits * bsz
         assert blocks <= 2 * conv1d_train.DW_BLOCKS
+    # bfloat16: a d_u_prev tile of ROWS - 2h slots a split up to DW_FUSED
+    # wide (the fused kernel), else stages of DW_STAGE_BF16 over m-chunks
+    # of DW_M_BF16 channels
+    for h in (1, 2, 3):
+        splits, rps = conv1d_train.dw_splits(n_exp, c_in, bsz, bf16=True,
+                                             half_k=h)
+        assert (splits - 1) * rps < n_exp <= splits * rps
+        if c_in <= conv1d_train.DW_FUSED:
+            assert rps == conv1d_train.fwd_tile(h) == M.ROWS - 2 * h
+        else:
+            assert rps % conv1d_train.DW_STAGE_BF16 == 0 and rps > 0
+            blocks = -(-c_in // conv1d_train.DW_M_BF16) * splits * bsz
+            assert blocks <= 2 * conv1d_train.DW_BLOCKS

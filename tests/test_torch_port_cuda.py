@@ -882,6 +882,37 @@ def test_edge_mlp_kernel_at_flagship_steps(dev, n, c, widths):
     assert torch.equal(edge_mlp.fused_edge_mlp_max(*args), got)
 
 
+def _raster_bits_equal(got, want):
+    for g, w in zip(got, want):   # bit for bit: floats as int32 bits
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+# the box (12 faces, each over many tiles) at the generator's 2048, ragged
+# sizes that are no multiple of the tile, and a ~10^5-face sphere (a dense
+# mesh: hundreds of faces a tile)
+@pytest.mark.parametrize("mesh,res", [("box", 2048), ("box", 100),
+                                      ("cylinder", 130), ("sphere", 1000),
+                                      ("dense", 2048), ("dense", 130)])
+def test_rasterize_kernel_tiles(dev, mesh, res):
+    verts, faces = (sim_generate.uv_sphere(n_lat=224, n_lon=224)
+                    if mesh == "dense" else sim_generate.PRIMITIVES[mesh]())
+    if mesh == "dense":
+        assert len(faces) > 90000
+    verts = verts - verts.mean(0)
+    verts = verts / np.linalg.norm(verts, axis=1).max()
+    pin = rasterizer.Pinhole(1.8 * res, 1.8 * res, res / 2, res / 2, res,
+                             res)
+    cam = rasterizer.look_at_camera(verts, distance=2.2)
+    got = rasterizer.rasterize(cam, faces, pin, dev)
+    want = rasterizer.rasterize_plain(cam, faces, pin, dev)
+    assert int(want[2].sum()) > res * res // 8
+    _raster_bits_equal(got, want)
+    _raster_bits_equal(rasterizer.rasterize(cam, faces, pin, dev), got)
+
+
 @pytest.mark.parametrize("mesh", sorted(sim_generate.PRIMITIVES))
 def test_rasterize_kernel(dev, mesh):
     verts, faces = sim_generate.PRIMITIVES[mesh]()

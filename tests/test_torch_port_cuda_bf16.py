@@ -401,9 +401,13 @@ def test_group_train_bf16_repeats(dev, case):
 
 
 # the main path's step_31 (xe 262 wide in bfloat16, h 2, three layers of
-# 32) and a layer behind a BN with a wide output
+# 32: the dW kernel of every tap, then the fused kernel with the previous
+# sums), a layer behind a BN with a wide output, and a narrow bfloat16 xe
+# into 96 outputs (the fused kernel's widest) followed by a 96-wide f32
+# input at h 3 (the dW kernel's taps in two groups)
 K8_CASES = [(262, (32, 32, 32), 2, 6000, [5900, 3700]),
-            (40, (64, 48), 1, 3000, [2000, 3000])]
+            (40, (64, 48), 1, 3000, [2000, 3000]),
+            (16, (96, 24), 3, 2500, [2500, 1234])]
 
 
 @pytest.mark.parametrize("c0,dims,h,n_exp,used", K8_CASES)
@@ -453,3 +457,34 @@ def test_conv1d_train_bf16_kernel(dev, c0, dims, h, n_exp, used):
         assert got[0].dtype == torch.float32
         _l2_all(pairs, 2 * BF16_REL)
         z_prev, bn_prev = z, bn
+
+
+def test_conv1d_train_bf16_t_repeats(dev):
+    """The bfloat16 t pass twice on one call, both routes (the 262-wide xe
+    and a 32-wide input with the previous sums): d_u_prev, dW, db and the
+    sums bit for bit (partials summed in a fixed order, no atomics)."""
+    from curvecloudnet_tpu_torch.ops import conv1d_train as C
+
+    g = torch.Generator().manual_seed(5)
+    n_exp, used = 5000, torch.tensor([4900, 3100], dtype=torch.int32)
+    for c_in, prev in ((262, False), (32, True)):
+        z_prev = (torch.randn(2, n_exp, c_in, generator=g).to(torch.bfloat16)
+                  if not prev else torch.randn(2, n_exp, c_in, generator=g))
+        bn_prev = ((0.1 * torch.randn(c_in, generator=g), 1 + 0.1 * torch.rand(
+            c_in, generator=g), 1 + 0.1 * torch.randn(c_in, generator=g),
+            0.1 * torch.randn(c_in, generator=g)) if prev else None)
+        w = torch.randn(3 * c_in, 32, generator=g) / (3 * c_in) ** 0.5
+        bn = (0.1 * torch.randn(32, generator=g), 1 + 0.1 * torch.rand(
+            32, generator=g), 1 + 0.1 * torch.randn(32, generator=g),
+            0.1 * torch.randn(32, generator=g))
+        z, d_u = (torch.randn(2, n_exp, 32, generator=g) for _ in range(2))
+        c1, c2 = 0.01 * torch.randn(2, 32, generator=g)
+        args = [t.to(dev) for t in (d_u, z, z_prev)] + [
+            tuple(t.to(dev) for t in bn),
+            None if bn_prev is None else tuple(t.to(dev) for t in bn_prev),
+            w.to(dev), c1.to(dev), c2.to(dev), used.to(dev), 2]
+        runs = [C.conv1d_train_bwd_t(*args, prev_sums=prev, bf16=True)
+                for _ in range(2)]
+        flat = [[*r[:3], *(r[3] if prev else ())] for r in runs]
+        for a, b in zip(*flat):
+            assert torch.equal(a, b)

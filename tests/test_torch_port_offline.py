@@ -136,6 +136,113 @@ def test_rasterize_plain_edge_faces():
     np.testing.assert_array_equal(got[2].numpy(), want[2])
 
 
+def _tiled(verts, faces, pin):
+    """K11's tile pass on the CPU: each TR.TILE tile keys its pixels from
+    the faces its list holds (``TR.tile_lists``, the kernel's two-level
+    cull), a face's candidates over its box clipped to the tile; the keys
+    resolved as the plain version resolves them."""
+    v = torch.as_tensor(verts, dtype=torch.float32)
+    f = torch.as_tensor(faces).to(torch.int32).reshape(-1, 3)
+    t, keep = TR._face_table(v, f, pin)
+    boxes = TR.face_boxes(t, keep)
+    keys = torch.full((pin.h * pin.w,), TR._EMPTY, dtype=torch.int64)
+    lists = TR.tile_lists(boxes, pin)
+    for (tx, ty), fl in lists.items():
+        tx0, ty0 = tx * TR.TILE, ty * TR.TILE
+        tx1 = min(tx0 + TR.TILE, pin.w) - 1
+        ty1 = min(ty0 + TR.TILE, pin.h) - 1
+        b = boxes[fl]
+        x0, x1 = b[:, 0].clamp(min=tx0), b[:, 1].clamp(max=tx1)
+        y0, y1 = b[:, 2].clamp(min=ty0), b[:, 3].clamp(max=ty1)
+        bw = x1 - x0 + 1
+        cnt = bw * (y1 - y0 + 1)
+        assert bool((cnt > 0).all())   # a listed face meets its tile
+        local = torch.repeat_interleave(torch.arange(len(fl)), cnt)
+        off = torch.arange(int(cnt.sum())) - (torch.cumsum(cnt, 0)
+                                              - cnt)[local]
+        fi = fl[local]
+        x = x0[local] + off % bw[local]
+        y = y0[local] + off // bw[local]
+        l0, l1, l2, z, _ = TR._bary_depth(t, fi, x, y)
+        m = TR._f32(-1e-6)
+        hit = (~((l0 < m) | (l1 < m) | (l2 < m))
+               & (z < float("inf"))).nonzero()[:, 0]
+        keys.scatter_reduce_(0, (y * pin.w + x)[hit],
+                             TR._keys_of(z[hit], fi[hit]), reduce="amin",
+                             include_self=True)
+    return TR.resolve_keys(t, keys, pin.h, pin.w), lists, boxes
+
+
+def _assert_tiled_equal(verts, faces, pin):
+    (coords, normals, mask), lists, boxes = _tiled(verts, faces, pin)
+    want = _native(verts, faces, pin)
+    np.testing.assert_array_equal(mask.numpy(), want[2])
+    for g, w in zip((coords, normals), want[:2]):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      w.view(np.int32))
+    # every face is listed by exactly the tiles its box meets
+    n_tx, n_ty = -(-pin.w // TR.TILE), -(-pin.h // TR.TILE)
+    assert sorted(lists) == [(x, y) for x in range(n_tx) for y in range(n_ty)]
+    for (tx, ty), fl in lists.items():
+        tx0, ty0 = tx * TR.TILE, ty * TR.TILE
+        meet = TR._meets(boxes, tx0, min(tx0 + TR.TILE, pin.w) - 1, ty0,
+                         min(ty0 + TR.TILE, pin.h) - 1).nonzero()[:, 0]
+        assert torch.equal(fl, meet)
+    return want
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("res", [100, 130])
+def test_rasterize_tiles_match_native(mesh, res, tmp_path):
+    """K11's tile culling and tile-by-tile depth test (a resolution that is
+    no multiple of the tile) equal the native z-buffer bit for bit."""
+    if mesh == "obj":
+        verts, faces = TG.load_obj(_icosphere_obj(str(tmp_path / "m.obj")))
+    else:
+        verts, faces = TG.PRIMITIVES[mesh]()
+    pin = TR.Pinhole(res * 1.8, res * 1.8, res / 2, res / 2, res, res)
+    covered = 0
+    for dist, elev, azim in [(2.2, 20.0, 30.0), (1.4, 44.0, 311.0)]:
+        cam = TR.look_at_camera(verts, distance=dist, elev_deg=elev,
+                                azim_deg=azim)
+        covered += int(_assert_tiled_equal(cam, faces, pin)[2].sum())
+    assert covered > 1000
+
+
+def test_rasterize_tiles_edge_faces():
+    """The edge faces of ``test_rasterize_plain_edge_faces`` through the
+    tiles, and duplicated faces spread over several chunk boxes (the tie
+    goes to the lower index in every tile)."""
+    v = np.array([[0.0, 0.0, 1.0], [1.0, 0.0, 1.0], [0.0, 1.0, 1.0],
+                  [50.0, 0.0, 2e-6], [0.5, 0.5, 0.0], [2.0, 2.0, 1.0],
+                  [-0.2, 0.3, 1.5], [0.8, -0.3, 0.7], [0.3, 0.9, 1.1]],
+                 np.float32)
+    f = np.array([[0, 1, 3], [0, 1, 2], [2, 1, 0], [0, 1, 2], [0, 1, 9],
+                  [0, 5, 0], [0, 1, 4], [6, 7, 8], [8, 7, 6], [1, 2, 0]],
+                 np.int32)
+    pin = TR.Pinhole(100.0, 100.0, 64.0, 64.0, 130, 130)
+    assert _assert_tiled_equal(v, f, pin)[2].sum() > 3000
+    dup = np.concatenate([f, np.tile(f[[1, 7]], (40, 1)), f[::-1]])
+    assert len(dup) > 3 * TR.CHUNK_FACES
+    assert _assert_tiled_equal(v, dup, pin)[2].sum() > 3000
+
+
+def test_raster_tiles_match_the_source():
+    """The plain model's tile, chunk and table sizes are K11's
+    (``csrc/rasterize.cu``)."""
+    import re
+    src = open(os.path.join(os.path.dirname(TR.__file__), os.pardir, "csrc",
+                            "rasterize.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert TR.TILE == const("TILE")
+    assert TR.CHUNK_FACES == const("CHUNK")
+    assert f"sizeof(Face) == {TR.FACE_BYTES // 4} * 4" in src
+    assert TR.table_bytes(33) == 33 * 88 + 8 + 33 * 16 + 2 * 16
+
+
 def test_rasterize_key_order():
     z = torch.tensor([-np.inf, -3.0, -1e-30, -0.0, 0.0, 1e-30, 2.0, 3.4e38],
                      dtype=torch.float32)
