@@ -220,7 +220,8 @@ Phases (any failure raises and exits non-zero before the result line):
      every K1-bf16 (one bfloat16 ulp at the output's scale, under 1% of
      the elements differing), K2-bf16 (2^-8 of its scale) and K4-bf16
      (equal) call of scan 0 held against its plain version and timed
-     (bounds at the bfloat16 tensor rate), launches of both dtypes equal
+     (bounds at the bfloat16 tensor rate; K1-bf16 also in device ms a
+     call beside float32 K1 on the same inputs), launches of both dtypes equal
      the float32 scan's, each scan's logits within the plain path's own
      bf16-vs-f32 gap of the plain path's (twice it: two draws of the
      forward's bfloat16 noise; ``hold_bf16_logits``) and as accurate
@@ -236,9 +237,10 @@ Phases (any failure raises and exits non-zero before the result line):
  21. bfloat16 training (``run_bf16_train``): the flagship's step at full
      width on a ``compute_dtype: bfloat16`` config, every K7-, K8- and
      K4b-bf16 call held against its plain bfloat16 version and timed
-     beside its float32 twin (K8-bf16's t pass also in device ms a call,
-     and run twice bit for bit), the step against the plain bf16 and f32
-     paths, launches, shapenet-seg at B=24, ``main`` in bfloat16;
+     beside its float32 twin (K8-bf16's t pass and K4b-bf16 also in
+     device ms a call, and run twice bit for bit), the step against the
+     plain bf16 and f32 paths, launches, shapenet-seg at B=24, ``main`` in
+     bfloat16;
  22. data parallelism over processes (``run_dp``): two rank processes
      (``dp_rank``, gloo on the one card) each take the flagship's
      full-width float32 train step on its own sweep (seeds 0 and 1), and
@@ -3604,6 +3606,20 @@ def run_bf16(P, mods, dev, kernel_launches):
     k2_sites("nuScenes bf16", model.spec, calls["group_reduce_bf16"],
              per_call.get("group_reduce_bf16", []),
              floor_of=("bfloat16 floor", 1 / PEAK_BF16))
+    # K1-bf16: device ms a call (both launches: the image's pack, the
+    # chain) beside float32 K1 on the same inputs widened (step_31's twin)
+    k1 = mods["conv1d_chain"]
+    d16, d32 = [], []
+    with torch.no_grad():
+        for args, _, _ in calls["conv1d_chain_bf16"]:
+            d16.append(device_span_ms(
+                lambda a=args: k1.conv1d_chain_eval_bf16(*a)))
+            d32.append(device_span_ms(
+                lambda a=args, x=args[0].float(): k1.conv1d_chain_eval(
+                    x, *a[1:])))
+    log(f"conv1d_chain_bf16 device ms a call {[round(t, 4) for t in d16]} "
+        f"({sum(d16):.4f} a scan), float32 K1 on the same inputs "
+        f"{[round(t, 4) for t in d32]} ({sum(d32):.4f})")
     del calls
 
     # the scans through predict, launches counted
@@ -3822,8 +3838,9 @@ def run_bf16_train(P, mods, dev, kernel_launches):
     site; K4b-bf16): every K7-bf16, K8-bf16 and K4b-bf16 call of a step
     held against its plain bfloat16 version (seed 0 timed, with the float32
     variant's time on the same inputs and a line per K7 site; K8-bf16's t
-    pass also in device ms a call (:func:`device_span_ms`), beside its
-    float32 twin's, and each call run twice bit for bit; seed 1 held),
+    pass and K4b-bf16 also in device ms a call (:func:`device_span_ms`),
+    beside the float32 twin's, and each call run twice bit for bit; seed 1
+    held),
     the step's float32 calls held as phase 6 holds them; one step kernel
     path vs plain bfloat16 path vs plain float32 path from the same
     weights: the loss within 2x the plain path's own bf16-vs-f32 gap, the
@@ -3914,6 +3931,23 @@ def run_bf16_train(P, mods, dev, kernel_launches):
     log(f"conv1d_train_t_bf16 device ms a call {[round(t, 4) for t in t16]}"
         f" ({sum(t16):.4f} a step), float32 t pass on the same inputs "
         f"{[round(t, 4) for t in t32]} ({sum(t32):.4f}); two runs of each "
+        "call bit-identical")
+    # K4b-bf16: the same, and two runs of each call bit for bit (each
+    # row's sum in ascending slot order over the inverse table)
+    gk = mods["gather"]
+    s16, s32 = [], []
+    with torch.no_grad():
+        for i, (args, kwargs, _) in enumerate(calls["scatter_bf16"]):
+            fn = (lambda a=args, k=kwargs: gk.scatter_km_bf16(*a, **k))
+            if not torch.equal(fn(), fn()):
+                raise AssertionError(f"scatter_bf16 call {i}: two runs "
+                                     "differ")
+            s16.append(device_span_ms(fn))
+            s32.append(device_span_ms(f32_twin("scatter_bf16", args, kwargs,
+                                               mods)))
+    log(f"scatter_bf16 device ms a call {[round(t, 4) for t in s16]} "
+        f"({sum(s16):.4f} a step), float32 K4b on the same inputs "
+        f"{[round(t, 4) for t in s32]} ({sum(s32):.4f}); two runs of each "
         "call bit-identical")
     f32_held, f32_calls = float32_calls(TRAIN_KERNELS + TRAIN_HELD, calls)
     log("bf16_train float32 calls: "

@@ -31,11 +31,30 @@
 // one product a multiply-add), the bias, leaky ReLU and live mask are
 // applied in f32 and each layer's output is rounded to bfloat16.  The pair
 // sums sit on the input side, so the f32 kernel's products-then-shifts
-// form does not carry over: a block of CV_ROWS slots keeps its activations
-// in shared memory as bfloat16 (two buffers: a layer reads one and writes
-// the other) and runs, a layer at a time, the (h+1) tap products of its
-// 8 warps' 16-row tiles, building each pair-sum fragment as it loads; the
-// layer's taps are staged as packed bfloat16 pairs.
+// form does not carry over.  Bound on the H100: bytes (step_31 reads a
+// 262-wide bfloat16 row of ~49k slots, ~26 MB, and does ~3 GFLOP: 0.0087
+// ms), the halo's re-reads on top.  The design:
+//  * taps packed once a call: conv1d_chain_bf16_pack_kernel packs every
+//    layer's taps, from the float32 weights as they lie, into the
+//    shared-memory image cb1_taps reads (bfloat16 pairs), the biases
+//    beside it; a block copies the taps in with cp.async and keeps them
+//    resident where they fit (else a layer at a time);
+//  * the input streamed: layer 0's input passes through a ring of
+//    `stages` chunks of CB_KC columns x the tile's rows, copied by
+//    cp.async in the widest unit the row stride allows (4 bytes at 262
+//    wide, 16 where C0 % 8 == 0; 0 past the row and past C0 by the copy's
+//    zero fill); the pair fragments are formed from the staged chunk and
+//    the products summed chunk by chunk (chunk, tap, 16-deep step:
+//    ops/conv_tc.py chain_eval_model_bf16);
+//  * overlap and occupancy: persistent blocks walk the tiles, the next
+//    tile's first chunks in flight during this tile's later layers and
+//    stores; where no layer is wider than 64, tiles of 256 slots (16 warps
+//    an SM beside one copy of the taps: the pair sums and products are
+//    issue-bound, and at 8 warps latency-bound); each pair is one
+//    add.rn.bf16x2 (the bits of an f32 add rounded to bfloat16);
+//  * whole-word stores: the last layer's rows are staged in shared memory
+//    and stored as whole 16-byte words (a tile's output rows are one
+//    contiguous run).
 
 #include <algorithm>
 
@@ -212,186 +231,438 @@ extern "C" int ccn_conv1d_chain(const float* xe, const float* wp,
 // ---- the bfloat16 variant ----------------------------------------------
 
 #define CB_MAX_OUT 128  // widest layer output (ops/conv1d_chain.py)
+#define CB_MAX_STAGES 6
+#define CB_KC 64  // columns of an input chunk (ops/conv1d_chain.py CHUNK_BF16)
+#define CB_LDK (CB_KC + 8)  // a chunk's row stride in halves (4 mod 32 words)
 
-struct ChainMetaBf16 {
+// The launch's plan (ops/conv1d_chain.py plan_bf16, which packs these
+// fields in this order).  Image words: layer l's taps at toff[l] (word
+// (d kp + k/2) ldn + n of cb_taps' layout, kp = dims[l] rounded to 16
+// halved, ldn = dims[l + 1] rounded to 8 plus 8), then layer l's bias as
+// floats at boff[l].
+struct CbPlan {
   int n_layers;
   int dims[CCN_CONV_MAX_LAYERS + 1];
-  long long woff[CCN_CONV_MAX_LAYERS];  // bfloat16 elements into wp
-  long long boff[CCN_CONV_MAX_LAYERS];  // floats into bp
-  int ld0, ld1;  // row strides (halves) of the layer-0 input, of the rest
-  int abuf0;     // halves of activation buffer 0 (buffer 1: CV_ROWS ld1)
+  int toff[CCN_CONV_MAX_LAYERS];
+  int boff[CCN_CONV_MAX_LAYERS];
+  int taps_words;  // shared words of taps: every layer's, or the widest's
+  int resident;    // 1: every layer's taps stay in shared memory
+  int stages;      // chunks of the input ring (2 .. CB_MAX_STAGES)
+  int lda;         // row stride (halves) of the activation buffers
+  int rows;        // slots a tile (256 or 128; 2 rows threads a block)
+  int total;       // the image's words
+  // shared memory in bytes: the taps at 0, then buffers X and Y (Y only
+  // past one layer) and the ring; with the taps staged a layer at a time
+  // the ring shares Y's room (no chunk loads past layer 0 there)
+  int x_off, y_off, ring_off, smem;
 };
 
-// row stride in halves of a bfloat16 buffer c wide: 8 mod 64 (4 mod 32
-// words), so a warp's fragment loads are free of bank conflicts
-static inline int cb_ld(int c) { return ((c + 63) & ~63) + 8; }
+// the float32 layers' weights and biases as the wrapper holds them
+struct CbLayers {
+  const float* w[CCN_CONV_MAX_LAYERS];  // ((h+1) dims[l], dims[l+1])
+  const float* b[CCN_CONV_MAX_LAYERS];  // (dims[l+1],)
+};
 
-// Shared memory in bytes: the two activation buffers and one layer's taps,
-// (h+1) (cin/2 rounded to 8) rows of (cout rounded to 8) + 8 words, the
-// widest layer (ops/conv1d_chain.py _bf16_smem repeats it).
-static size_t cb_smem(const ChainMetaBf16& m, int h) {
-  size_t taps = 0;
-  for (int l = 0; l < m.n_layers; ++l) {
-    const int kp = ((m.dims[l] + 15) & ~15) / 2;
-    const int ldn = ((m.dims[l + 1] + 7) & ~7) + 8;
-    taps = std::max(taps, (size_t)(h + 1) * kp * ldn);
-  }
-  return (size_t)(m.abuf0 + CV_ROWS * m.ld1) * 2 + taps * 4;
+__host__ __device__ __forceinline__ int cb_kp(int cin) {
+  return ((cin + 15) & ~15) / 2;
+}
+__host__ __device__ __forceinline__ int cb_ldn(int cout) {
+  return ((cout + 7) & ~7) + 8;
 }
 
-template <int NT>
-__global__ void __launch_bounds__(CV_THREADS, 1)
-    conv1d_chain_bf16_kernel(const unsigned short* __restrict__ xe,
-                             const unsigned short* __restrict__ wp,
-                             const float* __restrict__ bp,
-                             const int* __restrict__ used,
-                             unsigned short* __restrict__ out, int n_exp,
-                             int h, ChainMetaBf16 m) {
-  extern __shared__ float4 cb_sm4[];
-  unsigned short* A0 = reinterpret_cast<unsigned short*>(cb_sm4);
-  unsigned short* A1 = A0 + m.abuf0;
-  uint32_t* Wt = reinterpret_cast<uint32_t*>(A1 + CV_ROWS * m.ld1);
-  const int b = blockIdx.y;
-  const int pad = h * m.n_layers;
-  const int tile = CV_ROWS - 2 * pad;
-  const int base = blockIdx.x * tile - pad;  // slot of tile row 0
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int live_end = min(used[b], n_exp);
-  const int c0 = m.dims[0];
+// the plan's shared memory holds its parts (the wrapper lays them out)
+static bool cb_fits(const CbPlan& p) {
+  const int x = p.rows * p.lda * 2, ring = p.stages * p.rows * CB_LDK * 2;
+  const int y = p.n_layers > 1 ? x : 0;
+  if (p.x_off < p.taps_words * 4 || p.y_off < p.x_off + x ||
+      p.smem > 232448 || p.x_off % 16 || p.y_off % 16 || p.ring_off % 16)
+    return false;
+  if (p.resident)
+    return p.ring_off >= p.y_off + y && p.smem >= p.ring_off + ring;
+  return p.ring_off >= p.y_off && p.smem >= p.ring_off + std::max(ring, y);
+}
 
-  // the tile's input rows, 0 outside the row and from c0 to c0 rounded to
-  // 16
-  const int c016 = (c0 + 15) & ~15;
-  const unsigned short* xb = xe + (size_t)b * n_exp * c0;
-  for (RowCol it(threadIdx.x, c016); it.r < CV_ROWS; it.next()) {
-    const int gs = base + it.r;
-    A0[it.r * m.ld0 + it.c] = (gs >= 0 && gs < n_exp && it.c < c0)
-                                  ? xb[(size_t)gs * c0 + it.c]
-                                  : (unsigned short)0;
-  }
-  for (int l = 0; l < m.n_layers; ++l) {
-    const int cin = m.dims[l], cout = m.dims[l + 1];
-    const int kp = ((cin + 15) & ~15) / 2, cout8 = (cout + 7) & ~7;
-    const int ldn = cout8 + 8, nt = cout8 / 8;
-    const unsigned short* W = wp + m.woff[l];
-    // the taps as bfloat16 pairs: word (d kp + k/2) ldn + n holds rows k,
-    // k + 1 of tap d, column n (0 past cin and cout)
-    for (int i = threadIdx.x; i < (h + 1) * kp * cout8; i += CV_THREADS) {
-      const int n = i % cout8, row = i / cout8;
+// The image: every word of the taps (bfloat16 pairs rounded to nearest
+// even, 0 past cin and cout) and of the biases (float bits, 0 past cout).
+__global__ void conv1d_chain_bf16_pack_kernel(CbLayers src, CbPlan p, int h,
+                                              uint32_t* __restrict__ img) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.total;
+       i += gridDim.x * blockDim.x) {
+    uint32_t v = 0u;
+    if (i < p.boff[0]) {
+      int l = 0;
+      while (l + 1 < p.n_layers && p.toff[l + 1] <= i) ++l;
+      const int cin = p.dims[l], cout = p.dims[l + 1];
+      const int kp = cb_kp(cin), ldn = cb_ldn(cout);
+      const int r = i - p.toff[l], row = r / ldn, n = r - row * ldn;
       const int d = row / kp, k = 2 * (row - d * kp);
-      unsigned short lo = 0, hi = 0;
+      float lo = 0.f, hi = 0.f;
       if (n < cout) {
-        const unsigned short* wc = W + ((size_t)d * cin + k) * cout + n;
-        if (k < cin) lo = wc[0];
-        if (k + 1 < cin) hi = wc[cout];
+        const float* w = src.w[l] + ((size_t)d * cin + k) * cout + n;
+        if (k < cin) lo = __ldg(w);
+        if (k + 1 < cin) hi = __ldg(w + cout);
       }
-      Wt[(size_t)row * ldn + n] = pack_bf16_bits(lo, hi);
+      v = pack_bf16(lo, hi);
+    } else {
+      int l = 0;
+      while (l + 1 < p.n_layers && p.boff[l + 1] <= i) ++l;
+      const int c = i - p.boff[l];
+      if (c < p.dims[l + 1]) v = __float_as_uint(__ldg(src.b[l] + c));
     }
-    __syncthreads();
-    const unsigned short* in = (l & 1) ? A1 : A0;
-    unsigned short* dst = (l & 1) ? A0 : A1;
-    const int ldin = l == 0 ? m.ld0 : m.ld1;
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    cb_taps<NT>(acc, in, ldin, r0, Wt, kp, ldn, cin, h, nt);
-    // y = acc + b, leaky, 0 outside the rows whose window lies in the
-    // previous layer's valid rows and outside the live slots; rounded to
-    // bfloat16
-    const int lo = (l + 1) * h, hi = CV_ROWS - (l + 1) * h;
-    const bool last = l + 1 == m.n_layers;
-    const float* bias = bp + m.boff[l];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= nt) continue;
-      const int n = 8 * j + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + g + 8 * half, gs = base + r;
-        const bool keep = r >= lo && r < hi && gs >= 0 && gs < live_end;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = acc[j][2 * half + e] + (n + e < cout ? bias[n + e]
-                                                              : 0.f);
-          v[e] = keep && n + e < cout ? (y >= 0.f ? y : 0.01f * y) : 0.f;
-        }
-        const uint32_t pair = pack_bf16(v[0], v[1]);
-        if (!last) {
-          *reinterpret_cast<uint32_t*>(dst + r * m.ld1 + n) = pair;
-        } else if (r >= pad && r < pad + tile && gs < n_exp) {
-          unsigned short* o = out + ((size_t)b * n_exp + gs) * cout + n;
-          if (n < cout) o[0] = (unsigned short)(pair & 0xffffu);
-          if (n + 1 < cout) o[1] = (unsigned short)(pair >> 16);
-        }
-      }
-    }
-    if (!last) {  // the next layer reads 0 from cout8 to cout rounded to 16
-      const int cout16 = (cout + 15) & ~15;
-      for (int i = threadIdx.x; i < CV_ROWS * (cout16 - cout8);
-           i += CV_THREADS) {
-        const int r = i / (cout16 - cout8);
-        dst[r * m.ld1 + cout8 + i - r * (cout16 - cout8)] = 0;
-      }
-    }
-    __syncthreads();
+    img[i] = v;
   }
 }
 
+// n16 16-byte words from src (device) to dst (shared), cp.async, one group
+__device__ __forceinline__ void cb_copy(uint32_t* dst, const uint32_t* src,
+                                        int n16) {
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
+// two bfloat16 pairs (raw bits) added and rounded to nearest even: one
+// rounding of the exact sum, the bits of an f32 add rounded to bfloat16
+// (the f32 sum of two bfloat16 values is exact unless their exponents lie
+// more than 16 apart, and then both give the larger)
+__device__ __forceinline__ uint32_t cb_add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// cb_taps (conv_tc.cuh) for a tile of ROWS rows, the pairs summed by
+// cb_add2: acc (NT 8-column tiles of the warp's 16 rows r0 ..) += the (h+1)
+// tap products of A (bfloat16, row stride lda, 0 from cin to cin rounded
+// to 16) against the packed taps Wt; tap d's rows are the pairs
+// A(r - d) + A(r + d) (0 outside the tile), tap 0's A(r).  Taps in order,
+// 16-deep steps in order within a tap.
+template <int NT, int ROWS>
+__device__ __forceinline__ void cb1_taps(float (&acc)[NT][4],
+                                         const unsigned short* A, int lda,
+                                         int r0, const uint32_t* Wt, int kp,
+                                         int ldn, int cin, int h, int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ksteps = (cin + 15) >> 4;
+  for (int d = 0; d <= h; ++d) {
+    const uint32_t* Wd = Wt + (size_t)d * kp * ldn;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int c = ks * 16 + 2 * t;
+      uint32_t a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + (e & 1) * 8, col = c + (e >> 1) * 8;
+        if (d == 0) {
+          a[e] = *reinterpret_cast<const uint32_t*>(A + r * lda + col);
+        } else {
+          const int rm = r - d, rp = r + d;
+          const uint32_t um =
+              rm >= 0 ? *reinterpret_cast<const uint32_t*>(A + rm * lda + col)
+                      : 0u;
+          const uint32_t up = rp < ROWS ? *reinterpret_cast<const uint32_t*>(
+                                              A + rp * lda + col)
+                                        : 0u;
+          a[e] = cb_add2(um, up);
+        }
+      }
+      const uint32_t* wb = Wd + (size_t)(ks * 8 + t) * ldn + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma_bf16(acc[j], a, wb[8 * j], wb[4 * ldn + 8 * j]);
+    }
+  }
+}
+
+// a cp.async of `bytes` (4, 8 or 16), filling zeros where !ok
+template <int BYTES>
+__device__ __forceinline__ void cb_cp_zfill(void* dst, const void* src,
+                                            bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n));
+}
+
+// Chunk k0 .. k0 + CB_KC - 1 of the tile's ROWS input rows (slots base ..)
+// into stage S (row stride CB_LDK halves) in copies of `unit` elements
+// (unit divides c0, and the rows' addresses allow it; unit 1: plain
+// loads); 0 outside [0, n_exp) and past c0.  A thread keeps one column
+// and steps over the rows.
+template <int ROWS>
+__device__ __forceinline__ void cb_issue(unsigned short* S,
+                                         const unsigned short* xb, int base,
+                                         int n_exp, int c0, int k0,
+                                         int unit) {
+  const int nu = CB_KC / unit, step = 2 * ROWS / nu;
+  const int r0 = threadIdx.x / nu, col = k0 + (threadIdx.x - r0 * nu) * unit;
+  const bool col_ok = col < c0;
+  for (int r = r0; r < ROWS; r += step) {
+    const int gs = base + r;
+    const bool ok = col_ok && gs >= 0 && gs < n_exp;
+    const unsigned short* src = xb + (ok ? (long long)gs * c0 + col : 0);
+    unsigned short* dst = S + r * CB_LDK + (col - k0);
+    switch (unit) {
+      case 8: cb_cp_zfill<16>(dst, src, ok); break;
+      case 4: cb_cp_zfill<8>(dst, src, ok); break;
+      case 2: cb_cp_zfill<4>(dst, src, ok); break;
+      default: *dst = ok ? __ldg(src) : (unsigned short)0;
+    }
+  }
+}
+
+// cp.async.wait_group stages - 2: every chunk but the last stages - 2
+// issued has landed
+__device__ __forceinline__ void cb_wait_ring(int stages) {
+  switch (stages) {
+    case 2: cp_async_wait<0>(); break;
+    case 3: cp_async_wait<1>(); break;
+    case 4: cp_async_wait<2>(); break;
+    case 5: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>();
+  }
+}
+
+// y = acc + b, leaky, 0 outside the rows lo .. hi - 1 whose window lies in
+// the previous layer's valid rows and outside the live slots, rounded to
+// bfloat16 into dst (stride lda): columns up to cout rounded to 16 (0 past
+// cout, which the next layer's last 16-deep step reads)
 template <int NT>
-static int cb_launch(const unsigned short* xe, const unsigned short* wp,
-                     const float* bp, const int* used, unsigned short* out,
-                     int n_exp, int h, const ChainMetaBf16& m, dim3 grid,
-                     size_t smem, cudaStream_t s) {
+__device__ __forceinline__ void cb_epilogue(unsigned short* dst, int lda,
+                                            const float (&acc)[NT][4],
+                                            const float* __restrict__ bias,
+                                            int cout, int lo, int hi,
+                                            int base, int live_end) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16, nt16 = ((cout + 15) & ~15) / 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt16) continue;
+    const int n = 8 * j + 2 * t;
+    float bb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bb[e] = n + e < cout ? __ldg(bias + n + e) : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + g + 8 * half, gs = base + r;
+      const bool keep = r >= lo && r < hi && gs >= 0 && gs < live_end;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float y = acc[j][2 * half + e] + bb[e];
+        v[e] = keep && n + e < cout ? (y >= 0.f ? y : 0.01f * y) : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(dst + r * lda + n) = pack_bf16(v[0], v[1]);
+    }
+  }
+}
+
+// Persistent blocks (2 ROWS threads) over the B x ceil(n_exp / tile)
+// tiles of ROWS slots.  Shared memory: the taps (every layer, or one at a
+// time), the ring, activation buffers X (layers 0, 2, ..) and Y (layers 1,
+// 3, ..); the last layer's buffer is the store stage.
+template <int NT, int ROWS>
+__global__ void __launch_bounds__(2 * ROWS, 1)
+    conv1d_chain_bf16_kernel(const unsigned short* __restrict__ xe,
+                             const uint32_t* __restrict__ img,
+                             const int* __restrict__ used,
+                             unsigned short* __restrict__ out, int B,
+                             int n_exp, int h, int unit, int ovec,
+                             CbPlan p) {
+  extern __shared__ float4 cb_sm4[];
+  char* sm = reinterpret_cast<char*>(cb_sm4);
+  uint32_t* Wsm = reinterpret_cast<uint32_t*>(sm);
+  unsigned short* ring = reinterpret_cast<unsigned short*>(sm + p.ring_off);
+  unsigned short* X = reinterpret_cast<unsigned short*>(sm + p.x_off);
+  unsigned short* Y = reinterpret_cast<unsigned short*>(sm + p.y_off);
+  const int stage = ROWS * CB_LDK;
+  const float* fimg = reinterpret_cast<const float*>(img);
+  const int L = p.n_layers, pad = h * L, tile = ROWS - 2 * pad;
+  const int tps = (n_exp + tile - 1) / tile, n_tiles = B * tps;
+  const int c0 = p.dims[0], nch = (((c0 + 15) & ~15) + CB_KC - 1) / CB_KC;
+  const int r0 = (threadIdx.x >> 5) * 16, cl = p.dims[L];
+
+  auto prologue = [&](int ti) {  // chunks 0 .. stages - 2 of tile ti
+    const int b = ti / tps, base = (ti - b * tps) * tile - pad;
+    for (int c = 0; c < p.stages - 1; ++c) {
+      if (c < nch)
+        cb_issue<ROWS>(ring + c * stage, xe + (size_t)b * n_exp * c0, base,
+                       n_exp, c0, c * CB_KC, unit);
+      cp_async_commit();
+    }
+  };
+  if (p.resident) cb_copy(Wsm, img, p.taps_words / 4);
+  bool prefetched = false;
+  for (int ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+    const int b = ti / tps, t0 = (ti - b * tps) * tile, base = t0 - pad;
+    const int live_end = min(__ldg(used + b), n_exp);
+    const unsigned short* xb = xe + (size_t)b * n_exp * c0;
+    if (!p.resident) {  // layer 0's taps, once the last tile is done
+      __syncthreads();
+      cb_copy(Wsm, img + p.toff[0], p.taps_words / 4);
+    }
+    if (!prefetched) prologue(ti);
+    float acc[NT][4];
+    zero_acc<NT>(acc);
+    const int kp0 = cb_kp(c0), ldn0 = cb_ldn(p.dims[1]);
+    const int nt0 = ((p.dims[1] + 7) & ~7) / 8;
+    for (int c = 0; c < nch; ++c) {
+      cb_wait_ring(p.stages);
+      __syncthreads();  // chunk c landed; every warp is done with c - 1
+      const int cn = c + p.stages - 1;
+      if (cn < nch)
+        cb_issue<ROWS>(ring + (cn % p.stages) * stage, xb, base, n_exp, c0,
+                       cn * CB_KC, unit);
+      cp_async_commit();
+      const int k0 = c * CB_KC;
+      cb1_taps<NT, ROWS>(acc, ring + (c % p.stages) * stage, CB_LDK, r0,
+                         Wsm + (k0 / 2) * ldn0, kp0, ldn0,
+                         min(CB_KC, c0 - k0), h, nt0);
+    }
+    __syncthreads();  // the ring is free
+    prefetched = p.resident && ti + (int)gridDim.x < n_tiles;
+    if (prefetched) prologue(ti + gridDim.x);
+    cb_epilogue<NT>(X, p.lda, acc, fimg + p.boff[0], p.dims[1], h, ROWS - h,
+                    base, live_end);
+    __syncthreads();
+    for (int l = 1; l < L; ++l) {
+      const int cin = p.dims[l], cout = p.dims[l + 1];
+      const uint32_t* W = Wsm + p.toff[l];
+      if (!p.resident) {
+        cb_copy(Wsm, img + p.toff[l], p.taps_words / 4);
+        cp_async_wait<0>();
+        __syncthreads();
+        W = Wsm;
+      }
+      zero_acc<NT>(acc);
+      cb1_taps<NT, ROWS>(acc, (l & 1) ? X : Y, p.lda, r0, W, cb_kp(cin),
+                         cb_ldn(cout), cin, h, ((cout + 7) & ~7) / 8);
+      cb_epilogue<NT>((l & 1) ? Y : X, p.lda, acc, fimg + p.boff[l], cout,
+                      (l + 1) * h, ROWS - (l + 1) * h, base, live_end);
+      __syncthreads();
+    }
+    // the tile's output rows (pad .. pad + rows - 1) are one contiguous
+    // run of out: whole 16-byte words where the width allows
+    const unsigned short* st = ((L - 1) & 1) ? Y : X;
+    const int rows = min(tile, n_exp - t0);
+    unsigned short* o = out + ((size_t)b * n_exp + t0) * cl;
+    if (ovec) {
+      const int w8 = cl / 8;
+      for (int i = threadIdx.x; i < rows * w8; i += 2 * ROWS) {
+        const int r = i / w8;
+        *reinterpret_cast<uint4*>(o + (size_t)i * 8) =
+            *reinterpret_cast<const uint4*>(st + (pad + r) * p.lda +
+                                            (i - r * w8) * 8);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * cl; i += 2 * ROWS) {
+        const int r = i / cl;
+        o[i] = st[(pad + r) * p.lda + i - r * cl];
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int NT, int ROWS>
+static int cb_launch(const unsigned short* xe, const uint32_t* img,
+                     const int* used, unsigned short* out, int B, int n_exp,
+                     int h, int unit, int ovec, const CbPlan& p,
+                     cudaStream_t s) {
+  auto* kernel = conv1d_chain_bf16_kernel<NT, ROWS>;
   cudaError_t e = cudaFuncSetAttribute(
-      conv1d_chain_bf16_kernel<NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
-  conv1d_chain_bf16_kernel<NT><<<grid, CV_THREADS, smem, s>>>(
-      xe, wp, bp, used, out, n_exp, h, m);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, 2 * ROWS, p.smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tile = ROWS - 2 * h * p.n_layers;
+  const long long tiles = (long long)B * ((n_exp + tile - 1) / tile);
+  const int grid = (int)std::min<long long>(tiles, (long long)per_sm * sms);
+  kernel<<<grid, 2 * ROWS, p.smem, s>>>(xe, img, used, out, B, n_exp, h,
+                                        unit, ovec, p);
   return (int)cudaGetLastError();
 }
 
-// xe (B, n_exp, dims[0]) bfloat16; wp the layers' W ((h+1)*dims[l],
-// dims[l+1]) bfloat16, row-major at element woff[l]; bp their biases f32
-// at boff[l]; used (B,) int32; out (B, n_exp, dims[n_layers]) bfloat16.
-// dims/woff/boff are host arrays; tile as ccn_conv1d_chain; every layer
-// output at most CB_MAX_OUT wide.
+// xe (B, n_exp, dims[0]) bfloat16; w / b host arrays of the layers'
+// float32 W ((h+1) dims[l], dims[l+1]) and bias device pointers; used (B,)
+// int32; img the image's scratch (plan total words, 16-byte aligned); out
+// (B, n_exp, dims[n_layers]) bfloat16; plan host ints in CbPlan's order
+// (ops/conv1d_chain.py plan_bf16, plan_ints); tile = rows - 2 h n_layers
+// output slots a tile.  Two launches: the image's pack, the chain.
 extern "C" int ccn_conv1d_chain_bf16(const unsigned short* xe,
-                                     const unsigned short* wp,
-                                     const float* bp, const int* used,
+                                     const long long* w, const long long* b,
+                                     const int* used, uint32_t* img,
                                      unsigned short* out, int B, int n_exp,
-                                     int h, int n_layers, const int* dims,
-                                     const long long* woff,
-                                     const long long* boff, int tile,
+                                     int h, int tile, const int* plan,
                                      void* stream) {
-  if (n_layers < 1 || n_layers > CCN_CONV_MAX_LAYERS || h < 1 ||
-      tile != CV_ROWS - 2 * h * n_layers || tile < 1 || B < 1 || n_exp < 1)
+  CbPlan p;
+  p.n_layers = plan[0];
+  const int L = p.n_layers;
+  if (L < 1 || L > CCN_CONV_MAX_LAYERS || h < 1 || B < 1 || n_exp < 1)
     return (int)cudaErrorInvalidValue;
-  ChainMetaBf16 m;
-  m.n_layers = n_layers;
+  const int* q = plan + 1;
+  for (int l = 0; l <= CCN_CONV_MAX_LAYERS; ++l) p.dims[l] = *q++;
+  for (int l = 0; l < CCN_CONV_MAX_LAYERS; ++l) p.toff[l] = *q++;
+  for (int l = 0; l < CCN_CONV_MAX_LAYERS; ++l) p.boff[l] = *q++;
+  p.taps_words = *q++;
+  p.resident = *q++;
+  p.stages = *q++;
+  p.lda = *q++;
+  p.rows = *q++;
+  p.total = *q++;
+  p.x_off = *q++;
+  p.y_off = *q++;
+  p.ring_off = *q++;
+  p.smem = *q++;
   int later = 1;
-  for (int l = 0; l <= n_layers; ++l) m.dims[l] = dims[l];
-  for (int l = 0; l < n_layers; ++l) {
-    m.woff[l] = woff[l];
-    m.boff[l] = boff[l];
-    if (dims[l + 1] > CB_MAX_OUT || dims[l + 1] < 1)
+  for (int l = 0; l < L; ++l) {
+    if (p.dims[l + 1] > CB_MAX_OUT || p.dims[l + 1] < 1 || p.dims[l] < 1 ||
+        p.toff[l] % 4)
       return (int)cudaErrorInvalidValue;
-    later = std::max(later, dims[l + 1]);
+    later = std::max(later, p.dims[l + 1]);
   }
-  m.ld0 = cb_ld(dims[0]);
-  m.ld1 = cb_ld(later);
-  m.abuf0 = CV_ROWS * std::max(m.ld0, m.ld1);
-  const size_t smem = cb_smem(m, h);
-  const int nt = ((later + 7) & ~7) / 8;
+  const int nt = ((later + 15) & ~15) / 8;
+  if ((p.rows != 128 && p.rows != 256) || (p.rows == 256 && nt > 8) ||
+      tile != p.rows - 2 * h * L || tile < 1 || p.stages < 2 ||
+      p.stages > CB_MAX_STAGES || p.taps_words % 4 || p.lda < ((later + 15) & ~15) + 8 || p.lda % 8 ||
+      !cb_fits(p))
+    return (int)cudaErrorInvalidValue;
+  CbLayers src;
+  for (int l = 0; l < CCN_CONV_MAX_LAYERS; ++l) {
+    src.w[l] = l < L ? reinterpret_cast<const float*>(w[l]) : nullptr;
+    src.b[l] = l < L ? reinterpret_cast<const float*>(b[l]) : nullptr;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((n_exp + tile - 1) / tile, B);
-  if (nt <= 4) return cb_launch<4>(xe, wp, bp, used, out, n_exp, h, m, grid,
-                                   smem, s);
-  if (nt <= 8) return cb_launch<8>(xe, wp, bp, used, out, n_exp, h, m, grid,
-                                   smem, s);
-  return cb_launch<16>(xe, wp, bp, used, out, n_exp, h, m, grid, smem, s);
+  const int c0 = p.dims[0];
+  int unit = 1;  // elements a copy of the input: what C0 and xe allow
+  if (c0 % 2 == 0 && (size_t)xe % 4 == 0) unit = 2;
+  if (c0 % 4 == 0 && (size_t)xe % 8 == 0) unit = 4;
+  if (c0 % 8 == 0 && (size_t)xe % 16 == 0) unit = 8;
+  const int ovec = p.dims[L] % 8 == 0 && (size_t)out % 16 == 0;
+  const int pack_blocks = std::min((p.total + 255) / 256, 132 * 4);
+  conv1d_chain_bf16_pack_kernel<<<pack_blocks, 256, 0, s>>>(src, p, h, img);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (p.rows == 256)
+    return nt <= 4 ? cb_launch<4, 256>(xe, img, used, out, B, n_exp, h, unit,
+                                       ovec, p, s)
+                   : cb_launch<8, 256>(xe, img, used, out, B, n_exp, h, unit,
+                                       ovec, p, s);
+  if (nt <= 4)
+    return cb_launch<4, 128>(xe, img, used, out, B, n_exp, h, unit, ovec, p,
+                             s);
+  if (nt <= 8)
+    return cb_launch<8, 128>(xe, img, used, out, B, n_exp, h, unit, ovec, p,
+                             s);
+  return cb_launch<16, 128>(xe, img, used, out, B, n_exp, h, unit, ovec, p, s);
 }

@@ -124,7 +124,7 @@ _SIGNATURES = {
     "ccn_rasterize": [_P, _L, _P, _L, _F, _F, _F, _F, _I, _I] + [_P] * 5,
 }
 # the bfloat16 variants: K4 and K9 take their float32 twin's arguments,
-# K1 its bfloat16 weights and float32 biases apart, K2 its own plan
+# K1 and K2 their own plans
 for _name in ("ccn_gather_km", "ccn_edge_mlp"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 _SIGNATURES["ccn_conv1d_train_fwd_bf16"] = [_P, _I] + [_P] * 11 + [_I] * 6 + [
@@ -133,8 +133,7 @@ _SIGNATURES["ccn_conv1d_train_t_bf16"] = [_P] * 3 + [_I] + [_P] * 17 + [
     _I] * 8 + [_P]
 _SIGNATURES["ccn_gt_rowstats_bf16"] = _SIGNATURES["ccn_gt_rowstats"]
 _SIGNATURES["ccn_scatter_km_bf16"] = [_P] * 4 + [_I, _I, _L, _I, _I, _P]
-_SIGNATURES["ccn_conv1d_chain_bf16"] = [_P] * 5 + [_I] * 4 + [_P] * 3 + [
-    _I, _P]
+_SIGNATURES["ccn_conv1d_chain_bf16"] = [_P] * 6 + [_I] * 4 + [_P, _P]
 _SIGNATURES["ccn_group_reduce_bf16"] = [_P] * 8 + [_I, _P, _P]
 
 

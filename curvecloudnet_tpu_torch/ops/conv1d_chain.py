@@ -19,7 +19,11 @@ and rounded in bfloat16, the products summed in float32, the bias, leaky
 ReLU and live mask applied in float32 and every layer's output rounded to
 bfloat16; :func:`conv1d_chain_eval_bf16` launches that variant
 (``conv1d_chain_bf16_kernel`` in the same source: the pairs summed on the
-input side, one bfloat16 product a tap).
+input side, one bfloat16 product a tap; the taps packed once a call by
+``conv1d_chain_bf16_pack_kernel`` into the image :func:`plan_bf16` lays
+out; persistent blocks stream layer 0's input through a ring of
+64-column chunks; ``ops/conv_tc.py`` ``chain_eval_model_bf16`` models
+its order of sums on the CPU).
 """
 
 from __future__ import annotations
@@ -127,52 +131,114 @@ def conv1d_chain_eval(xe, weights, used, half_k: int):
 
 
 # the bfloat16 variant's widest layer output (csrc/conv1d_chain.cu
-# CB_MAX_OUT)
+# CB_MAX_OUT), the columns of an input chunk (CB_KC), its deepest input
+# ring (CB_MAX_STAGES) and the fields of its plan (struct CbPlan, in order;
+# dims, toff and boff padded to the most layers)
 MAX_OUT_BF16 = 128
+CHUNK_BF16 = 64
+MAX_STAGES_BF16 = 6
+MAX_LAYERS = 8
+PLAN_FIELDS = ("n_layers", "dims", "toff", "boff", "taps_words", "resident",
+               "stages", "lda", "rows", "total", "x_off", "y_off", "ring_off",
+               "smem")
 
 
-def _bf16_smem(dims, half_k: int) -> int:
-    """Shared memory of a bfloat16 K1 block: two activation buffers of ROWS
-    slots (bfloat16, widths rounded to 16, row strides 8 mod 64 halves)
-    and one layer's packed taps (bfloat16 pairs, the widest layer)."""
-    def ld(c):
-        return -(-c // 64) * 64 + 8
-    later = max(dims[1:])
-    act = ROWS * (max(ld(dims[0]), ld(later)) + ld(later)) * 2
-    taps = max((half_k + 1) * -(-ci // 16) * 8 * (-(-co // 8) * 8 + 8) * 4
-               for ci, co in zip(dims[:-1], dims[1:]))
-    return act + taps
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def taps_words(cin: int, cout: int, half_k: int) -> int:
+    """Words of one layer's taps in the image: (h+1) taps of cin rounded
+    to 16 halved pair rows, each cout rounded to 8 plus 8 words (cb_taps'
+    layout, ``csrc/conv_tc.cuh``)."""
+    return (half_k + 1) * _ceil(cin, 16) // 2 * (_ceil(cout, 8) + 8)
+
+
+def plan_bf16(dims, half_k: int) -> dict:
+    """The bfloat16 chain's launch plan: the image's layout (every layer's
+    taps at ``toff``, then the float32 biases at ``boff``, ``total``
+    words), the tile (``rows`` slots, 2 ``rows`` threads a block: 256 where
+    no layer is wider than 64, so 16 warps an SM share one copy of the
+    taps) and the kernel's shared memory (byte offsets): the taps, the
+    activation buffers X and Y (Y only past one layer) and the input ring.
+    Every layer's taps stay resident where they fit beside a ring of its
+    own (the next tile's chunks load during this tile's later layers);
+    else, at 128 rows, the widest layer's taps are staged a layer at a time
+    and the ring shares Y's room.  Chunks of ``CHUNK_BF16`` columns; the
+    deepest ring that fits, up to ``MAX_STAGES_BF16``.  Raises where none
+    fits."""
+    taps = [taps_words(ci, co, half_k) for ci, co in zip(dims[:-1], dims[1:])]
+    toff = [sum(taps[:i]) for i in range(len(taps))]
+    boff, off = [], sum(taps)
+    for co in dims[1:]:
+        boff.append(off)
+        off += _ceil(co, 4)
+    lda = _ceil(max(dims[1:]), 16) + 8
+    wide = lda - 8 > 64
+    tries = ([] if wide else [(256, 1)]) + [(ROWS, 1), (ROWS, 0)]
+    for rows, resident in tries:
+        if rows - 2 * half_k * len(taps) < 1:
+            continue
+        words = sum(taps) if resident else max(taps)
+        x = rows * lda * 2
+        y = x if len(taps) > 1 else 0
+        for stages in range(MAX_STAGES_BF16, 1, -1):
+            ring = stages * rows * (CHUNK_BF16 + 8) * 2
+            x_off = words * 4
+            y_off = x_off + x
+            ring_off = y_off + y if resident else y_off
+            smem = ring_off + (ring if resident else max(ring, y))
+            if smem <= _build.MAX_SMEM:
+                return dict(n_layers=len(taps), dims=list(dims), toff=toff,
+                            boff=boff, taps_words=words, resident=resident,
+                            stages=stages, lda=lda, rows=rows,
+                            total=off, x_off=x_off, y_off=y_off,
+                            ring_off=ring_off, smem=smem)
+    raise ValueError(f"conv1d chain: widths {list(dims)} too wide for shared "
+                     "memory")
+
+
+def plan_ints(plan: dict):
+    """The plan as the kernel's ints (PLAN_FIELDS' order)."""
+    out = []
+    for f in PLAN_FIELDS:
+        v = plan[f]
+        if isinstance(v, list):
+            n = MAX_LAYERS + 1 if f == "dims" else MAX_LAYERS
+            out += v + [0] * (n - len(v))
+        else:
+            out.append(int(v))
+    return out
 
 
 def conv1d_chain_eval_bf16(xe, weights, used, half_k: int):
     """Kernel K1's bfloat16 variant (xe bfloat16, weights rounded to
     bfloat16, bfloat16 mma.sync with float32 sums, bfloat16 out), CUDA
-    tensors only."""
+    tensors only.  Two launches: the image's pack from the float32
+    weights as they lie, then the chain."""
     b, n_exp, c0 = xe.shape
     dims = _layer_dims(c0, weights, half_k, MAX_OUT_BF16)
-    if _bf16_smem(dims, half_k) > _build.MAX_SMEM:
-        raise ValueError(f"conv1d chain: widths {dims} too wide for shared "
-                         "memory")
-    wp = torch.cat([w.reshape(-1) for w, _ in weights]).to(torch.bfloat16)
-    bp = torch.cat([bias.reshape(-1) for _, bias in weights]).float()
-    woff, boff = [0], [0]
-    for w, bias in weights:
-        woff.append(woff[-1] + w.numel())
-        boff.append(boff[-1] + bias.numel())
-    tile = tile_rows(half_k, len(weights))
+    if len(weights) > MAX_LAYERS:
+        raise ValueError(f"conv1d chain: {len(weights)} layers, at most "
+                         f"{MAX_LAYERS}")
+    plan = plan_bf16(dims, half_k)
+    layers = [(w.float().contiguous(), bias.float().contiguous())
+              for w, bias in weights]
+    tile = plan["rows"] - 2 * half_k * len(weights)
     used = used.to(torch.int32).contiguous()
+    img = torch.empty(plan["total"], dtype=torch.int32, device=xe.device)
     out = torch.empty((b, n_exp, dims[-1]), dtype=torch.bfloat16,
                       device=xe.device)
     rc = _build.library().ccn_conv1d_chain_bf16(
         _build.ptr(xe, torch.bfloat16, "xe", 3),
-        _build.ptr(wp, torch.bfloat16, "weights"),
-        _build.ptr(bp, torch.float32, "biases"),
+        _build.host_array(ctypes.c_longlong, [
+            _build.ptr(w, torch.float32, "weights") for w, _ in layers]),
+        _build.host_array(ctypes.c_longlong, [
+            _build.ptr(bias, torch.float32, "biases") for _, bias in layers]),
         _build.ptr(used, torch.int32, "used", 1),
-        out.data_ptr(), b, n_exp, half_k, len(weights),
-        _build.host_array(ctypes.c_int, dims),
-        _build.host_array(ctypes.c_longlong, woff[:-1]),
-        _build.host_array(ctypes.c_longlong, boff[:-1]),
-        tile, _build.stream_ptr(xe.device))
+        img.data_ptr(), out.data_ptr(), b, n_exp, half_k, tile,
+        _build.host_array(ctypes.c_int, plan_ints(plan)),
+        _build.stream_ptr(xe.device))
     _build.check(rc, "ccn_conv1d_chain_bf16")
     conv1d_chain_eval_bf16.launches += 1
     return out

@@ -11,7 +11,9 @@ pick (``conv1d_chain.tile_rows``, ``conv1d_train.fwd_tile``, ``ROWS`` slots a
 d_u_prev block, ``conv1d_train.dw_splits`` for the weight gradient), each
 with its halo, zero outside [0, n_exp); the cross-block sums follow the
 kernels' fixed orders (:func:`chan_combine`, :func:`colsum`,
-:func:`prev_sums_model` for the reduce sums the t pass takes).
+:func:`prev_sums_model` for the reduce sums the t pass takes).  K1's
+bfloat16 variant is modelled by :func:`chain_eval_model_bf16` on the taps
+read back from :func:`pack_image_bf16`, the image its pack kernel writes.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .conv1d_chain import ROWS, tile_rows
+from .conv1d_chain import CHUNK_BF16, ROWS, plan_bf16, tile_rows
 from .conv1d_train import (DW_FUSED, DW_STAGE, DW_STAGE_BF16, _affine,
                            _dleaky, _live, _u_of, dw_splits, fwd_tile)
 from .group_reduce import tf32_split
@@ -355,4 +357,98 @@ def t_model_bf16(d_u, z, z_prev, bn, bn_prev, w, c1, c2, used, h: int,
     if prev_sums:
         return (*out, prev_sums_model(d_u_prev, z_prev, bn_prev, used,
                                       fwd_tile(h), h))
+    return out
+
+
+def _bf16_bits(x):
+    """x rounded to bfloat16 (to nearest even), its 16 bits as int32."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def pack_image_bf16(weights, h: int):
+    """(plan, image): the int32 words ``conv1d_chain_bf16_pack_kernel``
+    writes for K1-bf16 (``ops/conv1d_chain.plan_bf16``'s layout): layer
+    l's taps at toff[l], word (d kp + k/2) ldn + n = the bfloat16 bits of
+    W[d C_in + k, n] (low half) and W[d C_in + k + 1, n] (high half), 0
+    past C_in and C_out; then each layer's bias as float32 bits at
+    boff[l], 0 past C_out."""
+    dims = [weights[0][0].shape[0] // (h + 1)] + [w.shape[1]
+                                                  for w, _ in weights]
+    plan = plan_bf16(dims, h)
+    img = torch.zeros(plan["total"], dtype=torch.int32)
+    for l, (w, b) in enumerate(weights):
+        cin, cout = dims[l], dims[l + 1]
+        kp, ldn = -(-cin // 16) * 8, -(-cout // 8) * 8 + 8
+        taps = torch.zeros(h + 1, 2 * kp, ldn, dtype=torch.int32)
+        taps[:, :cin, :cout] = _bf16_bits(w.float().reshape(h + 1, cin,
+                                                           cout))
+        words = taps[:, 0::2] | (taps[:, 1::2] << 16)
+        img[plan["toff"][l]:plan["toff"][l] + words.numel()] = words.reshape(-1)
+        img[plan["boff"][l]:plan["boff"][l] + cout] = b.float().view(
+            torch.int32)
+    return plan, img
+
+
+def image_layer_bf16(plan, img, l: int, h: int):
+    """Layer l's (taps (h+1, C_in rounded to 16, C_out) as float32 values
+    of its bfloat16 weights, bias) read back from the image as cb_taps and
+    the epilogue read them."""
+    cin, cout = plan["dims"][l], plan["dims"][l + 1]
+    kp, ldn = -(-cin // 16) * 8, -(-cout // 8) * 8 + 8
+    words = img[plan["toff"][l]:plan["toff"][l] + (h + 1) * kp * ldn]
+    words = words.reshape(h + 1, kp, ldn)
+    halves = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], 2)
+    taps = (halves.reshape(h + 1, 2 * kp, ldn) << 16).view(torch.float32)
+    bias = img[plan["boff"][l]:plan["boff"][l] + cout].view(torch.float32)
+    return taps[..., :cout], bias
+
+
+def chain_eval_model_bf16(xe, weights, used, h: int):
+    """K1-bf16's schedule on the CPU: per tile of the plan's ``rows`` slots
+    (rows - 2 h L outputs, h L halo slots each side, 0 outside [0, n_exp)),
+    each layer's
+    taps products from the packed image: the pairs a(r - d) + a(r + d)
+    summed in float32 and rounded to bfloat16 (0 outside the tile), and
+    their products added into the float32 sums in the kernel's order:
+    layer 0 by input chunks of ``CHUNK_BF16`` columns, within a chunk
+    tap by tap, within a tap 16 columns (one mma.sync step) at a time; a
+    later layer tap by tap over its whole width.  Then the bias, leaky
+    ReLU, the rows whose window lies in the previous layer's valid rows and
+    the live slots, rounded to bfloat16."""
+    bsz, n_exp, c0 = xe.shape
+    n_layers = len(weights)
+    plan, img = pack_image_bf16(weights, h)
+    layers = [image_layer_bf16(plan, img, l, h) for l in range(n_layers)]
+    rows_t = plan["rows"]
+    pad, tile = h * n_layers, rows_t - 2 * h * n_layers
+    live_end = used.long().clamp(max=n_exp)[:, None]
+    out = torch.zeros((bsz, n_exp, weights[-1][0].shape[1]),
+                      dtype=torch.bfloat16)
+    zero = torch.zeros(bsz, h, 1)
+    for t0 in range(0, n_exp, tile):
+        a = rows_of(xe.float(), t0 - pad, rows_t)
+        for li, (taps, bias) in enumerate(layers):
+            cin16 = taps.shape[1]
+            a = F.pad(a, (0, cin16 - a.shape[-1]))
+            ext = torch.cat([zero.expand(-1, -1, cin16), a,
+                             zero.expand(-1, -1, cin16)], 1)
+            pairs = [a] + [(ext[:, h - d:h - d + rows_t]
+                            + ext[:, h + d:h + d + rows_t]).to(
+                                torch.bfloat16).float()
+                           for d in range(1, h + 1)]
+            acc = torch.zeros(bsz, rows_t, taps.shape[2])
+            chunk = CHUNK_BF16 if li == 0 else cin16
+            for k0 in range(0, cin16, chunk):
+                for d in range(h + 1):
+                    for k in range(k0, min(k0 + chunk, cin16), 16):
+                        acc = acc + pairs[d][..., k:k + 16] @ taps[d, k:k + 16]
+            y = F.leaky_relu(acc + bias, 0.01)
+            rows = torch.arange(rows_t)
+            slot = t0 - pad + rows
+            keep = ((rows >= (li + 1) * h) & (rows < rows_t - (li + 1) * h)
+                    )[None] & (slot[None] >= 0) & (slot[None] < live_end)
+            a = torch.where(keep[..., None], y, torch.zeros_like(y)).to(
+                torch.bfloat16).float()
+        n = min(tile, n_exp - t0)
+        out[:, t0:t0 + n] = a[:, pad:pad + n].to(torch.bfloat16)
     return out

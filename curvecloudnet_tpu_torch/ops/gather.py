@@ -15,7 +15,11 @@ add nothing.  A bfloat16 src (a model computing in bfloat16) is gathered
 by :func:`gather_km_bf16`, rows of 2-byte elements, and its bfloat16
 cotangents are summed by :func:`scatter_km_bf16`: float32 sums, rounded
 to bfloat16 once, as the JAX package's ``_gather_bwd`` (f32 ``_collapse``
-and scatter, then ``astype`` the source dtype).
+and scatter, then ``astype`` the source dtype).  That kernel sums each
+source row's slots in ascending slot order over an inverse table (a
+counting sort of the slots by row), the order of the plain version's
+``scatter_add_``: :func:`inverse_table` and :func:`scatter_km_table` are
+its CPU model (the tests; nothing on the main path calls them).
 """
 
 from __future__ import annotations
@@ -112,23 +116,66 @@ def scatter_km(d_out, idx, n: int, fill: bool = True):
     return out
 
 
+def table_words(b: int, n: int, r: int) -> int:
+    """int32 words of :func:`scatter_km_bf16`'s table for B = b, N = n and
+    R = r slots a sample: the counts (padded to 4 words), the B N + 1 row
+    offsets, the placed slots and the ordered copy of segments past 32
+    slots (``csrc/gather.cu`` ``ccn_scatter_km_bf16``)."""
+    return -(-(b * n) // 4) * 4 + b * n + 1 + 2 * b * r
+
+
 def scatter_km_bf16(d_out, idx, n: int, fill: bool = True):
     """Kernel K4b's bfloat16 variant, CUDA tensors only: bfloat16
-    cotangents (B, K, Q, C) summed into a float32 scratch, then rounded
-    once -> (B, N, C) bfloat16."""
+    cotangents (B, K, Q, C) -> (B, N, C) bfloat16, each row's float32 sum
+    over its slots in ascending slot order, rounded once; no scratch of
+    sums and no atomics on them, so two runs give the same bits."""
     b, k, q, c = d_out.shape
     idx = _check_idx(idx)
     d_out = d_out.contiguous()
-    acc = torch.zeros((b, n, c), dtype=torch.float32, device=d_out.device)
+    tab = torch.empty(table_words(b, n, k * q), dtype=torch.int32,
+                      device=d_out.device)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=d_out.device)
     rc = _build.library().ccn_scatter_km_bf16(
         _build.ptr(d_out, torch.bfloat16, "d_out", 4),
         _build.ptr(idx, torch.int32, "idx", 3),
-        acc.data_ptr(), out.data_ptr(), b, n, k * q, c, int(fill),
+        tab.data_ptr(), out.data_ptr(), b, n, k * q, c, int(fill),
         _build.stream_ptr(d_out.device))
     _build.check(rc, "ccn_scatter_km_bf16")
     scatter_km_bf16.launches += 1
     return out
+
+
+def inverse_table(idx, n: int, fill: bool = True):
+    """The table K4b-bf16 sums over, on the CPU: (off (B N + 1,), slots)
+    with row b N + j's slots b R + s (idx[b, s] = j; -1 slots skipped with
+    ``fill``, else row 0) at slots[off[row]:off[row + 1]], ascending: a
+    counting sort (counts, an exclusive scan, a stable placement)."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).long().cpu()
+    r = flat.shape[1]
+    keep = flat >= 0 if fill else torch.ones_like(flat, dtype=torch.bool)
+    rows = (flat.clamp(min=0) + n * torch.arange(b)[:, None])[keep]
+    slots = (torch.arange(r) + r * torch.arange(b)[:, None])[keep]
+    off = torch.zeros(b * n + 1, dtype=torch.long)
+    off[1:] = torch.cumsum(torch.bincount(rows, minlength=b * n), 0)
+    # stable placement: a slot's place is its row's offset plus the number
+    # of that row's slots before it in slot order
+    return off, slots[torch.sort(rows, stable=True).indices]
+
+
+def scatter_km_table(d_out, idx, n: int, fill: bool = True):
+    """K4b-bf16's sums on the CPU: each row's float32 sum over
+    :func:`inverse_table`'s slots one after another from 0.0, rounded to
+    bfloat16 once -> (B, N, C)."""
+    b, c = d_out.shape[0], d_out.shape[-1]
+    off, slots = inverse_table(idx, n, fill)
+    rows = d_out.reshape(-1, c).float()
+    counts = off[1:] - off[:-1]
+    acc = torch.zeros(b * n, c)
+    for p in range(int(counts.max()) if counts.numel() else 0):
+        has = (counts > p).nonzero().squeeze(1)
+        acc[has] = acc[has] + rows[slots[off[has] + p]]
+    return acc.reshape(b, n, c).to(torch.bfloat16)
 
 
 gather_km.launches = 0

@@ -1,5 +1,6 @@
-"""K2-bf16 (or K7-bf16, ``--kernel k7``) of this checkout against another
-checkout's, in one process on one card (GPU).
+"""K2-bf16 (or K7-bf16, K11, K8-bf16 t, K1-bf16, K4b-bf16: ``--kernel``)
+of this checkout against another checkout's, in one process on one card
+(GPU).
 
 The other checkout (``--against DIR``: a source tree, for example the
 parent commit unpacked with ``git archive <commit> | tar -x -C DIR``) is
@@ -35,10 +36,19 @@ calls (phase 23's settings), the box and a ~10^5-face sphere at 2048,
 kernel and device ms in turns, bit for bit against the plain version and
 the other checkout's.  ``--kernel k8t``: K8-bf16's t pass on a nuScenes
 bfloat16 step's three calls, kernel and device ms in turns, held at phase
-21's 2^-7, two runs bit-identical, the float32 t pass beside it.  Run
-from the repository root::
+21's 2^-7, two runs bit-identical, the float32 t pass beside it.
+``--kernel k1b``: K1-bf16 on the nuScenes bfloat16 scans' step_31 calls
+(seeds 0-2), ``--kernel k4bb``: K4b-bf16 on a nuScenes bfloat16 step's
+calls; each in turns (other, this, this, other), kernel ms and device ms
+(CUDA events on a pre-filled stream, ``chip_smoke.device_span_ms``: every
+launch of the call, a zero fill included), the float32 twin on the same
+inputs (this checkout), the bound; K1-bf16 held at phase 20's bound (one
+bfloat16 ulp at the output's scale, under 1% of the elements differing),
+K4b-bf16 at phase 21's (2^-8), two runs bit-identical and equal bit for
+bit to its CPU model (``gather.scatter_km_table``).  Run from the
+repository root::
 
-    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR [--kernel k7|k11|k8t]
+    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR [--kernel k7|k11|k8t|k1b|k4bb]
 
 Prints a line per call and the totals.
 """
@@ -706,12 +716,161 @@ def main_k8t(dev) -> None:
           f"({tot['bound'] / tot['dt']:.1%} of this device ms)", flush=True)
 
 
+def _turns(other, this, reps=5):
+    """Kernel ms (events around the call) and device ms (events on a
+    pre-filled stream) of two callables in turns (other, this, this,
+    other) -> ((kernel other, this), (device other, this))."""
+    S = smoke()
+    runs = {"o": [], "t": []}
+    for who in "otto":
+        fn = other if who == "o" else this
+        runs[who].append((cuda_ms(fn, reps), S.device_span_ms(fn, reps)))
+    k = {w: [sum(x[j] for x in v) / 2 for j in range(2)]
+         for w, v in runs.items()}
+    return (k["o"][0], k["t"][0]), (k["o"][1], k["t"][1])
+
+
+def main_k1b(dev) -> None:
+    """``--kernel k1b``: the K1-bf16 calls of nuScenes bfloat16 scans
+    (step_31, seeds 0-2), the other checkout's wrapper against this one's
+    in turns; float32 K1 on the same inputs beside them; this checkout's
+    output held against the plain version (one bfloat16 ulp at
+    max(1, max |plain|), under 1% of the elements differing)."""
+    import importlib
+
+    from ..ops import conv1d_chain as C
+
+    O = importlib.import_module("other_ccn.ops.conv1d_chain")
+    S = smoke()
+    n_pad = 36864
+    model = P.build_model(bf16_config("nuscenes"), n_pad, dev)
+    tot = dict.fromkeys(("ko", "kt", "do", "dt", "f32", "bound"), 0.0)
+    n = 0
+    for seed in (0, 1, 2):
+        scan = P.synthetic_scan(seed, n_pad, dev)
+        calls = recorded(C, "conv1d_chain_eval_bf16",
+                         lambda: P.predict(model, *scan))
+        with torch.inference_mode():
+            for i, (a, kw) in enumerate(calls):
+                out = C.conv1d_chain_eval_bf16(*a, **kw)
+                ref = C.conv1d_chain_eval_ref(*a, **kw)
+                diff = (out.float() - ref.float()).abs()
+                scale = max(1.0, float(ref.float().abs().max()))
+                share = float((diff > 0).float().mean())
+                if not (float(diff.max()) <= S.bf16_ulp(scale)
+                        and share < S.BF16_FLIP_SHARE):
+                    raise SystemExit(f"K1-bf16 seed {seed} call {i}: max "
+                                     f"err {float(diff.max())} at scale "
+                                     f"{scale}, {share:.3%} differ")
+                other = O.conv1d_chain_eval_bf16(*a, **kw)
+                (ko, kt), (do, dt) = _turns(
+                    lambda: O.conv1d_chain_eval_bf16(*a, **kw),
+                    lambda: C.conv1d_chain_eval_bf16(*a, **kw))
+                x32 = a[0].float()
+                f32 = S.device_span_ms(
+                    lambda: C.conv1d_chain_eval(x32, *a[1:], **kw), 5)
+                same32 = torch.equal(C.conv1d_chain_eval(x32, *a[1:], **kw),
+                                     O.conv1d_chain_eval(x32, *a[1:], **kw))
+                byts, flops = S.work("conv1d_chain_bf16", a, out)
+                bound = max(byts / S.PEAK_BYTES, flops / S.PEAK_BF16) * 1e3
+                for key, v in zip(tot, (ko, kt, do, dt, f32, bound)):
+                    tot[key] += v
+                n += 1
+                print(f"K1-bf16 seed {seed} call {i} (xe "
+                      f"{tuple(a[0].shape)}, used {a[2].tolist()}): kernel "
+                      f"ms other {ko:.4f} this {kt:.4f}; device ms other "
+                      f"{do:.4f} this {dt:.4f} ({dt / do:.3f}x); float32 "
+                      f"K1 device ms {f32:.4f}; bound {bound:.4f} ms "
+                      f"({bound / dt:.1%}); error {float(diff.max()):.3g} "
+                      f"at scale {scale:.3g}, {share:.3%} of elements "
+                      f"differ from plain; {int((out != other).sum())} "
+                      "differ from the other checkout's; float32 K1 on "
+                      f"them bit-identical to the other's: {same32}",
+                      flush=True)
+    print(f"K1-bf16, {n} calls (a scan each): kernel ms other "
+          f"{tot['ko'] / n:.4f} this {tot['kt'] / n:.4f}; device ms other "
+          f"{tot['do'] / n:.4f} this {tot['dt'] / n:.4f} a scan "
+          f"({tot['dt'] / tot['do']:.3f}x); float32 K1 "
+          f"{tot['f32'] / n:.4f}; bound {tot['bound'] / n:.4f} ms",
+          flush=True)
+
+
+def main_k4bb(dev) -> None:
+    """``--kernel k4bb``: the K4b-bf16 calls of a nuScenes bfloat16 train
+    step (seed 0), the other checkout's wrapper against this one's in
+    turns; float32 K4b on the same inputs beside them; this checkout's
+    output held against the plain version at phase 21's 2^-8, run twice
+    bit for bit and equal to its CPU model (the inverse table's order)."""
+    import importlib
+
+    from ..ops import gather as K
+    from ..train.__main__ import setup
+    from ..train.trainer import train_step
+
+    O = importlib.import_module("other_ccn.ops.gather")
+    S = smoke()
+    model, opt, _, loss_cfg, batch, gen = setup(bf16_config("nuscenes"), dev,
+                                                0)
+    calls, fwd = [], []
+    fn, gfn = K.scatter_km_bf16, K.gather_km_bf16
+
+    def wrapped(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    def gathered(*args, **kwargs):
+        fwd.append((args, kwargs))
+        return gfn(*args, **kwargs)
+
+    wrapped.launches = gathered.launches = 0
+    K.scatter_km_bf16, K.gather_km_bf16 = wrapped, gathered
+    try:
+        train_step(model, opt, 0.0, batch, gen, 0.1, loss_cfg)
+        torch.cuda.synchronize()
+    finally:
+        K.scatter_km_bf16, K.gather_km_bf16 = fn, gfn
+    tot = dict.fromkeys(("ko", "kt", "do", "dt", "f32", "bound"), 0.0)
+    torch.set_grad_enabled(False)
+    equal = sum(torch.equal(K.gather_km_bf16(*a, **kw),
+                            O.gather_km_bf16(*a, **kw)) for a, kw in fwd)
+    print(f"K4-bf16 (the step's forward gathers): this tree's outputs "
+          f"bit-identical to the other's at {equal} of {len(fwd)} calls",
+          flush=True)
+    for i, (a, kw) in enumerate(calls):
+        out = K.scatter_km_bf16(*a, **kw)
+        err = S._bf16_max("scatter_bf16", out, K.scatter_km_ref(*a, **kw),
+                          2.0 ** -8)
+        if not torch.equal(out, K.scatter_km_bf16(*a, **kw)):
+            raise SystemExit(f"K4b-bf16 call {i}: two runs differ")
+        model_out = K.scatter_km_table(a[0].cpu(), a[1].cpu(), *a[2:], **kw)
+        if not torch.equal(out.cpu(), model_out):
+            raise SystemExit(f"K4b-bf16 call {i}: not the CPU model's sums")
+        (ko, kt), (do, dt) = _turns(lambda: O.scatter_km_bf16(*a, **kw),
+                                    lambda: K.scatter_km_bf16(*a, **kw))
+        d32 = a[0].float()
+        f32 = S.device_span_ms(lambda: K.scatter_km(d32, *a[1:], **kw), 5)
+        byts, _ = S.work("scatter_bf16", a, out)
+        bound = byts / S.PEAK_BYTES * 1e3
+        for key, v in zip(tot, (ko, kt, do, dt, f32, bound)):
+            tot[key] += v
+        print(f"K4b-bf16 call {i} (d_out {tuple(a[0].shape)}, n {a[2]}): "
+              f"kernel ms other {ko:.4f} this {kt:.4f}; device ms other "
+              f"{do:.4f} this {dt:.4f}; float32 K4b device ms {f32:.4f}; "
+              f"bound {bound:.4f} ms; error {err:.3g}; two runs "
+              "bit-identical, equal to the CPU model", flush=True)
+    print(f"K4b-bf16, a step's {len(calls)} calls: kernel ms other "
+          f"{tot['ko']:.4f} this {tot['kt']:.4f}; device ms other "
+          f"{tot['do']:.4f} this {tot['dt']:.4f} ({tot['dt'] / tot['do']:.3f}"
+          f"x); float32 K4b {tot['f32']:.4f}; bound {tot['bound']:.4f} ms "
+          f"({tot['bound'] / tot['dt']:.1%} of this device ms)", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True,
                     help="another checkout's root (its own kernels)")
     ap.add_argument("--kernel", default="k2",
-                    choices=("k2", "k7", "k11", "k8t"))
+                    choices=("k2", "k7", "k11", "k8t", "k1b", "k4bb"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_bf16_compare: needs a CUDA device")
@@ -729,6 +888,12 @@ def main(argv=None) -> None:
         return
     if args.kernel == "k8t":
         main_k8t(dev)
+        return
+    if args.kernel == "k1b":
+        main_k1b(dev)
+        return
+    if args.kernel == "k4bb":
+        main_k4bb(dev)
         return
     # the other checkout's K2-bf16: its own kernel, or (before it had one)
     # the chain kernel it shared with float32 K2

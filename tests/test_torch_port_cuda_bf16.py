@@ -1,5 +1,5 @@
-"""The bfloat16 variants of K1, K2, K4 and K9 against their plain versions,
-on the card (a model with ``compute_dtype: bfloat16``).
+"""The bfloat16 variants of K1, K2, K4, K4b and K9 against their plain
+versions, on the card (a model with ``compute_dtype: bfloat16``).
 
 A CUDA kernel has no CPU mode, so these tests skip without a GPU; with
 one (and nvcc)::
@@ -12,9 +12,12 @@ K2's output is f32 and its inter-layer roundings move it by far less than
 a bfloat16 rounding: 2^-8 of max(1, max |plain|).  K1 rounds every layer's
 output to bfloat16, where a sum-order difference flips a rounding now and
 then: one bfloat16 ulp at max(1, max |plain|), and under 1% of the
-elements differing at all.  K9 computes in f32 on bfloat16 rows: 1e-4 of
-the largest value other than the -100 fill, as in f32.  K4 copies rows:
-equal.  A narrow flagship in bfloat16 on the card: logits within the plain
+elements differing at all; the same against its CPU model
+(``ops/conv_tc.chain_eval_model_bf16``).  K4b's bfloat16 variant sums each
+row in ascending slot order: bit for bit its CPU model
+(``gather.scatter_km_table``), on every run.  K9 computes in f32 on
+bfloat16 rows: 1e-4 of the largest value other than the -100 fill, as in
+f32.  K4 copies rows: equal.  A narrow flagship in bfloat16 on the card: logits within the plain
 path's own bfloat16-vs-float32 gap of the plain path's, and the per-step
 dtypes of the CPU path.
 """
@@ -27,8 +30,8 @@ import yaml
 
 from curvecloudnet_tpu_torch import predict
 from curvecloudnet_tpu_torch.config import load_config
-from curvecloudnet_tpu_torch.ops import (conv1d_chain, edge_mlp, gather,
-                                         group_reduce)
+from curvecloudnet_tpu_torch.ops import (conv1d_chain, conv_tc, edge_mlp,
+                                         gather, group_reduce)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -53,11 +56,16 @@ def _scale(ref):
 
 
 # the main path's step_31 (C0 262, h 2, three layers of 32; at the
-# nuScenes sweep's size too), a ragged width and a wide layer
+# nuScenes sweep's size too), a ragged width and a wide layer; 16-byte
+# input copies (C0 64); taps staged a layer at a time (three 128-wide
+# layers at h 3 do not fit at once); one layer at h 4
 CHAIN_CASES = [(262, (32, 32, 32), 2, 3000, [2900, 1700]),
                (262, (32, 32, 32), 2, 49164, [30000, 49164]),
                (5, (16, 24), 1, 3000, [0, 119]),
-               (40, (128, 72), 2, 1000, [700, 1000])]
+               (40, (128, 72), 2, 1000, [700, 1000]),
+               (64, (32, 32), 2, 2000, [2000, 1333]),
+               (16, (128, 128, 128), 3, 1500, [1500, 900]),
+               (100, (128,), 4, 700, [650, 700])]
 
 
 @pytest.mark.parametrize("c0,dims,h,n_exp,used", CHAIN_CASES)
@@ -83,6 +91,12 @@ def test_conv1d_chain_bf16_kernel(dev, c0, dims, h, n_exp, used):
     # the live mask: slots past ``used`` are 0
     for b, u in enumerate(used):
         assert bool((got[b, u:] == 0).all())
+    if n_exp <= 3000:   # the CPU model of the kernel's order of sums
+        model = conv_tc.chain_eval_model_bf16(
+            xe, weights, torch.tensor(used), h).float()
+        diff = (got.float().cpu() - model).abs()
+        assert float(diff.max()) <= bf16_ulp(_scale(model))
+        assert float((diff > 0).float().mean()) < 0.01
 
 
 # (aggregation, K, local widths, attention widths, live share, M or (B,
@@ -274,6 +288,28 @@ def _l2_all(outs, tol):
         gap = float((want.float() - w32.float()).norm()) / scale
         assert bool(torch.isfinite(got.float()).all()) and \
             rel <= tol + 2 * gap, (i, rel, gap)
+
+
+@pytest.mark.parametrize("c,fill,hub", [(64, True, False),
+                                        (35, False, False),
+                                        (128, True, True), (24, False, True)])
+def test_scatter_bf16_kernel_is_its_model(dev, c, fill, hub):
+    """Each row's sum in ascending slot order: the CPU model's bits (its
+    order is plain ``scatter_add_``'s on the CPU), the same on a second
+    run; a row named by every query of a plane (hub) takes the ranked
+    path (segments past 32 slots)."""
+    g = torch.Generator().manual_seed(6)
+    b, n, k = 2, 3000, 21
+    d_out = torch.randn(b, k, n, c, generator=g).to(torch.bfloat16)
+    idx = torch.randint(-1, n, (b, k, n), generator=g, dtype=torch.int32)
+    if hub:
+        idx[:, 3] = 17
+    got = gather.scatter_km(d_out.to(dev), idx.to(dev), n, fill)
+    assert torch.equal(got, gather.scatter_km(d_out.to(dev), idx.to(dev), n,
+                                              fill))
+    assert torch.equal(got.cpu(), gather.scatter_km_table(d_out, idx, n,
+                                                          fill))
+    assert torch.equal(got.cpu(), gather.scatter_km_ref(d_out, idx, n, fill))
 
 
 @pytest.mark.parametrize("c,fill", [(64, True), (35, False)])
