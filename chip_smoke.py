@@ -615,12 +615,15 @@ BF16_COUNTED = [(name, mod, wrapper) for name, mod, wrapper, *_ in
     ("gather_bf16", "gather", "gather_km_bf16"),
     ("conv1d_chain_bf16", "conv1d_chain", "conv1d_chain_eval_bf16"),
     ("group_reduce_bf16", "group_reduce", "group_reduce_bf16")]
-# the operations' peak rate of each kernel's bound (FP32 where not listed)
+# the operations' peak rate of each kernel's bound (FP32 where not listed;
+# K9 runs its products in 3xTF32 on the tensor cores: three TF32 products
+# a multiply-add, the 3xTF32 floor)
 OPS_PEAK = {"conv1d_chain_bf16": PEAK_BF16, "group_reduce_bf16": PEAK_BF16,
             "conv1d_train_fwd_bf16": PEAK_BF16,
             "conv1d_train_t_bf16": PEAK_BF16,
             "group_train_fwd_bf16": PEAK_BF16,
-            "group_train_bwd_bf16": PEAK_BF16}
+            "group_train_bwd_bf16": PEAK_BF16,
+            "edge_mlp": PEAK_TF32 / 3, "edge_mlp_bf16": PEAK_TF32 / 3}
 
 
 def options_model(model_cfg, arclen=OPTIONS_ARCLEN):
@@ -1600,6 +1603,36 @@ def device_span_ms(fn, reps=3):
     return sorted(times)[len(times) // 2]
 
 
+def k9_device(label, E, calls, bf16=False):
+    """Each recorded K9 call's device ms (:func:`device_span_ms`): the
+    whole call and its pack and projection alone (``E.projection``, the
+    same two launches), the chain the rest; with ``bf16`` each call is
+    checked equal bit for bit to float32 K9 on the widened rows -> the
+    calls' device ms."""
+    import torch
+
+    whole = []
+    with torch.no_grad():
+        for i, (args, kwargs, _) in enumerate(calls):
+            if bf16 and not torch.equal(
+                    E._launch(*args, **kwargs),
+                    E._launch(args[0].float(), *args[1:], **kwargs)):
+                raise AssertionError(f"{label} K9-bf16 call {i}: not float32 "
+                                     "K9's output on the widened rows")
+            t = device_span_ms(lambda a=args, k=kwargs: E._launch(*a, **k))
+            proj = device_span_ms(lambda a=args: E.projection(
+                a[0], *a[2:4]))
+            whole.append(t)
+            log(f"  {label} K9 call {i} (x {tuple(args[0].shape)} "
+                f"{args[0].dtype}, widths "
+                f"{[w.shape[1] for w in args[2]]}): device ms {t:.4f} "
+                f"(pack + projection {proj:.4f}, chain {t - proj:.4f})"
+                + ("; equal to float32 K9 on the widened rows" if bf16
+                   else ""))
+    log(f"{label} K9: {len(whole)} calls, device ms {sum(whole):.4f}")
+    return whole
+
+
 def cdist_topk(query, points, q_valid, p_valid, k, radius):
     """The same search in PyTorch calls (no single call computes it):
     ``torch.cdist``, the invalid points and those past the radius masked,
@@ -2031,6 +2064,7 @@ def run_fused(P, mods, dev, kernel_launches, scan0, group_logits, valid0,
     k9_ms = {}
     report = measure(held, mods, calls, train=False, per_call=k9_ms)
     k2_err = report.pop("group_reduce")["max_abs_err"]
+    k9_device("nuScenes fused", mods["edge_mlp"], calls["edge_mlp"])
     # each admitted step's K9 call beside the same step's K4 and K2 calls
     # of the group route (phase 3), matched by order of the steps
     steps = model.spec.steps
@@ -3687,6 +3721,8 @@ def run_bf16(P, mods, dev, kernel_launches):
                                 if k[0] == "group_reduce_bf16"]
     calls, _ = capture(held, mods, lambda: P.predict(fused, *scans[0]))
     report.update(measure(EDGE_BF16_KERNELS, mods, calls, train=False))
+    k9_device("nuScenes bf16 fused", mods["edge_mlp"],
+              calls["edge_mlp_bf16"], bf16=True)
     errs = hold("bf16_fused", held[1:], mods, calls)
     del calls, fused, model, scans
 
@@ -3932,6 +3968,23 @@ def run_bf16_train(P, mods, dev, kernel_launches):
         f" ({sum(t16):.4f} a step), float32 t pass on the same inputs "
         f"{[round(t, 4) for t in t32]} ({sum(t32):.4f}); two runs of each "
         "call bit-identical")
+    # K8-bf16's forward: the same (held at 2^-8 by measure above), and two
+    # runs of each call bit for bit (fixed-order moments, no atomics)
+    w16, w32 = [], []
+    with torch.no_grad():
+        for i, (args, kwargs, _) in enumerate(calls["conv1d_train_fwd_bf16"]):
+            fn = (lambda a=args, k=kwargs: k8.conv1d_train_fwd_layer_bf16(
+                *a, **k))
+            if not all(torch.equal(a, b) for a, b in zip(fn(), fn())):
+                raise AssertionError(f"conv1d_train_fwd_bf16 call {i}: two "
+                                     "runs differ")
+            w16.append(device_span_ms(fn))
+            w32.append(device_span_ms(f32_twin("conv1d_train_fwd_bf16",
+                                               args, kwargs, mods)))
+    log(f"conv1d_train_fwd_bf16 device ms a call "
+        f"{[round(t, 4) for t in w16]} ({sum(w16):.4f} a step), float32 "
+        f"forward on the same inputs {[round(t, 4) for t in w32]} "
+        f"({sum(w32):.4f}); two runs of each call bit-identical")
     # K4b-bf16: the same, and two runs of each call bit for bit (each
     # row's sum in ascending slot order over the inverse table)
     gk = mods["gather"]

@@ -687,10 +687,35 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdw_kernel(
 // mma.sync m16n8k16 a 16-deep step (cb_taps in conv_tc.cuh, K1's bfloat16
 // routine).  Layer 1 reads xe as bfloat16; later layers read the f32 z of
 // the layer before and round u = leaky(BN(z)) * m as they stage it.
-//  * forward: a block's CV_ROWS slots (a tile of CV_ROWS - 2h and its
-//    halo) as bfloat16 rows in shared memory, KCH input channels at a
-//    time, times the taps packed as bfloat16 pairs; z = acc + b (f32),
-//    then the tile's (count, mean, M2) as the f32 kernel takes them;
+//  * forward (K8-bf16 fwd): replaces pallas_conv1d._run_fwd_layer's
+//    pallas_call (:407) on a bfloat16 xe.  Bound on the H100: bytes (the
+//    nuScenes step_31 layer 1 reads ~26 MB of the 262-wide xe; layers 2-3
+//    read and write ~6.3 MB of f32 z each: ~0.017 ms for the three), the
+//    products at the bfloat16 rate far below.  Design (K1-bf16's, conv1d_chain.cu,
+//    with one layer a call and z out):
+//    - the taps and the bias are packed once a call
+//      (conv1d_train_pack_fwd_bf16_kernel) into the image cb1_taps reads,
+//      from the f32 W as the caller holds it; a block copies the taps in
+//      once (cp.async) and keeps them resident, or, past the shared
+//      memory, a 64-column chunk's taps at a time;
+//    - persistent blocks of 2 x rows threads (rows 256, or 128 where the
+//      buffers do not fit) walk the tiles of rows - 2h slots; the input
+//      streams through a cp.async ring of CB_KC-column chunks (a 2-, 8- or
+//      16-byte copy a thread, zero-filled outside [0, n_exp)), the next
+//      tile's first chunks prefetched under this tile's epilogue; a
+//      bfloat16 xe is read from the ring as it lies; an f32 z_prev lands
+//      raw and is turned once an element into u = leaky(BN(z)) * m,
+//      rounded to bfloat16, with the BN vectors in shared memory once a
+//      block;
+//    - pairs u(q-d) + u(q+d) by add.rn.bf16x2, one mma.sync m16n8k16 a
+//      16-deep step (cb1_taps);
+//    - z = acc + b is staged in shared memory once: 16-byte stores of the
+//      tile's rows (one contiguous run of z) and, from the same stage,
+//      the tile's (count, mean, M2) over 16-row groups (two passes within
+//      a group, groups combined in order by Chan's formula); the partial
+//      rows are combined in a fixed order by conv1d_train_moments_kernel
+//      (a combine by the last block to finish read ~5 us slower a call):
+//      no atomics.
 //  * t pass (K8-bf16 t): W^T's taps are packed once a call into
 //    bfloat16 pair images, a column chunk after another
 //    (conv1d_train_pack_wt_bf16_kernel), which blocks copy into shared
@@ -715,8 +740,6 @@ __global__ void __launch_bounds__(CV_THREADS, 2) conv1d_train_tdw_kernel(
 // Bound on the H100: the window products at the bfloat16 rate (989
 // TFLOP/s) and the bytes of z_prev / xe, dz and d_u_prev.
 
-#define KCH 64  // input channels a forward stage
-
 // a bfloat16 row buffer c wide: row stride in halves, 8 mod 64
 __host__ __device__ __forceinline__ int bf_ld(int c) {
   return ((c + 63) & ~63) + 8;
@@ -732,92 +755,250 @@ __device__ __forceinline__ float load_el(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// u at slot g, channel c of one sample's rows src (C wide, float or
-// bfloat16 TP); 0 outside [0, n_exp)
-template <class TP>
-__device__ __forceinline__ float u_at_t(const TP* src, const Vecs& bn, int g,
-                                        int c, int C, int n_exp,
-                                        int live_end) {
-  if (g < 0 || g >= n_exp) return 0.f;
-  return u_of(load_f32(src + (size_t)g * C + c), bn, g, c, live_end);
-}
+// K8-bf16's forward.  The launch's plan (ops/conv1d_train.py
+// plan_fwd_bf16, which packs these fields in this order); byte offsets of
+// the shared-memory parts, each 16-byte aligned: the taps at 0, then the
+// input ring, the bfloat16 u stage (f32 input only), the z stage, the BN
+// vectors (f32 input only), the moments' scratch.
+struct FbPlan {
+  int rows;        // slots a block (256 or 128; 2 rows threads)
+  int stages;      // chunks of the input ring (2 .. FB_MAX_STAGES)
+  int resident;    // 1: every chunk's taps stay in shared memory
+  int taps_words;  // shared words of the taps (all, or one chunk's)
+  int kp, ldn;     // the image's tap layout (cb1_taps): rows a tap / 2, stride
+  int ldz;         // the z stage's row stride in floats
+  int bias_off;    // the image's words before the bias
+  int img_words;   // the image's words
+  int ring_off, a_off, z_off, bn_off, mom_off, smem;
+};
 
-// Taps d = 0..h of a row-major ((h+1) K, N) matrix M (tap d's rows d K..),
-// rows k0 .. k0 + kc - 1 of each, columns n0 .. n0 + ncols - 1, packed as
-// bfloat16 pairs for cb_taps: word (d kp + k/2) ldn + n holds rows k, k + 1
-// (rounded to nearest even; 0 past K, kc and ncols); kp = kc rounded to 16,
-// halved.
-__device__ __forceinline__ void pack_taps(uint32_t* Wt, const float* M, int K,
-                                          int N, int h, int k0, int kc,
-                                          int n0, int ncols, int kp,
-                                          int ldn) {
-  const int np = ldn - 8;
-  for (int i = threadIdx.x; i < (h + 1) * kp * np; i += CV_THREADS) {
-    const int n = i % np, row = i / np;
-    const int d = row / kp, k = 2 * (row - d * kp);
-    float lo = 0.f, hi = 0.f;
-    if (n < ncols) {
-      const float* m = M + ((size_t)d * K + k0 + k) * N + n0 + n;
-      if (k < kc && k0 + k < K) lo = __ldg(m);
-      if (k + 1 < kc && k0 + k + 1 < K) hi = __ldg(m + N);
+#define FB_MAX_STAGES 4
+#define FB_LDF (CB_KC + 4)  // an f32 ring row's stride in floats (272 B)
+
+// W ((h+1) cin, cout) f32 and b (cout) -> the image: word (d kp + k/2) ldn
+// + n holds W[d cin + k][n] (low half) and W[d cin + k + 1][n] (high half)
+// rounded to bfloat16 (nearest even; 0 past cin and cout), then the bias
+// as float bits at bias_off (0 past cout)
+__global__ void conv1d_train_pack_fwd_bf16_kernel(
+    const float* __restrict__ w, const float* __restrict__ bias,
+    uint32_t* __restrict__ img, int cin, int cout, int h, FbPlan p) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < p.img_words;
+       i += gridDim.x * blockDim.x) {
+    uint32_t v = 0u;
+    if (i < p.bias_off) {
+      const int row = i / p.ldn, n = i - row * p.ldn;
+      const int d = row / p.kp, k = 2 * (row - d * p.kp);
+      float lo = 0.f, hi = 0.f;
+      if (n < cout) {
+        const float* m = w + ((size_t)d * cin + k) * cout + n;
+        if (k < cin) lo = __ldg(m);
+        if (k + 1 < cin) hi = __ldg(m + cout);
+      }
+      v = pack_bf16(lo, hi);
+    } else if (i - p.bias_off < cout) {
+      v = __float_as_uint(__ldg(bias + i - p.bias_off));
     }
-    Wt[(size_t)row * ldn + n] = pack_bf16(lo, hi);
+    img[i] = v;
   }
 }
 
-template <int NT, class TP>
-__global__ void __launch_bounds__(CV_THREADS, 1) conv1d_train_fwd_bf16_kernel(
-    const TP* __restrict__ zp, Vecs bnp, const float* __restrict__ w,
-    const float* __restrict__ bias, const int* __restrict__ used,
-    float* __restrict__ z, float* __restrict__ parts, int n_exp, int cin,
-    int cout, int h, int a_words) {
-  constexpr int NP = 8 * NT, LDN = NP + 8, LDA = KCH + 8;
-  constexpr int KP = KCH / 2;
+// the plan's shared memory holds its parts in order, 16-byte aligned
+static bool fb_fits(const FbPlan& p, int bf, int cin, int cout, int h) {
+  const int rows = p.rows, tile = rows - 2 * h;
+  const int ring = p.stages * rows * (bf ? CB_LDK * 2 : FB_LDF * 4);
+  const int chunk_taps = (h + 1) * (CB_KC / 2) * p.ldn;
+  return (rows == 128 || rows == 256) && tile >= 1 && p.stages >= 2 &&
+         p.stages <= FB_MAX_STAGES && p.kp == ((cin + 15) & ~15) / 2 &&
+         p.ldn >= ((cout + 7) & ~7) + 8 && p.ldn % 4 == 0 &&
+         p.ldz >= cout && p.ldz % 4 == 0 && p.bias_off == (h + 1) * p.kp * p.ldn &&
+         p.img_words >= p.bias_off + cout &&
+         p.taps_words == (p.resident ? p.bias_off : chunk_taps) &&
+         p.taps_words % 4 == 0 &&
+         p.ring_off >= p.taps_words * 4 && p.a_off >= p.ring_off + ring &&
+         p.z_off >= p.a_off + (bf ? 0 : rows * CB_LDK * 2) &&
+         p.bn_off >= p.z_off + tile * p.ldz * 4 &&
+         p.mom_off >= p.bn_off + (bf ? 0 : 16 * cin) &&
+         p.smem >= p.mom_off + 2 * (rows / 16) * cout * 4 &&
+         p.smem <= 232448 && p.ring_off % 16 == 0 && p.a_off % 16 == 0 &&
+         p.z_off % 16 == 0 && p.bn_off % 16 == 0 && p.mom_off % 16 == 0;
+}
+
+// Persistent blocks (2 ROWS threads) over the B x ceil(n_exp / tile)
+// tiles of tile = ROWS - 2h slots; a block's rows are its tile and the
+// h-slot halo each side.  TP: unsigned short (xe's bfloat16 bits, read
+// from the ring as they are) or float (a previous layer's z, turned into
+// u = leaky(BN(z)) * m rounded to bfloat16 in the u stage).
+template <int NT, int ROWS, class TP>
+__global__ void __launch_bounds__(2 * ROWS, 1) conv1d_train_fwd_bf16_kernel(
+    const TP* __restrict__ zp, Vecs bnp, const uint32_t* __restrict__ img,
+    const int* __restrict__ used, float* __restrict__ z,
+    float* __restrict__ parts, int B, int n_exp, int cin, int cout, int h,
+    int unit, int zvec, FbPlan p) {
+  constexpr bool BF = sizeof(TP) == 2;
+  constexpr int LDR = BF ? CB_LDK : FB_LDF;  // ring row stride, elements
+  constexpr int NTH = 2 * ROWS, G = ROWS / 16;
   extern __shared__ float4 fb_sm4[];
-  unsigned short* A = reinterpret_cast<unsigned short*>(fb_sm4);
-  float* zt = reinterpret_cast<float*>(fb_sm4);  // over A, after the product
-  uint32_t* Wt = reinterpret_cast<uint32_t*>(fb_sm4) + a_words;
-  const int b = blockIdx.y;
-  const int tile = CV_ROWS - 2 * h, t0 = blockIdx.x * tile;
-  const int base = t0 - h;  // slot of block row 0
-  const int live_end = min(used[b], n_exp);
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const TP* src = zp + (size_t)b * n_exp * cin;
-  const int nt = (cout + 7) >> 3;
-  float acc[NT][4];
-  zero_acc<NT>(acc);
-  for (int c0 = 0; c0 < cin; c0 += KCH) {
-    const int kc = min(KCH, cin - c0);
-    for (int i = threadIdx.x; i < CV_ROWS * KCH; i += CV_THREADS) {
-      const int r = i / KCH, c = i - r * KCH;
-      A[r * LDA + c] =
-          c < kc ? bf16_bits(u_at_t(src, bnp, base + r, c0 + c, cin, n_exp,
-                                    live_end))
-                 : (unsigned short)0;
+  char* sm = reinterpret_cast<char*>(fb_sm4);
+  uint32_t* Wsm = reinterpret_cast<uint32_t*>(sm);
+  TP* ring = reinterpret_cast<TP*>(sm + p.ring_off);
+  unsigned short* U = reinterpret_cast<unsigned short*>(sm + p.a_off);
+  float* zs = reinterpret_cast<float*>(sm + p.z_off);
+  float* bnv = reinterpret_cast<float*>(sm + p.bn_off);
+  float* mom = reinterpret_cast<float*>(sm + p.mom_off);
+  const float* fbias = reinterpret_cast<const float*>(img) + p.bias_off;
+  const int stage = ROWS * LDR, tile = ROWS - 2 * h;
+  const int tps = (n_exp + tile - 1) / tile, n_tiles = B * tps;
+  const int nch = (cin + CB_KC - 1) / CB_KC;
+  const int r0 = (threadIdx.x >> 5) * 16, nt = (cout + 7) >> 3;
+  const bool has_bn = bnp.v[0] != nullptr;
+
+  auto prologue = [&](int ti) {  // chunks 0 .. stages - 2 of tile ti
+    const int b = ti / tps, base = (ti - b * tps) * tile - h;
+    for (int c = 0; c < p.stages - 1; ++c) {
+      if (c < nch)
+        cb_issue<ROWS, TP, LDR>(ring + c * stage,
+                                zp + (size_t)b * n_exp * cin, base, n_exp,
+                                cin, c * CB_KC, unit);
+      cp_async_commit();
     }
-    pack_taps(Wt, w, cin, cout, h, c0, kc, 0, cout, KP, LDN);
+  };
+  if (p.resident) cb_copy(Wsm, img, p.taps_words / 4);
+  if (!BF && has_bn)
+    for (int i = threadIdx.x; i < 4 * cin; i += NTH)
+      bnv[i] = __ldg(bnp.v[i / cin] + i % cin);
+  bool prefetched = false;
+  for (int ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
+    const int b = ti / tps, t0 = (ti - b * tps) * tile, base = t0 - h;
+    const int live_end = min(__ldg(used + b), n_exp);
+    const TP* xb = zp + (size_t)b * n_exp * cin;
+    if (!prefetched) prologue(ti);
+    float acc[NT][4];
+    zero_acc<NT>(acc);
+    for (int c = 0; c < nch; ++c) {
+      cb_wait_ring(p.stages);
+      __syncthreads();  // chunk c landed; every warp is done with c - 1
+      const int cn = c + p.stages - 1;
+      if (cn < nch)
+        cb_issue<ROWS, TP, LDR>(ring + (cn % p.stages) * stage, xb, base,
+                                n_exp, cin, cn * CB_KC, unit);
+      cp_async_commit();
+      const int k0 = c * CB_KC, kc = min(CB_KC, cin - k0);
+      const uint32_t* W = Wsm + (k0 / 2) * p.ldn;
+      int kp = p.kp;
+      const unsigned short* A;
+      if constexpr (BF) {
+        A = reinterpret_cast<const unsigned short*>(ring +
+                                                    (c % p.stages) * stage);
+      } else {
+        // u of the chunk's rows, rounded to bfloat16 once an element (0
+        // outside [0, n_exp) and past cin; past the live slots too when
+        // there is a previous BN)
+        const float* R = ring + (c % p.stages) * stage;
+        for (int i = threadIdx.x; i < ROWS * (CB_KC / 4); i += NTH) {
+          const int r = i / (CB_KC / 4), c4 = (i - r * (CB_KC / 4)) * 4;
+          const int gs = base + r;
+          const float4 v = *reinterpret_cast<const float4*>(R + r * LDR + c4);
+          const float e[4] = {v.x, v.y, v.z, v.w};
+          float u[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ch = k0 + c4 + j;
+            float x = e[j];
+            if (has_bn && ch < cin) {
+              const float xh =
+                  __fmul_rn(__fsub_rn(x, bnv[ch]), bnv[cin + ch]);
+              const float y =
+                  __fadd_rn(__fmul_rn(xh, bnv[2 * cin + ch]), bnv[3 * cin + ch]);
+              x = gs < live_end ? leaky(y) : 0.f;
+            }
+            u[j] = gs >= 0 && gs < n_exp && ch < cin ? x : 0.f;
+          }
+          *reinterpret_cast<uint2*>(U + r * CB_LDK + c4) =
+              make_uint2(pack_bf16(u[0], u[1]), pack_bf16(u[2], u[3]));
+        }
+        A = U;
+      }
+      if (!p.resident) {  // this chunk's taps: (h+1) runs of kc rows
+        const int rows2 = min(CB_KC / 2, kp - k0 / 2) * p.ldn / 4;
+        for (int d = 0; d <= h; ++d)
+          for (int i = threadIdx.x; i < rows2; i += NTH)
+            cp_async16(Wsm + (d * (CB_KC / 2)) * p.ldn + 4 * i,
+                       img + ((size_t)d * kp + k0 / 2) * p.ldn + 4 * i);
+        cp_async_commit();
+        cp_async_wait<0>();
+        W = Wsm;
+        kp = CB_KC / 2;
+      }
+      if (!BF || !p.resident) __syncthreads();
+      cb1_taps<NT, ROWS>(acc, A, CB_LDK, r0, W, kp, p.ldn, kc, h, nt);
+    }
+    __syncthreads();  // the ring and the u stage are free
+    prefetched = ti + (int)gridDim.x < n_tiles;
+    if (prefetched) prologue(ti + gridDim.x);
+    // z = acc + b at the tile's rows (block rows h .. h + tile - 1)
+    {
+      const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + 2 * t;
+        if (j >= nt || n >= cout) continue;
+        const float b0 = __ldg(fbias + n);
+        const float b1 = n + 1 < cout ? __ldg(fbias + n + 1) : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh - h;
+          if (r < 0 || r >= tile) continue;
+          zs[r * p.ldz + n] = acc[j][2 * hh] + b0;
+          if (n + 1 < cout) zs[r * p.ldz + n + 1] = acc[j][2 * hh + 1] + b1;
+        }
+      }
+    }
     __syncthreads();
-    cb_taps<NT>(acc, A, LDA, r0, Wt, KP, LDN, kc, h, nt);
+    // the tile's rows out (one contiguous run of z), and from the same
+    // stage the moments of each 16-row group over the live slots
+    const int n_out = min(tile, n_exp - t0);
+    const int cnt = max(0, min(t0 + tile, live_end) - t0);
+    float* zo = z + ((size_t)b * n_exp + t0) * cout;
+    if (zvec) {
+      const int w4 = cout / 4;
+      for (int i = threadIdx.x; i < n_out * w4; i += NTH) {
+        const int r = i / w4;
+        *reinterpret_cast<float4*>(zo + (size_t)i * 4) =
+            *reinterpret_cast<const float4*>(zs + r * p.ldz + (i - r * w4) * 4);
+      }
+    } else {
+      for (int i = threadIdx.x; i < n_out * cout; i += NTH) {
+        const int r = i / cout;
+        zo[i] = zs[r * p.ldz + i - r * cout];
+      }
+    }
+    for (int i = threadIdx.x; i < G * cout; i += NTH) {
+      const int k = i / cout, co = i - k * cout;
+      const int ra = 16 * k, rb = min(ra + 16, cnt);
+      float sum = 0.f;
+      for (int r = ra; r < rb; ++r) sum += zs[r * p.ldz + co];
+      const float mean = rb > ra ? sum / (float)(rb - ra) : 0.f;
+      float m2 = 0.f;
+      for (int r = ra; r < rb; ++r) {
+        const float d = zs[r * p.ldz + co] - mean;
+        m2 = fmaf(d, d, m2);
+      }
+      mom[i] = mean;
+      mom[G * cout + i] = m2;
+    }
     __syncthreads();
+    float* part = parts + (size_t)ti * (2 * cout + 1);
+    for (int co = threadIdx.x; co < cout; co += NTH) {
+      Moments m = {0.f, 0.f, 0.f};
+      for (int k = 0; k < G; ++k)
+        m = chan(m, {(float)max(0, min(16, cnt - 16 * k)), mom[k * cout + co],
+                     mom[(G + k) * cout + co]});
+      part[1 + co] = m.mean;
+      part[1 + cout + co] = m.m2;
+    }
+    if (threadIdx.x == 0) part[0] = (float)cnt;
   }
-  // z = acc + b at the tile's rows (block rows h .. h + tile - 1), into zt
-  // (tile x cout, over A) and out
-  const int n_out = min(tile, n_exp - t0);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e >> 1) - h, c = 8 * j + 2 * t + (e & 1);
-      if (r < 0 || r >= tile || c >= cout) continue;
-      const float v = acc[j][e] + bias[c];
-      zt[r * cout + c] = v;
-      if (r < n_out) z[((size_t)b * n_exp + t0 + r) * cout + c] = v;
-    }
-  __syncthreads();
-  tile_moments(zt, reinterpret_cast<float*>(Wt),
-               max(0, min(t0 + tile, live_end) - t0), cout,
-               parts + ((size_t)b * gridDim.x + blockIdx.x) * (2 * cout + 1));
+  cp_async_wait<0>();
 }
 
 // The bfloat16 t pass (K8-bf16 t).
@@ -1500,57 +1681,98 @@ extern "C" int ccn_conv1d_train_t(const float* du, const float* z,
                 s);
 }
 
-template <int NT, class TP>
-static int launch_fwd_bf16(const TP* zp, const Vecs& bnp, const float* w,
-                           const float* bias, const int* used, float* z,
-                           float* parts, int B, int n_exp, int cin, int cout,
-                           int h, int tile, cudaStream_t s) {
-  const int a_words = std::max(CV_ROWS * (KCH + 8) / 2, tile * cout);
-  const int w_words = std::max((h + 1) * (KCH / 2) * (8 * NT + 8), 16 * cout);
-  const size_t smem = (size_t)(a_words + w_words) * sizeof(float);
+template <int NT, int ROWS, class TP>
+static int fb_launch(const TP* zp, const Vecs& bnp, const uint32_t* img,
+                     const int* used, float* z, float* parts, int B,
+                     int n_exp, int cin, int cout, int h, int unit, int zvec,
+                     const FbPlan& p, cudaStream_t s) {
+  auto* kernel = conv1d_train_fwd_bf16_kernel<NT, ROWS, TP>;
   cudaError_t e = cudaFuncSetAttribute(
-      conv1d_train_fwd_bf16_kernel<NT, TP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((n_exp + tile - 1) / tile, B);
-  conv1d_train_fwd_bf16_kernel<NT, TP><<<grid, CV_THREADS, smem, s>>>(
-      zp, bnp, w, bias, used, z, parts, n_exp, cin, cout, h, a_words);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, 2 * ROWS, p.smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tile = ROWS - 2 * h;
+  const long long tiles = (long long)B * ((n_exp + tile - 1) / tile);
+  const int grid = (int)std::min<long long>(tiles, (long long)per_sm * sms);
+  kernel<<<grid, 2 * ROWS, p.smem, s>>>(zp, bnp, img, used, z, parts, B,
+                                        n_exp, cin, cout, h, unit, zvec, p);
   return (int)cudaGetLastError();
 }
 
-template <class TP>
-static int fwd_bf16(const TP* zp, const Vecs& bnp, const float* w,
-                    const float* bias, const int* used, float* z, float* parts,
-                    int B, int n_exp, int cin, int cout, int h, int tile,
-                    cudaStream_t s) {
+template <int ROWS, class TP>
+static int fb_rows(const TP* zp, const Vecs& bnp, const uint32_t* img,
+                   const int* used, float* z, float* parts, int B, int n_exp,
+                   int cin, int cout, int h, int unit, int zvec,
+                   const FbPlan& p, cudaStream_t s) {
   const int nt = nt_of(cout);
-  return nt == 4 ? launch_fwd_bf16<4>(zp, bnp, w, bias, used, z, parts, B,
-                                      n_exp, cin, cout, h, tile, s)
-       : nt == 8 ? launch_fwd_bf16<8>(zp, bnp, w, bias, used, z, parts, B,
-                                      n_exp, cin, cout, h, tile, s)
-                 : launch_fwd_bf16<12>(zp, bnp, w, bias, used, z, parts, B,
-                                       n_exp, cin, cout, h, tile, s);
+  return nt == 4 ? fb_launch<4, ROWS>(zp, bnp, img, used, z, parts, B, n_exp,
+                                      cin, cout, h, unit, zvec, p, s)
+       : nt == 8 ? fb_launch<8, ROWS>(zp, bnp, img, used, z, parts, B, n_exp,
+                                      cin, cout, h, unit, zvec, p, s)
+                 : fb_launch<12, ROWS>(zp, bnp, img, used, z, parts, B,
+                                       n_exp, cin, cout, h, unit, zvec, p, s);
+}
+
+template <class TP>
+static int fwd_bf16(const TP* zp, const Vecs& bnp, const uint32_t* img,
+                    const int* used, float* z, float* parts, int B, int n_exp,
+                    int cin, int cout, int h, int zvec, const FbPlan& p,
+                    cudaStream_t s) {
+  // elements a copy of the input: what cin and the rows' addresses allow
+  const size_t a = reinterpret_cast<size_t>(zp);
+  int unit = 1;
+  for (int u = 16 / (int)sizeof(TP); u > 1; u /= 2)
+    if (cin % u == 0 && a % (u * sizeof(TP)) == 0) {
+      unit = u;
+      break;
+    }
+  return p.rows == 256 ? fb_rows<256>(zp, bnp, img, used, z, parts, B, n_exp,
+                                      cin, cout, h, unit, zvec, p, s)
+                       : fb_rows<128>(zp, bnp, img, used, z, parts, B, n_exp,
+                                      cin, cout, h, unit, zvec, p, s);
 }
 
 // ccn_conv1d_train_fwd under the bfloat16 contract: z_prev (B, n_exp, cin)
-// bfloat16 when zbf (xe, layer 1, no previous BN) else f32; w f32 (rounded
-// to bfloat16 as it is staged); cout <= 96; the rest as there.
+// bfloat16 when zbf (xe, layer 1, no previous BN) else f32; w f32 ((h+1) cin, cout) and b (cout) as the
+// caller holds them (packed into img, scratch of the plan's img_words
+// words, 16-byte aligned, by the first launch); parts scratch of B
+// ceil(n_exp / tile) rows of 2 cout + 1 floats; tile = rows - 2h; plan
+// host ints in FbPlan's order (ops/conv1d_train.py plan_fwd_bf16);
+// cout <= 96.  Three launches: the pack, the layer, the moments.
 extern "C" int ccn_conv1d_train_fwd_bf16(
     const void* zp, int zbf, const float* pm, const float* pi,
     const float* pg, const float* pb, const float* w, const float* bias,
-    const int* used, float* z, float* parts, float* mean, float* var, int B,
-    int n_exp, int cin, int cout, int h, int tile, void* stream) {
+    const int* used, uint32_t* img, float* z, float* parts, float* mean,
+    float* var, int B, int n_exp, int cin, int cout, int h, int tile,
+    const int* plan, void* stream) {
+  FbPlan p;
+  int* f = reinterpret_cast<int*>(&p);
+  for (int i = 0; i < (int)(sizeof(FbPlan) / sizeof(int)); ++i) f[i] = plan[i];
   if (B < 1 || n_exp < 1 || cin < 1 || cout < 1 || h < 0 ||
-      tile != CV_ROWS - 2 * h || tile < 1 || nt_of(cout) == 0 ||
-      (zbf && pm != nullptr))
+      tile != p.rows - 2 * h || nt_of(cout) == 0 || (zbf && pm != nullptr) ||
+      reinterpret_cast<size_t>(img) % 16 != 0 ||
+      !fb_fits(p, zbf, cin, cout, h))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Vecs bnp = {{pm, pi, pg, pb, nullptr, nullptr}};
-  const int rc =
-      zbf ? fwd_bf16(static_cast<const __nv_bfloat16*>(zp), bnp, w, bias,
-                     used, z, parts, B, n_exp, cin, cout, h, tile, s)
-          : fwd_bf16(static_cast<const float*>(zp), bnp, w, bias, used, z,
-                     parts, B, n_exp, cin, cout, h, tile, s);
+  const int pack_blocks = std::min((p.img_words + 255) / 256, 132 * 4);
+  conv1d_train_pack_fwd_bf16_kernel<<<pack_blocks, 256, 0, s>>>(
+      w, bias, img, cin, cout, h, p);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int zvec = cout % 4 == 0 && reinterpret_cast<size_t>(z) % 16 == 0;
+  rc = zbf ? fwd_bf16(static_cast<const unsigned short*>(zp), bnp, img, used,
+                      z, parts, B, n_exp, cin, cout, h, zvec, p, s)
+           : fwd_bf16(static_cast<const float*>(zp), bnp, img, used, z,
+                      parts, B, n_exp, cin, cout, h, zvec, p, s);
   if (rc != 0) return rc;
   conv1d_train_moments_kernel<<<cout, CT_THREADS, 0, s>>>(
       parts, B * ((n_exp + tile - 1) / tile), cout, mean, var);

@@ -294,3 +294,122 @@ __device__ __forceinline__ void cb_taps(float (&acc)[NT][4],
     }
   }
 }
+
+// ---- the bfloat16 streamed-input routines of K1-bf16 (conv1d_chain.cu)
+// and K8-bf16's forward (conv1d_train.cu) ----
+
+#define CB_KC 64  // columns of an input chunk (ops/conv1d_chain.py CHUNK_BF16)
+#define CB_LDK (CB_KC + 8)  // a chunk's row stride in halves (4 mod 32 words)
+
+// n16 16-byte words from src (device) to dst (shared), cp.async, one group
+__device__ __forceinline__ void cb_copy(uint32_t* dst, const uint32_t* src,
+                                        int n16) {
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  cp_async_commit();
+}
+
+// two bfloat16 pairs (raw bits) added and rounded to nearest even: one
+// rounding of the exact sum, the bits of an f32 add rounded to bfloat16
+// (the f32 sum of two bfloat16 values is exact unless their exponents lie
+// more than 16 apart, and then both give the larger)
+__device__ __forceinline__ uint32_t cb_add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// cb_taps (above) for a tile of ROWS rows, the pairs summed by
+// cb_add2: acc (NT 8-column tiles of the warp's 16 rows r0 ..) += the (h+1)
+// tap products of A (bfloat16, row stride lda, 0 from cin to cin rounded
+// to 16) against the packed taps Wt; tap d's rows are the pairs
+// A(r - d) + A(r + d) (0 outside the tile), tap 0's A(r).  Taps in order,
+// 16-deep steps in order within a tap.
+template <int NT, int ROWS>
+__device__ __forceinline__ void cb1_taps(float (&acc)[NT][4],
+                                         const unsigned short* A, int lda,
+                                         int r0, const uint32_t* Wt, int kp,
+                                         int ldn, int cin, int h, int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ksteps = (cin + 15) >> 4;
+  for (int d = 0; d <= h; ++d) {
+    const uint32_t* Wd = Wt + (size_t)d * kp * ldn;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int c = ks * 16 + 2 * t;
+      uint32_t a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + (e & 1) * 8, col = c + (e >> 1) * 8;
+        if (d == 0) {
+          a[e] = *reinterpret_cast<const uint32_t*>(A + r * lda + col);
+        } else {
+          const int rm = r - d, rp = r + d;
+          const uint32_t um =
+              rm >= 0 ? *reinterpret_cast<const uint32_t*>(A + rm * lda + col)
+                      : 0u;
+          const uint32_t up = rp < ROWS ? *reinterpret_cast<const uint32_t*>(
+                                              A + rp * lda + col)
+                                        : 0u;
+          a[e] = cb_add2(um, up);
+        }
+      }
+      const uint32_t* wb = Wd + (size_t)(ks * 8 + t) * ldn + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt) mma_bf16(acc[j], a, wb[8 * j], wb[4 * ldn + 8 * j]);
+    }
+  }
+}
+
+// a cp.async of `bytes` (4, 8 or 16), filling zeros where !ok
+template <int BYTES>
+__device__ __forceinline__ void cb_cp_zfill(void* dst, const void* src,
+                                            bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n));
+}
+
+// Chunk k0 .. k0 + CB_KC - 1 of the tile's ROWS input rows (slots base ..)
+// of x (TP: bfloat16 bits or float; rows c0 wide) into stage S (row
+// stride LDR elements) in copies of `unit` elements (unit divides c0, and
+// the rows' addresses allow it; a 2-byte unit: plain loads); 0 outside
+// [0, n_exp) and past c0.  A thread keeps one column and steps over the
+// rows.
+template <int ROWS, class TP = unsigned short, int LDR = CB_LDK>
+__device__ __forceinline__ void cb_issue(TP* S, const TP* xb, int base,
+                                         int n_exp, int c0, int k0,
+                                         int unit) {
+  const int nu = CB_KC / unit, step = 2 * ROWS / nu;
+  const int r0 = threadIdx.x / nu, col = k0 + (threadIdx.x - r0 * nu) * unit;
+  const bool col_ok = col < c0;
+  for (int r = r0; r < ROWS; r += step) {
+    const int gs = base + r;
+    const bool ok = col_ok && gs >= 0 && gs < n_exp;
+    const TP* src = xb + (ok ? (long long)gs * c0 + col : 0);
+    TP* dst = S + r * LDR + (col - k0);
+    switch (unit * (int)sizeof(TP)) {
+      case 16: cb_cp_zfill<16>(dst, src, ok); break;
+      case 8: cb_cp_zfill<8>(dst, src, ok); break;
+      case 4: cb_cp_zfill<4>(dst, src, ok); break;
+      default: *dst = ok ? __ldg(src) : (TP)0;
+    }
+  }
+}
+
+// cp.async.wait_group stages - 2: every chunk but the last stages - 2
+// issued has landed
+__device__ __forceinline__ void cb_wait_ring(int stages) {
+  switch (stages) {
+    case 2: cp_async_wait<0>(); break;
+    case 3: cp_async_wait<1>(); break;
+    case 4: cp_async_wait<2>(); break;
+    case 5: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>();
+  }
+}

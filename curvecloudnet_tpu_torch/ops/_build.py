@@ -120,15 +120,16 @@ _SIGNATURES = {
     "ccn_conv1d_train_fwd": [_P] * 12 + [_I] * 6 + [_P],
     "ccn_conv1d_train_reduce": [_P] * 6 + [_I] * 4 + [_P],
     "ccn_conv1d_train_t": [_P] * 19 + [_I] * 8 + [_P],
-    "ccn_edge_mlp": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I] * 5 + [_P],
+    "ccn_edge_mlp": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "ccn_edge_project": [_P] * 5 + [_I] * 3 + [_P, _P],
     "ccn_rasterize": [_P, _L, _P, _L, _F, _F, _F, _F, _I, _I] + [_P] * 5,
 }
-# the bfloat16 variants: K4 and K9 take their float32 twin's arguments,
-# K1 and K2 their own plans
-for _name in ("ccn_gather_km", "ccn_edge_mlp"):
+# the bfloat16 variants: K4 and K9 (both entries) take their float32
+# twin's arguments, K1 and K2 their own plans
+for _name in ("ccn_gather_km", "ccn_edge_mlp", "ccn_edge_project"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
-_SIGNATURES["ccn_conv1d_train_fwd_bf16"] = [_P, _I] + [_P] * 11 + [_I] * 6 + [
-    _P]
+_SIGNATURES["ccn_conv1d_train_fwd_bf16"] = [_P, _I] + [_P] * 12 + [_I] * 6 + [
+    _P, _P]
 _SIGNATURES["ccn_conv1d_train_t_bf16"] = [_P] * 3 + [_I] + [_P] * 17 + [
     _I] * 8 + [_P]
 _SIGNATURES["ccn_gt_rowstats_bf16"] = _SIGNATURES["ccn_gt_rowstats"]

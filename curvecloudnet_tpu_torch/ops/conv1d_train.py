@@ -50,7 +50,9 @@ weights are rounded to bfloat16, and the products sum in float32; z, the
 statistics, the BN and its backward, the reduce pass, db and the
 d_u_prev between layers stay float32; u_L and d_xe have xe's dtype.  The
 passes take it with ``bf16=True`` (the wrappers launch K8's bfloat16
-kernels, ``conv1d_train_fwd_layer_bf16`` and ``conv1d_train_bwd_t_bf16``);
+kernels, ``conv1d_train_fwd_layer_bf16``, whose taps are packed once a
+call and whose persistent blocks, tiles and buffers follow
+:func:`plan_fwd_bf16`, and ``conv1d_train_bwd_t_bf16``);
 on the CPU the bfloat16 chain runs :class:`_Conv1dChainTrain` over the
 plain passes, since torch autograd of the plain chain would round its
 backward elsewhere than the kernels.
@@ -67,11 +69,14 @@ sums its moments over the processes under torch autograd.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import parallel
 from . import _build
-from .conv1d_chain import MAX_N, ROWS
+from .conv1d_chain import CHUNK_BF16, MAX_N, ROWS
 from .curve1d import window_concat_nomask
 
 EPS = 1e-5
@@ -371,32 +376,107 @@ def _check_bf16(z_prev, w, half_k: int):
                          f"{tuple(w.shape)} with h={half_k}")
 
 
+# K8-bf16's forward (csrc/conv1d_train.cu FbPlan): tiles of FWD_ROWS_BF16
+# slots (or 128 where its buffers do not fit), input chunks of CHUNK_BF16
+# columns through a ring of up to FB_MAX_STAGES, row strides of a chunk
+# (halves for bfloat16, floats for f32), moments over 16-row groups
+FWD_ROWS_BF16 = (256, 128)
+FB_MAX_STAGES = 4
+FB_LDK, FB_LDF = CHUNK_BF16 + 8, CHUNK_BF16 + 4
+FB_FIELDS = ("rows", "stages", "resident", "taps_words", "kp", "ldn", "ldz",
+             "bias_off", "img_words", "ring_off", "a_off", "z_off", "bn_off",
+             "mom_off", "smem")
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fwd_bf16(c_in: int, c_out: int, half_k: int, bf16_in: bool) -> dict:
+    """The shared-memory plan of K8-bf16's forward (``struct FbPlan``):
+    the taps of the packed image (every chunk's resident, else one
+    CHUNK_BF16-column chunk's at a time), the input ring, the u stage (f32
+    input), the z stage, the BN vectors (f32 input), the moments' scratch,
+    in that order, 16-byte aligned; 256-slot tiles with resident taps
+    first, then 128, then the taps a chunk at a time; the most ring stages
+    that fit, at most one more than the input's chunks."""
+    h = half_k
+    kp, ldn = _up(c_in, 16) // 2, _up(c_out, 8) + 8
+    bias_off = (h + 1) * kp * ldn
+    nch = -(-c_in // CHUNK_BF16)
+    for resident in (True, False):
+        for rows in FWD_ROWS_BF16:
+            tile = rows - 2 * h
+            if tile < 1:
+                continue
+            taps = bias_off if resident else (h + 1) * (CHUNK_BF16 // 2) * ldn
+            for stages in range(min(FB_MAX_STAGES, nch + 1), 1, -1):
+                p = {"rows": rows, "stages": stages, "resident": int(resident),
+                     "taps_words": taps, "kp": kp, "ldn": ldn,
+                     "ldz": _up(c_out, 4) + 4, "bias_off": bias_off,
+                     "img_words": bias_off + _up(c_out, 4)}
+                off = _up(4 * taps, 16)
+                ring = rows * (2 * FB_LDK if bf16_in else 4 * FB_LDF)
+                for key, size in (("ring_off", stages * ring),
+                                  ("a_off", 0 if bf16_in else 2 * rows * FB_LDK),
+                                  ("z_off", 4 * tile * p["ldz"]),
+                                  ("bn_off", 0 if bf16_in else 16 * c_in),
+                                  ("mom_off", 8 * (rows // 16) * c_out)):
+                    p[key] = off
+                    off = _up(off + size, 16)
+                p["smem"] = off
+                if off <= _build.MAX_SMEM:
+                    return p
+    raise ValueError(f"conv1d train bf16 kernel: a {c_in} -> {c_out} layer "
+                     f"at h={h} does not fit in shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(c_in: int, c_out: int, half_k: int, bf16_in: bool):
+    """The plan as the host int array the C entry takes."""
+    p = plan_fwd_bf16(c_in, c_out, half_k, bf16_in)
+    return _build.host_array(ctypes.c_int, [p[f] for f in FB_FIELDS])
+
+
+def fwd_tile_bf16(c_in: int, c_out: int, half_k: int,
+                  bf16_in: bool = True) -> int:
+    """Output slots of a K8-bf16 forward tile: the plan's rows less an
+    h-slot halo each side (``fwd_tile`` sizes the float32 forward and the
+    bfloat16 t pass)."""
+    return plan_fwd_bf16(c_in, c_out, half_k, bf16_in)["rows"] - 2 * half_k
+
+
 def conv1d_train_fwd_layer_bf16(z_prev, bn_prev, w, b, used, half_k: int):
     """K8's forward pass under the bfloat16 contract, CUDA tensors only:
-    z_prev bfloat16 (xe, layer 1) or float32 (a previous z)."""
+    z_prev bfloat16 (xe, layer 1) or float32 (a previous z); w and b f32
+    as the caller holds them (packed on the card)."""
     _check_bf16(z_prev, w, half_k)
     bsz, n_exp, c_in = z_prev.shape
     c_out = w.shape[1]
     dev = z_prev.device
-    tile = fwd_tile(half_k)
-    n_tiles = -(-n_exp // tile)
     zbf = z_prev.dtype == torch.bfloat16
+    plan = plan_fwd_bf16(c_in, c_out, half_k, zbf)
+    tile = fwd_tile_bf16(c_in, c_out, half_k, zbf)
+    n_parts = bsz * -(-n_exp // tile)
     z_prev = z_prev.contiguous()
-    wc = w.detach().float().contiguous()
-    bc = b.detach().float().contiguous()
     used = used.to(torch.int32).contiguous()
     z = torch.empty((bsz, n_exp, c_out), device=dev)
-    parts = torch.empty((bsz * n_tiles, 2 * c_out + 1), device=dev)
-    mean = torch.empty(c_out, device=dev)
-    var = torch.empty(c_out, device=dev)
+    # one scratch: the image (16-byte aligned at 0), mean, var, the parts
+    img_words = _up(plan["img_words"], 4)
+    scratch = torch.empty(img_words + 2 * c_out + n_parts * (2 * c_out + 1),
+                          device=dev)
+    mean = scratch[img_words:img_words + c_out]
+    var = scratch[img_words + c_out:img_words + 2 * c_out]
     rc = _build.library().ccn_conv1d_train_fwd_bf16(
         _build.ptr(z_prev, z_prev.dtype, "z_prev", 3), int(zbf),
         *_vec_ptrs(bn_prev, c_in, "bn_prev"),
-        _build.ptr(wc, torch.float32, "w", 2),
-        _build.ptr(bc, torch.float32, "b", 1),
-        _build.ptr(used, torch.int32, "used", 1),
-        z.data_ptr(), parts.data_ptr(), mean.data_ptr(), var.data_ptr(),
-        bsz, n_exp, c_in, c_out, half_k, tile, _build.stream_ptr(dev))
+        _build.ptr(w.detach(), torch.float32, "w", 2),
+        _build.ptr(b.detach(), torch.float32, "b", 1),
+        _build.ptr(used, torch.int32, "used", 1), scratch.data_ptr(),
+        z.data_ptr(), scratch[img_words + 2 * c_out:].data_ptr(),
+        mean.data_ptr(), var.data_ptr(), bsz, n_exp, c_in, c_out, half_k,
+        tile, _plan_ints(c_in, c_out, half_k, zbf), _build.stream_ptr(dev))
     _build.check(rc, "ccn_conv1d_train_fwd_bf16")
     conv1d_train_fwd_layer_bf16.launches += 1
     return z, mean, var

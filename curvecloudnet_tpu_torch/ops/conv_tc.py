@@ -13,7 +13,10 @@ with its halo, zero outside [0, n_exp); the cross-block sums follow the
 kernels' fixed orders (:func:`chan_combine`, :func:`colsum`,
 :func:`prev_sums_model` for the reduce sums the t pass takes).  K1's
 bfloat16 variant is modelled by :func:`chain_eval_model_bf16` on the taps
-read back from :func:`pack_image_bf16`, the image its pack kernel writes.
+read back from :func:`pack_image_bf16`, the image its pack kernel writes;
+K8-bf16's forward by :func:`fwd_model_bf16` (its plan's tiles, the pairs
+rounded in bfloat16, its 16-row-group moments) on the taps read back from
+:func:`pack_fwd_bf16`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 
 from .conv1d_chain import CHUNK_BF16, ROWS, plan_bf16, tile_rows
 from .conv1d_train import (DW_FUSED, DW_STAGE, DW_STAGE_BF16, _affine,
-                           _dleaky, _live, _u_of, dw_splits, fwd_tile)
+                           _dleaky, _live, _u_of, dw_splits, fwd_tile,
+                           plan_fwd_bf16)
 from .group_reduce import tf32_split
 
 MOMENT_THREADS = 256  # the moments kernel's block (CT_THREADS)
@@ -133,13 +137,14 @@ def chan_combine(parts, c_out: int):
     return mean, var
 
 
-def tile_moments(zt, cnt: int):
-    """A forward tile's (count, mean, M2) over its first ``cnt`` rows: 8
-    groups of 16 rows, each in two passes, combined in order by
+def tile_moments(zt, cnt: int, groups: int = 8):
+    """A forward tile's (count, mean, M2) over its first ``cnt`` rows:
+    ``groups`` groups of 16 rows (8 in the float32 forward, rows / 16 in
+    the bfloat16 one), each in two passes, combined in order by
     :func:`chan`."""
     c_out = zt.shape[1]
     acc = (torch.zeros(c_out),) * 3
-    for k in range(8):
+    for k in range(groups):
         g = zt[16 * k:min(16 * k + 16, cnt)]
         n = g.shape[0]
         mean = g.sum(0) / n if n else torch.zeros(c_out)
@@ -452,3 +457,75 @@ def chain_eval_model_bf16(xe, weights, used, h: int):
         n = min(tile, n_exp - t0)
         out[:, t0:t0 + n] = a[:, pad:pad + n].to(torch.bfloat16)
     return out
+
+
+def pack_fwd_bf16(w, b, h: int, plan):
+    """The int32 words ``conv1d_train_pack_fwd_bf16_kernel`` writes for
+    K8-bf16's forward (``conv1d_train.plan_fwd_bf16``'s layout): word
+    (d kp + k/2) ldn + n = the bfloat16 bits of W[d C_in + k, n] (low
+    half) and W[d C_in + k + 1, n] (high half), 0 past C_in and C_out;
+    then the bias as float32 bits at bias_off, 0 past C_out."""
+    cout = w.shape[1]
+    cin = w.shape[0] // (h + 1)
+    kp, ldn = plan["kp"], plan["ldn"]
+    taps = torch.zeros(h + 1, 2 * kp, ldn, dtype=torch.int32)
+    taps[:, :cin, :cout] = _bf16_bits(w.float().reshape(h + 1, cin, cout))
+    img = torch.zeros(plan["img_words"], dtype=torch.int32)
+    img[:plan["bias_off"]] = (taps[:, 0::2] | (taps[:, 1::2] << 16)).reshape(-1)
+    img[plan["bias_off"]:plan["bias_off"] + cout] = b.float().view(
+        torch.int32)
+    return img
+
+
+def fwd_model_bf16(z_prev, bn_prev, w, b, used, h: int):
+    """K8-bf16's forward on the CPU, in its order: per tile of the plan's
+    ``rows`` slots (rows - 2h outputs and an h-slot halo each side, 0
+    outside [0, n_exp)) u rounded to bfloat16 once an element (xe as it
+    is; a previous z through its BN, leaky ReLU and live mask), the pairs
+    u(r - d) + u(r + d) summed and rounded in bfloat16 (0 outside the
+    tile), their products with the taps read back from
+    :func:`pack_fwd_bf16` added into float32 sums chunk by chunk of
+    ``CHUNK_BF16`` columns, tap by tap within a chunk, 16 columns at a
+    time; z = sums + b; each tile's (count, mean, M2) over rows / 16
+    groups of 16 rows (:func:`tile_moments`), the tiles combined by
+    :func:`chan_combine` -> (z, mean, var)."""
+    bsz, n_exp, cin = z_prev.shape
+    cout = w.shape[1]
+    plan = plan_fwd_bf16(cin, cout, h, z_prev.dtype == torch.bfloat16)
+    img = pack_fwd_bf16(w, b, h, plan)
+    kp, ldn = plan["kp"], plan["ldn"]
+    words = img[:plan["bias_off"]].reshape(h + 1, kp, ldn)
+    halves = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], 2)
+    taps = (halves.reshape(h + 1, 2 * kp, ldn) << 16).view(torch.float32)
+    taps = taps[..., :cout]
+    bias = img[plan["bias_off"]:plan["bias_off"] + cout].view(torch.float32)
+    u = _u_of(z_prev.float(), bn_prev, _live(used, n_exp, z_prev.device))
+    u = F.pad(u.to(torch.bfloat16).float(), (0, 2 * kp - cin))
+    rows_t = plan["rows"]
+    tile = rows_t - 2 * h
+    zero = torch.zeros(bsz, h, 2 * kp)
+    z = torch.empty((bsz, n_exp, cout))
+    parts = []
+    sums = []
+    for t0 in range(0, n_exp, tile):
+        a = rows_of(u, t0 - h, rows_t)
+        ext = torch.cat([zero, a, zero], 1)
+        pairs = [a] + [(ext[:, h - d:h - d + rows_t]
+                        + ext[:, h + d:h + d + rows_t]).to(
+                            torch.bfloat16).float()
+                       for d in range(1, h + 1)]
+        acc = torch.zeros(bsz, rows_t, cout)
+        for k0 in range(0, 2 * kp, CHUNK_BF16):
+            for d in range(h + 1):
+                for k in range(k0, min(k0 + CHUNK_BF16, 2 * kp), 16):
+                    acc = acc + pairs[d][..., k:k + 16] @ taps[d, k:k + 16]
+        zt = acc[:, h:rows_t - h] + bias
+        n = min(tile, n_exp - t0)
+        z[:, t0:t0 + n] = zt[:, :n]
+        sums.append((t0, zt))
+    for bi in range(bsz):
+        live_end = min(int(used[bi]), n_exp)
+        for t0, zt in sums:
+            cnt = max(0, min(t0 + tile, live_end) - t0)
+            parts.append((cnt, *tile_moments(zt[bi], cnt, rows_t // 16)[1:]))
+    return (z, *chan_combine(parts, cout))

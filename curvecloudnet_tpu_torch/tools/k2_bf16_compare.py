@@ -36,19 +36,28 @@ calls (phase 23's settings), the box and a ~10^5-face sphere at 2048,
 kernel and device ms in turns, bit for bit against the plain version and
 the other checkout's.  ``--kernel k8t``: K8-bf16's t pass on a nuScenes
 bfloat16 step's three calls, kernel and device ms in turns, held at phase
-21's 2^-7, two runs bit-identical, the float32 t pass beside it.
+21's 2^-7, two runs bit-identical, bit for bit against the other
+checkout's, the float32 t pass beside it.
 ``--kernel k1b``: K1-bf16 on the nuScenes bfloat16 scans' step_31 calls
 (seeds 0-2), ``--kernel k4bb``: K4b-bf16 on a nuScenes bfloat16 step's
-calls; each in turns (other, this, this, other), kernel ms and device ms
+calls, ``--kernel k8f``: K8-bf16's forward on a nuScenes bfloat16 step's
+three calls (``k8t_calls``), ``--kernel k9``: K9-bf16 on the nuScenes
+bfloat16 ``fused`` scans' calls and float32 K9 on float32 ``fused``
+scans' (seeds 0-2 each); each in turns (other, this, this, other), kernel ms and device ms
 (CUDA events on a pre-filled stream, ``chip_smoke.device_span_ms``: every
 launch of the call, a zero fill included), the float32 twin on the same
 inputs (this checkout), the bound; K1-bf16 held at phase 20's bound (one
 bfloat16 ulp at the output's scale, under 1% of the elements differing),
 K4b-bf16 at phase 21's (2^-8), two runs bit-identical and equal bit for
-bit to its CPU model (``gather.scatter_km_table``).  Run from the
+bit to its CPU model (``gather.scatter_km_table``); K8-bf16's forward at
+phase 21's 2^-8, two runs bit-identical, beside the float32 forward on
+the same inputs; K9 at phase 13's 1e-4 against the plain version, K9-bf16
+bit for bit equal to float32 K9 on the widened rows, each call's device
+ms split by ``torch.profiler`` into the projection (kernels named
+``edge_project``), the chain and the rest (weight packs).  Run from the
 repository root::
 
-    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR [--kernel k7|k11|k8t|k1b|k4bb]
+    python -m curvecloudnet_tpu_torch.tools.k2_bf16_compare --against DIR [--kernel k7|k11|k8t|k1b|k4bb|k8f|k9]
 
 Prints a line per call and the totals.
 """
@@ -687,6 +696,8 @@ def main_k8t(dev) -> None:
                                                        flat(again)))
         if not repeat:
             raise SystemExit(f"K8-bf16 t call {i}: two runs differ")
+        same = all(torch.equal(a, b) for a, b in zip(
+            flat(out), flat(O.conv1d_train_bwd_t_bf16(*args, **kw))))
         runs = {"o": [], "t": []}
         for who in "otto":
             mod = O if who == "o" else C
@@ -708,7 +719,8 @@ def main_k8t(dev) -> None:
               f"device ms other {k['o'][1]:.4f} this {k['t'][1]:.4f}; "
               f"float32 t pass device ms {f32:.4f}; bound {bound:.4f} ms; "
               f"error {err:.3g} (2^-7 bound: relative L2 plus twice plain's "
-              f"bf16-vs-f32 change); two runs bit-identical", flush=True)
+              f"bf16-vs-f32 change); two runs bit-identical; equal to the "
+              f"other checkout's bit for bit: {same}", flush=True)
     print(f"K8-bf16 t, a step's calls: kernel ms other {tot['ko']:.4f} "
           f"this {tot['kt']:.4f}; device ms other {tot['do']:.4f} this "
           f"{tot['dt']:.4f} ({tot['dt'] / tot['do']:.3f}x); float32 t pass "
@@ -865,12 +877,159 @@ def main_k4bb(dev) -> None:
           f"({tot['bound'] / tot['dt']:.1%} of this device ms)", flush=True)
 
 
+def main_k8f(dev) -> None:
+    """``--kernel k8f``: the K8-bf16 forward calls of a nuScenes bfloat16
+    step (step 31's three layers), the other checkout's wrapper against
+    this one's in turns (other, this, this, other): kernel ms, device ms
+    (events on a pre-filled stream: every launch of the call), the bound
+    (``chip_smoke.work`` at the bfloat16 rate); this checkout's (z, mean,
+    var) held against the plain version at phase 21's 2^-8, run twice bit
+    for bit; the float32 forward on the same inputs (this checkout)
+    beside it."""
+    import importlib
+
+    from ..ops import conv1d_train as C
+
+    O = importlib.import_module("other_ccn.ops.conv1d_train")
+    S = smoke()
+    name = "conv1d_train_fwd_bf16"
+    calls = k8t_calls(bf16_config("nuscenes"), dev)[K8_NAMES[1]]
+    tot = dict.fromkeys(("ko", "kt", "do", "dt", "f32", "bound"), 0.0)
+    torch.set_grad_enabled(False)
+    for i, (a, kw) in enumerate(calls):
+        out = C.conv1d_train_fwd_layer_bf16(*a, **kw)
+        ref = C.conv1d_train_fwd_layer_ref(*a, **kw, bf16=True)
+        err = max(S._bf16_max(name, o, r, 2.0 ** -8)
+                  for o, r in zip(out, ref))
+        if not all(torch.equal(x, y) for x, y in zip(
+                out, C.conv1d_train_fwd_layer_bf16(*a, **kw))):
+            raise SystemExit(f"K8-bf16 fwd call {i}: two runs differ")
+        other = O.conv1d_train_fwd_layer_bf16(*a, **kw)
+        (ko, kt), (do, dt) = _turns(
+            lambda: O.conv1d_train_fwd_layer_bf16(*a, **kw),
+            lambda: C.conv1d_train_fwd_layer_bf16(*a, **kw))
+        a32 = (a[0].float(), *a[1:])
+        f32 = S.device_span_ms(lambda: C.conv1d_train_fwd_layer(*a32, **kw),
+                               5)
+        byts, flops = S.work(name, a, out)
+        bound = max(byts / S.PEAK_BYTES, flops / S.PEAK_BF16) * 1e3
+        for key, v in zip(tot, (ko, kt, do, dt, f32, bound)):
+            tot[key] += v
+        zd = int((out[0] != other[0]).sum())
+        this = lambda: C.conv1d_train_fwd_layer_bf16(*a, **kw)  # noqa: E731
+        split = {k: device_ms(this, k) for k in ("pack", "fwd_bf16_kernel",
+                                                 "moments")}
+        print(f"K8-bf16 fwd call {i} (input {tuple(a[0].shape)} "
+              f"{a[0].dtype}, previous BN {a[1] is not None}): kernel ms "
+              f"other {ko:.4f} this {kt:.4f}; device ms other {do:.4f} "
+              f"this {dt:.4f} ({dt / do:.3f}x; by kernel, profiler: "
+              f"{ {k: round(v, 4) for k, v in split.items()} }); float32 "
+              f"forward device ms {f32:.4f}; bound {bound:.4f} ms "
+              f"({bound / dt:.1%}); error "
+              f"{err:.3g} (2^-8 of the largest); {zd} z elements differ "
+              "from the other checkout's; two runs bit-identical",
+              flush=True)
+    print(f"K8-bf16 fwd, a step's {len(calls)} calls: kernel ms other "
+          f"{tot['ko']:.4f} this {tot['kt']:.4f}; device ms other "
+          f"{tot['do']:.4f} this {tot['dt']:.4f} ({tot['dt'] / tot['do']:.3f}"
+          f"x); float32 forward {tot['f32']:.4f}; bound {tot['bound']:.4f} "
+          f"ms ({tot['bound'] / tot['dt']:.1%} of this device ms)",
+          flush=True)
+
+
+# K9's kernels by name: the projection, the chain (K2's shared body), the
+# rest (weight packs)
+K9_PROJECT = "edge_project"
+K9_CHAIN = ("group_chain_kernel",)
+K9_KEYS = (K9_PROJECT,) + K9_CHAIN + ("edge_pack",)
+K9_TOL = 1e-4  # phase 13's bound, relative to the largest value not -100
+
+
+def k9_split(fn) -> tuple:
+    """(projection, chain, rest) device ms of a K9 call by
+    ``torch.profiler`` (a fresh process reads every record)."""
+    proj = device_ms(fn, K9_PROJECT)
+    chain = device_ms(fn, K9_CHAIN)
+    return proj, chain, max(0.0, device_ms(fn, ("",)) - proj - chain)
+
+
+def main_k9(dev) -> None:
+    """``--kernel k9``: K9-bf16's calls of nuScenes bfloat16 ``fused``
+    scans and float32 K9's of float32 ``fused`` scans (seeds 0-2 each),
+    the other checkout's wrapper against this one's in turns: kernel
+    ms, device ms (events on a pre-filled stream), each call's split into
+    the projection, the chain and the rest (profiler), the bound
+    (``chip_smoke.work``); this checkout's output held against the plain
+    version at phase 13's 1e-4, K9-bf16's equal bit for bit to float32
+    K9 on the widened rows."""
+    S = smoke()
+    O = sys.modules["other_ccn.ops.edge_mlp"]
+    n_pad = 36864
+    cases = [("bf16", bf16_config("nuscenes"), seed) for seed in (0, 1, 2)]
+    cases += [("f32", os.path.join(REPO, "configs", "nuscenes.yaml"), seed)
+              for seed in (0, 1, 2)]
+    for dtype, config, seed in cases:
+        model = P.build_model(config, n_pad, dev, edge_kernel="fused")
+        scan = P.synthetic_scan(seed, n_pad, dev)
+        wrapper = ("fused_edge_mlp_max_bf16" if dtype == "bf16"
+                   else "fused_edge_mlp_max")
+        calls = recorded(edge_mlp, wrapper, lambda: P.predict(model, *scan))
+        del model
+        tot = dict.fromkeys(("ko", "kt", "do", "dt", "pt", "ct", "po", "co",
+                             "bound"), 0.0)
+        with torch.inference_mode():
+            for i, (a, kw) in enumerate(calls):
+                this = lambda: edge_mlp._launch(*a, **kw)  # noqa: E731
+                other = lambda: O._launch(*a, **kw)  # noqa: E731
+                out = this()
+                err = S.compare("edge_mlp", out,
+                                edge_mlp.fused_edge_mlp_max_ref(*a, **kw),
+                                K9_TOL)
+                widened = ""
+                if dtype == "bf16":
+                    f32 = edge_mlp._launch(a[0].float(), *a[1:], **kw)
+                    if not torch.equal(out, f32):
+                        raise SystemExit(f"K9-bf16 seed {seed} call {i}: "
+                                         "not float32 K9's on the widened "
+                                         "rows")
+                    widened = "; equal to float32 K9 on the widened rows"
+                (ko, kt), (do, dt) = _turns(other, this)
+                po, co, ro = k9_split(other)
+                pt, ct, rt = k9_split(this)
+                byts, flops = S.work("edge_mlp", a, out)
+                bound = max(byts / S.PEAK_BYTES,
+                            flops / S.OPS_PEAK["edge_mlp"]) * 1e3
+                for key, v in zip(tot, (ko, kt, do, dt, pt, ct, po, co,
+                                        bound)):
+                    tot[key] += v
+                k = a[1].shape[-1]
+                widths = [w.shape[1] for w in a[2]]
+                print(f"K9 {dtype} seed {seed} call {i} (x "
+                      f"{tuple(a[0].shape)}, k {k}, widths {widths}, live "
+                      f"edges {int((a[1] >= 0).sum())}): kernel ms other "
+                      f"{ko:.4f} this {kt:.4f}; device ms other {do:.4f} "
+                      f"this {dt:.4f} ({dt / do:.3f}x); profiler split "
+                      f"other projection {po:.4f} chain {co:.4f} rest "
+                      f"{ro:.4f}, this projection {pt:.4f} chain {ct:.4f} "
+                      f"rest {rt:.4f}; bound {bound:.4f} ms "
+                      f"({bound / dt:.1%}); error {err:.3g}{widened}",
+                      flush=True)
+        print(f"K9 {dtype} seed {seed}, a scan's {len(calls)} calls: kernel "
+              f"ms other {tot['ko']:.4f} this {tot['kt']:.4f}; device ms "
+              f"other {tot['do']:.4f} this {tot['dt']:.4f} "
+              f"({tot['dt'] / tot['do']:.3f}x); projection other "
+              f"{tot['po']:.4f} this {tot['pt']:.4f}; chain other "
+              f"{tot['co']:.4f} this {tot['ct']:.4f}; bound "
+              f"{tot['bound']:.4f} ms", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True,
                     help="another checkout's root (its own kernels)")
     ap.add_argument("--kernel", default="k2",
-                    choices=("k2", "k7", "k11", "k8t", "k1b", "k4bb"))
+                    choices=("k2", "k7", "k11", "k8t", "k1b", "k4bb", "k8f",
+                             "k9"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_bf16_compare: needs a CUDA device")
@@ -894,6 +1053,12 @@ def main(argv=None) -> None:
         return
     if args.kernel == "k4bb":
         main_k4bb(dev)
+        return
+    if args.kernel == "k8f":
+        main_k8f(dev)
+        return
+    if args.kernel == "k9":
+        main_k9(dev)
         return
     # the other checkout's K2-bf16: its own kernel, or (before it had one)
     # the chain kernel it shared with float32 K2
@@ -939,8 +1104,8 @@ def main(argv=None) -> None:
     compare("nuScenes f32 K9",
             recorded(edge_mlp, "fused_edge_mlp_max",
                      lambda: P.predict(fused, *scan)),
-            oe.fused_edge_mlp_max, edge_mlp.fused_edge_mlp_max,
-            "group_chain_kernel", "group_chain_kernel")
+            oe.fused_edge_mlp_max, edge_mlp.fused_edge_mlp_max, K9_KEYS,
+            K9_KEYS, edge_mlp.fused_edge_mlp_max_ref, tol=K9_TOL)
 
 
 if __name__ == "__main__":

@@ -33,10 +33,11 @@ from torch.profiler import ProfilerActivity, profile
 from .. import predict as P
 
 # K2 and K9 share the chain kernel (csrc/group_chain.cuh), told apart by
-# its row source; K2's and K1's bfloat16 variants are kernels of their
-# own (csrc/group_wgmma.cuh, conv1d_chain_bf16_kernel), reported apart
+# its row source; K9's pack and projection (edge_pack, edge_project) by
+# their prefix; K2's and K1's bfloat16 variants are kernels of their own
+# (csrc/group_wgmma.cuh, conv1d_chain_bf16_kernel), reported apart
 GROUPS = (("K2", "H1Src"), ("K2-bf16", "group_wgmma"), ("K9", "EdgeSrc"),
-          ("K9", "edge_project"), ("K3", "knn_"),
+          ("K9", "edge_"), ("K3", "knn_"),
           ("K1-bf16", "conv1d_chain_bf16"), ("K1", "conv1d_chain"),
           ("K6", "fps_kernel"), ("K4", "gather_km"), ("K5", "grid_topk"),
           ("gemm", "gemm"))

@@ -225,20 +225,21 @@ def test_group_route_layer0_uses_the_same_split(bias):
 
 # (C, weight rows a stage): the flagship's admitted steps (3 and 28, 6,
 # 22, 25), the card test's odd width, an input past the gate's 256
-PROJECT_STAGES = [(67, 32), (131, 32), (256, 32), (128, 32), (5, 32),
-                  (300, 16)]
+PROJECT_STAGES = [(67, 32), (131, 32), (256, 16), (128, 32), (5, 32),
+                  (300, 8)]
 
 
 @pytest.mark.parametrize("c,kc", PROJECT_STAGES)
 def test_projection_launch_shape(c, kc):
-    """The deepest weight stage whose buffers (two stages of weight rows
-    EP_COLS + 8 wide, the tile's EP_ROWS rows of x) let EP_BLOCKS
-    projection blocks share an SM's shared memory."""
+    """The deepest weight stage whose buffers (the tile's EP_ROWS rows of x
+    as f32, two stages of weight rows, each a hi and a lo image EP_LDW
+    words wide) let EP_BLOCKS projection blocks share an SM's shared
+    memory."""
     assert E._project_stage(c) == kc
-    rows, cols, blocks = E._PROJ_ROWS, E._PROJ_COLS, E._PROJ_BLOCKS
-    ldx = G._round(max(c, cols), 32) + 4
+    rows, blocks, ldw = E._PROJ_ROWS, E._PROJ_BLOCKS, E._PROJ_LDW
+    ldx = G._round(G._round(c, 8), 32) + 4
     fit = _build.SM_SMEM // blocks - _build.BLOCK_RESERVED
-    assert E._project_smem(c, kc) == 4 * (2 * kc * (cols + 8) + rows * ldx)
+    assert E._project_smem(c, kc) == 4 * (rows * ldx + 4 * kc * ldw)
     assert E._project_smem(c, kc) <= fit
     if kc < E._STAGE_ROWS[0]:
         assert E._project_smem(c, 2 * kc) > fit
@@ -247,18 +248,17 @@ def test_projection_launch_shape(c, kc):
 
 
 def test_projection_tile_matches_the_kernel():
-    """The wrapper's projection tile and blocks an SM are the kernel's
-    EP_ROWS / EP_COLS / EP_BLOCKS, and the kernel computes the same shared
-    memory (``ccn_edge_mlp`` refuses a stage past EP_BLOCKS an SM)."""
+    """The wrapper's projection tile, blocks an SM and weight-stage stride
+    are the kernel's EP_ROWS / EP_COLS / EP_BLOCKS / EP_LDW, and
+    ``ccn_edge_mlp`` refuses a plan whose projection stage does not let
+    EP_BLOCKS blocks share an SM."""
     src = (_build.CSRC / "edge_mlp.cu").read_text()
-    found = {m[0]: int(m[1]) for m in
-             re.findall(r"#define (EP_ROWS|EP_COLS|EP_BLOCKS) (\d+)", src)}
+    found = {m[0]: int(m[1]) for m in re.findall(
+        r"#define (EP_ROWS|EP_COLS|EP_BLOCKS|EP_LDW) (\d+)", src)}
     assert found == {"EP_ROWS": E._PROJ_ROWS, "EP_COLS": E._PROJ_COLS,
-                     "EP_BLOCKS": E._PROJ_BLOCKS}
-    assert ("const size_t smem = (2 * (size_t)p_kc * ldw + (size_t)EP_ROWS "
-            "* ldx) * 4;") in src
-    assert "const int ldw = EP_COLS + 8;" in src
-    assert "if (EP_BLOCKS * (smem + reserved) > (size_t)sm_smem)" in src
+                     "EP_BLOCKS": E._PROJ_BLOCKS, "EP_LDW": E._PROJ_LDW}
+    assert "EP_BLOCKS * (p.p_smem + 1024) > 233472" in src
+    assert "4 * p.kc * EP_LDW" in src
 
 
 # (later widths from H_0, blocks an SM): the flagship's admitted steps
@@ -499,6 +499,7 @@ def _c_signatures():
 @pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
 def test_ctypes_signature_matches_the_source(name):
     """Each entry the wrappers call is declared to ctypes with the C
-    parameter list of its source (K9's changed: the projection's weights
-    and scratch, the chain's launch shape)."""
+    parameter list of its source (K9's changed: the layers' pointers, the
+    image, the plan, and its projection's own entry; K8-bf16's forward:
+    the image and the plan)."""
     assert _c_signatures()[name] == _build._SIGNATURES[name]
